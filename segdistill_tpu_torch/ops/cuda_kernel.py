@@ -1,0 +1,122 @@
+"""Build, load and count the hand-written CUDA kernels under ``csrc/``.
+
+Each kernel is one ``.cu`` file with a plain C interface. At its first
+launch it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``build/segdistill_tpu_torch/`` at the root of the checkout,
+named by a hash of its source, and loaded with ``ctypes``. Importing this
+module, or a module that declares a kernel, builds nothing and needs no
+``nvcc``: the CPU tests import every module.
+"""
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / \
+    'segdistill_tpu_torch'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+# the kernels take float32 and bfloat16; code passed to the C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def nvcc_path():
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError('no CUDA toolkit found (set CUDA_HOME): the '
+                           'kernels under csrc/ are built with nvcc')
+    return str(Path(CUDA_HOME) / 'bin' / 'nvcc')
+
+
+class CudaKernel:
+    """One kernel: its source, its C entry point and its launch count.
+
+    ``launches`` is a plain integer that the wrapper raises by one each
+    time it launches the kernel, and nowhere else.
+    """
+
+    def __init__(self, name, symbol, argtypes, replaces):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.source = CSRC_DIR / f'{name}.cu'
+        self.launches = 0
+        self.build_seconds = None
+        self.build_log = ''  # nvcc's output: registers, spills per kernel
+        self._fn = None
+        self._lock = threading.Lock()
+
+    @property
+    def loaded(self):
+        return self._fn is not None
+
+    def _build(self):
+        src = self.source.read_bytes()
+        tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+        lib = BUILD_DIR / f'lib{self.name}-{tag[:12]}.so'
+        if lib.exists():
+            return lib
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build to a private name, then rename: a concurrent build of the
+        # same source never sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, str(self.source)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f'nvcc failed for {self.source}:\n'
+                               f'{res.stdout}{res.stderr}')
+        self.build_log = res.stdout + res.stderr
+        os.replace(tmp, lib)
+        return lib
+
+    def function(self):
+        """The C entry point, built and loaded on first use."""
+        with self._lock:
+            if self._fn is None:
+                t0 = time.perf_counter()
+                fn = getattr(ctypes.CDLL(str(self._build())), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self.build_seconds = time.perf_counter() - t0
+                self._fn = fn
+            return self._fn
+
+    def launch(self, device, *args):
+        """Launch on ``device``'s current stream, passed as the last
+        argument; raise if CUDA refused the launch."""
+        fn = self.function()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f'{self.name} kernel launch failed: CUDA '
+                               f'error {err}')
+        self.launches += 1
+
+
+def check_cuda_inputs(name, tensors):
+    """Device, dtype and layout checks shared by the kernel wrappers."""
+    dtype = tensors[0].dtype
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f'{name}: the CUDA kernel takes float32 or bfloat16, '
+                        f'got {dtype}')
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f'{name}: inputs must share one device and '
+                             f'dtype, got {t.device}/{t.dtype} and '
+                             f'{dev}/{dtype}')
+    return DTYPE_CODES[dtype]

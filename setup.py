@@ -23,7 +23,8 @@ setup(
     long_description=open('README.md').read(),
     long_description_content_type='text/markdown',
     packages=find_packages(exclude=('tests', 'tools', 'configs')),
-    package_data={'segdistill_tpu': ['../native/fastaug.cpp']},
+    package_data={'segdistill_tpu': ['../native/fastaug.cpp'],
+                  'segdistill_tpu_torch': ['csrc/*.cu']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy',
