@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
-Phases: (1) device, (2) build the hand-written kernels from csrc/,
-(3) K1 resize_sum and (4) K2 sra_attn against their plain PyTorch versions
-at the serving path's shapes, with CUDA-event timings, (5) full-width
-Segformer-B0 (ADE20K, 150 classes, random weights from seed 0) serving
-seeded requests through ``inference_segmentor`` in whole mode, again with
+Phases: (1) device, (2) build the hand-written kernels from csrc/, one nvcc
+per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
+group-KL forward and backward and (6) K5/K6 seg-CE forward and backward
+against their plain PyTorch versions at the main paths' shapes, with
+CUDA-event timings, (7) full-width Segformer-B0 (ADE20K, 150 classes,
+random weights from seed 0) serving seeded requests through
+``inference_segmentor`` in whole mode, again with
 ``fused_attention=True``, and slide mode at 1024x2048; the fp32 GPU logits
-against the same model on the CPU, bf16 against fp32, throughput, and the
-launch count of each kernel during that run.
+against the same model on the CPU, bf16 against fp32, throughput, (8) the
+CGD distillation train step of ``configs/exp_tab5/segformer_CGD.py`` (B0
+student, B3 teacher, bf16 backbones, batch 8 at 512x512, seeded random
+weights and data) through ``prepare_training``'s step: losses, step time,
+images/s and peak memory, and (9) one fp32 train step of the same model at
+batch 2 against a copy on the CPU (loss terms and student gradients). The
+launch count of each kernel is read over each main path (7 and 8).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -20,6 +28,7 @@ a JSON object with one entry per kernel; the last line is
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -30,7 +39,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / 'configs' / 'segformer' / 'segformer_b0_512x512_ade_160k.py'
+CGD_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_CGD.py'
+# the config's checkpoints are not in the repository: random weights
+NO_CHECKPOINTS = {'model.t_pretrain': None, 'model.s_pretrain': None,
+                  'model.cfg_s.pretrained': None}
 NUM_CLASSES = 150
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
 DEVICE = 'cuda'
 REQUEST_HW = [(512, 512), (512, 683), (480, 640), (1024, 2048)]
 
@@ -52,6 +66,29 @@ MODEL_TOL_REL = 1e-5
 # bf16 backbone vs fp32: bf16 keeps 8 significant bits, rounded at every
 #   linear, conv and residual add; relative L2 error of the logits.
 BF16_TOL_REL_L2 = 5e-2
+# Loss kernels (K3, K5) against their plain versions, relative: both sum up
+#   to 2.6 M fp32 terms per (b, group), or 2 M per-pixel CEs, in other
+#   orders; measured <= 1.5e-6 on an H100.
+LOSS_TOL_REL = 2e-5
+# Gradient kernels (K4, K6): the per-element limits above, with the
+#   incoming gradient scaled so that the plain gradient's max |value| is 1
+#   (a backward is linear in it; unscaled entries are ~1e-7).
+# Correct-pixel count (K5): exact but for argmax near-ties, which another
+#   summation order may break the other way; at most 1e-4 of the pixels.
+CORRECT_TOL_SHARE = 1e-4
+# Untrained model: logits near 0, so the CE is near ln(150) at step 1.
+CE_INIT = math.log(NUM_CLASSES)
+CE_INIT_TOL = 0.05
+# fp32 train step, GPU (kernels) vs CPU (plain versions), TF32 off: each
+#   loss term to a relative limit plus an absolute one, since an fp32 loss
+#   that is a log-sum-exp over 10^6 values (log Z ~ 15) carries an absolute
+#   error of ~1e-6, and an untrained pair's KL is only ~1e-3; the student
+#   gradients' relative L2 over all parameters.
+#   Measured on an H100: CE 9.5e-8 relative, KL 2.4e-6 absolute, gradients
+#   7.5e-5; the limits are about 10x that.
+TRAIN_LOSS_TOL_REL = 1e-6
+TRAIN_LOSS_TOL_ABS = 2.5e-5
+TRAIN_GRAD_TOL_REL_L2 = 1e-3
 
 
 def log(msg):
@@ -69,7 +106,7 @@ def check_close(name, got, want32):
         rms = want32.square().mean().sqrt()
         tol = K_TOL_BF16_REL * want32.abs() + K_TOL_BF16_RMS * rms
     err = diff.max().item()
-    used = (diff / tol).max().item()
+    used = torch.where(diff > 0, diff / tol, 0.0).max().item()
     if not used <= 1.0:
         raise AssertionError(f'{name}: max abs err {err:.3e}, {used:.2f}x '
                              f'the {got.dtype} tolerance')
@@ -95,11 +132,14 @@ def phase_device():
 
 
 def phase_build(kernels):
+    from segdistill_tpu_torch.ops.cuda_kernel import build_all
     log('== build')
+    t0 = time.perf_counter()
+    build_all(kernels)
+    log(f'all kernels built and loaded in {time.perf_counter() - t0:.1f} s')
     for k in kernels:
-        k.function()
-        log(f'{k.name}: built and loaded in {k.build_seconds:.1f} s '
-            f'from {k.source.relative_to(ROOT)}')
+        log(f'{k.name}: {k.build_seconds:.1f} s from '
+            f'{k.source.relative_to(ROOT)}')
         for line in k.build_log.splitlines():
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 log(f'  {line.strip()}')
@@ -178,6 +218,128 @@ def phase_sra_attn():
     return results
 
 
+def _scaled_grads(want, dunit):
+    """The incoming gradient that makes the plain gradient's max |value| 1
+    (1 where the gradient is 0), and that plain gradient."""
+    peak = dunit.abs().max()
+    gbar = torch.where(peak > 0, 1.0 / peak, torch.ones_like(peak))
+    return gbar.to(want.dtype), dunit * gbar
+
+
+def _timed_pair(kernel_fn, plain_fn):
+    from segdistill_tpu_torch.utils.timing import cuda_ms
+    return cuda_ms(kernel_fn), cuda_ms(plain_fn)
+
+
+def phase_group_kl():
+    from segdistill_tpu_torch.ops import group_kl as gk
+    log('== K3/K4 group_kl vs plain (N(0,1) maps, tau 2; backward with the '
+        'incoming gradient that makes max |plain dxs| = 1)')
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tau = 2.0
+    cases = [('CGD bench perm', (8, 150, 128, 128), (512, 512), True),
+             ('CGD bench identity', (8, 150, 128, 128), (512, 512), False),
+             ('C19 g10 pad', (2, 19, 64, 64), (256, 256), True),
+             ('non-integer ratio', (2, 150, 30, 40), (125, 161), True)]
+    fwd, bwd = {}, {}
+    for name, shape, out_hw, shuffle in cases:
+        perm = torch.randperm(shape[1], device=DEVICE, generator=gen) \
+            if shuffle else None
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            a = xs.float().requires_grad_()
+            want = gk.group_kl_plain(a, xt.float(), perm, out_hw, 10, tau)
+            (dunit,) = torch.autograd.grad(want, a)
+            gbar, dwant = _scaled_grads(want, dunit)
+            k = xs.clone().requires_grad_()
+            loss = gk.fused_group_kl_shuffled(k, xt, perm, out_hw, 10, tau) \
+                if shuffle else gk.fused_group_kl(k, xt, out_hw, 10, tau)
+            (dxs,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
+            torch.cuda.synchronize()
+            loss_err = abs(loss.item() - want.item())
+            if not loss_err <= LOSS_TOL_REL * abs(want.item()):
+                raise AssertionError(f'group_kl {name} {dtype}: loss '
+                                     f'{loss.item()} vs plain {want.item()}')
+            err, used = check_close(f'group_kl {name} {dtype} dxs', dxs,
+                                    dwant)
+            ms = _timed_pair(
+                lambda: gk.fused_group_kl_shuffled(xs, xt, perm, out_hw, 10,
+                                                   tau),
+                lambda: gk.group_kl_plain(xs, xt, perm, out_hw, 10, tau))
+            p = xs.clone().requires_grad_()
+            plain_loss = gk.group_kl_plain(p, xt, perm, out_hw, 10, tau)
+            bms = _timed_pair(
+                lambda: torch.autograd.grad(loss, k, gbar, retain_graph=True),
+                lambda: torch.autograd.grad(plain_loss, p, gbar,
+                                            retain_graph=True))
+            del plain_loss
+            fwd[(name, dtype)] = (loss_err, *ms)
+            bwd[(name, dtype)] = (err, *bms)
+            log(f'{name:20s} {str(dtype):15s} loss {loss.item():.7g} rel err '
+                f'{loss_err / abs(want.item()):.2e}  dxs max_abs_err '
+                f'{err:.3e} (tol used {used:.3f})  fwd {ms[0]:.4f} ms plain '
+                f'{ms[1]:.4f} ms  bwd {bms[0]:.4f} ms plain {bms[1]:.4f} ms')
+    return fwd, bwd
+
+
+def phase_seg_ce():
+    from segdistill_tpu_torch.ops import seg_ce as sc
+    log('== K5/K6 seg_ce vs plain (N(0,1) logits, labels in [0, 150) with a '
+        'share set to 255; backward with the incoming gradient that makes '
+        'max |plain dz| = 1)')
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cases = [('head CE bench', (8, 150, 128, 128), (512, 512), 0.05),
+             ('non-integer ratio', (2, 150, 30, 40), (125, 161), 0.05),
+             ('all ignored', (2, 150, 32, 32), (128, 128), 1.0)]
+    fwd, bwd = {}, {}
+    for name, shape, out_hw, ignored in cases:
+        labels = torch.randint(0, NUM_CLASSES, (shape[0],) + out_hw,
+                               device=DEVICE, generator=gen)
+        labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
+               < ignored] = 255
+        for dtype in (torch.float32, torch.bfloat16):
+            z = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            a = z.float().requires_grad_()
+            want, want_correct = sc.seg_ce_plain(a, labels, out_hw,
+                                                 NUM_CLASSES)
+            (dunit,) = torch.autograd.grad(want, a)
+            gbar, dwant = _scaled_grads(want, dunit)
+            k = z.clone().requires_grad_()
+            ce, correct = sc.fused_seg_ce(k, labels, out_hw, NUM_CLASSES)
+            (dz,) = torch.autograd.grad(ce, k, gbar, retain_graph=True)
+            torch.cuda.synchronize()
+            ce_err = abs(ce.item() - want.item())
+            if not (ce_err <= LOSS_TOL_REL * abs(want.item())
+                    and abs(correct.item() - want_correct.item())
+                    <= CORRECT_TOL_SHARE * labels.numel()):
+                raise AssertionError(
+                    f'seg_ce {name} {dtype}: ce {ce.item()} correct '
+                    f'{correct.item()} vs plain {want.item()} '
+                    f'{want_correct.item()}')
+            err, used = check_close(f'seg_ce {name} {dtype} dz', dz, dwant)
+            ms = _timed_pair(
+                lambda: sc.fused_seg_ce(z, labels, out_hw, NUM_CLASSES),
+                lambda: sc.seg_ce_plain(z, labels, out_hw, NUM_CLASSES))
+            p = z.clone().requires_grad_()
+            plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, NUM_CLASSES)
+            bms = _timed_pair(
+                lambda: torch.autograd.grad(ce, k, gbar, retain_graph=True),
+                lambda: torch.autograd.grad(plain_ce, p, gbar,
+                                            retain_graph=True))
+            del plain_ce
+            # error of the mean CE, as the head divides by the pixels
+            fwd[(name, dtype)] = (ce_err / labels.numel(), *ms)
+            bwd[(name, dtype)] = (err, *bms)
+            log(f'{name:20s} {str(dtype):15s} ce_sum {ce.item():.7g} rel err '
+                f'{ce_err / max(abs(want.item()), 1e-30):.2e} correct '
+                f'{correct.item():.0f} (plain {want_correct.item():.0f})  dz '
+                f'max_abs_err {err:.3e} (tol used {used:.3f})  fwd '
+                f'{ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd {bms[0]:.4f} ms '
+                f'plain {bms[1]:.4f} ms')
+    return fwd, bwd
+
+
 def _requests():
     rng = np.random.RandomState(0)
     return [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
@@ -209,7 +371,7 @@ def _normalized(cfg, img_hwc_uint8, device):
     return image_to_device(data['img'][0], device)
 
 
-def phase_serving(kernels):
+def phase_serving(path_kernels):
     from segdistill_tpu_torch.apis import init_segmentor
     from segdistill_tpu_torch.core.evaluation import mean_iou
     from segdistill_tpu_torch.utils.timing import images_per_s
@@ -232,8 +394,8 @@ def phase_serving(kernels):
         model_slide.simple_test(slide_x, rescale=False)
     torch.cuda.synchronize()
 
-    # the main path: every launch count starts at 0 here
-    for k in kernels:
+    # the serving path: every launch count starts at 0 here
+    for k in path_kernels:
         k.launches = 0
     preds = _serve(model, imgs, 'whole')
     preds_fa = _serve(model_fa, imgs, 'whole, fused_attention')
@@ -242,14 +404,11 @@ def phase_serving(kernels):
         slide = model_slide.simple_test(slide_x, rescale=False)
         torch.cuda.synchronize()
         slide_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in path_kernels}
     log(f'slide 1024x2048 (512^2 windows, stride 384): {slide_ms:.2f} ms, '
         f'output {tuple(slide.shape)}')
-    log(f'launches during the main path: {launches}')
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f'kernel {name} was not launched on the '
-                                 f'main path')
+    log(f'launches during the serving path: {launches}')
+    _check_launched(launches, 'serving')
     if slide.shape != (1, 1024, 2048):
         raise AssertionError(f'slide output shape {tuple(slide.shape)}')
     agree = np.mean([np.mean(a == b) for a, b in zip(preds, preds_fa)])
@@ -314,23 +473,148 @@ def phase_serving(kernels):
     return launches
 
 
+def _check_launched(launches, path):
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f'kernel {name} was not launched on the '
+                                 f'{path} path')
+
+
+def _train_batch(batch, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    img = torch.randn(batch, 3, 512, 512, device=DEVICE, generator=gen)
+    gt = torch.randint(0, NUM_CLASSES, (batch, 512, 512), device=DEVICE,
+                       generator=gen)
+    return img, gt
+
+
+def phase_train(path_kernels):
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    log(f'== train: CGD, B0 student <- B3 teacher, bf16 backbones, batch '
+        f'{TRAIN_BATCH} at 512x512, random weights (seed 0)')
+    t0 = time.perf_counter()
+    model = init_segmentor_state(
+        str(CGD_CONFIG), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **{
+            'model.cfg_s.backbone.dtype': 'bfloat16',
+            'model.cfg_t.backbone.dtype': 'bfloat16'}))
+    state, train_step = prepare_training(model)
+    img, gt = _train_batch(TRAIN_BATCH, seed=5)
+    log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
+    first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
+    torch.cuda.synchronize()
+    log('step 1: ' + ', '.join(f'{k} {float(v):.6g}'
+                               for k, v in sorted(first.items())))
+
+    # the training path: every launch count starts at 0 here
+    for k in path_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logs = [train_step(state, img, gt) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in path_kernels}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = seconds / TRAIN_STEPS * 1e3
+    log(f'step {state.step}: ' + ', '.join(
+        f'{k} {float(v):.6g}' for k, v in sorted(logs[-1].items())))
+    log(f'train step {step_ms:.2f} ms, '
+        f'{TRAIN_BATCH * TRAIN_STEPS / seconds:.2f} images/s over '
+        f'{TRAIN_STEPS} steps; peak memory allocated {peak / 2**30:.2f} GiB')
+    log(f'launches during the training path: {launches}')
+    _check_launched(launches, 'training')
+    values = [float(v) for lv in [first] + logs for v in lv.values()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError('a loss of the train step is not finite')
+    ce = float(first['decode.loss_seg'])
+    if not abs(ce - CE_INIT) <= CE_INIT_TOL:
+        raise AssertionError(f'decode.loss_seg at step 1 is {ce}, not near '
+                             f'ln {NUM_CLASSES} = {CE_INIT:.4f}')
+    return launches
+
+
+def _loss_and_grads(model, img, gt, perm):
+    from segdistill_tpu_torch.models.segmentors import parse_losses
+    model.zero_grad(set_to_none=True)
+    total, log_vars = parse_losses(model.forward_train(img, gt, 1000,
+                                                       perm=perm))
+    total.backward()
+    return ({k: float(v.detach()) for k, v in log_vars.items()},
+            {n: p.grad.detach().cpu() for n, p in
+             model.student.named_parameters()})
+
+
+def phase_train_vs_cpu():
+    from segdistill_tpu_torch.apis import init_segmentor_state
+    log('== train step, fp32 GPU (kernels) vs CPU (plain versions): the same '
+        'B0 <- B3 CGD model, batch 2 at 512x512, dropout and drop-path 0, '
+        'step 1000 with one seeded channel permutation')
+    model = init_segmentor_state(
+        str(CGD_CONFIG), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **{
+            'model.cfg_s.decode_head.dropout_ratio': 0.0,
+            'model.cfg_t.decode_head.dropout_ratio': 0.0,
+            'model.cfg_s.backbone.drop_path_rate': 0.0,
+            'model.cfg_t.backbone.drop_path_rate': 0.0}))
+    cpu_model = copy.deepcopy(model).cpu()
+    img, gt = _train_batch(2, seed=6)
+    perm = torch.randperm(NUM_CLASSES,
+                          generator=torch.Generator().manual_seed(7))
+    gpu_losses, gpu_grads = _loss_and_grads(model, img, gt,
+                                            perm.to(DEVICE))
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = _loss_and_grads(cpu_model, img.cpu(), gt.cpu(),
+                                            perm)
+    log(f'CPU step {time.perf_counter() - t0:.1f} s')
+    worst = 0.0
+    for k, want in sorted(cpu_losses.items()):
+        err = abs(gpu_losses[k] - want)
+        worst = max(worst, err / (TRAIN_LOSS_TOL_REL * abs(want)
+                                  + TRAIN_LOSS_TOL_ABS))
+        log(f'  {k}: GPU {gpu_losses[k]:.9g} CPU {want:.9g} abs err '
+            f'{err:.3e} relative {err / max(abs(want), 1e-30):.3e}')
+    num = sum(float((gpu_grads[n] - g).square().sum())
+              for n, g in cpu_grads.items())
+    den = sum(float(g.square().sum()) for g in cpu_grads.values())
+    grad_rel = math.sqrt(num / den)
+    log(f'loss terms: {worst:.3f} of the limit {TRAIN_LOSS_TOL_REL} * '
+        f'|loss| + {TRAIN_LOSS_TOL_ABS} used at most; student gradients: '
+        f'relative L2 err {grad_rel:.3e} over {len(cpu_grads)} tensors '
+        f'(limit {TRAIN_GRAD_TOL_REL_L2})')
+    if not (worst <= 1.0 and grad_rel <= TRAIN_GRAD_TOL_REL_L2):
+        raise AssertionError('the GPU train step differs from the CPU one')
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
-    from segdistill_tpu_torch.ops import resize_sum, sra_attn
-    kernels = [resize_sum.KERNEL, sra_attn.KERNEL]
+    from segdistill_tpu_torch.ops import (group_kl, resize_sum, seg_ce,
+                                          sra_attn)
+    k1, k2, k3, k4, k5, k6 = kernels = [
+        resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
+        group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL]
     phase_build(kernels)
-    k1 = phase_resize_sum()
-    k2 = phase_sra_attn()
-    launches = phase_serving(kernels)
-    # each kernel at its serving-path shape: the B0 head at batch 1 and the
-    # stage-1 attention at batch 1, fp32
-    main_case = {'resize_sum': (k1, ('B0 head b1 E256', torch.float32)),
-                 'sra_attn': (k2, ('B0 stage1 b1', torch.float32))}
+    results = {k1.name: phase_resize_sum(), k2.name: phase_sra_attn()}
+    results[k3.name], results[k4.name] = phase_group_kl()
+    results[k5.name], results[k6.name] = phase_seg_ce()
+    launches = phase_serving([k1, k2])
+    for name, n in phase_train([k1, k3, k4, k5, k6]).items():
+        launches[name] = launches.get(name, 0) + n
+    phase_train_vs_cpu()
+    # each kernel at its main path's shape: serving at batch 1 (fp32) for
+    # K1 and K2, the bf16 bench train step for K3-K6
+    main_case = {k1.name: ('B0 head b1 E256', torch.float32),
+                 k2.name: ('B0 stage1 b1', torch.float32),
+                 k3.name: ('CGD bench perm', torch.bfloat16),
+                 k4.name: ('CGD bench perm', torch.bfloat16),
+                 k5.name: ('head CE bench', torch.bfloat16),
+                 k6.name: ('head CE bench', torch.bfloat16)}
     entries = []
     for k in kernels:
-        res, key = main_case[k.name]
-        _, ms, plain_ms = res[key]
+        res = results[k.name]
+        _, ms, plain_ms = res[main_case[k.name]]
         entries.append({
             'name': k.name, 'route': 'cuda',
             'source': str(k.source.relative_to(ROOT)),

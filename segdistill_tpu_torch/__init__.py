@@ -1,4 +1,5 @@
-"""SegDistill on PyTorch and CUDA: the serving path of ``segdistill_tpu``.
+"""SegDistill on PyTorch and CUDA: the serving path and the CGD
+distillation train step of ``segdistill_tpu``.
 
 A port of the JAX package beside it, module for module: the same config
 corpus and registry type names, the reference ``.pth`` state-dict layout,

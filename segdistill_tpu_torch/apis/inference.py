@@ -11,9 +11,9 @@ from ..utils import image as imutil
 from .test import _as_lists, _predict_one
 
 
-def load_checkpoint(model, path):
+def load_checkpoint(model, path, strict=True):
     """Load a reference-layout ``.pth`` (a state dict, or a dict holding
-    one under 'state_dict') with ``strict=True``.
+    one under 'state_dict'), strictly by default.
 
     The reference BaseDecodeHead always builds a ``conv_seg`` classifier,
     which SegFormerHead never runs; published SegFormer checkpoints carry
@@ -26,7 +26,7 @@ def load_checkpoint(model, path):
     own = model.state_dict()
     state = {k: v for k, v in state.items()
              if k in own or not k.startswith('decode_head.conv_seg.')}
-    model.load_state_dict(state, strict=True)
+    model.load_state_dict(state, strict=strict)
     return model
 
 

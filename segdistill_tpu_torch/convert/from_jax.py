@@ -7,8 +7,10 @@ kernels HWIO -> OIHW, Dense kernels (I, O) -> (O, I), norm ``scale`` ->
 ``running_var``, Flax list names ``block1_0`` -> ``block1.0``, the head's
 Dense params ``linear_c4`` -> ``linear_c4.proj`` and the NormLayer nesting
 ``linear_fuse.bn.bn`` -> ``linear_fuse.bn``. Takes the ``{'params',
-'batch_stats'}`` tree as numpy arrays (or anything ``np.asarray`` reads);
-imports no JAX.
+'batch_stats'}`` tree as numpy arrays (or anything ``np.asarray`` reads),
+or an SDModule's ``{'student', 'teacher'}`` pair of such trees, whose
+student params may hold the ``distill_adapters`` (kernel (c_s, c_t) ->
+weight (c_t, c_s)); imports no JAX.
 """
 
 import re
@@ -41,7 +43,25 @@ def _module_name(path):
 
 
 def state_dict_from_jax(variables):
-    """-> {reference-layout key: tensor} for ``load_state_dict``."""
+    """-> {reference-layout key: tensor} for ``load_state_dict``: an
+    EncoderDecoder's keys, or an SDModule's ``student.*``, ``teacher.*``
+    and ``distill_adapters.*``."""
+    if 'student' in variables:
+        student = dict(variables['student'])
+        params = dict(student.get('params', {}))
+        adapters = params.pop('distill_adapters', {})
+        student['params'] = params
+        out = {f'student.{k}': v
+               for k, v in _segmentor_state(student).items()}
+        out.update({f'teacher.{k}': v for k, v in
+                    _segmentor_state(variables['teacher']).items()})
+        out.update({f'distill_adapters.{k}': v for k, v in _segmentor_state(
+            {'params': adapters}).items()})
+        return out
+    return _segmentor_state(variables)
+
+
+def _segmentor_state(variables):
     out = {}
     for col in ('params', 'batch_stats'):
         for (*path, leaf), value in _flatten(variables.get(col, {})):

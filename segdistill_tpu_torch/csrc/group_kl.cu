@@ -1,0 +1,291 @@
+// K3 and K4: the channel-group KL distillation loss (CGD, CD) for Hopper
+// (sm_90a), forward and backward.
+//
+// Replaces segdistill_tpu/ops/pallas/group_kl.py::fused_group_kl_shuffled
+// (forward and backward, the pallas_calls at group_kl.py:474 and :527) and,
+// with the identity permutation, fused_group_kl (:347 and :389).
+//
+// For student and teacher maps xs, xt of shape (B, C, h, w), a bilinear
+// upsample to (H, W) (torch's align_corners=False taps, any ratio), the
+// channels taken in `perm` order and cut into K = ceil(C / g) groups of g
+// (the last group padded with virtual -1e9 channels), each (b, group) is one
+// distribution over its g * H * W values at temperature tau:
+//
+//   KL(b, k) = W / Z_t - log Z_t + log Z_s,  with m the source maxima,
+//   Z = sum exp((r - m) / tau),  W = sum e_t * ((r_t - m_t) - (r_s - m_s)) / tau
+//   loss = sum KL / (B * K)
+//
+// The -1e9 pad channels add exp(-1e9 / tau) = 0 to every sum, so they are
+// skipped. The maximum over a group's source values bounds every lerped
+// value (a convex combination of sources), so it serves as the softmax
+// shift and the partial sums of one group need no rescale when merged.
+//
+// What bounds it: at the bench shape (8, 150, 128, 128) -> 512^2 there are
+// only 8 * 15 = 120 groups of 2.6 M values each, so one block per group
+// would leave most of the 132 SMs idle. Each group is split over several
+// blocks (splits chosen by the caller to fill the card): pass 1 takes
+// partial maxima, pass 2 partial (Z_s, Z_t, W), and one block merges them
+// in a fixed order, so the loss is deterministic. Each upsampled value costs
+// 8 tap loads (L1/L2) and 2 exps; no upsampled tensor reaches memory.
+//
+// K4 gathers: one thread per source element (b, shuffled position, i, j)
+// walks the ~(2r)^2 output positions whose taps read it, recomputes both
+// upsampled values there from the saved group stats and accumulates
+// w * (p_s - p_t); the result is written once, to the source channel
+// perm[position]. No atomics: the gradient is deterministic.
+//
+// Plain C interface, loaded with ctypes; returns cudaGetLastError().
+
+#include "common.cuh"
+
+namespace {
+
+using namespace segdistill;
+
+// Pass 1: partial maxima of one group's source values, student and teacher.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gkl_max(const T* __restrict__ xs, const T* __restrict__ xt,
+            const int* __restrict__ perm, int C, int g, int K, int hw,
+            float* __restrict__ pmax) {
+  const int bk = blockIdx.x;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int b = bk / K;
+  const int k = bk - b * K;
+  const int n = min(g, C - k * g) * hw;
+  const int chunk = (n + splits - 1) / splits;
+  const int lo = split * chunk;
+  const int hi = min(n, lo + chunk);
+  float v[2] = {-INFINITY, -INFINITY};
+  for (int idx = lo + threadIdx.x; idx < hi; idx += kThreads) {
+    const int l = idx / hw;
+    const long long off =
+        (static_cast<long long>(b) * C + perm[k * g + l]) * hw + (idx - l * hw);
+    v[0] = fmaxf(v[0], to_f32(xs[off]));
+    v[1] = fmaxf(v[1], to_f32(xt[off]));
+  }
+  block_max<2>(v);
+  if (threadIdx.x == 0) {
+    pmax[(bk * splits + split) * 2] = v[0];
+    pmax[(bk * splits + split) * 2 + 1] = v[1];
+  }
+}
+
+__device__ __forceinline__ void group_max(const float* __restrict__ pmax,
+                                          int bk, int splits, float& ms,
+                                          float& mt) {
+  ms = -INFINITY;
+  mt = -INFINITY;
+  for (int i = 0; i < splits; ++i) {
+    ms = fmaxf(ms, pmax[(bk * splits + i) * 2]);
+    mt = fmaxf(mt, pmax[(bk * splits + i) * 2 + 1]);
+  }
+}
+
+// Pass 2: partial (Z_s, Z_t, W) over a slice of one group's upsampled values.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gkl_sum(const T* __restrict__ xs, const T* __restrict__ xt,
+            const int* __restrict__ perm, int C, int g, int K, int h, int w,
+            int H, int W, float inv_tau, const float* __restrict__ pmax,
+            int max_splits, float* __restrict__ psum) {
+  const int bk = blockIdx.x;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int b = bk / K;
+  const int k = bk - b * K;
+  float ms, mt;
+  group_max(pmax, bk, max_splits, ms, mt);
+  const int HW = H * W;
+  const int n = min(g, C - k * g) * HW;
+  const int chunk = (n + splits - 1) / splits;
+  const int lo = split * chunk;
+  const int hi = min(n, lo + chunk);
+  const long long plane = static_cast<long long>(h) * w;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int idx = lo + threadIdx.x; idx < hi; idx += kThreads) {
+    const int l = idx / HW;
+    const int r = idx - l * HW;
+    const int y = r / W;
+    const Tap ty = tap(y, h, H);
+    const Tap tx = tap(r - y * W, w, W);
+    const long long base =
+        (static_cast<long long>(b) * C + perm[k * g + l]) * plane;
+    const float ds = (bilerp(xs + base, w, ty, tx) - ms) * inv_tau;
+    const float dt = (bilerp(xt + base, w, ty, tx) - mt) * inv_tau;
+    const float et = expf(dt);
+    acc[0] += expf(ds);
+    acc[1] += et;
+    acc[2] += et * (dt - ds);
+  }
+  block_sum<float, 3>(acc);
+  if (threadIdx.x == 0) {
+    float* out = psum + (bk * splits + split) * 3;
+    out[0] = acc[0];
+    out[1] = acc[1];
+    out[2] = acc[2];
+  }
+}
+
+// One block: merge the partials of every group in a fixed order, keep the
+// stats (m_s, m_t, Z_s, Z_t) for the backward, and average the KLs.
+__global__ void __launch_bounds__(kThreads)
+    gkl_finalize(int BK, const float* __restrict__ pmax, int max_splits,
+                 const float* __restrict__ psum, int sum_splits,
+                 float* __restrict__ stats, float* __restrict__ loss) {
+  double total[1] = {0.0};
+  for (int bk = threadIdx.x; bk < BK; bk += kThreads) {
+    float ms, mt;
+    group_max(pmax, bk, max_splits, ms, mt);
+    float zs = 0.0f, zt = 0.0f, wsum = 0.0f;
+    for (int i = 0; i < sum_splits; ++i) {
+      const float* p = psum + (bk * sum_splits + i) * 3;
+      zs += p[0];
+      zt += p[1];
+      wsum += p[2];
+    }
+    stats[bk * 4] = ms;
+    stats[bk * 4 + 1] = mt;
+    stats[bk * 4 + 2] = zs;
+    stats[bk * 4 + 3] = zt;
+    total[0] += static_cast<double>(wsum / zt - logf(zt) + logf(zs));
+  }
+  block_sum<double, 1>(total);
+  if (threadIdx.x == 0) loss[0] = static_cast<float>(total[0] / BK);
+}
+
+// K4: dL/dxs for one source element, written to its source channel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt,
+            const int* __restrict__ perm, int C, int g, int K, int h, int w,
+            int H, int W, float inv_tau, float inv_bk,
+            const float* __restrict__ stats, const float* __restrict__ gbar,
+            T* __restrict__ dxs) {
+  const int hw = h * w;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= hw) return;
+  const int b = blockIdx.y / C;
+  const int pos = blockIdx.y - b * C;
+  const float* st = stats + (b * K + pos / g) * 4;
+  const float ms = st[0];
+  const float mt = st[1];
+  const float izs = 1.0f / st[2];
+  const float izt = 1.0f / st[3];
+  const long long base =
+      (static_cast<long long>(b) * C + perm[pos]) * static_cast<long long>(hw);
+  const T* s = xs + base;
+  const T* t = xt + base;
+  const int i = p / w;
+  const int j = p - i * w;
+  const int x_start = first_reader(j, w, W);
+  float acc = 0.0f;
+  for (int y = first_reader(i, h, H); y < H; ++y) {
+    const Tap ty = tap(y, h, H);
+    if (ty.i0 > i) break;
+    const float wy = tap_weight(ty, i);
+    if (wy == 0.0f) continue;
+    for (int x = x_start; x < W; ++x) {
+      const Tap tx = tap(x, w, W);
+      if (tx.i0 > j) break;
+      const float wx = tap_weight(tx, j);
+      if (wx == 0.0f) continue;
+      const float ps = expf((bilerp(s, w, ty, tx) - ms) * inv_tau) * izs;
+      const float pt = expf((bilerp(t, w, ty, tx) - mt) * inv_tau) * izt;
+      acc += wy * wx * (ps - pt);
+    }
+  }
+  dxs[base + p] = from_f32<T>(acc * gbar[0] * inv_tau * inv_bk);
+}
+
+bool bad_shape(int B, int C, int h, int w, int H, int W, int g) {
+  const long long lim = 0x7fffffffLL;
+  return B < 1 || C < 1 || h < 1 || w < 1 || H < 1 || W < 1 || g < 1 ||
+         static_cast<long long>(g) * H * W > lim ||
+         static_cast<long long>(h) * w > lim ||
+         static_cast<long long>(B) * ((C + g - 1) / g) > lim;
+}
+
+template <typename T>
+void launch_fwd(const void* xs, const void* xt, const int* perm, int B,
+                int C, int h, int w, int H, int W, int g, float inv_tau,
+                int max_splits, int sum_splits, float* pmax, float* psum,
+                float* stats, float* loss, cudaStream_t s) {
+  const int K = (C + g - 1) / g;
+  const int BK = B * K;
+  const T* a = static_cast<const T*>(xs);
+  const T* b = static_cast<const T*>(xt);
+  gkl_max<T><<<dim3(BK, max_splits), kThreads, 0, s>>>(a, b, perm, C, g, K,
+                                                       h * w, pmax);
+  gkl_sum<T><<<dim3(BK, sum_splits), kThreads, 0, s>>>(
+      a, b, perm, C, g, K, h, w, H, W, inv_tau, pmax, max_splits, psum);
+  gkl_finalize<<<1, kThreads, 0, s>>>(BK, pmax, max_splits, psum, sum_splits,
+                                      stats, loss);
+}
+
+template <typename T>
+void launch_bwd(const void* xs, const void* xt, const int* perm, int B,
+                int C, int h, int w, int H, int W, int g, float inv_tau,
+                const float* stats, const float* gbar, void* dxs,
+                cudaStream_t s) {
+  const int K = (C + g - 1) / g;
+  const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
+  gkl_bwd<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(xs), static_cast<const T*>(xt), perm, C, g, K, h,
+      w, H, W, inv_tau, 1.0f / static_cast<float>(B * K), stats, gbar,
+      static_cast<T*>(dxs));
+}
+
+}  // namespace
+
+// xs, xt: (B, C, h, w) contiguous, both float32 (dtype 0) or bfloat16 (1).
+// perm: int32 (C,) on the device, shuffled position -> source channel.
+// Scratch from the caller: pmax (B*K*max_splits*2), psum (B*K*sum_splits*3)
+// float32. Outputs: stats (B*K*4) float32 and loss (1) float32.
+extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
+                            int B, int C, int h, int w, int H, int W, int g,
+                            float tau, int dtype, int max_splits,
+                            int sum_splits, float* pmax, float* psum,
+                            float* stats, float* loss, void* stream) {
+  if (bad_shape(B, C, h, w, H, W, g) || !(tau > 0.0f) || max_splits < 1 ||
+      max_splits > 65535 || sum_splits < 1 || sum_splits > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_fwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
+                      max_splits, sum_splits, pmax, psum, stats, loss, s);
+  } else if (dtype == 1) {
+    launch_fwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
+                              max_splits, sum_splits, pmax, psum, stats, loss,
+                              s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// stats: the forward's; gbar: the loss's incoming gradient, float32 (1)
+// on the device. dxs: (B, C, h, w) in the inputs' dtype, every element
+// written.
+extern "C" int group_kl_bwd(const void* xs, const void* xt, const int* perm,
+                            int B, int C, int h, int w, int H, int W, int g,
+                            float tau, int dtype, const float* stats,
+                            const float* gbar, void* dxs, void* stream) {
+  if (bad_shape(B, C, h, w, H, W, g) || !(tau > 0.0f) ||
+      static_cast<long long>(B) * C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_bwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau, stats,
+                      gbar, dxs, s);
+  } else if (dtype == 1) {
+    launch_bwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
+                              stats, gbar, dxs, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,6 +1,6 @@
-from .builder import (BACKBONES, HEADS, SEGMENTORS, build_backbone,
-                      build_head, build_segmentor)
-from . import backbones, decode_heads, segmentors  # noqa: F401 (registers)
+from .builder import (BACKBONES, HEADS, LOSSES, SEGMENTORS, build_backbone,
+                      build_head, build_loss, build_segmentor)
+from . import backbones, decode_heads, losses, segmentors  # noqa: F401
 
-__all__ = ['BACKBONES', 'HEADS', 'SEGMENTORS', 'build_backbone',
-           'build_head', 'build_segmentor']
+__all__ = ['BACKBONES', 'HEADS', 'LOSSES', 'SEGMENTORS', 'build_backbone',
+           'build_head', 'build_loss', 'build_segmentor']

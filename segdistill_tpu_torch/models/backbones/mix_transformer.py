@@ -10,9 +10,15 @@ memory, so the head reads them as NHWC without a copy.
 
 Knobs carried from the JAX config: ``gelu_approximate`` (tanh GELU, the JAX
 default; the reference uses erf), ``fused_attention`` (route SRA attention
-through the hand-written kernel, per stage), ``drop_path_rate`` and
-``dtype``. ``dwconv_backend`` and ``ln_stats`` choose TPU lowerings and are
-accepted and ignored.
+through the hand-written kernel, per stage; forward only), ``drop_path_rate``
+and ``dtype``, the compute type: parameters stay float32 and each layer casts
+them to its input's dtype, as flax layers with ``dtype`` do. ``dwconv_backend``
+and ``ln_stats`` choose TPU lowerings and are accepted and ignored.
+
+Taps (:func:`..utils.tap`): ``attn.Q``/``K``/``V`` (B, heads, N, d),
+``attn.ATTN`` (the scaled scores, unfused path only) and each block's ``FEA``
+(B, N, C), as the JAX backbone sows them. Dropout and stochastic depth draw
+from the ``generator`` passed to ``forward``.
 """
 
 import math
@@ -23,7 +29,35 @@ from torch import nn
 
 from ...ops.sra_attn import fused_sra_attention
 from ..builder import BACKBONES
-from ..utils import DropPath
+from ..utils import DropPath, Dropout, tap
+
+
+def _cast(param, x):
+    return None if param is None else param.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, _cast(self.weight, x),
+                                  _cast(self.bias, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computing in its input's dtype (torch keeps the
+    statistics in float32)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x),
+                            _cast(self.bias, x), self.eps)
 
 
 def _channels_first(x, H, W):
@@ -43,7 +77,7 @@ class DWConv(nn.Module):
 
     def __init__(self, dim):
         super().__init__()
-        self.dwconv = nn.Conv2d(dim, dim, 3, 1, 1, bias=True, groups=dim)
+        self.dwconv = Conv2d(dim, dim, 3, 1, 1, bias=True, groups=dim)
 
     def forward(self, x, H, W):
         return _tokens(self.dwconv(_channels_first(x, H, W)))
@@ -54,25 +88,27 @@ class Mlp(nn.Module):
     def __init__(self, in_features, hidden_features, drop=0.0,
                  gelu_approximate=True):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc1 = Linear(in_features, hidden_features)
         self.dwconv = DWConv(hidden_features)
         self.act = nn.GELU(approximate='tanh' if gelu_approximate
                            else 'none')
-        self.fc2 = nn.Linear(hidden_features, in_features)
-        self.drop = nn.Dropout(drop)
+        self.fc2 = Linear(hidden_features, in_features)
+        self.drop = Dropout(drop)
 
-    def forward(self, x, H, W):
-        x = self.act(self.dwconv(self.fc1(x), H, W))
-        return self.drop(self.fc2(self.drop(x)))
+    def forward(self, x, H, W, generator=None):
+        x = self.drop(self.act(self.dwconv(self.fc1(x), H, W)), generator)
+        return self.drop(self.fc2(x), generator)
 
 
 class Attention(nn.Module):
     """Spatial-reduction attention (ref :63-133).
 
     ``fused_attention`` truthy and ``attn_drop == 0`` route the
-    softmax(q k^T) v core through :func:`fused_sra_attention` (kernel K2).
-    ``'train'`` names the differentiable kernel, whose backward is not
-    ported yet: it runs K2 under ``torch.no_grad()`` and raises otherwise.
+    softmax(q k^T) v core through :func:`fused_sra_attention` (kernel K2),
+    which has no backward yet: its output carries no gradient to q, k and
+    v. So with either ``True`` (the JAX forward-only kernel, for frozen
+    teachers) or ``'train'`` it runs where no gradient is needed (under
+    ``torch.no_grad()``, or with frozen weights) and raises otherwise.
     ``token_stride`` is the stage's cumulative stride, for the error on a
     token grid too small for the spatial reduction.
     """
@@ -86,24 +122,25 @@ class Attention(nn.Module):
                              f'{num_heads}')
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
-        self.q = nn.Linear(dim, dim, bias=qkv_bias)
-        self.kv = nn.Linear(dim, dim * 2, bias=qkv_bias)
-        self.attn_drop = nn.Dropout(attn_drop)
-        self.proj = nn.Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.q = Linear(dim, dim, bias=qkv_bias)
+        self.kv = Linear(dim, dim * 2, bias=qkv_bias)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj = Linear(dim, dim)
+        self.proj_drop = Dropout(proj_drop)
         self.sr_ratio = sr_ratio
         self.fused_attention = fused_attention
         self.token_stride = token_stride
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.sr = Conv2d(dim, dim, sr_ratio, sr_ratio)
             # ref :89 -- a plain nn.LayerNorm, torch's default eps 1e-5
-            self.norm = nn.LayerNorm(dim, eps=1e-5)
+            self.norm = LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, H, W):
+    def forward(self, x, H, W, generator=None):
         B, N, C = x.shape
         nh = self.num_heads
         hd = C // nh
         q = self.q(x).reshape(B, N, nh, hd).permute(0, 2, 1, 3)
+        tap(self, 'Q', q)
         if self.sr_ratio > 1:
             sr = self.sr_ratio
             if H < sr or W < sr:
@@ -117,20 +154,25 @@ class Attention(nn.Module):
         else:
             x_ = x
         kv = self.kv(x_).reshape(B, -1, 2, nh, hd).permute(2, 0, 3, 1, 4)
-        k, v = kv[0], kv[1]
+        k, v = tap(self, 'K', kv[0]), tap(self, 'V', kv[1])
         if self.fused_attention and self.attn_drop.p == 0.0:
-            if self.fused_attention == 'train' and torch.is_grad_enabled():
+            if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad):
                 raise NotImplementedError(
-                    "fused_attention='train' needs the SRA backward kernel, "
-                    'which is ported with training; run under '
-                    'torch.no_grad() or set fused_attention=True')
+                    'fused_attention runs the forward-only SRA kernel: the '
+                    'SRA backward kernel is not ported yet, so q, k and v '
+                    'would get no gradient. Run it under torch.no_grad() or '
+                    'with frozen weights, or set fused_attention=False to '
+                    'train')
             out = fused_sra_attention(q, k, v, self.scale)
         else:
-            attn = torch.matmul(q, k.transpose(-2, -1)) * self.scale
-            attn = self.attn_drop(attn.float().softmax(dim=-1).to(q.dtype))
+            attn = tap(self, 'ATTN',
+                       torch.matmul(q, k.transpose(-2, -1)) * self.scale)
+            attn = self.attn_drop(attn.float().softmax(dim=-1).to(q.dtype),
+                                  generator)
             out = torch.matmul(attn, v)
         out = out.transpose(1, 2).reshape(B, N, C)
-        return self.proj_drop(self.proj(out))
+        return self.proj_drop(self.proj(out), generator)
 
 
 class Block(nn.Module):
@@ -140,30 +182,33 @@ class Block(nn.Module):
                  sr_ratio=1, gelu_approximate=True, fused_attention=False,
                  token_stride=1):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, attn_drop=attn_drop,
                               proj_drop=drop, sr_ratio=sr_ratio,
                               fused_attention=fused_attention,
                               token_stride=token_stride)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop,
                        gelu_approximate=gelu_approximate)
 
-    def forward(self, x, H, W):
-        x = x + self.drop_path(self.attn(self.norm1(x), H, W))
-        return x + self.drop_path(self.mlp(self.norm2(x), H, W))
+    def forward(self, x, H, W, generator=None):
+        x = x + self.drop_path(self.attn(self.norm1(x), H, W, generator),
+                               generator)
+        x = x + self.drop_path(self.mlp(self.norm2(x), H, W, generator),
+                               generator)
+        return tap(self, 'FEA', x)
 
 
 class OverlapPatchEmbed(nn.Module):
 
     def __init__(self, patch_size=7, stride=4, in_chans=3, embed_dim=768):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride,
-                              patch_size // 2)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride,
+                           patch_size // 2)
         # ref :194 -- torch's default eps 1e-5
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x):
         x = self.proj(x)
@@ -184,8 +229,9 @@ class MixVisionTransformer(nn.Module):
     """Four stages of overlapping patch embedding + SRA blocks; returns the
     four stage maps (NCHW, strides 4, 8, 16, 32).
 
-    ``dtype`` is the compute type: the parameters are cast to it and the
-    input is cast on entry (bfloat16 on the bench path). LayerNorm
+    ``dtype`` is the compute type: the input is cast to it on entry and
+    every layer casts its float32 parameters to it (bfloat16 on the bench
+    path), so an optimizer updates float32 master weights. LayerNorm
     statistics stay float32 inside torch's kernels either way.
     """
 
@@ -216,11 +262,9 @@ class MixVisionTransformer(nn.Module):
                       qk_scale, drop_rate, attn_drop_rate, dpr[cur + i],
                       sr_ratios[s], gelu_approximate, fa_stages[s], stride)
                 for i in range(depths[s])]))
-            setattr(self, f'norm{s + 1}', nn.LayerNorm(embed_dims[s],
-                                                       eps=1e-6))
+            setattr(self, f'norm{s + 1}', LayerNorm(embed_dims[s], eps=1e-6))
             cur += depths[s]
         self.dtype = _torch_dtype(dtype)
-        self.to(self.dtype)
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -242,13 +286,13 @@ class MixVisionTransformer(nn.Module):
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = x.to(self.dtype)
         outs = []
         for s in range(1, 5):
             x, H, W = getattr(self, f'patch_embed{s}')(x)
             for blk in getattr(self, f'block{s}'):
-                x = blk(x, H, W)
+                x = blk(x, H, W, generator)
             x = _channels_first(getattr(self, f'norm{s}')(x), H, W)
             outs.append(x)
         return tuple(outs)

@@ -6,6 +6,7 @@ from segdistill_tpu.registry import Registry, build_from_cfg
 BACKBONES = Registry('backbone')
 HEADS = Registry('head')
 SEGMENTORS = Registry('segmentor')
+LOSSES = Registry('loss')
 
 
 def build(cfg, registry, default_args=None):
@@ -20,6 +21,10 @@ def build_backbone(cfg):
 
 def build_head(cfg):
     return build(cfg, HEADS)
+
+
+def build_loss(cfg):
+    return build(cfg, LOSSES)
 
 
 def build_segmentor(cfg, train_cfg=None, test_cfg=None):

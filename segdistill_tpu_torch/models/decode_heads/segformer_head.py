@@ -9,8 +9,14 @@ linear per channel, so they commute: each stage runs ONE composed GEMM
 ``c_X @ (E_X @ W_X) + b_X @ W_X`` at its own resolution, and the
 sub-resolution results are upsampled and summed in one pass by
 :func:`fused_resize_sum` (kernel K1 on CUDA). BN (eval, unfolded) and ReLU
-follow. The parameter layout is the reference's (``linear_cX.proj``,
-``linear_fuse.conv`` without bias, ``linear_fuse.bn``, ``linear_pred``).
+follow; in training BN normalises with the batch statistics and updates
+its running ones in place (never folded). The parameter layout is the
+reference's (``linear_cX.proj``, ``linear_fuse.conv`` without bias,
+``linear_fuse.bn``, ``linear_pred``); the classifier output is the
+``decode_head.linear_pred`` tap.
+
+The loss is the reference's override, CE with ``reduction='none'``, whose
+mean in ``parse_losses`` is the mean over all pixels (ref :45-50).
 """
 
 import torch
@@ -48,6 +54,8 @@ class _FuseModule(nn.Module):
 @HEADS.register_module()
 class SegFormerHead(BaseDecodeHead):
     CLS_LAYER = 'linear_pred'
+    DEFAULT_LOSS = dict(type='CrossEntropyLoss', use_sigmoid=False,
+                        loss_weight=1.0, reduction='none')
 
     def __init__(self, feature_strides=(4, 8, 16, 32), **kwargs):
         del feature_strides  # the maps' own sizes say the same
@@ -82,7 +90,10 @@ class SegFormerHead(BaseDecodeHead):
         self.linear_pred.weight.normal_(0, 0.01, generator=generator)
         nn.init.zeros_(self.linear_pred.bias)
 
-    def forward(self, inputs):
+    def _loss_cfg(self):
+        return dict(self.DEFAULT_LOSS)  # the override wins (ref :50)
+
+    def forward(self, inputs, generator=None):
         c1, c2, c3, c4 = self._transform_inputs(inputs)
         E = self.embed_dim
         out_hw = tuple(c1.shape[2:])
@@ -106,4 +117,4 @@ class SegFormerHead(BaseDecodeHead):
             s = fused_resize_sum(ups, out_hw)
             acc = s if acc is None else acc + s
         x = self.linear_fuse.norm(acc.permute(0, 3, 1, 2)).relu()
-        return self.cls_seg(x)
+        return self.cls_seg(x, generator)

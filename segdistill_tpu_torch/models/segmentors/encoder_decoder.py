@@ -1,9 +1,11 @@
-"""EncoderDecoder, inference side (counterpart of
+"""EncoderDecoder (counterpart of
 ``segdistill_tpu/models/segmentors/encoder_decoder.py``; reference
 ``mmseg/models/segmentors/encoder_decoder.py``).
 
-Images and logits are NCHW. ``slide_inference`` keeps the reference's
-overlap-window count-matrix averaging (ref :169-212).
+Images and logits are NCHW. ``forward_train`` returns the head's losses
+under the 'decode.' prefix and the requested feature taps; BN running
+statistics update in place, as torch does. ``slide_inference`` keeps the
+reference's overlap-window count-matrix averaging (ref :169-212).
 """
 
 import torch
@@ -11,7 +13,8 @@ import torch
 from ...ops import resize
 from .. import builder
 from ..builder import SEGMENTORS
-from .base import BaseSegmentor
+from ..utils import capture_taps
+from .base import BaseSegmentor, add_prefix
 
 
 @SEGMENTORS.register_module()
@@ -20,7 +23,7 @@ class EncoderDecoder(BaseSegmentor):
     def __init__(self, backbone, decode_head, neck=None, auxiliary_head=None,
                  train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
-        del train_cfg  # training settings: used by the training port
+        del train_cfg  # no train-time options in the ported heads
         if neck is not None or auxiliary_head is not None:
             raise NotImplementedError(
                 'necks and auxiliary heads are not ported yet; the ported '
@@ -42,12 +45,32 @@ class EncoderDecoder(BaseSegmentor):
         self.backbone.init_weights(generator)
         self.decode_head.init_weights(generator)
 
-    def extract_feat(self, img):
-        return self.backbone(img)
+    def extract_feat(self, img, generator=None):
+        return self.backbone(img, generator)
 
-    def forward(self, img):
-        """Head logits at the head's resolution, (B, classes, h, w)."""
-        return self.decode_head(self.extract_feat(img))
+    def forward(self, img, generator=None):
+        """Head logits at the head's resolution, (B, classes, h, w).
+        Dropout in training mode draws from ``generator``."""
+        return self.decode_head(self.extract_feat(img, generator), generator)
+
+    def forward_train(self, img, gt_semantic_seg, capture=(),
+                      generator=None):
+        """-> ({'decode.loss_seg', 'decode.acc_seg'}, {tap name: tensor}
+        for the taps named in ``capture``) (ref :136-166)."""
+        if capture:
+            with capture_taps(self, capture) as feats:
+                logits = self(img, generator)
+        else:
+            feats, logits = {}, self(img, generator)
+        losses = self.decode_head.losses(logits, gt_semantic_seg)
+        return add_prefix(losses, 'decode'), feats
+
+    def forward_feats(self, img, capture=None):
+        """The taps named in ``capture`` (all if None) of one forward, the
+        teacher's path."""
+        with capture_taps(self, capture) as feats:
+            self(img)
+        return feats
 
     def encode_decode(self, img):
         """fp32 logits resized to the input resolution (ref :84-94)."""

@@ -3,9 +3,13 @@
 
 Statistics and the affine run in float32 and the output returns to the
 input's dtype, as the JAX ``NormLayer`` does. BN and SyncBN are one
-``BatchNorm2d`` here: the serving path runs them in eval mode with running
-statistics. Parameter and buffer names are torch's, so the reference
-``.pth`` layout (``linear_fuse.bn.running_mean``, ...) holds.
+``BatchNorm2d`` here (one device): eval mode uses the running statistics,
+train mode the batch's and updates the running ones in place. Torch, like
+the reference, updates ``running_var`` with the unbiased batch variance;
+flax uses the biased one, so after a train step the two differ by the
+factor N/(N-1) on the batch term. Parameter and buffer names are torch's,
+so the reference ``.pth`` layout (``linear_fuse.bn.running_mean``, ...)
+holds.
 """
 
 import torch.nn.functional as F

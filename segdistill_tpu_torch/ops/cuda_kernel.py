@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels under ``csrc/``.
 
-Each kernel is one ``.cu`` file with a plain C interface. At its first
-launch it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``build/segdistill_tpu_torch/`` at the root of the checkout,
-named by a hash of its source, and loaded with ``ctypes``. Importing this
-module, or a module that declares a kernel, builds nothing and needs no
-``nvcc``: the CPU tests import every module.
+Each kernel is an entry point with a plain C interface in a ``.cu`` file
+(a forward and its backward may share one). At its first launch the file
+is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library
+under ``build/segdistill_tpu_torch/`` at the root of the checkout, named by
+a hash of its source and the shared headers, and loaded with ``ctypes``.
+Importing this module, or a module that declares a kernel, builds nothing
+and needs no ``nvcc``: the CPU tests import every module.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -44,12 +46,12 @@ class CudaKernel:
     time it launches the kernel, and nowhere else.
     """
 
-    def __init__(self, name, symbol, argtypes, replaces):
+    def __init__(self, name, symbol, argtypes, replaces, source=None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces
-        self.source = CSRC_DIR / f'{name}.cu'
+        self.source = CSRC_DIR / f'{source or name}.cu'
         self.launches = 0
         self.build_seconds = None
         self.build_log = ''  # nvcc's output: registers, spills per kernel
@@ -62,8 +64,11 @@ class CudaKernel:
 
     def _build(self):
         src = self.source.read_bytes()
-        tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-        lib = BUILD_DIR / f'lib{self.name}-{tag[:12]}.so'
+        headers = b''.join(p.read_bytes()
+                           for p in sorted(CSRC_DIR.glob('*.cuh')))
+        tag = hashlib.sha1(src + headers
+                           + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+        lib = BUILD_DIR / f'lib{self.source.stem}-{tag[:12]}.so'
         if lib.exists():
             return lib
         nvcc = nvcc_path()
@@ -105,6 +110,18 @@ class CudaKernel:
             raise RuntimeError(f'{self.name} kernel launch failed: CUDA '
                                f'error {err}')
         self.launches += 1
+
+
+def build_all(kernels):
+    """Build and load ``kernels``: one ``nvcc`` for each source file, all
+    started together."""
+    first = {}
+    for k in kernels:
+        first.setdefault(k.source, k)
+    with ThreadPoolExecutor(len(first)) as pool:
+        list(pool.map(CudaKernel.function, first.values()))
+    for k in kernels:
+        k.function()
 
 
 def check_cuda_inputs(name, tensors):

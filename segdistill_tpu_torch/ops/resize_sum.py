@@ -8,8 +8,11 @@ output write (67 MB at the B0 head, batch 8, bf16) and four tap loads per
 part for every stored vector, which L1/L2 serve. It takes any ratio,
 integer or not; the TPU kernel's eligibility gate is not carried over.
 
-On a CPU tensor :func:`fused_resize_sum` runs :func:`resize_sum_plain`; on a
-CUDA tensor it launches the kernel or raises.
+:func:`fused_resize_sum` is a ``torch.autograd.Function`` on every device:
+its forward runs :func:`resize_sum_plain` on a CPU tensor and launches the
+kernel (or raises) on a CUDA tensor; its backward is the adjoint of the
+plain version, torch's bilinear-upsample backward for each part, as the
+JAX kernel's VJP takes XLA's resize adjoint (``resize_sum.py:255-267``).
 """
 
 import ctypes
@@ -62,19 +65,7 @@ def _check(parts, out_hw):
     return B, H, W, C
 
 
-def fused_resize_sum(parts, out_hw):
-    """sum_k bilinear_upsample(parts[k], out_hw), align_corners=False.
-
-    parts: sequence of NHWC tensors ``(B, h_k, w_k, C)``. Returns
-    ``(B, H, W, C)`` in the parts' dtype.
-    """
-    parts = tuple(parts)
-    B, H, W, C = _check(parts, out_hw)
-    if parts[0].device.type == 'cpu':
-        return resize_sum_plain(parts, (H, W))
-    if parts[0].device.type != 'cuda':
-        raise ValueError(f'fused_resize_sum: unsupported device '
-                         f'{parts[0].device}')
+def _launch(parts, B, H, W, C):
     dtype_code = check_cuda_inputs('fused_resize_sum', parts)
     if B > 65535 or H > 65535:
         raise ValueError(f'fused_resize_sum: batch {B} and height {H} must '
@@ -93,3 +84,39 @@ def fused_resize_sum(parts, out_hw):
     KERNEL.launch(out.device, ptrs, hs, ws, n, out.data_ptr(), B, H, W, C,
                   dtype_code, vec)
     return out
+
+
+class _ResizeSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, out_hw, *parts):
+        ctx.out_hw = out_hw
+        ctx.parts = [(tuple(p.shape), p.dtype) for p in parts]
+        if parts[0].device.type == 'cpu':
+            return resize_sum_plain(parts, out_hw)
+        B, H, W, C = parts[0].shape[0], *out_hw, parts[0].shape[3]
+        return _launch(parts, B, H, W, C)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.permute(0, 3, 1, 2).float()
+        grads = []
+        for (B, h, w, C), dtype in ctx.parts:
+            d = torch.ops.aten.upsample_bilinear2d_backward(
+                g, list(ctx.out_hw), [B, C, h, w], False, None, None)
+            grads.append(d.permute(0, 2, 3, 1).to(dtype))
+        return (None, *grads)
+
+
+def fused_resize_sum(parts, out_hw):
+    """sum_k bilinear_upsample(parts[k], out_hw), align_corners=False.
+
+    parts: sequence of NHWC tensors ``(B, h_k, w_k, C)``. Returns
+    ``(B, H, W, C)`` in the parts' dtype, differentiable in every part.
+    """
+    parts = tuple(parts)
+    _, H, W, _ = _check(parts, out_hw)
+    if parts[0].device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'fused_resize_sum: unsupported device '
+                         f'{parts[0].device}')
+    return _ResizeSum.apply((H, W), *parts)

@@ -1,5 +1,5 @@
 """The hand-written kernels on the card against their plain versions, and
-the port's CUDA forward against its CPU forward.
+the port's CUDA forward and train step against the CPU's.
 
 Marked ``cuda``: they skip without a CUDA device. On the card (which has
 no JAX, so the repository's conftest is not loaded):
@@ -10,15 +10,23 @@ Each kernel is held against its plain version in fp32 on the same inputs.
 fp32: the same formula with sums in other orders, max abs error <= 2e-5.
 bf16, per element: the kernel rounds its fp32 result once, at most half a
 bf16 step (2^-8 of the magnitude) away, plus 2^-12 of the output's rms for
-the fp32 order error.
+the fp32 order error. Gradients are held to the same limits relative to
+their own scale (a backward is linear in its incoming gradient, which is
+chosen to make the plain gradient's max |value| 1); loss values to 2e-5
+relative (sums of up to 10^6 fp32 terms in other orders).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from segdistill_tpu_torch.ops import group_kl, resize_sum, seg_ce, sra_attn
+from segdistill_tpu_torch.ops.group_kl import (fused_group_kl,
+                                               fused_group_kl_shuffled,
+                                               group_kl_plain)
 from segdistill_tpu_torch.ops.resize_sum import (fused_resize_sum,
                                                  resize_sum_plain)
+from segdistill_tpu_torch.ops.seg_ce import fused_seg_ce, seg_ce_plain
 from segdistill_tpu_torch.ops.sra_attn import (fused_sra_attention,
                                                sra_attention_plain)
 
@@ -119,3 +127,173 @@ def test_model_cuda_matches_cpu(cuda):
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item(), \
         (err, want.abs().max().item())
+
+
+LOSS_RTOL = 2e-5
+
+
+def _scaled(loss, x):
+    """The plain gradient of ``loss`` in ``x`` scaled to max |value| 1, and
+    the incoming gradient that does it."""
+    (g,) = torch.autograd.grad(loss, x)
+    peak = g.abs().max()
+    gbar = 1.0 / peak if peak > 0 else torch.ones_like(peak)
+    return g * gbar, gbar
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,out_hw,g,shuffle', [
+    ((2, 7, 8, 8), (16, 16), 3, True),          # a -1e9 pad channel
+    ((2, 19, 30, 40), (125, 161), 10, True),    # non-integer ratio, pad
+    ((1, 150, 32, 32), (128, 128), 10, False),  # identity: fused_group_kl
+    ((2, 6, 9, 9), (4, 5), 2, True),            # a downsample
+])
+def test_group_kl_kernels(cuda, dtype, shape, out_hw, g, shuffle):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs, xt = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
+              for _ in range(2))
+    perm = torch.randperm(shape[1], device=cuda, generator=gen) \
+        if shuffle else None
+    a = xs.float().requires_grad_()
+    want = group_kl_plain(a, xt.float(), perm, out_hw, g, 2.0)
+    dwant, gbar = _scaled(want, a)
+    k = xs.clone().requires_grad_()
+    loss = fused_group_kl_shuffled(k, xt, perm, out_hw, g, 2.0) if shuffle \
+        else fused_group_kl(k, xt, out_hw, g, 2.0)
+    (dxs,) = torch.autograd.grad(loss, k, gbar)
+    torch.cuda.synchronize()
+    assert loss.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    assert dxs.dtype == dtype
+    _close(dxs, dwant)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,out_hw,ignored', [
+    ((2, 7, 8, 8), (16, 16), 0.05),
+    ((2, 150, 30, 40), (125, 161), 0.05),       # non-integer ratio
+    ((1, 150, 32, 32), (128, 128), 0.05),
+    ((2, 7, 8, 8), (16, 16), 1.0),              # every label ignored
+])
+def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn(shape, device=cuda, generator=gen).to(dtype)
+    labels = torch.randint(0, shape[1], (shape[0],) + out_hw, device=cuda,
+                           generator=gen)
+    labels[torch.rand(labels.shape, device=cuda, generator=gen)
+           < ignored] = 255
+    a = z.float().requires_grad_()
+    want, want_correct = seg_ce_plain(a, labels, out_hw, shape[1])
+    dwant, gbar = _scaled(want, a)
+    k = z.clone().requires_grad_()
+    ce, correct = fused_seg_ce(k, labels, out_hw, shape[1])
+    (dz,) = torch.autograd.grad(ce, k, gbar)
+    torch.cuda.synchronize()
+    assert ce.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    # exact but for argmax near-ties, which another summation order may
+    # break the other way
+    assert abs(correct.item() - want_correct.item()) \
+        <= 1e-4 * labels.numel()
+    assert dz.dtype == dtype
+    _close(dz, dwant)
+
+
+def _small_segformer(**backbone):
+    from segdistill_tpu.zoo import segformer
+    from segdistill_tpu_torch.models import build_segmentor
+    cfg = segformer('b0', num_classes=19, embed_dim=64)
+    cfg['backbone'].update(drop_path_rate=0.0, **backbone)
+    cfg['decode_head']['dropout_ratio'] = 0.0
+    model = build_segmentor(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return model
+
+
+def test_resize_sum_gradient_on_the_card(cuda):
+    """K1 is differentiable: the head's parameter gradients on the card
+    (K1 forward, torch's upsample adjoint backward) against the same head
+    on the CPU. Eval-mode BN: in train mode it removes the embeddings'
+    biases, whose gradient is then float noise."""
+    model = _small_segformer()
+    x = torch.randn(2, 3, 96, 128, generator=torch.Generator().manual_seed(1))
+    w = torch.randn(2, 19, 24, 32, generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ('cpu', cuda):
+        m = model.to(dev).eval()
+        m.zero_grad(set_to_none=True)
+        (m(x.to(dev)) * w.to(dev)).sum().backward()
+        grads[str(dev)] = {n: None if p.grad is None
+                           else p.grad.detach().cpu().clone()
+                           for n, p in m.decode_head.named_parameters()}
+    for name, want in grads['cpu'].items():
+        got = grads['cuda'][name]
+        assert got is not None, f'{name} got no gradient on the card'
+        err = ((got - want).norm() / want.norm()).item()
+        assert err <= 1e-5, (name, err)
+
+
+def test_fused_attention_refuses_gradients_on_the_card(cuda):
+    model = _small_segformer(fused_attention=True).to(cuda).train()
+    x = torch.randn(1, 3, 64, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match='backward'):
+        model(x)
+    with torch.no_grad():
+        assert model(x).shape == (1, 19, 16, 16)
+
+
+def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors every wrapper launches its kernel, forward and
+    backward: the plain versions are never called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError('a plain version ran on CUDA tensors')
+    for mod, name in ((group_kl, 'group_kl_plain'),
+                      (seg_ce, 'seg_ce_plain'),
+                      (resize_sum, 'resize_sum_plain'),
+                      (sra_attn, 'sra_attention_plain')):
+        monkeypatch.setattr(mod, name, refuse)
+    kernels = (group_kl.FWD_KERNEL, group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL,
+               seg_ce.BWD_KERNEL, resize_sum.KERNEL)
+    before = [k.launches for k in kernels]
+    xs = torch.randn(1, 12, 8, 8, device=cuda, requires_grad=True)
+    group_kl.fused_group_kl(xs, torch.randn_like(xs), (16, 16), 5,
+                            2.0).backward()
+    z = torch.randn(1, 12, 8, 8, device=cuda, requires_grad=True)
+    labels = torch.randint(0, 12, (1, 16, 16), device=cuda)
+    seg_ce.fused_seg_ce(z, labels, (16, 16), 12)[0].backward()
+    fused_resize_sum([torch.randn(1, 4, 4, 8, device=cuda)], (8, 8))
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 5
+
+
+def test_train_step_cuda_matches_cpu(cuda):
+    """One fp32 CGD step of a small SDModule on the card (K1, K3-K6)
+    against the same model on the CPU (plain versions): the loss terms and
+    the student's gradients."""
+    from segdistill_tpu.zoo import distill_entry, sd_model, segformer
+    from segdistill_tpu_torch.models import build_segmentor
+    from segdistill_tpu_torch.models.segmentors import parse_losses
+    cfgs = [segformer('b0', num_classes=19, embed_dim=64) for _ in range(2)]
+    for cfg in cfgs:
+        cfg['backbone']['drop_path_rate'] = 0.0
+        cfg['decode_head']['dropout_ratio'] = 0.0
+    model = build_segmentor(sd_model(*cfgs, [distill_entry('CGDLoss')],
+                                     t_pretrain=None))
+    model.init_weights(torch.Generator().manual_seed(0))
+    img = torch.randn(2, 3, 96, 128, generator=torch.Generator().manual_seed(1))
+    gt = torch.randint(0, 19, (2, 96, 128),
+                       generator=torch.Generator().manual_seed(2))
+    perm = torch.randperm(19, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for dev in ('cpu', cuda):
+        m = model.to(dev).train()
+        m.zero_grad(set_to_none=True)
+        total, log_vars = parse_losses(m.forward_train(
+            img.to(dev), gt.to(dev), 1000, perm=perm.to(dev)))
+        total.backward()
+        out[str(dev)] = ({k: v.item() for k, v in log_vars.items()},
+                         torch.cat([p.grad.flatten().cpu() for p in
+                                    m.student.parameters()]))
+    (lc, gc), (lg, gg) = out['cpu'], out['cuda']
+    # fp32 losses that are a log-sum-exp over ~10^5 values carry an
+    # absolute error of ~1e-6; the untrained pair's KL is ~1e-3
+    for k in lc:
+        assert lg[k] == pytest.approx(lc[k], rel=1e-5, abs=1e-5), k
+    assert ((gg - gc).norm() / gc.norm()).item() <= 1e-4

@@ -24,15 +24,18 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 def segformer_cfg(fused_attention=False, gelu_approximate=True,
-                  test_cfg=None):
+                  test_cfg=None, dropout_ratio=0.1, drop_path_rate=0.0,
+                  **backbone):
     return dict(
         type='EncoderDecoder',
         backbone=dict(type='mit_b0', gelu_approximate=gelu_approximate,
-                      drop_path_rate=0.0, fused_attention=fused_attention),
+                      drop_path_rate=drop_path_rate,
+                      fused_attention=fused_attention, **backbone),
         decode_head=dict(
             type='SegFormerHead', in_channels=[32, 64, 160, 256],
             in_index=[0, 1, 2, 3], feature_strides=[4, 8, 16, 32],
-            channels=128, dropout_ratio=0.1, num_classes=NUM_CLASSES,
+            channels=128, dropout_ratio=dropout_ratio,
+            num_classes=NUM_CLASSES,
             norm_cfg=dict(NORM), align_corners=False,
             decoder_params=dict(embed_dim=EMBED_DIM)),
         test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
