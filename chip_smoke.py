@@ -6,19 +6,23 @@ GPU.
 
 Phases: (1) device, (2) build the hand-written kernels from csrc/, one nvcc
 per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
-group-KL forward and backward and (6) K5/K6 seg-CE forward and backward
-against their plain PyTorch versions at the main paths' shapes, with
-CUDA-event timings, (7) full-width Segformer-B0 (ADE20K, 150 classes,
-random weights from seed 0) serving seeded requests through
-``inference_segmentor`` in whole mode, again with
+group-KL forward and backward, (6) K5/K6 seg-CE forward and backward, (7)
+K7/K8 pixel-KL forward and backward and (8) K9, the SRA backward, with K2
+keeping the row log-sum-exp, against their plain PyTorch versions at the
+main paths' shapes, with CUDA-event timings, (9) full-width Segformer-B0
+(ADE20K, 150 classes, random weights from seed 0) serving seeded requests
+through ``inference_segmentor`` in whole mode, again with
 ``fused_attention=True``, and slide mode at 1024x2048; the fp32 GPU logits
-against the same model on the CPU, bf16 against fp32, throughput, (8) the
+against the same model on the CPU, bf16 against fp32, throughput, (10) the
 CGD distillation train step of ``configs/exp_tab5/segformer_CGD.py`` (B0
 student, B3 teacher, bf16 backbones, batch 8 at 512x512, seeded random
 weights and data) through ``prepare_training``'s step: losses, step time,
-images/s and peak memory, and (9) one fp32 train step of the same model at
-batch 2 against a copy on the CPU (loss terms and student gradients). The
-launch count of each kernel is read over each main path (7 and 8).
+images/s and peak memory, (11) one fp32 train step of the same model at
+batch 2 against a copy on the CPU (loss terms and student gradients), and
+(12, 13) the same two for the PD train step of
+``configs/exp_tab5/segformer_PD.py`` with the student's
+``fused_attention='train'``. The launch count of each kernel is read over
+each main path (9, 10 and 12).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -40,9 +44,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / 'configs' / 'segformer' / 'segformer_b0_512x512_ade_160k.py'
 CGD_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_CGD.py'
+PD_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_PD.py'
 # the config's checkpoints are not in the repository: random weights
 NO_CHECKPOINTS = {'model.t_pretrain': None, 'model.s_pretrain': None,
                   'model.cfg_s.pretrained': None}
+# the student's SRA attention through K2 and its backward K9
+STUDENT_FA_TRAIN = {'model.cfg_s.backbone.fused_attention': 'train'}
+BF16_BACKBONES = {'model.cfg_s.backbone.dtype': 'bfloat16',
+                  'model.cfg_t.backbone.dtype': 'bfloat16'}
 NUM_CLASSES = 150
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
 DEVICE = 'cuda'
@@ -66,13 +75,15 @@ MODEL_TOL_REL = 1e-5
 # bf16 backbone vs fp32: bf16 keeps 8 significant bits, rounded at every
 #   linear, conv and residual add; relative L2 error of the logits.
 BF16_TOL_REL_L2 = 5e-2
-# Loss kernels (K3, K5) against their plain versions, relative: both sum up
-#   to 2.6 M fp32 terms per (b, group), or 2 M per-pixel CEs, in other
-#   orders; measured <= 1.5e-6 on an H100.
+# Loss kernels (K3, K5, K7) against their plain versions, relative: they
+#   sum up to 2.6 M fp32 terms per (b, group), or 2 M per-pixel CEs or KLs,
+#   in other orders; measured <= 1.5e-6 on an H100 (K3, K5).
 LOSS_TOL_REL = 2e-5
-# Gradient kernels (K4, K6): the per-element limits above, with the
+# Gradient kernels (K4, K6, K8): the per-element limits above, with the
 #   incoming gradient scaled so that the plain gradient's max |value| is 1
-#   (a backward is linear in it; unscaled entries are ~1e-7).
+#   (a backward is linear in it; unscaled entries are ~1e-7). K9: each of
+#   dq, dk and dv and its plain version divided by the plain one's max
+#   |value|, which is the same thing (the incoming dO is N(0, 1)).
 # Correct-pixel count (K5): exact but for argmax near-ties, which another
 #   summation order may break the other way; at most 1e-4 of the pixels.
 CORRECT_TOL_SHARE = 1e-4
@@ -95,12 +106,13 @@ def log(msg):
     print(msg, flush=True)
 
 
-def check_close(name, got, want32):
-    """``got`` in its dtype against ``want32``, the plain version in fp32
-    on the same inputs; returns the max abs error and the largest share of
-    its tolerance that any element uses."""
+def check_close(name, got, want32, dtype=None):
+    """``got``, computed in ``dtype`` (by default its own), against
+    ``want32``, the plain version in fp32 on the same inputs; returns the
+    max abs error and the largest share of its tolerance that any element
+    uses."""
     diff = (got.float() - want32).abs()
-    if got.dtype == torch.float32:
+    if (dtype or got.dtype) == torch.float32:
         tol = torch.full_like(diff, K_TOL_F32)
     else:
         rms = want32.square().mean().sqrt()
@@ -231,6 +243,39 @@ def _timed_pair(kernel_fn, plain_fn):
     return cuda_ms(kernel_fn), cuda_ms(plain_fn)
 
 
+def _loss_case(tag, xs, xt, fused, plain):
+    """A distillation-loss kernel pair (``fused(xs, xt)``, differentiable in
+    xs) against ``plain`` on the same inputs: the loss to LOSS_TOL_REL, the
+    gradient with the incoming gradient that makes max |plain dxs| = 1, and
+    both directions timed. -> (loss err, fwd ms, plain fwd ms), (dxs err,
+    bwd ms, plain bwd ms)."""
+    a = xs.float().requires_grad_()
+    want = plain(a, xt.float())
+    (dunit,) = torch.autograd.grad(want, a)
+    gbar, dwant = _scaled_grads(want, dunit)
+    k = xs.clone().requires_grad_()
+    loss = fused(k, xt)
+    (dxs,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
+    torch.cuda.synchronize()
+    loss_err = abs(loss.item() - want.item())
+    if not loss_err <= LOSS_TOL_REL * abs(want.item()):
+        raise AssertionError(f'{tag}: loss {loss.item()} vs plain '
+                             f'{want.item()}')
+    err, used = check_close(f'{tag} dxs', dxs, dwant)
+    ms = _timed_pair(lambda: fused(xs, xt), lambda: plain(xs, xt))
+    p = xs.clone().requires_grad_()
+    plain_loss = plain(p, xt)
+    bms = _timed_pair(
+        lambda: torch.autograd.grad(loss, k, gbar, retain_graph=True),
+        lambda: torch.autograd.grad(plain_loss, p, gbar, retain_graph=True))
+    del plain_loss
+    log(f'{tag:40s} loss {loss.item():.7g} rel err '
+        f'{loss_err / abs(want.item()):.2e}  dxs max_abs_err {err:.3e} (tol '
+        f'used {used:.3f})  fwd {ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd '
+        f'{bms[0]:.4f} ms plain {bms[1]:.4f} ms')
+    return (loss_err, *ms), (err, *bms)
+
+
 def phase_group_kl():
     from segdistill_tpu_torch.ops import group_kl as gk
     log('== K3/K4 group_kl vs plain (N(0,1) maps, tau 2; backward with the '
@@ -248,39 +293,86 @@ def phase_group_kl():
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
-            a = xs.float().requires_grad_()
-            want = gk.group_kl_plain(a, xt.float(), perm, out_hw, 10, tau)
-            (dunit,) = torch.autograd.grad(want, a)
-            gbar, dwant = _scaled_grads(want, dunit)
-            k = xs.clone().requires_grad_()
-            loss = gk.fused_group_kl_shuffled(k, xt, perm, out_hw, 10, tau) \
-                if shuffle else gk.fused_group_kl(k, xt, out_hw, 10, tau)
-            (dxs,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
-            torch.cuda.synchronize()
-            loss_err = abs(loss.item() - want.item())
-            if not loss_err <= LOSS_TOL_REL * abs(want.item()):
-                raise AssertionError(f'group_kl {name} {dtype}: loss '
-                                     f'{loss.item()} vs plain {want.item()}')
-            err, used = check_close(f'group_kl {name} {dtype} dxs', dxs,
-                                    dwant)
-            ms = _timed_pair(
-                lambda: gk.fused_group_kl_shuffled(xs, xt, perm, out_hw, 10,
-                                                   tau),
-                lambda: gk.group_kl_plain(xs, xt, perm, out_hw, 10, tau))
-            p = xs.clone().requires_grad_()
-            plain_loss = gk.group_kl_plain(p, xt, perm, out_hw, 10, tau)
-            bms = _timed_pair(
-                lambda: torch.autograd.grad(loss, k, gbar, retain_graph=True),
-                lambda: torch.autograd.grad(plain_loss, p, gbar,
-                                            retain_graph=True))
-            del plain_loss
-            fwd[(name, dtype)] = (loss_err, *ms)
-            bwd[(name, dtype)] = (err, *bms)
-            log(f'{name:20s} {str(dtype):15s} loss {loss.item():.7g} rel err '
-                f'{loss_err / abs(want.item()):.2e}  dxs max_abs_err '
-                f'{err:.3e} (tol used {used:.3f})  fwd {ms[0]:.4f} ms plain '
-                f'{ms[1]:.4f} ms  bwd {bms[0]:.4f} ms plain {bms[1]:.4f} ms')
+            fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
+                f'group_kl {name} {dtype}', xs, xt,
+                lambda a, t: gk.fused_group_kl_shuffled(a, t, perm, out_hw,
+                                                        10, tau)
+                if shuffle else gk.fused_group_kl(a, t, out_hw, 10, tau),
+                lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, 10, tau))
     return fwd, bwd
+
+
+def phase_pixel_kl():
+    from segdistill_tpu_torch.ops import pixel_kl as pk
+    log('== K7/K8 pixel_kl vs plain (N(0,1) maps, tau 1; backward with the '
+        'incoming gradient that makes max |plain dxs| = 1)')
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    cases = [('PD bench', (8, 150, 128, 128), (512, 512)),
+             ('non-integer ratio', (2, 150, 30, 40), (125, 161)),
+             ('ratio 1', (2, 150, 64, 64), (64, 64))]
+    fwd, bwd = {}, {}
+    for name, shape, out_hw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
+                f'pixel_kl {name} {dtype}', xs, xt,
+                lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
+                lambda a, t: pk.pixel_kl_plain(a, t, out_hw, 1.0))
+    return fwd, bwd
+
+
+def phase_sra_train():
+    from segdistill_tpu_torch.ops.sra_attn import (sra_attention_plain,
+                                                   sra_attention_train)
+    from segdistill_tpu_torch.utils.timing import cuda_ms
+    log('== K9 sra_attn_bwd (after K2 keeping the row log-sum-exp) vs the '
+        'autograd of the plain version (N(0,1) q, k, v and dO, strided head '
+        'views as the model passes them; each gradient and its plain '
+        'version divided by the plain one\'s max |value|)')
+    rng = np.random.RandomState(9)
+    cases = [(f'B0 stage{s + 1} b8', 8, h, n, 256, 32) for s, (h, n) in
+             enumerate(((1, 16384), (2, 4096), (5, 1024), (8, 256)))]
+    cases.append(('ragged N, M', 2, 2, 1000, 100, 32))
+    cases.append(('b1-b5 stage1 d64', 2, 1, 16384, 256, 64))
+    results = {}
+    for name, b, h, n, m, d in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            scale = d ** -0.5
+            q = _head_split(b, n, h, d, 1, rng, dtype)[0].requires_grad_()
+            k, v = (t.requires_grad_()
+                    for t in _head_split(b, m, h, d, 2, rng, dtype))
+            g = _head_split(b, n, h, d, 1, rng, dtype)[0]
+            out = sra_attention_train(q, k, v, scale)
+            got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+            torch.cuda.synchronize()
+            ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            want_out = sra_attention_plain(*ref, scale)
+            want = torch.autograd.grad(want_out, ref, g.float())
+            errs = [check_close(f'sra_train {name} {dtype} out', out,
+                                want_out.detach())[0]]
+            used = 0.0
+            for tag, a, w in zip(('dq', 'dk', 'dv'), got, want):
+                if a.shape != w.shape or a.dtype != dtype:
+                    raise AssertionError(f'sra_train {name}: {tag} is '
+                                         f'{a.dtype} {tuple(a.shape)}')
+                peak = w.abs().max()
+                e, u = check_close(f'sra_train {name} {dtype} {tag}',
+                                   a.float() / peak, w / peak, dtype)
+                errs.append(e)
+                used = max(used, u)
+            plain_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            plain_out = sra_attention_plain(*plain_in, scale)
+            ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                     retain_graph=True))
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                plain_out, plain_in, g, retain_graph=True))
+            fwd_ms = cuda_ms(lambda: sra_attention_train(q, k, v, scale))
+            results[(name, dtype)] = (max(errs), ms, plain_ms)
+            log(f'{name:20s} {str(dtype):15s} max_abs_err {max(errs):.3e} '
+                f'(gradients use {used:.3f} of the tol)  bwd {ms:.4f} ms  '
+                f'plain bwd {plain_ms:.4f} ms  fwd with lse {fwd_ms:.4f} ms')
+    return results
 
 
 def phase_seg_ce():
@@ -488,17 +580,18 @@ def _train_batch(batch, seed):
     return img, gt
 
 
-def phase_train(path_kernels):
+def phase_train(path_kernels, config, options, tag):
+    """The distillation train step of ``config`` with bf16 backbones (and
+    ``options``) at batch 8: -> the launch counts of ``path_kernels`` over
+    the timed steps, and the last step's log vars."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
-    log(f'== train: CGD, B0 student <- B3 teacher, bf16 backbones, batch '
+    log(f'== train: {tag}, B0 student <- B3 teacher, bf16 backbones, batch '
         f'{TRAIN_BATCH} at 512x512, random weights (seed 0)')
     t0 = time.perf_counter()
     model = init_segmentor_state(
-        str(CGD_CONFIG), seed=0, device=DEVICE,
-        cfg_options=dict(NO_CHECKPOINTS, **{
-            'model.cfg_s.backbone.dtype': 'bfloat16',
-            'model.cfg_t.backbone.dtype': 'bfloat16'}))
+        str(config), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **BF16_BACKBONES, **options))
     state, train_step = prepare_training(model)
     img, gt = _train_batch(TRAIN_BATCH, seed=5)
     log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
@@ -523,16 +616,16 @@ def phase_train(path_kernels):
     log(f'train step {step_ms:.2f} ms, '
         f'{TRAIN_BATCH * TRAIN_STEPS / seconds:.2f} images/s over '
         f'{TRAIN_STEPS} steps; peak memory allocated {peak / 2**30:.2f} GiB')
-    log(f'launches during the training path: {launches}')
-    _check_launched(launches, 'training')
+    log(f'launches during the {tag} training path: {launches}')
+    _check_launched(launches, f'{tag} training')
     values = [float(v) for lv in [first] + logs for v in lv.values()]
     if not all(math.isfinite(v) for v in values):
-        raise AssertionError('a loss of the train step is not finite')
+        raise AssertionError(f'a loss of the {tag} train step is not finite')
     ce = float(first['decode.loss_seg'])
     if not abs(ce - CE_INIT) <= CE_INIT_TOL:
         raise AssertionError(f'decode.loss_seg at step 1 is {ce}, not near '
                              f'ln {NUM_CLASSES} = {CE_INIT:.4f}')
-    return launches
+    return launches, logs[-1]
 
 
 def _loss_and_grads(model, img, gt, perm):
@@ -546,14 +639,15 @@ def _loss_and_grads(model, img, gt, perm):
              model.student.named_parameters()})
 
 
-def phase_train_vs_cpu():
+def phase_train_vs_cpu(config, options, tag):
     from segdistill_tpu_torch.apis import init_segmentor_state
-    log('== train step, fp32 GPU (kernels) vs CPU (plain versions): the same '
-        'B0 <- B3 CGD model, batch 2 at 512x512, dropout and drop-path 0, '
-        'step 1000 with one seeded channel permutation')
+    log(f'== train step, fp32 GPU (kernels) vs CPU (plain versions): the '
+        f'same B0 <- B3 {tag} model, batch 2 at 512x512, dropout and '
+        f'drop-path 0, step 1000 (a CGD step: one seeded channel '
+        f'permutation)')
     model = init_segmentor_state(
-        str(CGD_CONFIG), seed=0, device=DEVICE,
-        cfg_options=dict(NO_CHECKPOINTS, **{
+        str(config), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **options, **{
             'model.cfg_s.decode_head.dropout_ratio': 0.0,
             'model.cfg_t.decode_head.dropout_ratio': 0.0,
             'model.cfg_s.backbone.drop_path_rate': 0.0,
@@ -587,30 +681,53 @@ def phase_train_vs_cpu():
         raise AssertionError('the GPU train step differs from the CPU one')
 
 
+def _pd_loss_check(last):
+    """The PD loss of a train step is finite and >= 0."""
+    key = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'
+    value = float(last[key])
+    log(f'PD loss at the last step: {value:.6g}')
+    if not (math.isfinite(value) and value >= 0.0):
+        raise AssertionError(f'the PD loss is {value}')
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
-    from segdistill_tpu_torch.ops import (group_kl, resize_sum, seg_ce,
-                                          sra_attn)
-    k1, k2, k3, k4, k5, k6 = kernels = [
+    from segdistill_tpu_torch.ops import (group_kl, pixel_kl, resize_sum,
+                                          seg_ce, sra_attn)
+    k1, k2, k3, k4, k5, k6, k7, k8, k9 = kernels = [
         resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
-        group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL]
+        group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
+        pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL]
     phase_build(kernels)
     results = {k1.name: phase_resize_sum(), k2.name: phase_sra_attn()}
     results[k3.name], results[k4.name] = phase_group_kl()
     results[k5.name], results[k6.name] = phase_seg_ce()
-    launches = phase_serving([k1, k2])
-    for name, n in phase_train([k1, k3, k4, k5, k6]).items():
-        launches[name] = launches.get(name, 0) + n
-    phase_train_vs_cpu()
+    results[k7.name], results[k8.name] = phase_pixel_kl()
+    results[k9.name] = phase_sra_train()
+    launches = {k.name: 0 for k in kernels}
+    paths = [phase_serving([k1, k2]),
+             phase_train([k1, k3, k4, k5, k6], CGD_CONFIG, {}, 'CGD')[0]]
+    phase_train_vs_cpu(CGD_CONFIG, {}, 'CGD')
+    pd_launches, pd_last = phase_train([k1, k2, k5, k6, k7, k8, k9],
+                                       PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    _pd_loss_check(pd_last)
+    paths.append(pd_launches)
+    phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    for path in paths:
+        for name, n in path.items():
+            launches[name] += n
     # each kernel at its main path's shape: serving at batch 1 (fp32) for
-    # K1 and K2, the bf16 bench train step for K3-K6
+    # K1 and K2, the bf16 bench train steps for K3-K9
     main_case = {k1.name: ('B0 head b1 E256', torch.float32),
                  k2.name: ('B0 stage1 b1', torch.float32),
                  k3.name: ('CGD bench perm', torch.bfloat16),
                  k4.name: ('CGD bench perm', torch.bfloat16),
                  k5.name: ('head CE bench', torch.bfloat16),
-                 k6.name: ('head CE bench', torch.bfloat16)}
+                 k6.name: ('head CE bench', torch.bfloat16),
+                 k7.name: ('PD bench', torch.bfloat16),
+                 k8.name: ('PD bench', torch.bfloat16),
+                 k9.name: ('B0 stage1 b8', torch.bfloat16)}
     entries = []
     for k in kernels:
         res = results[k.name]

@@ -1,6 +1,6 @@
-// Helpers shared by the loss kernels (group_kl.cu, seg_ce.cu): dtype
-// conversion, torch's bilinear taps (align_corners=False), the bounds of
-// the outputs that read one source index (for the gather backward), and
+// Helpers shared by the loss kernels (group_kl.cu, seg_ce.cu, pixel_kl.cu):
+// dtype conversion, torch's bilinear taps (align_corners=False), the bounds
+// of the outputs that read one source index (for the gather backward), and
 // block-wide sums and maxima. Blocks have kThreads threads.
 
 #pragma once

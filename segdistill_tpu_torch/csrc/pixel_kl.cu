@@ -1,0 +1,215 @@
+// K7 and K8: the pixel-wise distillation (PD) loss for Hopper (sm_90a),
+// forward and backward.
+//
+// Replaces segdistill_tpu/ops/pallas/pixel_kl.py::fused_pixel_kl (the
+// pallas_calls at pixel_kl.py:169, forward, and :200, backward).
+//
+// Student and teacher maps xs, xt (B, C, h, w) are upsampled bilinearly
+// (torch's align_corners=False taps, any ratio) to (H, W). At every output
+// pixel, with u = z / tau, the channel softmaxes p_s, p_t give
+//
+//   kl_sum = sum over the B*H*W pixels of KL(p_t || p_s)
+//          = sum (A / Z_t - (m_t - m_s) + log(Z_s / Z_t)),
+//            A = sum_c e_t,c (u_t,c - u_s,c),  e_t,c = exp(u_t,c - m_t)
+//   dxs    = g / tau * sum over the pixels that tap a source element of
+//            w * (p_s - p_t)                 (g: kl_sum's incoming gradient)
+//
+// There is no ignore mask: the reference sums over every pixel. The caller
+// divides by B*H*W. The teacher gets no gradient.
+//
+// What bounds it: K7 runs one thread per output pixel, an online softmax of
+// both maps over the C channels with the four taps of each (8 C loads, which
+// at the bench shape, 2 x 39 MB in bf16, mostly stay in L2), and writes the
+// pixel's two log-sum-exps for K8: 2 x 8 MB at 8 x 512 x 512. The plain
+// version writes two (B, C, H, W) fp32 upsampled maps, 1.26 GB each at the
+// bench shape, and their softmaxes; K7 writes none. Per-block partial sums
+// are merged by one block in a fixed order: the loss is deterministic.
+//
+// K8 gathers, as K6 does: one thread per source element (b, c, i, j) walks
+// the ~(2r)^2 output pixels whose taps read it, recomputes both upsampled
+// logits there and the two probabilities from the saved log-sum-exps, and
+// writes its gradient once. No atomics: the gradient is deterministic.
+//
+// Plain C interface, loaded with ctypes; returns cudaGetLastError().
+
+#include "common.cuh"
+
+namespace {
+
+using namespace segdistill;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pkl_fwd(const T* __restrict__ xs, const T* __restrict__ xt, int C, int h,
+            int w, int H, int W, float inv_tau, float* __restrict__ lse_s,
+            float* __restrict__ lse_t, float* __restrict__ part) {
+  const int HW = H * W;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  const int b = blockIdx.y;
+  float acc[1] = {0.0f};
+  if (p < HW) {
+    const int y = p / W;
+    const Tap ty = tap(y, h, H);
+    const Tap tx = tap(p - y * W, w, W);
+    const long long plane = static_cast<long long>(h) * w;
+    const long long img = static_cast<long long>(b) * C * plane;
+    const T* sb = xs + img;
+    const T* tb = xt + img;
+    float ms = -INFINITY, zs = 0.0f;  // student: running max and exp-sum
+    float mt = -INFINITY, zt = 0.0f;  // teacher
+    float a = 0.0f;                   // sum e_t (u_t - u_s), at shift mt
+    for (int c = 0; c < C; ++c) {
+      const float us = bilerp(sb + c * plane, w, ty, tx) * inv_tau;
+      const float ut = bilerp(tb + c * plane, w, ty, tx) * inv_tau;
+      if (us > ms) {
+        zs = zs * expf(ms - us) + 1.0f;
+        ms = us;
+      } else {
+        zs += expf(us - ms);
+      }
+      if (ut > mt) {
+        const float r = expf(mt - ut);
+        zt = zt * r + 1.0f;
+        a = a * r + (ut - us);
+        mt = ut;
+      } else {
+        const float e = expf(ut - mt);
+        zt += e;
+        a = fmaf(e, ut - us, a);
+      }
+    }
+    const long long q = static_cast<long long>(b) * HW + p;
+    lse_s[q] = ms + logf(zs);
+    lse_t[q] = mt + logf(zt);
+    acc[0] = a / zt - (mt - ms) + logf(zs / zt);
+  }
+  block_sum<float, 1>(acc);
+  if (threadIdx.x == 0) part[blockIdx.y * gridDim.x + blockIdx.x] = acc[0];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    pkl_finalize(const float* __restrict__ part, int n_blocks,
+                 float* __restrict__ kl_sum) {
+  double acc[1] = {0.0};
+  for (int i = threadIdx.x; i < n_blocks; i += kThreads) acc[0] += part[i];
+  block_sum<double, 1>(acc);
+  if (threadIdx.x == 0) kl_sum[0] = static_cast<float>(acc[0]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt, int C, int h,
+            int w, int H, int W, float inv_tau,
+            const float* __restrict__ lse_s, const float* __restrict__ lse_t,
+            const float* __restrict__ gbar, T* __restrict__ dxs) {
+  const int hw = h * w;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= hw) return;
+  const int b = blockIdx.y / C;
+  const long long base = static_cast<long long>(blockIdx.y) * hw;
+  const T* sc = xs + base;
+  const T* tc = xt + base;
+  const long long img = static_cast<long long>(b) * H * W;
+  const float* lsb = lse_s + img;
+  const float* ltb = lse_t + img;
+  const int i = p / w;
+  const int j = p - i * w;
+  const int x_start = first_reader(j, w, W);
+  float acc = 0.0f;
+  for (int y = first_reader(i, h, H); y < H; ++y) {
+    const Tap ty = tap(y, h, H);
+    if (ty.i0 > i) break;
+    const float wy = tap_weight(ty, i);
+    if (wy == 0.0f) continue;
+    for (int x = x_start; x < W; ++x) {
+      const Tap tx = tap(x, w, W);
+      if (tx.i0 > j) break;
+      const float wx = tap_weight(tx, j);
+      if (wx == 0.0f) continue;
+      const int q = y * W + x;
+      const float ps = expf(bilerp(sc, w, ty, tx) * inv_tau - lsb[q]);
+      const float pt = expf(bilerp(tc, w, ty, tx) * inv_tau - ltb[q]);
+      acc = fmaf(wy * wx, ps - pt, acc);
+    }
+  }
+  dxs[base + p] = from_f32<T>(acc * (gbar[0] * inv_tau));
+}
+
+bool bad_shape(int B, int C, int h, int w, int H, int W, float tau) {
+  return B < 1 || B > 65535 || C < 1 || h < 1 || w < 1 || H < 1 || W < 1 ||
+         !(tau > 0.0f) ||
+         static_cast<long long>(H) * W > 0x7fffffffLL - kThreads ||
+         static_cast<long long>(h) * w > 0x7fffffffLL - kThreads;
+}
+
+template <typename T>
+void launch_fwd(const void* xs, const void* xt, int B, int C, int h, int w,
+                int H, int W, float tau, float* lse_s, float* lse_t,
+                float* part, float* kl_sum, cudaStream_t s) {
+  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
+  pkl_fwd<T><<<grid, kThreads, 0, s>>>(static_cast<const T*>(xs),
+                                       static_cast<const T*>(xt), C, h, w, H,
+                                       W, 1.0f / tau, lse_s, lse_t, part);
+  pkl_finalize<<<1, kThreads, 0, s>>>(part, grid.x * grid.y, kl_sum);
+}
+
+template <typename T>
+void launch_bwd(const void* xs, const void* xt, int B, int C, int h, int w,
+                int H, int W, float tau, const float* lse_s,
+                const float* lse_t, const float* gbar, void* dxs,
+                cudaStream_t s) {
+  const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
+  pkl_bwd<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(xs), static_cast<const T*>(xt), C, h, w, H, W,
+      1.0f / tau, lse_s, lse_t, gbar, static_cast<T*>(dxs));
+}
+
+}  // namespace
+
+// xs, xt: (B, C, h, w) contiguous, float32 (dtype 0) or bfloat16 (1).
+// Outputs: lse_s, lse_t (B, H, W) float32, the per-pixel log-sum-exp of
+// z / tau for each map; kl_sum (1) float32. Scratch: part, one float for
+// each of the ceil(H*W / 256) * B blocks.
+extern "C" int pixel_kl_fwd(const void* xs, const void* xt, int B, int C,
+                            int h, int w, int H, int W, float tau, int dtype,
+                            float* lse_s, float* lse_t, float* part,
+                            float* kl_sum, void* stream) {
+  if (bad_shape(B, C, h, w, H, W, tau)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_fwd<float>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t, part,
+                      kl_sum, s);
+  } else if (dtype == 1) {
+    launch_fwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t,
+                              part, kl_sum, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lse_s, lse_t: the forward's; gbar: kl_sum's incoming gradient, float32 (1)
+// on the device. dxs: (B, C, h, w) in the maps' dtype, every element
+// written.
+extern "C" int pixel_kl_bwd(const void* xs, const void* xt, int B, int C,
+                            int h, int w, int H, int W, float tau, int dtype,
+                            const float* lse_s, const float* lse_t,
+                            const float* gbar, void* dxs, void* stream) {
+  if (bad_shape(B, C, h, w, H, W, tau) ||
+      static_cast<long long>(B) * C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_bwd<float>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t, gbar, dxs,
+                      s);
+  } else if (dtype == 1) {
+    launch_bwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t,
+                              gbar, dxs, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

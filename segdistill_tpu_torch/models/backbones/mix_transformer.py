@@ -10,7 +10,8 @@ memory, so the head reads them as NHWC without a copy.
 
 Knobs carried from the JAX config: ``gelu_approximate`` (tanh GELU, the JAX
 default; the reference uses erf), ``fused_attention`` (route SRA attention
-through the hand-written kernel, per stage; forward only), ``drop_path_rate``
+through the hand-written kernels, per stage: ``True`` forward only, ``'train'``
+with its backward), ``drop_path_rate``
 and ``dtype``, the compute type: parameters stay float32 and each layer casts
 them to its input's dtype, as flax layers with ``dtype`` do. ``dwconv_backend``
 and ``ln_stats`` choose TPU lowerings and are accepted and ignored.
@@ -27,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.sra_attn import fused_sra_attention
+from ...ops.sra_attn import fused_sra_attention, sra_attention_train
 from ..builder import BACKBONES
 from ..utils import DropPath, Dropout, tap
 
@@ -104,13 +105,15 @@ class Attention(nn.Module):
     """Spatial-reduction attention (ref :63-133).
 
     ``fused_attention`` truthy and ``attn_drop == 0`` route the
-    softmax(q k^T) v core through :func:`fused_sra_attention` (kernel K2),
-    which has no backward yet: its output carries no gradient to q, k and
-    v. So with either ``True`` (the JAX forward-only kernel, for frozen
-    teachers) or ``'train'`` it runs where no gradient is needed (under
-    ``torch.no_grad()``, or with frozen weights) and raises otherwise.
-    ``token_stride`` is the stage's cumulative stride, for the error on a
-    token grid too small for the spatial reduction.
+    softmax(q k^T) v core through the hand-written kernels, as the JAX
+    package does: ``'train'`` through :func:`sra_attention_train` (K2 with
+    its backward K9), which carries gradients to q, k and v; ``True``
+    through :func:`fused_sra_attention`, the forward-only K2 (the JAX
+    kernel for frozen teachers), which runs where no gradient is needed
+    (under ``torch.no_grad()``, or with frozen weights) and raises
+    otherwise. Neither sows the ``ATTN`` tap. ``token_stride`` is the
+    stage's cumulative stride, for the error on a token grid too small for
+    the spatial reduction.
     """
 
     def __init__(self, dim, num_heads=8, qkv_bias=False, qk_scale=None,
@@ -155,15 +158,17 @@ class Attention(nn.Module):
             x_ = x
         kv = self.kv(x_).reshape(B, -1, 2, nh, hd).permute(2, 0, 3, 1, 4)
         k, v = tap(self, 'K', kv[0]), tap(self, 'V', kv[1])
-        if self.fused_attention and self.attn_drop.p == 0.0:
+        if self.fused_attention == 'train' and self.attn_drop.p == 0.0:
+            out = sra_attention_train(q, k, v, self.scale)
+        elif self.fused_attention and self.attn_drop.p == 0.0:
             if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad):
                 raise NotImplementedError(
-                    'fused_attention runs the forward-only SRA kernel: the '
-                    'SRA backward kernel is not ported yet, so q, k and v '
-                    'would get no gradient. Run it under torch.no_grad() or '
-                    'with frozen weights, or set fused_attention=False to '
-                    'train')
+                    'fused_attention=True runs the forward-only SRA kernel, '
+                    'which has no backward: q, k and v would get no '
+                    'gradient. Run it under torch.no_grad() or with frozen '
+                    "weights, or set fused_attention='train' to train "
+                    'through the kernel with its backward')
             out = fused_sra_attention(q, k, v, self.scale)
         else:
             attn = tap(self, 'ATTN',

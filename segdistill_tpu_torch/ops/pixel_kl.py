@@ -1,0 +1,126 @@
+"""K7/K8: the pixel-wise distillation (PD) loss, forward and backward.
+
+Replaces ``segdistill_tpu/ops/pallas/pixel_kl.py::fused_pixel_kl`` (the
+Pallas calls at ``pixel_kl.py:169``, forward, and ``:200``, backward). The
+kernels are ``csrc/pixel_kl.cu``: K7 takes one output pixel per thread
+through an online softmax of both maps over the channels' bilinear taps and
+keeps each map's per-pixel log-sum-exp; K8 gathers each source element's
+gradient from the pixels that read it. The upsampled maps never reach
+memory, and any output size works: the TPU integer-ratio gate is not
+carried over.
+
+:func:`fused_pixel_kl` is a ``torch.autograd.Function`` on every device: on
+a CPU tensor the forward is :func:`pixel_kl_plain` and the backward its
+autograd gradient; on a CUDA tensor the forward launches K7 and the backward
+K8, or they raise. The teacher gets no gradient.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .cuda_kernel import CudaKernel, check_cuda_inputs
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_THREADS = 256  # kThreads in csrc/common.cuh: one pixel per thread
+
+FWD_KERNEL = CudaKernel(
+    'pixel_kl_fwd', 'pixel_kl_fwd', source='pixel_kl',
+    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    replaces='segdistill_tpu/ops/pallas/pixel_kl.py:169')
+BWD_KERNEL = CudaKernel(
+    'pixel_kl_bwd', 'pixel_kl_bwd', source='pixel_kl',
+    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    replaces='segdistill_tpu/ops/pallas/pixel_kl.py:200')
+
+
+def pixel_kl_plain(xs, xt, out_hw, tau):
+    """The plain version: fp32 ``F.interpolate`` of both maps to
+    ``out_hw`` and ``KL(softmax(xt/tau) || softmax(xs/tau))`` over the
+    channels at every pixel, summed over all B*H*W pixels (no ignore
+    mask). Differentiable."""
+    xs = F.interpolate(xs.float(), size=tuple(out_hw), mode='bilinear',
+                       align_corners=False)
+    xt = F.interpolate(xt.float(), size=tuple(out_hw), mode='bilinear',
+                       align_corners=False)
+    log_s = F.log_softmax(xs / tau, dim=1)
+    p_t = F.softmax(xt / tau, dim=1)
+    return (torch.xlogy(p_t, p_t) - p_t * log_s).sum()
+
+
+def _launch_fwd(xs, xt, out_hw, tau):
+    dtype_code = check_cuda_inputs('fused_pixel_kl', (xs, xt))
+    B, C, h, w = xs.shape
+    H, W = out_hw
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    lse = torch.empty((2, B, H, W), **f32)
+    part = torch.empty(B * (-(-H * W // _THREADS)), **f32)
+    kl = torch.empty((), **f32)
+    FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w, H,
+                      W, tau, dtype_code, lse[0].data_ptr(),
+                      lse[1].data_ptr(), part.data_ptr(), kl.data_ptr())
+    return kl, lse
+
+
+def _launch_bwd(xs, xt, out_hw, tau, lse, gbar):
+    dtype_code = check_cuda_inputs('fused_pixel_kl', (xs, xt))
+    B, C, h, w = xs.shape
+    H, W = out_hw
+    dxs = torch.empty_like(xs)
+    gbar = gbar.detach().to(torch.float32).contiguous()
+    BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w, H,
+                      W, tau, dtype_code, lse[0].data_ptr(),
+                      lse[1].data_ptr(), gbar.data_ptr(), dxs.data_ptr())
+    return dxs
+
+
+class _PixelKL(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xs, xt, out_hw, tau):
+        ctx.cfg = (out_hw, tau)
+        if xs.device.type == 'cpu':
+            ctx.save_for_backward(xs, xt)
+            return pixel_kl_plain(xs, xt, out_hw, tau)
+        kl, lse = _launch_fwd(xs, xt, out_hw, tau)
+        ctx.save_for_backward(xs, xt, lse)
+        return kl
+
+    @staticmethod
+    def backward(ctx, gbar):
+        out_hw, tau = ctx.cfg
+        if ctx.saved_tensors[0].device.type == 'cpu':
+            xs, xt = ctx.saved_tensors
+            with torch.enable_grad():
+                a = xs.detach().requires_grad_()
+                (dxs,) = torch.autograd.grad(
+                    pixel_kl_plain(a, xt, out_hw, tau), a, gbar)
+        else:
+            xs, xt, lse = ctx.saved_tensors
+            dxs = _launch_bwd(xs, xt, out_hw, tau, lse, gbar)
+        return dxs, None, None, None
+
+
+def fused_pixel_kl(xs, xt, out_hw, tau):
+    """Sum over the B*H*W pixels of the per-pixel channel-softmax
+    KL(teacher || student) at ``out_hw``: a 0-d fp32 loss; the 'pixel'
+    transform divides it by B*H*W. xs, xt: (B, C, h, w) NCHW in float32
+    or bfloat16; only ``xs`` gets a gradient."""
+    if xs.ndim != 4 or xs.shape != xt.shape:
+        raise ValueError(f'fused_pixel_kl takes two (B, C, h, w) maps of one '
+                         f'shape, got {tuple(xs.shape)} and '
+                         f'{tuple(xt.shape)}')
+    H, W = (int(s) for s in out_hw)
+    if H < 1 or W < 1 or not tau > 0:
+        raise ValueError(f'bad output size {out_hw} or tau {tau}')
+    xt = xt.detach()
+    if xs.device.type == 'cuda':
+        if xs.dtype != xt.dtype:  # exact: both upcast, as the kernel would
+            xs, xt = xs.float(), xt.float()
+        xs, xt = xs.contiguous(), xt.contiguous()
+    elif xs.device.type != 'cpu':
+        raise ValueError(f'fused_pixel_kl: unsupported device {xs.device}')
+    return _PixelKL.apply(xs, xt, (H, W), float(tau))

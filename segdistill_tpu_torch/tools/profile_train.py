@@ -1,19 +1,30 @@
-"""Where one CGD distillation train step spends its time on a CUDA device:
-MiT-B0 student, frozen MiT-B3 teacher, bf16 backbones, batch 8 at 512x512
-(``configs/exp_tab5/segformer_CGD.py``, random weights from seed 0):
+"""Where one distillation train step spends its time on a CUDA device: by
+default the CGD step of ``configs/exp_tab5/segformer_CGD.py`` (MiT-B0
+student, frozen MiT-B3 teacher), bf16 backbones, batch 8 at 512x512,
+random weights from seed 0, checkpoint paths cleared:
 
     python -m segdistill_tpu_torch.tools.profile_train [--steps 5]
+        [--config configs/exp_tab5/segformer_PD.py]
+        [--cfg-options model.cfg_s.backbone.fused_attention=train ...]
+        [--ab model.cfg_s.backbone.fused_attention=False --pairs 5]
 
 1. The step's phases by CUDA events, ms per step: student forward with
-   the head CE, teacher forward, CGD loss, backward, AdamW.
+   the head CE, teacher forward, distillation loss, backward, AdamW.
 2. ``torch.profiler`` over ``--steps`` steps: wall and device-busy ms per
    step, kernels per step, device time by kernel family, and the kernels
    that take the most device time.
+3. With ``--ab OPTION=VALUE``: the model with that option added (the same
+   weights) against the model without it: the profile of 2. for the
+   second arm, then ``--pairs`` rounds of ``--steps`` timed steps each, in
+   the order A B B A: ms per step of each round on the host clock, and
+   each arm's median and peak memory.
 
-The first line is the card's name and power limit.
+``--cfg-options`` values are Python literals (``None``, ``False``, 1.5) or
+else strings. The first line is the card's name and power limit.
 """
 
 import argparse
+import ast
 import re
 import subprocess
 import time
@@ -29,6 +40,7 @@ from ..models.segmentors import parse_losses
 
 CONFIG = Path(__file__).resolve().parents[2] / 'configs' / 'exp_tab5' / \
     'segformer_CGD.py'
+# the configs' checkpoints are not in the repository; bf16 backbones
 OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
            'model.cfg_s.pretrained': None,
            'model.cfg_s.backbone.dtype': 'bfloat16',
@@ -38,9 +50,11 @@ BATCH = 8
 FAMILIES = [
     ('K3/K4 group_kl', r'gkl_'),
     ('K5/K6 seg_ce', r'ce_(fwd|bwd|finalize)'),
+    ('K7/K8 pixel_kl', r'pkl_'),
     ('K1 resize_sum', r'resize_sum_kernel'),
+    ('K9 sra_attn_bwd', r'sra_bwd_'),
     ('K2 sra_attn', r'sra_attn'),
-    ('GEMM', r'gemm|xmma|cutlass|sm90_|ampere_|matmul'),
+    ('GEMM', r'gemm|xmma|cutlass|sm90_|ampere_|matmul|nvjet'),
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),
     ('layer/batch norm', r'layer_norm|batch_norm|LayerNorm|BatchNorm|welford'),
     ('softmax', r'softmax'),
@@ -63,8 +77,8 @@ def phase_times(model, optimizer, img, gt, steps):
     """Mean ms per step between CUDA events recorded at the phase edges
     (device time from the first kernel of a phase to its last, idle gaps
     included)."""
-    names = ['student forward + head CE', 'teacher forward', 'CGD loss',
-             'backward', 'AdamW']
+    names = ['student forward + head CE', 'teacher forward',
+             'distillation loss', 'backward', 'AdamW']
     rows = []
     for step in range(1, steps + 1):
         gen = torch.Generator(device=img.device).manual_seed(
@@ -129,17 +143,59 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
               f'{name[:90]}')
 
 
+def _timed_ms(state, train_step, img, gt, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train_step(state, img, gt)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def ab_steps(arms, img, gt, steps, pairs):
+    """``pairs`` rounds of A B B A, ``steps`` timed steps each: prints each
+    round's ms per step, each arm's median and its peak memory."""
+    ms = {tag: [] for tag in arms}
+    peak = dict.fromkeys(arms, 0)
+    (a, arm_a), (b, arm_b) = arms.items()
+    for _ in range(pairs):
+        for tag, arm in ((a, arm_a), (b, arm_b), (b, arm_b), (a, arm_a)):
+            torch.cuda.reset_peak_memory_stats()
+            ms[tag].append(_timed_ms(*arm, img, gt, steps))
+            peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
+    for tag, values in ms.items():
+        print(f'  {tag}: median {np.median(values):.3f} ms/step, '
+              f'{BATCH * 1e3 / np.median(values):.2f} images/s, peak '
+              f'memory {peak[tag] / 2**30:.2f} GiB; rounds '
+              + ' '.join(f'{v:.3f}' for v in values))
+
+
+def _option(text):
+    key, _, value = text.partition('=')
+    try:
+        return key, ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return key, value
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=5)
+    parser.add_argument('--config', default=str(CONFIG))
+    parser.add_argument('--cfg-options', nargs='*', default=[],
+                        metavar='KEY=VALUE')
+    parser.add_argument('--ab', metavar='KEY=VALUE')
+    parser.add_argument('--pairs', type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_train needs a CUDA device')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    model = init_segmentor_state(str(CONFIG), seed=0, device='cuda',
-                                 cfg_options=OPTIONS)
+    options = dict(OPTIONS, **dict(map(_option, args.cfg_options)))
+    print(f'{args.config} {options}')
+    model = init_segmentor_state(args.config, seed=0, device='cuda',
+                                 cfg_options=options)
     state, train_step = prepare_training(model)
     gen = torch.Generator(device='cuda').manual_seed(0)
     img = torch.randn(BATCH, 3, 512, 512, device='cuda', generator=gen)
@@ -153,6 +209,22 @@ def main():
     phase_times(model, state.optimizer, img, gt, args.steps)
     print(f'== 2. torch.profiler over {args.steps} train steps')
     profile_steps(state, train_step, img, gt, args.steps)
+    if args.ab:
+        key, value = _option(args.ab)
+        other = init_segmentor_state(args.config, seed=0, device='cuda',
+                                     cfg_options=dict(options, **{key: value}))
+        other.load_state_dict(model.state_dict())
+        other_state, other_step = prepare_training(other)
+        for _ in range(3):
+            other_step(other_state, img, gt)
+        print(f'== 3. with {key}={value!r}: torch.profiler over '
+              f'{args.steps} train steps')
+        profile_steps(other_state, other_step, img, gt, args.steps, top=8)
+        print(f'   A/B, {args.pairs} rounds of A B B A, {args.steps} steps '
+              f'each (host clock)')
+        ab_steps({'as configured': (state, train_step),
+                  f'with {key}={value!r}': (other_state, other_step)},
+                 img, gt, args.steps, args.pairs)
 
 
 if __name__ == '__main__':

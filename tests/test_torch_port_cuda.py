@@ -20,15 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from segdistill_tpu_torch.ops import group_kl, resize_sum, seg_ce, sra_attn
+from segdistill_tpu_torch.ops import (group_kl, pixel_kl, resize_sum, seg_ce,
+                                      sra_attn)
 from segdistill_tpu_torch.ops.group_kl import (fused_group_kl,
                                                fused_group_kl_shuffled,
                                                group_kl_plain)
+from segdistill_tpu_torch.ops.pixel_kl import fused_pixel_kl, pixel_kl_plain
 from segdistill_tpu_torch.ops.resize_sum import (fused_resize_sum,
                                                  resize_sum_plain)
 from segdistill_tpu_torch.ops.seg_ce import fused_seg_ce, seg_ce_plain
 from segdistill_tpu_torch.ops.sra_attn import (fused_sra_attention,
-                                               sra_attention_plain)
+                                               sra_attention_plain,
+                                               sra_attention_train)
 
 pytestmark = pytest.mark.cuda
 
@@ -42,9 +45,11 @@ def cuda():
     return torch.device('cuda')
 
 
-def _close(got, want32):
+def _close(got, want32, dtype=None):
+    """``got``, computed in ``dtype`` (by default its own), against the
+    plain version in fp32."""
     diff = (got.float() - want32).abs()
-    if got.dtype == torch.float32:
+    if (dtype or got.dtype) == torch.float32:
         assert diff.max().item() <= 2e-5, diff.max().item()
     else:
         tol = 2.0 ** -8 * want32.abs() \
@@ -197,6 +202,56 @@ def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored):
     _close(dz, dwant)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,out_hw', [
+    ((2, 7, 8, 8), (16, 16)),
+    ((2, 150, 30, 40), (125, 161)),             # non-integer ratio
+    ((1, 150, 32, 32), (32, 32)),               # ratio 1
+    ((2, 6, 9, 9), (4, 5)),                     # a downsample
+])
+def test_pixel_kl_kernels(cuda, dtype, shape, out_hw):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xs, xt = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
+              for _ in range(2))
+    a = xs.float().requires_grad_()
+    want = pixel_kl_plain(a, xt.float(), out_hw, 1.0)
+    dwant, gbar = _scaled(want, a)
+    k = xs.clone().requires_grad_()
+    loss = fused_pixel_kl(k, xt, out_hw, 1.0)
+    (dxs,) = torch.autograd.grad(loss, k, gbar)
+    torch.cuda.synchronize()
+    assert loss.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    assert dxs.dtype == dtype
+    _close(dxs, dwant)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,h,n,m,d', [
+    (2, 1, 4096, 256, 32), (1, 2, 1000, 100, 32), (2, 5, 1024, 49, 32),
+    (1, 2, 300, 70, 64), (1, 1, 130, 17, 128)])
+def test_sra_attention_train_kernels(cuda, dtype, b, h, n, m, d):
+    """K2 keeping the row log-sum-exp and K9 on strided head views, with a
+    dO that is the transposed view the model's backward hands over: the
+    output and dq, dk, dv, each with its plain version divided by the plain
+    one's max |value|."""
+    rng = np.random.RandomState(3)
+    q = _head_split(rng, b, n, h, d, 1, cuda, dtype)[0].requires_grad_()
+    k, v = (t.requires_grad_()
+            for t in _head_split(rng, b, m, h, d, 2, cuda, dtype))
+    g = _head_split(rng, b, n, h, d, 1, cuda, dtype)[0]
+    out = sra_attention_train(q, k, v, d ** -0.5)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want_out = sra_attention_plain(*ref, d ** -0.5)
+    want = torch.autograd.grad(want_out, ref, g.float())
+    _close(out, want_out.detach())
+    for t, a, w in zip((q, k, v), got, want):
+        assert a.shape == t.shape and a.dtype == dtype
+        peak = w.abs().max()
+        _close(a.float() / peak, w / peak, dtype)
+
+
 def _small_segformer(**backbone):
     from segdistill_tpu.zoo import segformer
     from segdistill_tpu_torch.models import build_segmentor
@@ -240,6 +295,25 @@ def test_fused_attention_refuses_gradients_on_the_card(cuda):
         assert model(x).shape == (1, 19, 16, 16)
 
 
+def test_fused_attention_train_gradients_on_the_card(cuda):
+    """``fused_attention='train'`` on the card (K2 + K9) against the
+    unfused model on the CPU, same weights, eval-mode BN: the backbone's
+    gradients, relative L2 over all of them (some true gradients are 0,
+    the key half of each kv bias, and hold float noise)."""
+    model = _small_segformer(fused_attention='train')
+    unfused = _small_segformer()
+    x = torch.randn(2, 3, 96, 128, generator=torch.Generator().manual_seed(1))
+    w = torch.randn(2, 19, 24, 32, generator=torch.Generator().manual_seed(2))
+    grads = []
+    for m, dev in ((unfused, 'cpu'), (model.to(cuda), cuda)):
+        m.eval().zero_grad(set_to_none=True)
+        (m(x.to(dev)) * w.to(dev)).sum().backward()
+        grads.append(torch.cat([p.grad.flatten().cpu() for p in
+                                m.backbone.parameters()]))
+    want, got = grads
+    assert ((got - want).norm() / want.norm()).item() <= 1e-5
+
+
 def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
     """On CUDA tensors every wrapper launches its kernel, forward and
     backward: the plain versions are never called."""
@@ -248,10 +322,12 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
     for mod, name in ((group_kl, 'group_kl_plain'),
                       (seg_ce, 'seg_ce_plain'),
                       (resize_sum, 'resize_sum_plain'),
-                      (sra_attn, 'sra_attention_plain')):
+                      (sra_attn, 'sra_attention_plain'),
+                      (pixel_kl, 'pixel_kl_plain')):
         monkeypatch.setattr(mod, name, refuse)
     kernels = (group_kl.FWD_KERNEL, group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL,
-               seg_ce.BWD_KERNEL, resize_sum.KERNEL)
+               seg_ce.BWD_KERNEL, resize_sum.KERNEL, pixel_kl.FWD_KERNEL,
+               pixel_kl.BWD_KERNEL, sra_attn.KERNEL, sra_attn.BWD_KERNEL)
     before = [k.launches for k in kernels]
     xs = torch.randn(1, 12, 8, 8, device=cuda, requires_grad=True)
     group_kl.fused_group_kl(xs, torch.randn_like(xs), (16, 16), 5,
@@ -260,7 +336,12 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
     labels = torch.randint(0, 12, (1, 16, 16), device=cuda)
     seg_ce.fused_seg_ce(z, labels, (16, 16), 12)[0].backward()
     fused_resize_sum([torch.randn(1, 4, 4, 8, device=cuda)], (8, 8))
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 5
+    xs = torch.randn(1, 12, 8, 8, device=cuda, requires_grad=True)
+    fused_pixel_kl(xs, torch.randn_like(xs), (16, 16), 1.0).backward()
+    q, k, v = (torch.randn(1, 2, 40, 16, device=cuda, requires_grad=True)
+               for _ in range(3))
+    sra_attention_train(q, k, v, 0.25).sum().backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 9
 
 
 def test_train_step_cuda_matches_cpu(cuda):
@@ -294,6 +375,43 @@ def test_train_step_cuda_matches_cpu(cuda):
     (lc, gc), (lg, gg) = out['cpu'], out['cuda']
     # fp32 losses that are a log-sum-exp over ~10^5 values carry an
     # absolute error of ~1e-6; the untrained pair's KL is ~1e-3
+    for k in lc:
+        assert lg[k] == pytest.approx(lc[k], rel=1e-5, abs=1e-5), k
+    assert ((gg - gc).norm() / gc.norm()).item() <= 1e-4
+
+
+def test_pd_train_step_cuda_matches_cpu(cuda):
+    """One fp32 PD step of a small SDModule, the student's attention with
+    ``fused_attention='train'``, on the card (K1, K2, K5-K9) against the
+    same model on the CPU (plain versions): the loss terms and the
+    student's gradients."""
+    from segdistill_tpu.zoo import distill_entry, sd_model, segformer
+    from segdistill_tpu_torch.models import build_segmentor
+    from segdistill_tpu_torch.models.segmentors import parse_losses
+    cfgs = [segformer('b0', num_classes=19, embed_dim=64) for _ in range(2)]
+    for cfg in cfgs:
+        cfg['backbone']['drop_path_rate'] = 0.0
+        cfg['decode_head']['dropout_ratio'] = 0.0
+    cfgs[0]['backbone']['fused_attention'] = 'train'
+    model = build_segmentor(sd_model(*cfgs, [distill_entry('PDLoss')],
+                                     t_pretrain=None))
+    model.init_weights(torch.Generator().manual_seed(0))
+    img = torch.randn(2, 3, 96, 128, generator=torch.Generator().manual_seed(1))
+    gt = torch.randint(0, 19, (2, 96, 128),
+                       generator=torch.Generator().manual_seed(2))
+    launches = sra_attn.BWD_KERNEL.launches
+    out = {}
+    for dev in ('cpu', cuda):
+        m = model.to(dev).train()
+        m.zero_grad(set_to_none=True)
+        total, log_vars = parse_losses(m.forward_train(img.to(dev),
+                                                       gt.to(dev), 1))
+        total.backward()
+        out[str(dev)] = ({k: v.item() for k, v in log_vars.items()},
+                         torch.cat([p.grad.flatten().cpu() for p in
+                                    m.student.parameters()]))
+    assert sra_attn.BWD_KERNEL.launches == launches + 8  # 8 MiT blocks
+    (lc, gc), (lg, gg) = out['cpu'], out['cuda']
     for k in lc:
         assert lg[k] == pytest.approx(lc[k], rel=1e-5, abs=1e-5), k
     assert ((gg - gc).norm() / gc.norm()).item() <= 1e-4

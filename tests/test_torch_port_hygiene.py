@@ -64,6 +64,32 @@ print('clean')
     assert 'clean' in res.stdout
 
 
+def test_pd_train_path_imports_no_jax():
+    """Build the shipped PD config (B0 student, B3 teacher) with its
+    checkpoint paths cleared and the student's SRA attention through the
+    differentiable kernel path, take one train step on the CPU, then check
+    which frameworks were loaded."""
+    res = _run('''
+import sys
+import torch
+from segdistill_tpu_torch.apis import init_segmentor_state, prepare_training
+model = init_segmentor_state(
+    'configs/exp_tab5/segformer_PD.py', device='cpu',
+    cfg_options={'model.t_pretrain': None, 'model.cfg_s.pretrained': None,
+                 'model.cfg_s.backbone.fused_attention': 'train'})
+state, train_step = prepare_training(model)
+log_vars = train_step(state, torch.randn(1, 3, 64, 64),
+                      torch.randint(0, 150, (1, 64, 64)))
+key = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'
+assert state.step == 1 and torch.isfinite(log_vars[key]), log_vars
+bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]
+assert not bad, bad
+print('clean')
+''')
+    assert res.returncode == 0, res.stderr
+    assert 'clean' in res.stdout
+
+
 def test_no_jax_import_in_sources():
     pattern = re.compile(r'^\s*(import|from)\s+(jax|flax)\b', re.M)
     offenders = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')
@@ -82,11 +108,12 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, CUDA_HOME=str(tmp_path / 'no-cuda'),
                PATH=str(tmp_path))
     res = _run('''
-from segdistill_tpu_torch.ops import (cuda_kernel, group_kl, resize_sum,
-                                      seg_ce, sra_attn)
+from segdistill_tpu_torch.ops import (cuda_kernel, group_kl, pixel_kl,
+                                      resize_sum, seg_ce, sra_attn)
 existed = cuda_kernel.BUILD_DIR.exists()
 for k in (resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
-          group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL):
+          group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
+          pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL):
     assert not k.loaded and k.launches == 0
     try:
         k.function()
@@ -97,7 +124,7 @@ for k in (resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
 assert cuda_kernel.BUILD_DIR.exists() == existed
 ''', env=env)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count('refused:') == 6
+    assert res.stdout.count('refused:') == 9
 
 
 @pytest.mark.parametrize('alone', [False, True], ids=['repo', 'alone'])

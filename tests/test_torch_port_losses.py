@@ -281,10 +281,14 @@ def test_shuffle_draws_only_on_interval_steps():
 
 @pytest.mark.parametrize('name', ['PDLoss', 'ATLoss', 'IFVDLoss'])
 def test_unported_losses_raise_with_the_registry(name):
-    with pytest.raises(KeyError, match='registered'):
-        DistillationLoss([dict(student_layer='decode_head.linear_pred',
-                               teacher_layer='decode_head.linear_pred',
-                               loss_name=name, loss_config={})])
+    """An unknown loss name raises with the registry, which now lists
+    ``name``; ``name`` itself builds."""
+    entry = dict(student_layer='decode_head.linear_pred',
+                 teacher_layer='decode_head.linear_pred', loss_config={})
+    with pytest.raises(KeyError, match=f'registered: .*{name!r}'):
+        DistillationLoss([dict(entry, loss_name=name + 'Typo')])
+    loss = DistillationLoss([dict(entry, loss_name=name)])
+    assert type(loss.entries[0]['criterion']) is DISTILL_LOSSES[name]
 
 
 # ------------------------------------------------------------ head losses

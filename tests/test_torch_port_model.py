@@ -192,12 +192,22 @@ def test_kernels_are_on_the_path(pair, monkeypatch):
 
 
 def test_train_mode_attention_needs_no_grad(jax_side):
-    port = _port(jax_side[1], fused_attention='train')
+    """``fused_attention='train'`` needs no ``no_grad``: it carries
+    gradients (K2 + K9; their plain versions here) and gives the unfused
+    model's output; the forward-only ``True`` still raises outside
+    ``no_grad``."""
     xt = _img(8)[1]
+    forward_only = _port(jax_side[1], fused_attention=True)
     with pytest.raises(NotImplementedError, match='backward'):
-        port(xt)
+        forward_only(xt)
+    port = _port(jax_side[1], fused_attention='train')
+    unfused = _port(jax_side[1])
+    out = port(xt)
+    assert out.shape == (2, 19, 16, 24) and out.requires_grad
     with torch.no_grad():
-        assert port(xt).shape == (2, 19, 16, 24)
+        want = unfused(xt)
+    np.testing.assert_allclose(out.detach().numpy(), want.numpy(),
+                               rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize('gelu_approximate', [True, False])

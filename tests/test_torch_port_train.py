@@ -393,19 +393,18 @@ def test_missing_checkpoints_raise(tmp_path):
 # ------------------------------------------------------------- repairs
 
 def test_fused_attention_refuses_gradients(jax_sd):
-    """K2 has no backward: with fused_attention (True or 'train') and
-    weights that need gradients it raises rather than cutting them; under
-    no_grad, and in a frozen teacher, it still runs."""
+    """``fused_attention=True`` is the forward-only K2 (the JAX kernel has
+    no VJP): with weights that need gradients it raises rather than cutting
+    them; under no_grad, and in a frozen teacher, it still runs."""
     _, sv, _, _, _ = jax_sd
     img, gt = _port_batch(jax_sd)
-    for fa in (True, 'train'):
-        model = build_segmentor(segformer_cfg(fused_attention=fa,
-                                              dropout_ratio=0.0))
-        model.load_state_dict(state_dict_from_jax(sv))
-        with pytest.raises(NotImplementedError, match='backward'):
-            model.train().forward_train(img, gt)
-        with torch.no_grad():
-            assert model(img).shape == (2, NUM_CLASSES, 16, 16)
+    model = build_segmentor(segformer_cfg(fused_attention=True,
+                                          dropout_ratio=0.0))
+    model.load_state_dict(state_dict_from_jax(sv))
+    with pytest.raises(NotImplementedError, match='backward'):
+        model.train().forward_train(img, gt)
+    with torch.no_grad():
+        assert model(img).shape == (2, NUM_CLASSES, 16, 16)
     plain = _port_sd(jax_sd)
     fused = _port_sd(jax_sd, teacher_fused_attention=True)
     perm = torch.arange(NUM_CLASSES)
@@ -413,6 +412,33 @@ def test_fused_attention_refuses_gradients(jax_sd):
     got = fused.forward_train(img, gt, 1, perm=perm)
     for k in want:
         _close(got[k].item(), want[k].item(), k)
+
+
+def test_fused_attention_train_carries_gradients(jax_sd):
+    """``fused_attention='train'`` (K2 with its backward K9; their plain
+    versions here) gives the unfused model's losses and gradients on the
+    same weights, per stage as well as for all four."""
+    _, sv, _, _, _ = jax_sd
+    img, gt = _port_batch(jax_sd)
+    grads = {}
+    for fa in (False, 'train', [False, 'train', 'train', False]):
+        model = build_segmentor(segformer_cfg(fused_attention=fa,
+                                              dropout_ratio=0.0))
+        model.load_state_dict(state_dict_from_jax(sv))
+        total, _ = parse_losses(model.train().forward_train(img, gt)[0])
+        total.backward()
+        grads[str(fa)] = (total.item(), {n: p.grad for n, p in
+                                         model.named_parameters()})
+    want_loss, want = grads['False']
+    scale = max(float(g.abs().max()) for g in want.values())
+    for fa in ('train', "[False, 'train', 'train', False]"):
+        loss, got = grads[fa]
+        assert loss == pytest.approx(want_loss, rel=1e-6), fa
+        for name, g in want.items():
+            assert got[name] is not None, (fa, name)
+            np.testing.assert_allclose(got[name].numpy(), g.numpy(),
+                                       rtol=RTOL, atol=ATOL * scale,
+                                       err_msg=f'{fa} {name}')
 
 
 def test_bf16_compute_keeps_fp32_parameters(jax_sd):
