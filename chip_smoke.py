@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's serving, training and command-line paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,10 @@ per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
 group-KL forward and backward, (6) K5/K6 seg-CE forward and backward, (7)
 K7/K8 pixel-KL forward and backward and (8) K9, the SRA backward, with K2
 keeping the row log-sum-exp, against their plain PyTorch versions at the
-main paths' shapes, with CUDA-event timings, (9) full-width Segformer-B0
+main paths' shapes, with CUDA-event timings, then K10/K11, the LayerNorm
+forward and backward of every MiT LayerNorm, at the B0 and B3 widths
+against their plain version and beside ``F.layer_norm``, (9) full-width
+Segformer-B0
 (ADE20K, 150 classes, random weights from seed 0) serving seeded requests
 through ``inference_segmentor`` in whole mode, again with
 ``fused_attention=True``, and slide mode at 1024x2048; the fp32 GPU logits
@@ -21,13 +24,22 @@ images/s and peak memory, (11) one fp32 train step of the same model at
 batch 2 against a copy on the CPU (loss terms and student gradients), and
 (12, 13) the same two for the PD train step of
 ``configs/exp_tab5/segformer_PD.py`` with the student's
-``fused_attention='train'``. The launch count of each kernel is read over
-each main path (9, 10 and 12).
+``fused_attention='train'``, and (14) the command-line path: a seeded
+dataset of ``.npy`` files is written to a temporary directory,
+``segdistill_tpu_torch.tools.train`` trains the full-width CGD config on it
+for 12 iterations through the real training pipeline (512x512 crops, batch
+8, bf16 backbones) with checkpoints and evaluations at 6 and 12, a second
+run resumes from the iteration-6 checkpoint to the same losses (and a
+resume that takes no step restores that file bitwise), and ``tools.test``
+reproduces the last evaluation's mIoU. The launch count of
+each kernel is read over each main path (9, 10, 12 and 14).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
-a JSON object with one entry per kernel; the last line is
-``{"ok": true, "device": {...}}``.
+a JSON object with one entry per kernel (its time at its main path's
+shape beside the plain version's, the least time the card could take for
+that work, and a PyTorch library call's where one computes the same
+function); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -35,6 +47,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +67,11 @@ BF16_BACKBONES = {'model.cfg_s.backbone.dtype': 'bfloat16',
                   'model.cfg_t.backbone.dtype': 'bfloat16'}
 NUM_CLASSES = 150
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+# the command-line phase: dataset size, iterations, and where it saves and
+# evaluates
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES = 32, 8
+CLI_ITERS, CLI_INTERVAL = 12, 6
+CLI_IMAGE_HW = [(512, 683), (683, 512), (480, 640), (512, 512)]
 DEVICE = 'cuda'
 REQUEST_HW = [(512, 512), (512, 683), (480, 640), (1024, 2048)]
 
@@ -100,6 +118,24 @@ CE_INIT_TOL = 0.05
 TRAIN_LOSS_TOL_REL = 1e-6
 TRAIN_LOSS_TOL_ABS = 2.5e-5
 TRAIN_GRAD_TOL_REL_L2 = 1e-3
+# A run resumed from a checkpoint against the uninterrupted one, each
+#   logged loss: the weights, the optimizer state, the batches and every
+#   random draw are the same, so only kernels that sum in an order that
+#   varies from run to run (cuDNN's weight gradients) can tell them apart.
+#   Measured on an H100 over four runs: at most 7e-5 of the loss; another
+#   batch at the same iteration moves the loss by ~1e-2 of it or more (the
+#   smoke prints the nearest pair). These iterations are early in a 1500-step
+#   warmup (lr ~1e-7), where the losses hardly feel the optimizer's moments,
+#   so what a resume restores is also held, bitwise, against the checkpoint
+#   file (``_check_restored``).
+RESUME_TOL_REL = 3e-4
+RESUME_TOL_ABS = 3e-6
+# tools.test against the last evaluation of the training run: the same
+#   weights and images, integer histograms.
+MIOU_TOL = 1e-6
+# The card's published peaks (H100 SXM): memory bytes/s, fp32 FLOP/s
+#   outside the tensor cores, dense bf16 FLOP/s.
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def log(msg):
@@ -197,6 +233,7 @@ def _head_split(b, rows, heads, d, n_maps, rng, dtype):
 
 
 def phase_sra_attn():
+    import torch.nn.functional as F
     from segdistill_tpu_torch.ops.sra_attn import (fused_sra_attention,
                                                    sra_attention_plain)
     from segdistill_tpu_torch.utils.timing import cuda_ms
@@ -223,10 +260,12 @@ def phase_sra_attn():
             err, used = check_close(f'sra_attn {name} {dtype}', got, want)
             ms = cuda_ms(lambda: fused_sra_attention(q, k, v, scale))
             plain_ms = cuda_ms(lambda: sra_attention_plain(q, k, v, scale))
-            results[(name, dtype)] = (err, ms, plain_ms)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+            results[(name, dtype)] = (err, ms, plain_ms, lib_ms)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {err:.3e} '
                 f'(tol used {used:.3f})  kernel {ms:.4f} ms  '
-                f'plain {plain_ms:.4f} ms')
+                f'plain {plain_ms:.4f} ms  library (sdpa) {lib_ms:.4f} ms')
     return results
 
 
@@ -323,6 +362,7 @@ def phase_pixel_kl():
 
 
 def phase_sra_train():
+    import torch.nn.functional as F
     from segdistill_tpu_torch.ops.sra_attn import (sra_attention_plain,
                                                    sra_attention_train)
     from segdistill_tpu_torch.utils.timing import cuda_ms
@@ -368,10 +408,14 @@ def phase_sra_train():
             plain_ms = cuda_ms(lambda: torch.autograd.grad(
                 plain_out, plain_in, g, retain_graph=True))
             fwd_ms = cuda_ms(lambda: sra_attention_train(q, k, v, scale))
-            results[(name, dtype)] = (max(errs), ms, plain_ms)
+            lib_out = F.scaled_dot_product_attention(*plain_in, scale=scale)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, plain_in, g, retain_graph=True))
+            results[(name, dtype)] = (max(errs), ms, plain_ms, lib_ms)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {max(errs):.3e} '
                 f'(gradients use {used:.3f} of the tol)  bwd {ms:.4f} ms  '
-                f'plain bwd {plain_ms:.4f} ms  fwd with lse {fwd_ms:.4f} ms')
+                f'plain bwd {plain_ms:.4f} ms  library (sdpa) bwd '
+                f'{lib_ms:.4f} ms  fwd with lse {fwd_ms:.4f} ms')
     return results
 
 
@@ -429,6 +473,95 @@ def phase_seg_ce():
                 f'max_abs_err {err:.3e} (tol used {used:.3f})  fwd '
                 f'{ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd {bms[0]:.4f} ms '
                 f'plain {bms[1]:.4f} ms')
+    return fwd, bwd
+
+
+# (rows, C) of the MiT LayerNorms at batch 8, 512x512: the B0 student's
+# four stages, three of the B3 teacher's, and a row count no tile divides
+LN_CASES = [('B0 stage1', 8 * 16384, 32), ('B0 stage2', 8 * 4096, 64),
+            ('B0 stage3', 8 * 1024, 160), ('B0 stage4', 8 * 256, 256),
+            ('B3 stage1', 8 * 16384, 64), ('B3 stage3', 8 * 1024, 320),
+            ('B3 stage4', 8 * 256, 512), ('odd rows', 1001, 160)]
+LN_CALLS = 10  # launches per timing: the kernels take microseconds
+
+
+def _ln_check(tag, x, w, b, g, eps):
+    """K10 and K11 on (x, w, b) and the incoming gradient g against the
+    plain version and its autograd in fp32: -> (forward err, backward err),
+    each gradient and its plain version divided by the plain one's max
+    |value|."""
+    from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                     layer_norm_plain)
+    ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
+    want = layer_norm_plain(*ref, eps)
+    dwant = torch.autograd.grad(want, ref, g.float())
+    ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    y = fused_layer_norm(*ins, eps)
+    got = torch.autograd.grad(y, ins, g)
+    torch.cuda.synchronize()
+    if y.dtype != x.dtype or y.shape != x.shape:
+        raise AssertionError(f'{tag}: output is {y.dtype} {tuple(y.shape)}')
+    ferr, fused = check_close(f'{tag} y', y.detach(), want.detach())
+    berr, bused = 0.0, 0.0
+    for name, a, d in zip(('dx', 'dweight', 'dbias'), got, dwant):
+        if a.shape != d.shape or a.dtype != (x.dtype if name == 'dx'
+                                             else torch.float32):
+            raise AssertionError(f'{tag}: {name} is {a.dtype} '
+                                 f'{tuple(a.shape)}')
+        peak = d.abs().max()
+        e, u = check_close(f'{tag} {name}', a.float() / peak, d / peak,
+                           a.dtype)
+        berr, bused = max(berr, e), max(bused, u)
+    return ferr, fused, berr, bused
+
+
+def phase_layer_norm():
+    import torch.nn.functional as F
+    from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                     layer_norm_plain)
+    from segdistill_tpu_torch.utils.timing import cuda_ms
+    log('== K10/K11 layer_norm vs plain (N(0,1) x and dy, weight 1 + 0.1 N, '
+        'bias 0.1 N; each gradient and its plain version divided by the '
+        f"plain one's max |value|; eps 1e-6 and 1e-5; times over {LN_CALLS} "
+        'launches in a row; library = F.layer_norm)')
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    fwd, bwd = {}, {}
+    for name, rows, c in LN_CASES:
+        w = 1 + 0.1 * torch.randn(c, device=DEVICE, generator=gen)
+        b = 0.1 * torch.randn(c, device=DEVICE, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, c, device=DEVICE, generator=gen).to(dtype)
+            g = torch.randn(rows, c, device=DEVICE, generator=gen).to(dtype)
+            errs = [_ln_check(f'layer_norm {name} {dtype} eps {eps}', x, w, b,
+                              g, eps) for eps in (1e-6, 1e-5)]
+            ferr, fused, berr, bused = (max(e[i] for e in errs)
+                                        for i in range(4))
+            eps = 1e-6
+
+            def timed(fn, params):
+                """(forward ms, backward ms) of fn(x, *params, eps)."""
+                f_ms = cuda_ms(lambda: fn(x, *params), calls=LN_CALLS)
+                leaf = x.clone().requires_grad_()
+                ps = [t.clone().requires_grad_() for t in params]
+                y = fn(leaf, *ps)
+                b_ms = cuda_ms(lambda: torch.autograd.grad(
+                    y, [leaf] + ps, g, retain_graph=True), calls=LN_CALLS)
+                return f_ms, b_ms
+
+            k_ms = timed(lambda a, ww, bb: fused_layer_norm(a, ww, bb, eps),
+                         (w, b))
+            p_ms = timed(lambda a, ww, bb: layer_norm_plain(a, ww, bb, eps),
+                         (w, b))
+            # the library call takes its parameters in x's dtype
+            l_ms = timed(lambda a, ww, bb: F.layer_norm(a, (c,), ww, bb, eps),
+                         (w.to(dtype), b.to(dtype)))
+            fwd[(name, dtype)] = (ferr, k_ms[0], p_ms[0], l_ms[0])
+            bwd[(name, dtype)] = (berr, k_ms[1], p_ms[1], l_ms[1])
+            log(f'{name:10s} ({rows}, {c}) {str(dtype):15s} y max_abs_err '
+                f'{ferr:.3e} (tol used {fused:.3f})  gradients {berr:.3e} '
+                f'(tol used {bused:.3f})  fwd {k_ms[0]:.4f} ms plain '
+                f'{p_ms[0]:.4f} library {l_ms[0]:.4f}  bwd {k_ms[1]:.4f} ms '
+                f'plain {p_ms[1]:.4f} library {l_ms[1]:.4f}')
     return fwd, bwd
 
 
@@ -681,6 +814,240 @@ def phase_train_vs_cpu(config, options, tag):
         raise AssertionError('the GPU train step differs from the CPU one')
 
 
+def _write_dataset(root):
+    """A seeded ADE-like dataset of .npy files under ``root``: uint8 BGR
+    images of a few sizes around 512x683, label maps of 0..150 (0 is
+    unlabeled) in blocks of ~64 px, and the 150 class names."""
+    rng = np.random.RandomState(11)
+    for split, n in (('train', CLI_TRAIN_IMAGES), ('val', CLI_VAL_IMAGES)):
+        (root / 'img' / split).mkdir(parents=True)
+        (root / 'ann' / split).mkdir(parents=True)
+        for i in range(n):
+            h, w = CLI_IMAGE_HW[i % len(CLI_IMAGE_HW)]
+            blocks = rng.randint(0, NUM_CLASSES + 1,
+                                 (-(-h // 64), -(-w // 64)))
+            ann = np.kron(blocks, np.ones((64, 64), np.int64))[:h, :w]
+            img = rng.randint(0, 256, (h, w, 3))
+            # a little of the label in the image, so the loss can move
+            img = (img + ann[..., None] * [1, 2, 3]) % 256
+            np.save(root / 'img' / split / f's{i:03d}.npy',
+                    img.astype(np.uint8))
+            np.save(root / 'ann' / split / f's{i:03d}.npy',
+                    ann.astype(np.uint8))
+    (root / 'classes.txt').write_text(
+        '\n'.join(f'class{i}' for i in range(NUM_CLASSES)) + '\n')
+
+
+def _cli_options(root):
+    """The ``--options`` that point the CGD config at the .npy dataset
+    (``CustomDataset`` inside the config's ``RepeatDataset``), clear the
+    checkpoint paths and set the bf16 backbones, the batch and the
+    intervals."""
+    opts = {'model.t_pretrain': None, 'model.s_pretrain': None,
+            'model.cfg_s.pretrained': None,
+            'model.cfg_s.backbone.dtype': 'bfloat16',
+            'model.cfg_t.backbone.dtype': 'bfloat16',
+            'data.samples_per_gpu': TRAIN_BATCH, 'data.workers_per_gpu': 6,
+            'runner.max_iters': CLI_ITERS,
+            'checkpoint_config.interval': CLI_INTERVAL,
+            'checkpoint_config.max_keep_ckpts': 2,
+            'evaluation.interval': CLI_INTERVAL, 'log_config.interval': 1}
+    for key, split in (('data.train.dataset', 'train'), ('data.val', 'val'),
+                       ('data.test', 'val')):
+        opts.update({f'{key}.type': 'CustomDataset',
+                     f'{key}.data_root': str(root),
+                     f'{key}.img_dir': f'img/{split}',
+                     f'{key}.ann_dir': f'ann/{split}',
+                     f'{key}.img_suffix': '.npy',
+                     f'{key}.seg_map_suffix': '.npy',
+                     f'{key}.reduce_zero_label': True,
+                     f'{key}.classes': str(root / 'classes.txt')})
+    return [f'{k}={v}' for k, v in opts.items()]
+
+
+def _json_log(work_dir):
+    """-> ({iter: train line}, {iter: val line}) of the run's json log."""
+    (path,) = sorted(Path(work_dir).glob('*.log.json'))
+    lines = [json.loads(line) for line in path.read_text().splitlines()]
+    return ({ln['iter']: ln for ln in lines if ln['mode'] == 'train'},
+            {ln['iter']: ln for ln in lines if ln['mode'] == 'val'})
+
+
+def _same_tree(a, b):
+    """Whether two checkpoint payloads hold the same values, tensors
+    bitwise."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same_tree(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    return a == b
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu() if torch.is_tensor(tree) else tree
+
+
+def _check_restored(train_cli, ckpt, work_dir, options):
+    """``--resume-from ckpt`` with ``max_iters`` at the checkpoint's own
+    iteration takes no step, so what it returns and saves again is what a
+    resume restores: the step, the seed, the student's weights and BN
+    statistics, the adapters and every optimizer moment must equal the
+    checkpoint file, on the device and in the file written again."""
+    saved = torch.load(ckpt, map_location='cpu', weights_only=True)
+    moments = saved['optimizer']['state']
+    n_params = sum(len(g['params'])
+                   for g in saved['optimizer']['param_groups'])
+    if saved['step'] != CLI_INTERVAL or len(moments) != n_params or not all(
+            float(m['exp_avg_sq'].sum()) > 0.0 and int(m['step']) ==
+            CLI_INTERVAL for m in moments.values()):
+        raise AssertionError(f'{ckpt} does not hold {CLI_INTERVAL} steps of '
+                             f'moments for {n_params} parameters')
+    state = train_cli.main(
+        [str(CGD_CONFIG), '--work-dir', str(work_dir), '--seed', '0',
+         '--no-validate', '--resume-from', str(ckpt), '--options', *options,
+         f'runner.max_iters={CLI_INTERVAL}'])
+    live = {'state_dict': state.model.student.state_dict(),
+            'adapters': state.model.distill_adapters.state_dict(),
+            'optimizer': state.optimizer.state_dict(),
+            'step': state.step, 'seed': state.seed}
+    live = _to_cpu(live)
+    again = torch.load(work_dir / 'checkpoints' / ckpt.name,
+                       map_location='cpu', weights_only=True)
+    for key, want in saved.items():
+        if key != 'meta' and not (_same_tree(want, live[key])
+                                  and _same_tree(want, again[key])):
+            raise AssertionError(f'a resume does not restore {key!r} of the '
+                                 f'checkpoint')
+    n = len(saved['state_dict']) + len(saved['adapters'])
+    log(f'restored by --resume-from, bitwise equal to {ckpt.name} on the '
+        f'device and saved again: step {saved["step"]}, seed '
+        f'{saved["seed"]}, {n} weight and statistics tensors, moments of '
+        f'{n_params} parameters')
+
+
+def phase_cli(path_kernels):
+    """Train, resume and test from the command lines' ``main`` (called in
+    this process, so that the launch counts can be read)."""
+    from segdistill_tpu_torch.engine import load_meta
+    from segdistill_tpu_torch.tools import test as test_cli
+    from segdistill_tpu_torch.tools import train as train_cli
+    log(f'== command line: tools.train on {CGD_CONFIG.name} (B0 <- B3, bf16 '
+        f'backbones, batch {TRAIN_BATCH}, 512x512 crops through the '
+        f'training pipeline) from {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} .npy '
+        f'images, {CLI_ITERS} iterations, checkpoint and evaluation every '
+        f'{CLI_INTERVAL}; then --resume-from iteration {CLI_INTERVAL}; then '
+        f'tools.test')
+    loss_keys = ('loss', 'decode.loss_seg',
+                 'loss_decode_head.linear_pred<->decode_head.linear_pred_other')
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_dataset(root / 'data')
+        log(f'dataset written in {time.perf_counter() - t0:.1f} s')
+        options = _cli_options(root / 'data')
+        work, work2 = root / 'work', root / 'work_resumed'
+
+        # the command-line path: every launch count starts at 0 here
+        for k in path_kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = train_cli.main([str(CGD_CONFIG), '--work-dir', str(work),
+                                '--seed', '0', '--options', *options])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in path_kernels}
+        log(f'tools.train: {time.perf_counter() - t0:.1f} s in all')
+        log(f'launches during the command-line path: {launches}')
+        _check_launched(launches, 'command-line')
+        train, val = _json_log(work)
+        if state.step != CLI_ITERS or sorted(train) != list(
+                range(1, CLI_ITERS + 1)):
+            raise AssertionError(f'trained to {state.step}, logged '
+                                 f'{sorted(train)}')
+        for it, line in train.items():
+            if not all(math.isfinite(line[k]) for k in loss_keys):
+                raise AssertionError(f'iteration {it}: {line}')
+        if sorted(val) != [CLI_INTERVAL, CLI_ITERS]:
+            raise AssertionError(f'evaluations at {sorted(val)}')
+        ckpts = sorted(q.name for q in (work / 'checkpoints').iterdir())
+        want = sorted([f'iter_{CLI_INTERVAL}.pth', f'iter_{CLI_ITERS}.pth',
+                       'meta.json'])
+        meta = load_meta(str(work))
+        if ckpts != want or meta['iter'] != CLI_ITERS \
+                or len(meta['CLASSES']) != NUM_CLASSES:
+            raise AssertionError(f'checkpoints {ckpts}, meta iter '
+                                 f'{meta and meta.get("iter")}')
+        # the first two steps warm up; an evaluation is not a step's time
+        steady = [train[i] for i in range(3, CLI_ITERS + 1)
+                  if i != CLI_INTERVAL + 1]
+        step_ms = float(np.median([ln['time'] for ln in steady])) * 1e3
+        data_ms = float(np.median([ln['data_time'] for ln in steady])) * 1e3
+        eval_s = val[CLI_ITERS]['seconds']
+        log(f'step time {step_ms:.2f} ms (median of iterations 3-'
+            f'{CLI_ITERS}), of it data_time {data_ms:.2f} ms; '
+            f'{TRAIN_BATCH / step_ms * 1e3:.2f} images/s; evaluation of '
+            f'{CLI_VAL_IMAGES} images {eval_s:.2f} s, '
+            f'{CLI_VAL_IMAGES / eval_s:.2f} images/s; mIoU at '
+            f'{CLI_ITERS}: {val[CLI_ITERS]["mIoU"]:.6f}')
+        log('losses: ' + ', '.join(f'{i}: {train[i]["loss"]:.5f}'
+                                   for i in sorted(train)))
+
+        resumed = train_cli.main(
+            [str(CGD_CONFIG), '--work-dir', str(work2), '--seed', '0',
+             '--resume-from',
+             str(work / 'checkpoints' / f'iter_{CLI_INTERVAL}.pth'),
+             '--options', *options])
+        train2, val2 = _json_log(work2)
+        if resumed.step != CLI_ITERS or sorted(train2) != list(
+                range(CLI_INTERVAL + 1, CLI_ITERS + 1)):
+            raise AssertionError(f'the resumed run logged {sorted(train2)}')
+        worst, worst_rel, bitwise = 0.0, 0.0, True
+        for it, line in train2.items():
+            for k in loss_keys:
+                a, b = train[it][k], line[k]
+                bitwise &= a == b
+                worst_rel = max(worst_rel, abs(a - b) / abs(a))
+                worst = max(worst, abs(a - b)
+                            / (RESUME_TOL_REL * abs(a) + RESUME_TOL_ABS))
+        # what the limit must tell apart: the loss of another batch
+        nearest = min(abs(train[i]['loss'] - train[j]['loss'])
+                      / abs(train[i]['loss'])
+                      for i in train2 for j in train if j != i)
+        log(f'resumed from iteration {CLI_INTERVAL}: iterations '
+            f'{CLI_INTERVAL + 1}-{CLI_ITERS} differ by at most '
+            f'{worst_rel:.3e} of a loss term, {worst:.4f} of the limit '
+            f'{RESUME_TOL_REL} * |loss| + {RESUME_TOL_ABS} (the nearest '
+            f'losses of two different iterations differ by {nearest:.3e}); '
+            f'bitwise equal: {bitwise}; mIoU at {CLI_ITERS}: '
+            f'{val2[CLI_ITERS]["mIoU"]:.6f}')
+        if not worst <= 1.0 or sorted(val2) != [CLI_ITERS]:
+            raise AssertionError('the resumed run differs from the '
+                                 'uninterrupted one')
+        _check_restored(
+            train_cli, work / 'checkpoints' / f'iter_{CLI_INTERVAL}.pth',
+            root / 'work_restored', options)
+
+        metrics = test_cli.main([str(CGD_CONFIG), str(work), '--eval', 'mIoU',
+                                 '--options', *options])
+        diff = max(abs(metrics[k] - val[CLI_ITERS][k])
+                   for k in ('mIoU', 'mAcc', 'aAcc'))
+        log(f'tools.test on the work dir: mIoU {metrics["mIoU"]:.9f}, the '
+            f'last evaluation logged {val[CLI_ITERS]["mIoU"]:.9f} (mIoU, mAcc '
+            f'and aAcc differ by at most {diff:.2e}, limit {MIOU_TOL})')
+        if not diff <= MIOU_TOL:
+            raise AssertionError('tools.test does not reproduce the last '
+                                 'evaluation')
+    return launches
+
+
 def _pd_loss_check(last):
     """The PD loss of a train step is finite and >= 0."""
     key = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'
@@ -690,35 +1057,98 @@ def _pd_loss_check(last):
         raise AssertionError(f'the PD loss is {value}')
 
 
+# Operation counts behind ``bound_ms`` (fp32, outside the tensor cores,
+# unless said): a bilinear tap 7 (4 multiplies, 3 adds); one softmax term
+# 3 (scale or subtract, exp, add); so an upsampled value inside a two-map KL
+# 23 per output element (2 x (7 + 3) + 3 for the KL), a CE term 10, and
+# their backwards 32 and 21 (the recomputed forward, the gradient, the
+# transposed tap); K1 8 per part and output element; attention 4 N M d in
+# the products (at the inputs' type: bf16 on the tensor cores) plus 5 N M
+# for the softmax, its backward 10 N M d plus 8 N M; LayerNorm 8 per
+# element forward, 17 backward. Each counts the algorithm once, not what a
+# kernel recomputes. Bytes: every input read once, every output written
+# once, in their own types.
+
+
+def _bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
+    """-> (bound_ms, bound_by): the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ops / PEAK_F32 + mm_ops / mm_peak
+    return max(t_bytes, t_ops) * 1e3, \
+        'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def _bounds(names):
+    """{kernel name: (bound_ms, bound_by)} at the shapes of
+    ``main_case`` in :func:`main`."""
+    k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11 = names
+    out = {}
+    # K1: B0 head, batch 1, fp32: three (s, s, 256) parts -> (128, 128, 256)
+    parts = sum(s * s * 256 for s in (16, 32, 64))
+    o = 128 * 128 * 256
+    out[k1] = _bound(4 * (parts + o), 8 * 3 * o)
+    # K2: B0 stage 1, batch 1, fp32: N 16384, M 256, d 32, one head
+    n, m, d = 16384, 256, 32
+    out[k2] = _bound(4 * (2 * n * d + 2 * m * d), 5 * n * m,
+                     4 * n * m * d, PEAK_F32)
+    # K9: the same stage at batch 8 in bf16: reads q, k, v, dO (bf16), the
+    # fp32 output and row log-sum-exp; writes dq, dk, dv
+    b = 8
+    out[k9] = _bound(b * (2 * (2 * n * d + 2 * m * d) + 4 * n * d + 4 * n
+                          + 2 * (n * d + 2 * m * d)),
+                     b * 8 * n * m, b * 10 * n * m * d, PEAK_BF16)
+    # K3-K8: (8, 150, 128, 128) bf16 maps -> 512 x 512
+    src = 8 * 150 * 128 * 128
+    px = 8 * 512 * 512
+    up = 150 * px
+    out[k3] = _bound(2 * 2 * src, 23 * up)
+    out[k4] = _bound(2 * 2 * src + 2 * src, 32 * up)
+    out[k5] = _bound(2 * src + 4 * px + 2 * 4 * px, 10 * up)  # labels; m, se
+    out[k6] = _bound(2 * src + 4 * px + 2 * 4 * px + 2 * src, 21 * up)
+    out[k7] = _bound(2 * 2 * src + 2 * 4 * px, 23 * up)  # two lse maps
+    out[k8] = _bound(2 * 2 * src + 2 * 4 * px + 2 * src, 32 * up)
+    # K10/K11: B0 stage 1, batch 8, bf16: (131072, 32)
+    _, rows, c = LN_CASES[0]
+    out[k10] = _bound(2 * 2 * rows * c + 2 * 4 * c, 8 * rows * c)
+    out[k11] = _bound(3 * 2 * rows * c + 3 * 4 * c, 17 * rows * c)
+    return out
+
+
 def main():
     phase_device()
     sys.path.insert(0, str(ROOT))
-    from segdistill_tpu_torch.ops import (group_kl, pixel_kl, resize_sum,
-                                          seg_ce, sra_attn)
-    k1, k2, k3, k4, k5, k6, k7, k8, k9 = kernels = [
+    from segdistill_tpu_torch.ops import (group_kl, layer_norm, pixel_kl,
+                                          resize_sum, seg_ce, sra_attn)
+    k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11 = kernels = [
         resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
         group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
-        pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL]
+        pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL,
+        layer_norm.FWD_KERNEL, layer_norm.BWD_KERNEL]
     phase_build(kernels)
     results = {k1.name: phase_resize_sum(), k2.name: phase_sra_attn()}
     results[k3.name], results[k4.name] = phase_group_kl()
     results[k5.name], results[k6.name] = phase_seg_ce()
     results[k7.name], results[k8.name] = phase_pixel_kl()
     results[k9.name] = phase_sra_train()
+    results[k10.name], results[k11.name] = phase_layer_norm()
     launches = {k.name: 0 for k in kernels}
-    paths = [phase_serving([k1, k2]),
-             phase_train([k1, k3, k4, k5, k6], CGD_CONFIG, {}, 'CGD')[0]]
+    cgd_kernels = [k1, k3, k4, k5, k6, k10, k11]
+    paths = [phase_serving([k1, k2, k10]),
+             phase_train(cgd_kernels, CGD_CONFIG, {}, 'CGD')[0]]
     phase_train_vs_cpu(CGD_CONFIG, {}, 'CGD')
-    pd_launches, pd_last = phase_train([k1, k2, k5, k6, k7, k8, k9],
-                                       PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    pd_launches, pd_last = phase_train(
+        [k1, k2, k5, k6, k7, k8, k9, k10, k11], PD_CONFIG, STUDENT_FA_TRAIN,
+        'PD')
     _pd_loss_check(pd_last)
     paths.append(pd_launches)
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    paths.append(phase_cli(cgd_kernels))
     for path in paths:
         for name, n in path.items():
             launches[name] += n
     # each kernel at its main path's shape: serving at batch 1 (fp32) for
-    # K1 and K2, the bf16 bench train steps for K3-K9
+    # K1 and K2, the bf16 bench train steps for K3-K11
     main_case = {k1.name: ('B0 head b1 E256', torch.float32),
                  k2.name: ('B0 stage1 b1', torch.float32),
                  k3.name: ('CGD bench perm', torch.bfloat16),
@@ -727,18 +1157,26 @@ def main():
                  k6.name: ('head CE bench', torch.bfloat16),
                  k7.name: ('PD bench', torch.bfloat16),
                  k8.name: ('PD bench', torch.bfloat16),
-                 k9.name: ('B0 stage1 b8', torch.bfloat16)}
+                 k9.name: ('B0 stage1 b8', torch.bfloat16),
+                 k10.name: (LN_CASES[0][0], torch.bfloat16),
+                 k11.name: (LN_CASES[0][0], torch.bfloat16)}
+    bounds = _bounds([k.name for k in kernels])
     entries = []
     for k in kernels:
         res = results[k.name]
-        _, ms, plain_ms = res[main_case[k.name]]
+        case = res[main_case[k.name]]
+        bound_ms, bound_by = bounds[k.name]
         entries.append({
             'name': k.name, 'route': 'cuda',
             'source': str(k.source.relative_to(ROOT)),
             'replaces': k.replaces, 'launches': launches[k.name],
-            'max_abs_err': max(e for (_, dt), (e, _, _) in res.items()
+            'max_abs_err': max(r[0] for (_, dt), r in res.items()
                                if dt == torch.float32),
-            'ms': ms, 'plain_ms': plain_ms})
+            'ms': case[1], 'plain_ms': case[2], 'bound_ms': bound_ms,
+            'bound_by': bound_by,
+            'library_ms': case[3] if len(case) > 3 else None})
+    log('launches per path: ' + json.dumps(
+        dict(zip(('serving', 'CGD', 'PD', 'command line'), paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

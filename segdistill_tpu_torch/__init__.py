@@ -1,10 +1,18 @@
-"""SegDistill on PyTorch and CUDA: the serving path and the CGD
-distillation train step of ``segdistill_tpu``.
+"""SegDistill on PyTorch and CUDA: serving, the distillation train steps
+and the train/test command lines of ``segdistill_tpu``.
 
 A port of the JAX package beside it, module for module: the same config
 corpus and registry type names, the reference ``.pth`` state-dict layout,
 and hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package
-has Pallas kernels. It never imports JAX; the config system
-(``segdistill_tpu.config``) and the registry (``segdistill_tpu.registry``)
-are the JAX package's framework-free host modules, used as they are.
+has Pallas kernels. It imports nothing of JAX and nothing of the JAX
+package: the config system, the registry and the configs' model recipes
+(``config.py``, ``registry.py``, ``zoo.py``) are its own copies.
 """
+
+from .config import Config, DictAction
+from .registry import Registry, build_from_cfg
+
+__version__ = '0.1.0'
+
+__all__ = ['Config', 'DictAction', 'Registry', 'build_from_cfg',
+           '__version__']

@@ -3,7 +3,7 @@ reference ``mmseg/apis/inference.py:11-119``)."""
 
 import torch
 
-from segdistill_tpu.config import Config
+from ..config import Config
 
 from ..datasets.pipelines import Compose
 from ..models import build_segmentor

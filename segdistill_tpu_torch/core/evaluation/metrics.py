@@ -1,9 +1,13 @@
-"""Segmentation metrics, numpy host path (counterpart of
+"""Segmentation metrics (counterpart of
 ``segdistill_tpu/core/evaluation/metrics.py``; reference
-``mmseg/core/evaluation/metrics.py:5-229``), including the ``label_map``
-remap and ``reduce_zero_label``."""
+``mmseg/core/evaluation/metrics.py:5-229``): the numpy host path, including
+the ``label_map`` remap and ``reduce_zero_label``, and
+:func:`confusion_histograms`, the same four class histograms of one image
+as a torch histogram on the prediction's device, so that an evaluation
+brings 4 x C integers per image back to the host and not a label map."""
 
 import numpy as np
+import torch
 
 
 def intersect_and_union(pred_label, label, num_classes, ignore_index,
@@ -90,3 +94,42 @@ def mean_iou(results, gt_seg_maps, num_classes, ignore_index,
     """(ref metrics.py:105-140)."""
     return eval_metrics(results, gt_seg_maps, num_classes, ignore_index,
                         'mIoU', nan_to_num, label_map, reduce_zero_label)
+
+
+def prepare_label(label, label_map=None, reduce_zero_label=False,
+                  ignore_index=255):
+    """The ``label_map`` remap and ``reduce_zero_label`` shift of
+    :func:`intersect_and_union`, as an int64 numpy array."""
+    label = np.asarray(label).astype(np.int64)
+    if label_map:
+        for old_id, new_id in label_map.items():
+            label[label == old_id] = new_id
+    if reduce_zero_label:
+        label[label == 0] = 255
+        label = label - 1
+        label[label == 254] = 255
+    return label
+
+
+def confusion_histograms(pred, label, num_classes, ignore_index=255):
+    """(intersect, union, pred, label) class histograms of integer tensors
+    ``pred`` and ``label`` of one shape, each (num_classes,) int64 on their
+    device; pixels whose label is ``ignore_index`` count nowhere."""
+    pred = pred.reshape(-1).long()
+    label = label.reshape(-1).long()
+    valid = label != ignore_index
+    # ignored pixels, and classes past the range, land in one spare bin
+    spare = torch.full_like(label, num_classes)
+    in_range = (label >= 0) & (label < num_classes)
+    safe_label = torch.where(valid & in_range, label, spare)
+    safe_pred = torch.where(valid & (pred >= 0) & (pred < num_classes),
+                            pred, spare)
+    agree = valid & (pred == label)
+    area_label = torch.bincount(safe_label,
+                                minlength=num_classes + 1)[:num_classes]
+    area_pred = torch.bincount(safe_pred,
+                               minlength=num_classes + 1)[:num_classes]
+    area_intersect = torch.bincount(torch.where(agree, safe_label, spare),
+                                    minlength=num_classes + 1)[:num_classes]
+    area_union = area_pred + area_label - area_intersect
+    return area_intersect, area_union, area_pred, area_label

@@ -1,7 +1,7 @@
 """Sequential pipeline executor (counterpart of
 ``segdistill_tpu/datasets/pipelines/compose.py``)."""
 
-from segdistill_tpu.registry import build_from_cfg
+from ...registry import build_from_cfg
 
 from ..builder import PIPELINES
 

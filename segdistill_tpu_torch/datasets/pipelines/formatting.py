@@ -10,6 +10,61 @@ import numpy as np
 from ..builder import PIPELINES
 
 
+def to_tensor(data):
+    """Coerce to a numpy array; batches move to the device as a whole."""
+    if isinstance(data, np.ndarray):
+        return data
+    if isinstance(data, (list, tuple, int, float)):
+        return np.asarray(data)
+    raise TypeError(f'type {type(data)} cannot be converted to tensor')
+
+
+@PIPELINES.register_module()
+class ToTensor:
+
+    def __init__(self, keys):
+        self.keys = keys
+
+    def __call__(self, results):
+        for key in self.keys:
+            results[key] = to_tensor(results[key])
+        return results
+
+
+@PIPELINES.register_module()
+class Transpose:
+
+    def __init__(self, keys, order):
+        self.keys = keys
+        self.order = order
+
+    def __call__(self, results):
+        for key in self.keys:
+            results[key] = results[key].transpose(self.order)
+        return results
+
+
+@PIPELINES.register_module()
+class DefaultFormatBundle:
+    """img -> float32 HWC array; gt_semantic_seg -> int32 (H, W)
+    (ref formating.py:177-215, without the CHW/DataContainer wrapping: the
+    runner moves a stacked NHWC batch to the device and to NCHW)."""
+
+    def __call__(self, results):
+        if 'img' in results:
+            img = results['img']
+            if img.ndim < 3:
+                img = np.expand_dims(img, -1)
+            results['img'] = np.ascontiguousarray(img, dtype=np.float32)
+        if 'gt_semantic_seg' in results:
+            results['gt_semantic_seg'] = np.ascontiguousarray(
+                results['gt_semantic_seg'], dtype=np.int32)
+        return results
+
+    def __repr__(self):
+        return self.__class__.__name__
+
+
 @PIPELINES.register_module()
 class ImageToTensor:
     """Keeps HWC (the reference transposes to CHW here)."""

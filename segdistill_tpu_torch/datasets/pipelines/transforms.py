@@ -1,9 +1,17 @@
-"""Test-time transforms (counterpart of the test-time part of
+"""Geometric and photometric transforms (counterpart of
 ``segdistill_tpu/datasets/pipelines/transforms.py``; reference
-``mmseg/datasets/pipelines/transforms.py``): Resize, AlignedResize,
-RandomFlip, Normalize. Host numpy, no OpenCV (see ``utils/image.py``).
-Random scale sampling and the other training-time transforms wait for
-the training port."""
+``mmseg/datasets/pipelines/transforms.py``): Resize with its four scale
+modes, AlignedResize, RandomFlip, Pad, Normalize, RandomCrop and
+PhotoMetricDistortion, everything the ADE20K configs name. Host numpy, no
+OpenCV (see ``utils/image.py`` for how close its resize and HSV conversion
+come to OpenCV's).
+
+Every random draw comes from the per-sample ``results['rng']`` (an
+``np.random.RandomState`` that the loader injects) when present, else from
+numpy's global generator, in the JAX pipeline's order: the same seed gives
+the same scales, crops, flips and distortions in both packages.
+RandomRotate, CLAHE and the other transforms no shipped Segformer config
+uses are not ported yet."""
 
 import numpy as np
 
@@ -18,20 +26,66 @@ def _rng(results):
 
 @PIPELINES.register_module()
 class Resize:
-    """Resize to ``results['scale']`` (ref transforms.py:236-434), which
-    MultiScaleFlipAug sets, or to a single fixed ``img_scale``."""
+    """Multiscale resize (ref transforms.py:236-434). The scale is
+    ``results['scale']`` where MultiScaleFlipAug set it, else drawn: a
+    ratio of ``img_scale`` (``ratio_range``), the single ``img_scale``, a
+    size between two (``multiscale_mode='range'``) or one of several
+    (``'value'``)."""
 
     def __init__(self, img_scale=None, multiscale_mode='range',
                  ratio_range=None, keep_ratio=True):
-        del multiscale_mode  # selects a random scale: training-time
         if img_scale is None:
             self.img_scale = None
         elif isinstance(img_scale, list):
             self.img_scale = [tuple(s) for s in img_scale]
         else:
             self.img_scale = [tuple(img_scale)]
+        if ratio_range is not None:
+            assert self.img_scale is None or len(self.img_scale) == 1
+        else:
+            assert multiscale_mode in ('value', 'range')
+        self.multiscale_mode = multiscale_mode
         self.ratio_range = ratio_range
         self.keep_ratio = keep_ratio
+
+    @staticmethod
+    def random_select(img_scales, rng=np.random):
+        scale_idx = rng.randint(len(img_scales))
+        return img_scales[scale_idx], scale_idx
+
+    @staticmethod
+    def random_sample(img_scales, rng=np.random):
+        assert len(img_scales) == 2
+        longs = [max(s) for s in img_scales]
+        shorts = [min(s) for s in img_scales]
+        long_edge = rng.randint(min(longs), max(longs) + 1)
+        short_edge = rng.randint(min(shorts), max(shorts) + 1)
+        return (long_edge, short_edge), None
+
+    @staticmethod
+    def random_sample_ratio(img_scale, ratio_range, rng=np.random):
+        min_ratio, max_ratio = ratio_range
+        ratio = rng.random_sample() * (max_ratio - min_ratio) + min_ratio
+        return (int(img_scale[0] * ratio), int(img_scale[1] * ratio)), None
+
+    def _random_scale(self, results):
+        rng = _rng(results)
+        if self.ratio_range is not None:
+            if self.img_scale is None:
+                h, w = results['img'].shape[:2]
+                scale, scale_idx = self.random_sample_ratio(
+                    (w, h), self.ratio_range, rng)
+            else:
+                scale, scale_idx = self.random_sample_ratio(
+                    self.img_scale[0], self.ratio_range, rng)
+        elif len(self.img_scale) == 1:
+            scale, scale_idx = self.img_scale[0], 0
+        elif self.multiscale_mode == 'range':
+            scale, scale_idx = self.random_sample(self.img_scale, rng)
+        else:
+            scale, scale_idx = self.random_select(self.img_scale, rng)
+        results['scale'] = scale
+        results['scale_idx'] = scale_idx
 
     def _resize(self, img, results, interpolation='bilinear'):
         if self.keep_ratio:
@@ -59,20 +113,14 @@ class Resize:
 
     def __call__(self, results):
         if 'scale' not in results:
-            # at test time MultiScaleFlipAug sets the scale; a fixed single
-            # scale needs no sampling
-            if self.ratio_range is not None or self.img_scale is None \
-                    or len(self.img_scale) != 1:
-                raise NotImplementedError(
-                    'random scale sampling is a training-time transform and '
-                    'not ported yet')
-            results['scale'] = self.img_scale[0]
+            self._random_scale(results)
         self._resize_img(results)
         self._resize_seg(results)
         return results
 
     def __repr__(self):
         return (f'{self.__class__.__name__}(img_scale={self.img_scale}, '
+                f'multiscale_mode={self.multiscale_mode}, '
                 f'ratio_range={self.ratio_range}, '
                 f'keep_ratio={self.keep_ratio})')
 
@@ -147,3 +195,155 @@ class Normalize:
     def __repr__(self):
         return (f'{self.__class__.__name__}(mean={list(self.mean)}, '
                 f'std={list(self.std)}, to_rgb={self.to_rgb})')
+
+
+@PIPELINES.register_module()
+class Pad:
+    """Pad to a fixed size or to a multiple, at the bottom and the right:
+    the image with ``pad_val``, the label maps with ``seg_pad_val``
+    (ref transforms.py:519-588)."""
+
+    def __init__(self, size=None, size_divisor=None, pad_val=0,
+                 seg_pad_val=255):
+        self.size = size
+        self.size_divisor = size_divisor
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+        assert (size is None) != (size_divisor is None)
+
+    def __call__(self, results):
+        if self.size is not None:
+            padded = imutil.impad(results['img'], self.size, self.pad_val)
+        else:
+            padded = imutil.impad_to_multiple(
+                results['img'], self.size_divisor, self.pad_val)
+        results['img'] = padded
+        results['pad_shape'] = padded.shape
+        results['pad_fixed_size'] = self.size
+        results['pad_size_divisor'] = self.size_divisor
+        for key in results.get('seg_fields', []):
+            results[key] = imutil.impad(results[key], padded.shape[:2],
+                                        self.seg_pad_val)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(size={self.size}, '
+                f'size_divisor={self.size_divisor}, '
+                f'pad_val={self.pad_val})')
+
+
+@PIPELINES.register_module()
+class RandomCrop:
+    """Random crop; with ``cat_max_ratio`` < 1 up to ten redraws until no
+    class covers more than that share of the crop (ref
+    transforms.py:723-793)."""
+
+    def __init__(self, crop_size, cat_max_ratio=1.0, ignore_index=255):
+        assert crop_size[0] > 0 and crop_size[1] > 0
+        self.crop_size = tuple(crop_size)
+        self.cat_max_ratio = cat_max_ratio
+        self.ignore_index = ignore_index
+
+    def get_crop_bbox(self, img, rng=np.random):
+        margin_h = max(img.shape[0] - self.crop_size[0], 0)
+        margin_w = max(img.shape[1] - self.crop_size[1], 0)
+        offset_h = rng.randint(0, margin_h + 1)
+        offset_w = rng.randint(0, margin_w + 1)
+        return (offset_h, offset_h + self.crop_size[0],
+                offset_w, offset_w + self.crop_size[1])
+
+    @staticmethod
+    def crop(img, bbox):
+        y1, y2, x1, x2 = bbox
+        return img[y1:y2, x1:x2, ...]
+
+    def __call__(self, results):
+        img = results['img']
+        rng = _rng(results)
+        crop_bbox = self.get_crop_bbox(img, rng)
+        if self.cat_max_ratio < 1.0:
+            for _ in range(10):
+                seg_tmp = self.crop(results['gt_semantic_seg'], crop_bbox)
+                labels, cnt = np.unique(seg_tmp, return_counts=True)
+                cnt = cnt[labels != self.ignore_index]
+                if len(cnt) > 1 and np.max(cnt) / np.sum(cnt) \
+                        < self.cat_max_ratio:
+                    break
+                crop_bbox = self.get_crop_bbox(img, rng)
+        img = self.crop(img, crop_bbox)
+        results['img'] = img
+        results['img_shape'] = img.shape
+        for key in results.get('seg_fields', []):
+            results[key] = self.crop(results[key], crop_bbox)
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(crop_size={self.crop_size})'
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """Brightness, contrast, saturation and hue, each applied with
+    probability 0.5, contrast before or after the HSV pair at random
+    (ref transforms.py:1099-1215)."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    @staticmethod
+    def convert(img, alpha=1, beta=0):
+        img = img.astype(np.float32) * alpha + beta
+        return np.clip(img, 0, 255).astype(np.uint8)
+
+    def brightness(self, img, rng=np.random):
+        if rng.randint(2):
+            return self.convert(
+                img, beta=rng.uniform(-self.brightness_delta,
+                                      self.brightness_delta))
+        return img
+
+    def contrast(self, img, rng=np.random):
+        if rng.randint(2):
+            return self.convert(
+                img, alpha=rng.uniform(self.contrast_lower,
+                                       self.contrast_upper))
+        return img
+
+    def saturation(self, img, rng=np.random):
+        if rng.randint(2):
+            img = imutil.bgr2hsv(img)
+            img[:, :, 1] = self.convert(
+                img[:, :, 1], alpha=rng.uniform(self.saturation_lower,
+                                                self.saturation_upper))
+            img = imutil.hsv2bgr(img)
+        return img
+
+    def hue(self, img, rng=np.random):
+        if rng.randint(2):
+            img = imutil.bgr2hsv(img)
+            img[:, :, 0] = (img[:, :, 0].astype(int) + rng.randint(
+                -self.hue_delta, self.hue_delta)) % 180
+            img = imutil.hsv2bgr(img)
+        return img
+
+    def __call__(self, results):
+        rng = _rng(results)
+        img = results['img']
+        img = self.brightness(img, rng)
+        mode = rng.randint(2)
+        if mode == 1:
+            img = self.contrast(img, rng)
+        img = self.saturation(img, rng)
+        img = self.hue(img, rng)
+        if mode == 0:
+            img = self.contrast(img, rng)
+        results['img'] = img
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}'
+                f'(brightness_delta={self.brightness_delta})')

@@ -13,8 +13,11 @@ default; the reference uses erf), ``fused_attention`` (route SRA attention
 through the hand-written kernels, per stage: ``True`` forward only, ``'train'``
 with its backward), ``drop_path_rate``
 and ``dtype``, the compute type: parameters stay float32 and each layer casts
-them to its input's dtype, as flax layers with ``dtype`` do. ``dwconv_backend``
-and ``ln_stats`` choose TPU lowerings and are accepted and ignored.
+them to its input's dtype, as flax layers with ``dtype`` do (the LayerNorms
+read theirs as stored). ``dwconv_backend`` and ``ln_stats`` choose TPU
+lowerings and are accepted and ignored. Every LayerNorm (patch-embed norm,
+``norm1``, ``norm2``, the SRA ``attn.norm``, the stage norms) is a
+:class:`FusedLayerNorm`: the hand-written kernels K10/K11 on CUDA tensors.
 
 Taps (:func:`..utils.tap`): ``attn.Q``/``K``/``V`` (B, heads, N, d),
 ``attn.ATTN`` (the scaled scores, unfused path only) and each block's ``FEA``
@@ -30,7 +33,7 @@ from torch import nn
 
 from ...ops.sra_attn import fused_sra_attention, sra_attention_train
 from ..builder import BACKBONES
-from ..utils import DropPath, Dropout, tap
+from ..utils import DropPath, Dropout, FusedLayerNorm, tap
 
 
 def _cast(param, x):
@@ -50,15 +53,6 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         return self._conv_forward(x, _cast(self.weight, x),
                                   _cast(self.bias, x))
-
-
-class LayerNorm(nn.LayerNorm):
-    """``nn.LayerNorm`` computing in its input's dtype (torch keeps the
-    statistics in float32)."""
-
-    def forward(self, x):
-        return F.layer_norm(x, self.normalized_shape, _cast(self.weight, x),
-                            _cast(self.bias, x), self.eps)
 
 
 def _channels_first(x, H, W):
@@ -136,7 +130,7 @@ class Attention(nn.Module):
         if sr_ratio > 1:
             self.sr = Conv2d(dim, dim, sr_ratio, sr_ratio)
             # ref :89 -- a plain nn.LayerNorm, torch's default eps 1e-5
-            self.norm = LayerNorm(dim, eps=1e-5)
+            self.norm = FusedLayerNorm(dim, eps=1e-5)
 
     def forward(self, x, H, W, generator=None):
         B, N, C = x.shape
@@ -187,14 +181,14 @@ class Block(nn.Module):
                  sr_ratio=1, gelu_approximate=True, fused_attention=False,
                  token_stride=1):
         super().__init__()
-        self.norm1 = LayerNorm(dim, eps=1e-6)
+        self.norm1 = FusedLayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                               qk_scale=qk_scale, attn_drop=attn_drop,
                               proj_drop=drop, sr_ratio=sr_ratio,
                               fused_attention=fused_attention,
                               token_stride=token_stride)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = LayerNorm(dim, eps=1e-6)
+        self.norm2 = FusedLayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop,
                        gelu_approximate=gelu_approximate)
 
@@ -213,7 +207,7 @@ class OverlapPatchEmbed(nn.Module):
         self.proj = Conv2d(in_chans, embed_dim, patch_size, stride,
                            patch_size // 2)
         # ref :194 -- torch's default eps 1e-5
-        self.norm = LayerNorm(embed_dim, eps=1e-5)
+        self.norm = FusedLayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x):
         x = self.proj(x)
@@ -237,7 +231,7 @@ class MixVisionTransformer(nn.Module):
     ``dtype`` is the compute type: the input is cast to it on entry and
     every layer casts its float32 parameters to it (bfloat16 on the bench
     path), so an optimizer updates float32 master weights. LayerNorm
-    statistics stay float32 inside torch's kernels either way.
+    statistics stay float32 inside the LayerNorm kernels either way.
     """
 
     def __init__(self, embed_dims=(64, 128, 256, 512), num_heads=(1, 2, 4, 8),
@@ -267,7 +261,8 @@ class MixVisionTransformer(nn.Module):
                       qk_scale, drop_rate, attn_drop_rate, dpr[cur + i],
                       sr_ratios[s], gelu_approximate, fa_stages[s], stride)
                 for i in range(depths[s])]))
-            setattr(self, f'norm{s + 1}', LayerNorm(embed_dims[s], eps=1e-6))
+            setattr(self, f'norm{s + 1}',
+                    FusedLayerNorm(embed_dims[s], eps=1e-6))
             cur += depths[s]
         self.dtype = _torch_dtype(dtype)
 

@@ -1,7 +1,7 @@
 """Model registries and build functions, under the JAX package's type
 names (counterpart of ``segdistill_tpu/models/builder.py``)."""
 
-from segdistill_tpu.registry import Registry, build_from_cfg
+from ..registry import Registry, build_from_cfg
 
 BACKBONES = Registry('backbone')
 HEADS = Registry('head')

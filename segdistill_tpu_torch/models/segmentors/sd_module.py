@@ -8,8 +8,10 @@ eval mode whatever ``train()`` says, and its forward runs under
 the channel shuffle is an argument of ``forward_train``, as in the JAX
 package (the reference mutates ``cnt``). Cross-width pairs get trainable
 1x1 channel adapters (``distill_adapters``), trained with the student.
-Inference delegates to the student. The multi-teacher variant and the
-gradient-angle diagnostic (``log_grad``) are not ported yet.
+Inference delegates to the student. ``log_grad`` (set by a ``log_grad`` key
+in the first distillation entry) asks the train step for the angle between
+the segmentation and the distillation gradients. The multi-teacher variant
+is not ported yet.
 """
 
 import torch
@@ -29,9 +31,8 @@ class SDModule(BaseSegmentor):
         super().__init__()
         del dtype, pretrained  # student/teacher weights come via *_pretrain
         self.distillation = list(distillation or [])
-        if any('log_grad' in entry for entry in self.distillation):
-            raise NotImplementedError('log_grad (the seg/distill gradient '
-                                      'angle) is not ported yet')
+        self.log_grad = bool(self.distillation
+                             and 'log_grad' in self.distillation[0])
         self.s_pretrain = s_pretrain
         self.t_pretrain = t_pretrain
         self.student_layers, self.teacher_layers = \

@@ -10,10 +10,15 @@ flax uses the biased one, so after a train step the two differ by the
 factor N/(N-1) on the batch term. Parameter and buffer names are torch's,
 so the reference ``.pth`` layout (``linear_fuse.bn.running_mean``, ...)
 holds.
+
+:class:`FusedLayerNorm` is the token LayerNorm of the transformer
+backbones, through the hand-written kernels of ``ops/layer_norm.py``.
 """
 
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.layer_norm import fused_layer_norm
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -26,6 +31,19 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x):
         return super().forward(x.float()).to(x.dtype)
+
+
+class FusedLayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis of (..., C) tokens through
+    :func:`fused_layer_norm` (counterpart of the JAX ``FusedLayerNorm``): on
+    a CUDA tensor K10, and K11 under autograd, with no gate on the width or
+    the row count; on a CPU tensor the plain version. Statistics are
+    float32 and the output has the input's dtype; ``weight`` and ``bias``
+    stay float32 and are read as stored, under torch's parameter names, so
+    the reference ``.pth`` layout holds."""
+
+    def forward(self, x):
+        return fused_layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class LayerNorm2d(nn.LayerNorm):

@@ -31,6 +31,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _raw_stream(index):
+    """The current stream of device ``index`` as a pointer argument (a bare
+    integer past the end of ``argtypes`` would be cut to 32 bits).
+    ``torch._C._cuda_getCurrentRawStream`` is private to torch (its
+    inductor calls it the same way): it builds no Stream object per launch.
+    Should a torch version drop it, this raises, and
+    ``torch.cuda.current_stream(index).cuda_stream`` is the public form."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
+
+
 def nvcc_path():
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
@@ -101,11 +111,17 @@ class CudaKernel:
 
     def launch(self, device, *args):
         """Launch on ``device``'s current stream, passed as the last
-        argument; raise if CUDA refused the launch."""
-        fn = self.function()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, ctypes.c_void_p(stream))
+        argument; raise if CUDA refused the launch. The common case (the
+        tensors lie on the current device) takes no device guard and no
+        Stream object: a train step makes hundreds of these calls."""
+        fn = self._fn or self.function()
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
         if err != 0:
             raise RuntimeError(f'{self.name} kernel launch failed: CUDA '
                                f'error {err}')

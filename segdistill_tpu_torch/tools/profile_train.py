@@ -11,7 +11,8 @@ random weights from seed 0, checkpoint paths cleared:
 1. The step's phases by CUDA events, ms per step: student forward with
    the head CE, teacher forward, distillation loss, backward, AdamW.
 2. ``torch.profiler`` over ``--steps`` steps: wall and device-busy ms per
-   step, kernels per step, device time by kernel family, and the kernels
+   step, kernels per step, copy kernels per step (the casts of the fp32
+   weights among them), device time by kernel family, and the kernels
    that take the most device time.
 3. With ``--ab OPTION=VALUE``: the model with that option added (the same
    weights) against the model without it: the profile of 2. for the
@@ -54,6 +55,7 @@ FAMILIES = [
     ('K1 resize_sum', r'resize_sum_kernel'),
     ('K9 sra_attn_bwd', r'sra_bwd_'),
     ('K2 sra_attn', r'sra_attn'),
+    ('K10/K11 layer_norm', r'ln_(fwd|bwd|sum_partials)'),
     ('GEMM', r'gemm|xmma|cutlass|sm90_|ampere_|matmul|nvjet'),
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),
     ('layer/batch norm', r'layer_norm|batch_norm|LayerNorm|BatchNorm|welford'),
@@ -127,6 +129,10 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     print(f'  wall {wall_ms:.3f} ms/step (profiled), device busy '
           f'{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), '
           f'{len(events) / steps:.0f} kernels/step')
+    # dtype casts (of the fp32 weights, mostly) and layout copies
+    copies = [e for e in events if re.search(r'copy', e.name)]
+    print(f'  copy kernels: {len(copies) / steps:.0f} per step, '
+          f'{sum(e.device_time for e in copies) / steps / 1e3:.3f} ms')
     fams, rows = {}, {}
     for e in events:
         ms = e.device_time / steps / 1e3

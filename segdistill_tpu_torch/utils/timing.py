@@ -7,8 +7,11 @@ import numpy as np
 import torch
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds of ``fn`` by CUDA events, after warmup."""
+def cuda_ms(fn, iters=20, warmup=3, calls=1):
+    """Median milliseconds of one call of ``fn`` by CUDA events, after
+    warmup. With ``calls`` > 1 each timing spans that many calls in a row
+    and is divided by it: for kernels of a few microseconds, where one
+    launch's latency would be most of a single timing."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -17,11 +20,12 @@ def cuda_ms(fn, iters=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+    return float(np.median([s.elapsed_time(e) for s, e in pairs])) / calls
 
 
 def images_per_s(fn, n_images, iters=10):

@@ -20,11 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from segdistill_tpu_torch.ops import (group_kl, pixel_kl, resize_sum, seg_ce,
-                                      sra_attn)
+from segdistill_tpu_torch.ops import (group_kl, layer_norm, pixel_kl,
+                                      resize_sum, seg_ce, sra_attn)
 from segdistill_tpu_torch.ops.group_kl import (fused_group_kl,
                                                fused_group_kl_shuffled,
                                                group_kl_plain)
+from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                 layer_norm_plain)
 from segdistill_tpu_torch.ops.pixel_kl import fused_pixel_kl, pixel_kl_plain
 from segdistill_tpu_torch.ops.resize_sum import (fused_resize_sum,
                                                  resize_sum_plain)
@@ -263,6 +265,102 @@ def _small_segformer(**backbone):
     return model
 
 
+def _layer_norm_case(cuda, dtype, shape, eps, seed=0):
+    """K10 and K11 against the plain version and its autograd in fp32;
+    each gradient and its plain version divided by the plain one's max
+    |value|. -> (x, w, b, g) on the card."""
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2 + 1) \
+        .to(cuda, dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda, dtype)
+    w = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).to(cuda)
+    return x, w, b, g
+
+
+def _check_layer_norm(x, w, b, g, eps):
+    ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
+    want = layer_norm_plain(*ref, eps)
+    dwant = torch.autograd.grad(want, ref, g.float())
+    ins = [t.detach().requires_grad_() for t in (x, w, b)]
+    y = fused_layer_norm(*ins, eps)
+    got = torch.autograd.grad(y, ins, g)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape and y.is_contiguous()
+    _close(y.detach(), want.detach())
+    for a, d, dt in zip(got, dwant, (x.dtype, torch.float32, torch.float32)):
+        assert a.dtype == dt and a.shape == d.shape
+        peak = d.abs().max()
+        _close(a.float() / peak, d / peak, dt)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,eps', [
+    ((8 * 16384, 32), 1e-6), ((8, 4096, 64), 1e-5), ((8, 1024, 160), 1e-6),
+    ((8, 256, 256), 1e-5), ((8 * 16384, 64), 1e-5), ((8, 1024, 320), 1e-6),
+    ((8, 256, 512), 1e-6), ((1001, 160), 1e-5), ((1, 8), 1e-6),
+    ((3, 7, 1024), 1e-6), ((5, 640), 1e-6), ((70000, 24), 1e-5),
+])
+def test_layer_norm_kernels(cuda, dtype, shape, eps):
+    """Every MiT width of B0 and B3 at batch 8, 512x512, a row count no
+    tile divides, one row, the widest supported row and widths that need
+    the masked tail."""
+    before = layer_norm.FWD_KERNEL.launches, layer_norm.BWD_KERNEL.launches
+    _check_layer_norm(*_layer_norm_case(cuda, dtype, shape, eps), eps)
+    assert (layer_norm.FWD_KERNEL.launches - before[0],
+            layer_norm.BWD_KERNEL.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_layer_norm_kernels_strided(cuda, dtype):
+    """Strided rows go to the kernels by their row stride; a strided last
+    axis (the token view of an NCHW map, for x and for the incoming
+    gradient) is copied first. The same numbers either way."""
+    x, w, b, g = _layer_norm_case(cuda, dtype, (4, 96, 64), 1e-6)
+    # every other token: rows 128 elements apart
+    _check_layer_norm(x[:, ::2], w, b, g[:, ::2], 1e-6)
+    # columns 8..40 of each row: aligned (16 or 32 bytes in), row stride 64
+    _check_layer_norm(x[..., 8:40], w[:32].clone(), b[:32].clone(),
+                      g[..., 8:40], 1e-6)
+    # NCHW memory viewed as tokens: the last axis has stride H*W
+    nchw = x.permute(0, 2, 1).contiguous()          # (4, 64, 96)
+    tokens = nchw.permute(0, 2, 1)                  # (4, 96, 64) view
+    assert tokens.stride(-1) != 1
+    gview = g.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    _check_layer_norm(tokens, w, b, gview, 1e-6)
+    # no gradient needed: the same launch without an autograd node
+    before = layer_norm.FWD_KERNEL.launches
+    with torch.no_grad():
+        y = fused_layer_norm(x, w.requires_grad_(), b, 1e-6)
+    assert not y.requires_grad
+    assert layer_norm.FWD_KERNEL.launches == before + 1
+
+
+def test_layer_norm_kernels_refuse(cuda):
+    x = torch.zeros(4, 32, device=cuda)
+    w, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError, match='multiple of 8'):
+        fused_layer_norm(torch.zeros(4, 12, device=cuda), w[:12], b[:12])
+    with pytest.raises(ValueError, match='up to 1024'):
+        fused_layer_norm(torch.zeros(2, 2048, device=cuda),
+                         torch.ones(2048, device=cuda),
+                         torch.zeros(2048, device=cuda))
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        fused_layer_norm(x.half(), w, b)
+    with pytest.raises(ValueError, match='weight must be'):
+        fused_layer_norm(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match='bias must be'):
+        fused_layer_norm(x, w, b.cpu())
+    with pytest.raises(ValueError, match='16-byte'):
+        fused_layer_norm(torch.zeros(4, 40, device=cuda)[:, 1:33], w, b)
+    with pytest.raises(ValueError, match='empty'):
+        fused_layer_norm(torch.zeros(0, 32, device=cuda), w, b)
+    before = layer_norm.FWD_KERNEL.launches
+    assert fused_layer_norm(x, w, b).shape == (4, 32)
+    assert layer_norm.FWD_KERNEL.launches == before + 1
+
+
 def test_resize_sum_gradient_on_the_card(cuda):
     """K1 is differentiable: the head's parameter gradients on the card
     (K1 forward, torch's upsample adjoint backward) against the same head
@@ -323,11 +421,13 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
                       (seg_ce, 'seg_ce_plain'),
                       (resize_sum, 'resize_sum_plain'),
                       (sra_attn, 'sra_attention_plain'),
-                      (pixel_kl, 'pixel_kl_plain')):
+                      (pixel_kl, 'pixel_kl_plain'),
+                      (layer_norm, 'layer_norm_plain')):
         monkeypatch.setattr(mod, name, refuse)
     kernels = (group_kl.FWD_KERNEL, group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL,
                seg_ce.BWD_KERNEL, resize_sum.KERNEL, pixel_kl.FWD_KERNEL,
-               pixel_kl.BWD_KERNEL, sra_attn.KERNEL, sra_attn.BWD_KERNEL)
+               pixel_kl.BWD_KERNEL, sra_attn.KERNEL, sra_attn.BWD_KERNEL,
+               layer_norm.FWD_KERNEL, layer_norm.BWD_KERNEL)
     before = [k.launches for k in kernels]
     xs = torch.randn(1, 12, 8, 8, device=cuda, requires_grad=True)
     group_kl.fused_group_kl(xs, torch.randn_like(xs), (16, 16), 5,
@@ -341,7 +441,11 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda, monkeypatch):
     q, k, v = (torch.randn(1, 2, 40, 16, device=cuda, requires_grad=True)
                for _ in range(3))
     sra_attention_train(q, k, v, 0.25).sum().backward()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 9
+    x = torch.randn(3, 5, 32, device=cuda, requires_grad=True)
+    w, b = (torch.randn(32, device=cuda, requires_grad=True)
+            for _ in range(2))
+    layer_norm.fused_layer_norm(x, w, b).sum().backward()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 11
 
 
 def test_train_step_cuda_matches_cpu(cuda):

@@ -1,6 +1,9 @@
-"""Boundaries of the PyTorch port: it never imports JAX, Flax or OpenCV;
-importing its kernel modules needs no nvcc and builds nothing; the chip
-smoke script refuses to run without a GPU or without the repository."""
+"""Boundaries of the PyTorch port: it never imports JAX, Flax, OpenCV or
+anything of the JAX package (reading a config included: the configs'
+``segdistill_tpu.zoo`` import is served by the port's own copy); importing
+its kernel modules needs no nvcc and builds nothing; the chip smoke script
+refuses to run without a GPU or without the repository. The command-line
+path has the same check in ``test_torch_port_cli.py``."""
 
 import os
 import re
@@ -33,7 +36,8 @@ model = apis.init_segmentor(
 with torch.no_grad():
     out = model.encode_decode(torch.randn(1, 3, 64, 64))
 assert out.shape == (1, 150, 64, 64), out.shape
-bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'cv2', 'segdistill_tpu')]
 assert not bad, bad
 print('clean')
 ''')
@@ -56,7 +60,8 @@ state, train_step = prepare_training(model)
 log_vars = train_step(state, torch.randn(1, 3, 64, 64),
                       torch.randint(0, 150, (1, 64, 64)))
 assert state.step == 1 and torch.isfinite(log_vars['loss']), log_vars
-bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'cv2', 'segdistill_tpu')]
 assert not bad, bad
 print('clean')
 ''')
@@ -82,7 +87,8 @@ log_vars = train_step(state, torch.randn(1, 3, 64, 64),
                       torch.randint(0, 150, (1, 64, 64)))
 key = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'
 assert state.step == 1 and torch.isfinite(log_vars[key]), log_vars
-bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'cv2', 'segdistill_tpu')]
 assert not bad, bad
 print('clean')
 ''')
@@ -90,16 +96,28 @@ print('clean')
     assert 'clean' in res.stdout
 
 
+# an import of jax, flax or the JAX package: its name followed by a dot,
+# whitespace or the end of the line (so not segdistill_tpu_torch)
+FOREIGN_IMPORT = re.compile(
+    r'^\s*(import|from)\s+(jax|flax|segdistill_tpu)(\.|\s|$)', re.M)
+
+
 def test_no_jax_import_in_sources():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|flax)\b', re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')
-                 if pattern.search(p.read_text())]
-    # the smoke script depends on the port alone, not on the JAX package
-    smoke = re.compile(r'^\s*(import|from)\s+(jax|flax|segdistill_tpu)\b',
-                       re.M)
-    offenders += ['chip_smoke.py'] * bool(
-        smoke.search((ROOT / 'chip_smoke.py').read_text()))
+    """No module of the port, and not the smoke script, imports jax, flax
+    or anything of the JAX package."""
+    sources = list(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    offenders = [str(p.relative_to(ROOT)) for p in sources
+                 if FOREIGN_IMPORT.search(p.read_text())]
     assert not offenders
+    for line in ('import segdistill_tpu', 'from segdistill_tpu import x',
+                 'from segdistill_tpu.config import Config',
+                 '    import segdistill_tpu.registry as r', 'import jax',
+                 'from flax import linen'):
+        assert FOREIGN_IMPORT.search(line), line
+    for line in ('import segdistill_tpu_torch',
+                 'from segdistill_tpu_torch.config import Config',
+                 '# from segdistill_tpu.zoo import x', 'import jaxtyping'):
+        assert not FOREIGN_IMPORT.search(line), line
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
@@ -108,12 +126,13 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, CUDA_HOME=str(tmp_path / 'no-cuda'),
                PATH=str(tmp_path))
     res = _run('''
-from segdistill_tpu_torch.ops import (cuda_kernel, group_kl, pixel_kl,
-                                      resize_sum, seg_ce, sra_attn)
+from segdistill_tpu_torch.ops import (cuda_kernel, group_kl, layer_norm,
+                                      pixel_kl, resize_sum, seg_ce, sra_attn)
 existed = cuda_kernel.BUILD_DIR.exists()
 for k in (resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
           group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
-          pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL):
+          pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL,
+          layer_norm.FWD_KERNEL, layer_norm.BWD_KERNEL):
     assert not k.loaded and k.launches == 0
     try:
         k.function()
@@ -124,7 +143,7 @@ for k in (resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
 assert cuda_kernel.BUILD_DIR.exists() == existed
 ''', env=env)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count('refused:') == 9
+    assert res.stdout.count('refused:') == 11
 
 
 @pytest.mark.parametrize('alone', [False, True], ids=['repo', 'alone'])

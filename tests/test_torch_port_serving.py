@@ -197,9 +197,16 @@ def test_init_segmentor_loads_reference_checkpoint(models, tmp_path):
 
 
 def test_resize_needs_a_scale_at_test_time():
+    """A single fixed ``img_scale`` needs no draw; with a ``ratio_range``
+    the scale is drawn from the sample's generator (the training-time
+    mode), the same draw for the same seed."""
     from segdistill_tpu_torch.datasets.pipelines import Resize
     img = _image(8, (20, 30))
     out = Resize(img_scale=(15, 10))(dict(img=img))
     assert out['img'].shape == (10, 15, 3)
-    with pytest.raises(NotImplementedError, match='training-time'):
-        Resize(img_scale=(64, 32), ratio_range=(0.5, 2.0))(dict(img=img))
+    resize = Resize(img_scale=(64, 32), ratio_range=(0.5, 2.0))
+    a = resize(dict(img=img, rng=np.random.RandomState(3)))
+    b = resize(dict(img=img, rng=np.random.RandomState(3)))
+    ratio = np.random.RandomState(3).random_sample() * 1.5 + 0.5
+    assert a['scale'] == b['scale'] == (int(64 * ratio), int(32 * ratio))
+    assert a['img'].shape == b['img'].shape

@@ -372,8 +372,10 @@ def test_sd_module_config_errors():
         m.train().forward_train(torch.zeros(1, 3, 32, 32),
                                 torch.zeros(1, 32, 32, dtype=torch.long), 1,
                                 perm=torch.arange(NUM_CLASSES))
-    with pytest.raises(NotImplementedError, match='log_grad'):
-        build_segmentor(sd_cfg(distillation=[dict(CGD, log_grad=True)]))
+    # log_grad in the first entry asks the train step for the angle
+    assert build_segmentor(
+        sd_cfg(distillation=[dict(CGD, log_grad=True)])).log_grad
+    assert not build_segmentor(sd_cfg(distillation=[dict(CGD)])).log_grad
     base = build_segmentor(sd_cfg(distillation=[])).train()
     losses = base.forward_train(torch.zeros(1, 3, 32, 32),
                                 torch.zeros(1, 32, 32, dtype=torch.long), 1)
