@@ -86,6 +86,33 @@ K_TOL_F32 = 2e-5
 #   for bf16 accumulation.
 K_TOL_BF16_REL = 2.0 ** -8
 K_TOL_BF16_RMS = 2.0 ** -12
+# bf16 SRA attention (K2, K9): the tensor cores take the probabilities P
+#   (and, backward, dS) as bf16 operands, so each of the M terms of an
+#   output element carries a rounding of 2^-9 relative; their sum leaves
+#   noise of ~2^-10 of a scale that is the rms of the element's row (its
+#   head-dim vector: a row with a peaked softmax has larger terms and more
+#   noise) or, where that is larger (a row whose few values cancel), the
+#   rms of the tensor; the element's own size does not matter (measured on
+#   the CPU: 15-30x the 2^-12 above). So these kernels are held
+#   (b) to the plain version in fp32 on the same bf16 inputs within 2^-8 of
+#   the magnitude (the one final rounding) plus 2^-6 of that scale (5 sigma
+#   of the noise over 10^6 elements, 2-3x headroom): a key dropped or
+#   counted twice moves an element by ~2^-4 of it and fails; and
+#   (a) to the plain version run in bf16, which rounds P and dS as the JAX
+#   kernel does (the normalised P; the kernel rounds exp(s - running max)
+#   and sums in another order, so the two sets of roundings are independent
+#   and the results not bitwise equal): both sides round the result once
+#   more, 2^-7 of the magnitude, plus 2^-5.5 of the scale (sqrt(2) of (b)'s:
+#   two sets of operand roundings).
+#   The error must also have no bias: its mean, and its mean along the sign
+#   of the plain value (a wrong scale or a masked column shows there
+#   first), within 0.05 of its rms plus 4 / sqrt(n) (the mean of unbiased
+#   noise over n elements scatters by rms / sqrt(n)).
+SRA_TOL_F32_REL = 2.0 ** -8
+SRA_TOL_PLAIN_REL = 2.0 ** -7
+SRA_TOL_F32_RMS = 2.0 ** -6
+SRA_TOL_PLAIN_RMS = 2.0 ** -5.5
+SRA_BIAS_MAX = 0.05
 # Model fp32 GPU vs CPU (TF32 off): other summation orders and cuDNN
 #   convolution algorithms through 8 blocks; relative to max |logit|.
 #   Measured ~1.2e-6 on an H100; a TF32 or bf16 leak gives ~1e-3.
@@ -159,6 +186,35 @@ def check_close(name, got, want32, dtype=None):
         raise AssertionError(f'{name}: max abs err {err:.3e}, {used:.2f}x '
                              f'the {got.dtype} tolerance')
     return err, used
+
+
+def check_sra_bf16(name, got, plain_bf16, want32):
+    """A bf16 result of K2 or K9 against (a) the plain version in bf16,
+    which rounds P and dS as the kernels' operands are rounded, and (b) the
+    plain version in fp32 on the same inputs, and the bias of its error;
+    returns the max abs error against (b) and the largest shares of the
+    limits (a), (b) and of the bias limit that it uses."""
+    g = got.float()
+    rms = torch.maximum(want32.square().mean(dim=-1, keepdim=True).sqrt(),
+                        want32.square().mean().sqrt())
+    shares = []
+    for ref, rel, share in (
+            (plain_bf16.float(), SRA_TOL_PLAIN_REL, SRA_TOL_PLAIN_RMS),
+            (want32, SRA_TOL_F32_REL, SRA_TOL_F32_RMS)):
+        tol = rel * ref.abs() + share * rms
+        shares.append(((g - ref).abs() / tol).max().item())
+    err = g - want32
+    err_rms = err.square().mean().sqrt()
+    bias = max(err.mean().abs().item(),
+               (err * want32.sign()).mean().abs().item()) / err_rms.item()
+    bias_max = SRA_BIAS_MAX + 4.0 / math.sqrt(err.numel())
+    shares.append(bias / bias_max)
+    if not max(shares) <= 1.0:
+        raise AssertionError(
+            f'{name}: {shares[0]:.2f}x the limit against the bf16 plain '
+            f'version, {shares[1]:.2f}x against the fp32 one, bias '
+            f'{bias:.3f} of the error\'s rms (limit {bias_max:.3f})')
+    return err.abs().max().item(), shares
 
 
 def phase_device():
@@ -236,9 +292,12 @@ def phase_sra_attn():
     import torch.nn.functional as F
     from segdistill_tpu_torch.ops.sra_attn import (fused_sra_attention,
                                                    sra_attention_plain)
-    from segdistill_tpu_torch.utils.timing import cuda_ms
+    from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
     log('== K2 sra_attn vs plain (N(0,1) q, k, v, strided head views as '
-        'the model passes them)')
+        'the model passes them; bf16: shares of the limits against the '
+        'bf16 plain version, the fp32 one, and of the bias limit; times '
+        'are the device\'s, the calls queued behind a busy stream, and '
+        '"call" the host-clocked time of one wrapper call)')
     rng = np.random.RandomState(1)
     cases = []
     for b in (1, 8):  # B0 at 512^2: (heads, N) per stage, M = 256, d = 32
@@ -248,6 +307,8 @@ def phase_sra_attn():
     cases.append(('ragged N, M', 2, 2, 1000, 100, 32))
     cases.append(('b1-b5 stage1 d64', 2, 1, 16384, 256, 64))
     cases.append(('d128', 1, 2, 300, 70, 128))
+    cases.append(('M 300 (640x480)', 1, 1, 19200, 300, 32))
+    cases.append(('M 2048, d64', 1, 2, 2048, 2048, 64))  # > resident keys
     results = {}
     for name, b, h, n, m, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -257,15 +318,25 @@ def phase_sra_attn():
             got = fused_sra_attention(q, k, v, scale)
             torch.cuda.synchronize()
             want = sra_attention_plain(q.float(), k.float(), v.float(), scale)
-            err, used = check_close(f'sra_attn {name} {dtype}', got, want)
-            ms = cuda_ms(lambda: fused_sra_attention(q, k, v, scale))
-            plain_ms = cuda_ms(lambda: sra_attention_plain(q, k, v, scale))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            if dtype == torch.float32:
+                err, used = check_close(f'sra_attn {name} {dtype}', got, want)
+                used = f'{used:.3f}'
+            else:
+                err, shares = check_sra_bf16(
+                    f'sra_attn {name} {dtype}', got,
+                    sra_attention_plain(q, k, v, scale), want)
+                used = '/'.join(f'{u:.3f}' for u in shares)
+            ms = device_ms(lambda: fused_sra_attention(q, k, v, scale))
+            call_ms = cuda_ms(lambda: fused_sra_attention(q, k, v, scale))
+            plain_ms = device_ms(lambda: sra_attention_plain(q, k, v, scale))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=scale))
             results[(name, dtype)] = (err, ms, plain_ms, lib_ms)
+            bound = _sra_bound(b, h, n, m, d, dtype)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {err:.3e} '
-                f'(tol used {used:.3f})  kernel {ms:.4f} ms  '
-                f'plain {plain_ms:.4f} ms  library (sdpa) {lib_ms:.4f} ms')
+                f'(tol used {used})  kernel {ms:.4f} ms (call {call_ms:.4f})  '
+                f'plain {plain_ms:.4f} ms  library (sdpa) {lib_ms:.4f} ms  '
+                f'bound {bound[0]:.4f} ms ({bound[1]})')
     return results
 
 
@@ -363,18 +434,29 @@ def phase_pixel_kl():
 
 def phase_sra_train():
     import torch.nn.functional as F
-    from segdistill_tpu_torch.ops.sra_attn import (sra_attention_plain,
-                                                   sra_attention_train)
-    from segdistill_tpu_torch.utils.timing import cuda_ms
+    from segdistill_tpu_torch.ops.sra_attn import (
+        sra_attention_backward_plain, sra_attention_plain,
+        sra_attention_train)
+    from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
     log('== K9 sra_attn_bwd (after K2 keeping the row log-sum-exp) vs the '
         'autograd of the plain version (N(0,1) q, k, v and dO, strided head '
-        'views as the model passes them; each gradient and its plain '
-        'version divided by the plain one\'s max |value|)')
+        'views as the model passes them; fp32: each gradient and its plain '
+        'version divided by the plain one\'s max |value|; bf16: shares of '
+        'the limits against the bf16 plain backward, the fp32 one, and of '
+        'the bias limit; two backward runs must agree bitwise; times are '
+        'the device\'s, "call" the host-clocked time of one backward)')
     rng = np.random.RandomState(9)
-    cases = [(f'B0 stage{s + 1} b8', 8, h, n, 256, 32) for s, (h, n) in
-             enumerate(((1, 16384), (2, 4096), (5, 1024), (8, 256)))]
+    stages = ((1, 16384), (2, 4096), (5, 1024), (8, 256))  # (heads, N)
+    cases = [(f'B0 stage{s + 1} b{b}', b, h, n, 256, 32) for b in (8, 1)
+             for s, (h, n) in enumerate(stages)]
     cases.append(('ragged N, M', 2, 2, 1000, 100, 32))
     cases.append(('b1-b5 stage1 d64', 2, 1, 16384, 256, 64))
+    # the B3 teacher's stages, d = 64: two key chunks, dq through partials
+    cases += [(f'B3 stage{s + 1} b2 d64', 2, h, n, 256, 64)
+              for s, (h, n) in enumerate(stages)]
+    cases.append(('M 300 (640x480)', 1, 1, 19200, 300, 32))
+    cases.append(('M 2048, d64', 1, 2, 2048, 2048, 64))
+    cases.append(('d128', 1, 2, 300, 70, 128))
     results = {}
     for name, b, h, n, m, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -385,37 +467,63 @@ def phase_sra_train():
             g = _head_split(b, n, h, d, 1, rng, dtype)[0]
             out = sra_attention_train(q, k, v, scale)
             got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+            again = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f'sra_train {name} {dtype}: two runs '
+                                     f'of K9 differ')
             ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
             want_out = sra_attention_plain(*ref, scale)
             want = torch.autograd.grad(want_out, ref, g.float())
-            errs = [check_close(f'sra_train {name} {dtype} out', out,
-                                want_out.detach())[0]]
-            used = 0.0
-            for tag, a, w in zip(('dq', 'dk', 'dv'), got, want):
+            tags = ('out', 'dq', 'dk', 'dv')
+            for tag, a, w in zip(tags[1:], got, want):
                 if a.shape != w.shape or a.dtype != dtype:
                     raise AssertionError(f'sra_train {name}: {tag} is '
                                          f'{a.dtype} {tuple(a.shape)}')
-                peak = w.abs().max()
-                e, u = check_close(f'sra_train {name} {dtype} {tag}',
-                                   a.float() / peak, w / peak, dtype)
-                errs.append(e)
-                used = max(used, u)
+            if dtype == torch.float32:
+                errs = [check_close(f'sra_train {name} {dtype} out', out,
+                                    want_out.detach())[0]]
+                used = 0.0
+                for tag, a, w in zip(tags[1:], got, want):
+                    peak = w.abs().max()
+                    e, u = check_close(f'sra_train {name} {dtype} {tag}',
+                                       a / peak, w / peak)
+                    errs.append(e)
+                    used = max(used, u)
+                used = f'{used:.3f}'
+            else:
+                with torch.no_grad():
+                    plain = (sra_attention_plain(q, k, v, scale),
+                             *sra_attention_backward_plain(q, k, v, g, scale))
+                errs, shares = [], [0.0, 0.0, 0.0]
+                for tag, a, pb, w in zip(tags, (out.detach(), *got), plain,
+                                         (want_out.detach(), *want)):
+                    peak = w.abs().max()
+                    e, u = check_sra_bf16(f'sra_train {name} {dtype} {tag}',
+                                          a.float() / peak, pb.float() / peak,
+                                          w / peak)
+                    errs.append(e)
+                    shares = [max(x, y) for x, y in zip(shares, u)]
+                used = '/'.join(f'{u:.3f}' for u in shares)
             plain_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             plain_out = sra_attention_plain(*plain_in, scale)
-            ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
-                                                     retain_graph=True))
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+            ms = device_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), g, retain_graph=True))
+            call_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), g, retain_graph=True))
+            plain_ms = device_ms(lambda: torch.autograd.grad(
                 plain_out, plain_in, g, retain_graph=True))
-            fwd_ms = cuda_ms(lambda: sra_attention_train(q, k, v, scale))
+            fwd_ms = device_ms(lambda: sra_attention_train(q, k, v, scale))
             lib_out = F.scaled_dot_product_attention(*plain_in, scale=scale)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_ms = device_ms(lambda: torch.autograd.grad(
                 lib_out, plain_in, g, retain_graph=True))
             results[(name, dtype)] = (max(errs), ms, plain_ms, lib_ms)
+            bound = _sra_bound(b, h, n, m, d, dtype, backward=True)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {max(errs):.3e} '
-                f'(gradients use {used:.3f} of the tol)  bwd {ms:.4f} ms  '
+                f'(tol used {used})  bwd {ms:.4f} ms (call {call_ms:.4f})  '
                 f'plain bwd {plain_ms:.4f} ms  library (sdpa) bwd '
-                f'{lib_ms:.4f} ms  fwd with lse {fwd_ms:.4f} ms')
+                f'{lib_ms:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})  fwd '
+                f'with lse {fwd_ms:.4f} ms')
     return results
 
 
@@ -1079,6 +1187,24 @@ def _bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
         'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def _sra_bound(b, h, n, m, d, dtype, backward=False):
+    """The bound of K2 (or K9) on b * h heads of (n, m, d) in ``dtype``: q,
+    k, v read and the output written once (K9: also dO, the fp32 output and
+    the row log-sum-exp read, dq, dk, dv written), against the products at
+    the peak of the inputs' type plus the softmax terms in fp32. At d = 32
+    in bf16 the n * m exponentials (16 per clock and SM: ~0.009 ms at B0
+    stage 1, batch 8) cost as much as the products: the products must
+    leave the CUDA cores, and the softmax must stay cheap."""
+    size, peak = (2, PEAK_BF16) if dtype == torch.bfloat16 else (4, PEAK_F32)
+    bh = b * h
+    if not backward:
+        return _bound(bh * size * (2 * n * d + 2 * m * d), bh * 5 * n * m,
+                      bh * 4 * n * m * d, peak)
+    return _bound(bh * (size * (2 * n * d + 2 * m * d) + 4 * n * d + 4 * n
+                        + size * (n * d + 2 * m * d)),
+                  bh * 8 * n * m, bh * 10 * n * m * d, peak)
+
+
 def _bounds(names):
     """{kernel name: (bound_ms, bound_by)} at the shapes of
     ``main_case`` in :func:`main`."""
@@ -1088,16 +1214,11 @@ def _bounds(names):
     parts = sum(s * s * 256 for s in (16, 32, 64))
     o = 128 * 128 * 256
     out[k1] = _bound(4 * (parts + o), 8 * 3 * o)
-    # K2: B0 stage 1, batch 1, fp32: N 16384, M 256, d 32, one head
-    n, m, d = 16384, 256, 32
-    out[k2] = _bound(4 * (2 * n * d + 2 * m * d), 5 * n * m,
-                     4 * n * m * d, PEAK_F32)
-    # K9: the same stage at batch 8 in bf16: reads q, k, v, dO (bf16), the
-    # fp32 output and row log-sum-exp; writes dq, dk, dv
-    b = 8
-    out[k9] = _bound(b * (2 * (2 * n * d + 2 * m * d) + 4 * n * d + 4 * n
-                          + 2 * (n * d + 2 * m * d)),
-                     b * 8 * n * m, b * 10 * n * m * d, PEAK_BF16)
+    # K2: B0 stage 1, batch 1, fp32: N 16384, M 256, d 32, one head; K9:
+    # the same stage at batch 8 in bf16 (the K2 phase logs K2's bound
+    # there too, beside its batch-8 bf16 time)
+    out[k2] = _sra_bound(1, 1, 16384, 256, 32, torch.float32)
+    out[k9] = _sra_bound(8, 1, 16384, 256, 32, torch.bfloat16, backward=True)
     # K3-K8: (8, 150, 128, 128) bf16 maps -> 512 x 512
     src = 8 * 150 * 128 * 128
     px = 8 * 512 * 512

@@ -1,521 +1,535 @@
-// K2 and K9: MiT spatial-reduction attention for Hopper (sm_90a), forward
-// and backward.
+// K2: MiT spatial-reduction attention for Hopper (sm_90a), forward.
 //
-// K2 replaces segdistill_tpu/ops/pallas/sra_attn.py::fused_sra_attention
-// (the pallas_call at sra_attn.py:78) and is the forward of
-// sra_attention_train; K9 replaces that function's backward (the
-// pallas_call at sra_attn.py:182):
+// Replaces segdistill_tpu/ops/pallas/sra_attn.py::fused_sra_attention (the
+// pallas_call at sra_attn.py:78) and is the forward of sra_attention_train
+// (its backward, K9, is sra_attn_bwd.cu):
 //
 //   out = softmax(q @ k^T * scale) @ v,   q (B, h, N, d), k/v (B, h, M, d)
 //
-// K2. Scores, the softmax statistics and the output sum are fp32 in
-// registers; the (N, M) score plane never reaches device memory; the output
-// is stored in the input dtype. For training it also stores each row's
-// log-sum-exp of the scaled scores, and, for bf16 inputs, the output in fp32
-// (the row term D of the backward is formed from it, as the plain version's
-// autograd forms it from its fp32 product).
+// The (N, M) score plane never reaches device memory; the softmax is fp32
+// and online (running max and sum per row, in base 2 with scale * log2(e)
+// folded into one multiply), so any M works; rows past N are computed and
+// not stored, so any N works. For training it also stores each row's
+// log-sum-exp of the scaled scores and, for bf16 inputs, the output in fp32
+// (K9 forms the row term D = rowsum(dO o O) from it).
 //
-// What bounds K2: arithmetic. At B0 stage 1 (512^2 input) N = 16384 query
-// rows attend to M = 256 keys with d = 32, so each row does 4*M*d = 32k
-// FLOPs against 2*d*2 bytes of its own traffic; K/V (M*d) are shared by all
-// rows of a head and stay in L2. This first version runs on CUDA cores:
-// one block per (b*h, tile of 128 query rows), one thread per query row
-// holding q and its output row in registers. K/V stream through shared
-// memory in chunks of KC keys, fp32, and every thread reads the same key at
-// the same time (a shared-memory broadcast). An online softmax (running max
-// and sum, rescaled once per chunk) lets any M work; rows past N are masked,
-// so any N works. mma.sync / wgmma / TMA are later work.
+// What bounds it on this card: operations. At B0 stage 1 (512^2 input) a
+// row does 4*M*d = 32k FLOPs against 128 bytes of its own traffic; K/V are
+// shared by all rows of a head and stay in L2. At d = 32 the M exponentials
+// of a row cost as much as its products on the tensor cores, so the
+// products must leave the CUDA cores and the softmax must stay cheap.
 //
-// K9, the flash-attention backward with the JAX kernel's math, P recomputed
-// from q, k and the saved log-sum-exp, all sums in fp32:
+// bf16 inputs: tensor cores, mma.sync.m16n8k16 with bf16 operands and fp32
+// sums (not wgmma: at d = 32 the two products are ~4 us of the card at
+// full rate, less than the exponentials, so wgmma's extra rate buys little
+// and its shared-memory descriptors are where a hand-written kernel goes
+// wrong). A block of 4 warps owns 64 query rows, 16 a warp (at d = 64 on
+// large grids 128 rows, 32 a warp); the Q fragments and the fp32 output
+// sums live in registers (d/2 each: no spill at d = 128); up to KS keys of
+// the head's K and V sit in shared memory as bf16, loaded once per block
+// with 16-byte cp.async, rows padded by 16 bytes so that ldmatrix is free
+// of bank conflicts (V is read with ldmatrix.trans).
+// Keys go 64 at a time: S = Q K^T in the accumulator
+// layout, row max and sum by shuffles over the 4 lanes that share a row,
+// P = exp2(S - max) rounded to bf16 in registers as the A operand of
+// O += P V. The JAX kernel rounds the normalised P to bf16; this one
+// rounds exp(s - running max) and divides the fp32 sum at the end.
 //
-//   P = exp(s q k^T - lse),  D = rowsum(dO o O),  dS = P o (dO v^T - D) s
-//   dq = dS k,  dk = dS^T q,  dv = P^T dO
+// fp32 inputs: full fp32 on CUDA cores (no TF32: the fp32 model is held to
+// 1e-5 of its largest logit against the CPU). Four lanes share a query
+// row: they split the head dim in slices of 32 (d = 64: 2, d = 128: 4) and
+// the keys among the rest (d = 32: 4 key lanes), so q and the output sums
+// take 32 registers a row at every d. A thread owns two rows (32 apart),
+// has four key dots in flight per row, reads K and V from shared memory as
+// float4 (one load per eight FMAs: with one row a thread, shared-memory
+// reads and not FMAs bounded the kernel) and handles 16 keys per chunk
+// before it touches the running max; the key lanes merge their (max, sum,
+// output) at the end. Shared rows are padded so the four lanes of a row
+// hit different banks.
 //
-// Three launches. (1) One thread per query row, K/V streamed through shared
-// memory as in K2: D for the row, then dq (q, dO and the dq sum in
-// registers). (2) One thread per key row (k, v and the dk, dv sums in
-// registers), the query rows of one split of N streamed through shared
-// memory: each split writes fp32 partial dk, dv. At B0 stage 1 there are
-// only B*h = 8 heads of M = 256 keys, 16 blocks, so N is split (~32 ways
-// there) to fill the 132 SMs. (3) The partials are summed in a fixed order
-// and stored in the inputs' dtype: no atomics, the gradients are
-// deterministic, as the JAX kernel's sequential accumulation is. P and dS
-// stay fp32 (the JAX kernel rounds them to the input dtype under bf16).
-// Bound by CUDA-core FMAs like K2: 7*N*M*d per head against K2's 2*N*M*d.
+// Strides: q, k, v and the outputs are addressed as (b, h, n) strides with
+// a contiguous last dim, so the caller's head-split views need no copy;
+// every row must start at a multiple of 16 bytes (the wrapper copies what
+// does not).
 //
-// Strides: q, k, v, the outputs and the gradients are addressed as (b, h,
-// n) strides with a contiguous last dim, so the caller's head-split views
-// need no copy.
-//
-// Plain C interface, loaded with ctypes; returns cudaGetLastError().
+// Plain C interface, loaded with ctypes; returns the CUDA error code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "sra_common.cuh"
 
 namespace {
 
-constexpr int kRows = 128;  // query rows (threads) per block
+using namespace sra;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+// ---------------------------------------------------------------- bf16
+constexpr int kMmaThreads = 128;  // 4 warps x MT tiles of 16 query rows
+constexpr int kSMs = 132;         // of the card the shapes are planned for
 
-struct Strides {
-  long long b, h, n;
-};
-
-template <typename T, int DMAX, int KC>
-__global__ void __launch_bounds__(kRows)
-    sra_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out,
-                    float* __restrict__ lse, float* __restrict__ out32,
-                    int heads, int N, int M, int d, Strides qs, Strides ks,
-                    Strides vs, Strides os, float scale) {
-  __shared__ float k_s[KC][DMAX];
-  __shared__ float v_s[KC][DMAX];
+template <int DP, int KS, int MT>
+__global__ void __launch_bounds__(kMmaThreads)
+    sra_fwd_mma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                float* __restrict__ out32, int heads, int N, int M, int d,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                float scale_log2_signed) {
+  constexpr int LD = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* v_s = k_s + KS * LD;
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int hh = bh % heads;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < N;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const __nv_bfloat16* q_head = q + b * qs.b + hh * qs.h;
+  const __nv_bfloat16* k_head = k + b * ks.b + hh * ks.h;
+  const __nv_bfloat16* v_head = v + b * vs.b + hh * vs.h;
 
-  const T* q_row = q + b * qs.b + hh * qs.h + (active ? row : 0) * qs.n;
-  const T* k_head = k + b * ks.b + hh * ks.h;
-  const T* v_head = v + b * vs.b + hh * vs.h;
+  // this thread's rows: row0 + 16 * mt and 8 below, mt < MT
+  const int row0 = (blockIdx.x * 4 + warp) * 16 * MT + g;
 
-  float q_r[DMAX];
-  float acc[DMAX];
+  // The running max is kept on the raw scores and the scale folded into
+  // the exponent's one FMA, which needs a positive scale: a negative one
+  // moves into q's sign bits.
+  const float scale_log2 = fabsf(scale_log2_signed);
+  const uint32_t flip = scale_log2_signed < 0.0f ? 0x80008000u : 0u;
+  // Q fragments straight from device memory (each element is read once)
+  uint32_t qf[MT][DP / 16][4];
+  float o[MT][DP / 8][4];
+  float m_run[MT][2];  // running max (raw scores) of rows + 0 and + 8
+  float l_run[MT][2];  // this lane's share of the sums
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    q_r[i] = (i < d) ? to_f32(q_row[i]) : 0.0f;
-    acc[i] = 0.0f;
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 16 * mt + 8 * (i & 1);
+        const int col = kk * 16 + 2 * t + (i >> 1) * 8;
+        qf[mt][kk][i] = (row < N && col < d)
+                            ? *reinterpret_cast<const uint32_t*>(
+                                  q_head + row * qs.n + col) ^ flip
+                            : 0u;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      o[mt][nt][0] = o[mt][nt][1] = o[mt][nt][2] = o[mt][nt][3] = 0.0f;
+    }
+    m_run[mt][0] = m_run[mt][1] = -INFINITY;
+    l_run[mt][0] = l_run[mt][1] = 0.0f;
   }
-  float m_run = -INFINITY;
-  float l_run = 0.0f;
+
+  for (int c0 = 0; c0 < M; c0 += KS) {
+    const int kc = min(KS, M - c0);
+    __syncthreads();  // the previous keys have been consumed
+    load_tile<__nv_bfloat16, KS, DP, LD, kMmaThreads>(
+        k_s, k_head + c0 * ks.n, ks.n, kc, d);
+    load_tile<__nv_bfloat16, KS, DP, LD, kMmaThreads>(
+        v_s, v_head + c0 * vs.n, vs.n, kc, d);
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int k0 = 0; k0 < kc; k0 += 64) {  // key k0 is valid
+      float s[MT][8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bf[4];  // one read of K feeds every row tile of the warp
+          ldmatrix_x4(bf, b_frag<LD>(k_s, k0 + np * 16, kk * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], qf[mt][kk], bf[0], bf[1]);
+            mma_bf16(s[mt][2 * np + 1], qf[mt][kk], bf[2], bf[3]);
+          }
+        }
+      }
+      uint32_t pf[MT][4][4];  // P as A fragments, 16 keys each
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (k0 + 64 > kc) {  // only the last keys need a mask
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (k0 + nt * 8 + 2 * t + (e & 1) >= kc) {
+                s[mt][nt][e] = -INFINITY;
+              }
+            }
+          }
+        }
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          mx_a = fmaxf(mx_a, fmaxf(s[mt][nt][0], s[mt][nt][1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[mt][nt][2], s[mt][nt][3]));
+        }
+#pragma unroll
+        for (int mask = 1; mask < 4; mask <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, mask));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, mask));
+        }
+        const float m_a = m_run[mt][0], m_b = m_run[mt][1];
+        const float mn_a = fmaxf(m_a, mx_a);  // finite: key k0 is valid
+        const float mn_b = fmaxf(m_b, mx_b);
+        // 0 on the first keys (also at scale 0, where -inf * 0 is no number)
+        const float corr_a = m_a == -INFINITY
+                                 ? 0.0f
+                                 : fast_exp2((m_a - mn_a) * scale_log2);
+        const float corr_b = m_b == -INFINITY
+                                 ? 0.0f
+                                 : fast_exp2((m_b - mn_b) * scale_log2);
+        const float off_a = -mn_a * scale_log2;
+        const float off_b = -mn_b * scale_log2;
+        m_run[mt][0] = mn_a;
+        m_run[mt][1] = mn_b;
+        float l_a = l_run[mt][0] * corr_a, l_b = l_run[mt][1] * corr_b;
+#pragma unroll
+        for (int nt = 0; nt < DP / 8; ++nt) {
+          o[mt][nt][0] *= corr_a;
+          o[mt][nt][1] *= corr_a;
+          o[mt][nt][2] *= corr_b;
+          o[mt][nt][3] *= corr_b;
+        }
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          // exp2(s * scale * log2(e) - max); 0 for masked keys
+          const float p0 = fast_exp2(fmaf(s[mt][nt][0], scale_log2, off_a));
+          const float p1 = fast_exp2(fmaf(s[mt][nt][1], scale_log2, off_a));
+          const float p2 = fast_exp2(fmaf(s[mt][nt][2], scale_log2, off_b));
+          const float p3 = fast_exp2(fmaf(s[mt][nt][3], scale_log2, off_b));
+          l_a += p0 + p1;
+          l_b += p2 + p3;
+          pf[mt][nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
+          pf[mt][nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+        l_run[mt][0] = l_a;
+        l_run[mt][1] = l_b;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < DP / 16; ++dp) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf,
+                            bt_frag<LD>(v_s, k0 + kk * 16, dp * 16, lane));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(o[mt][2 * dp], pf[mt][kk], bf[0], bf[1]);
+            mma_bf16(o[mt][2 * dp + 1], pf[mt][kk], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float l = l_run[mt][half];
+#pragma unroll
+      for (int mask = 1; mask < 4; mask <<= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, mask);
+      }
+      const int row = row0 + 16 * mt + 8 * half;
+      if (row >= N) continue;
+      const float inv = 1.0f / l;
+      const long long off = b * os.b + hh * os.h + row * os.n;
+#pragma unroll
+      for (int nt = 0; nt < DP / 8; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        if (col < d) {
+          const float x = o[mt][nt][2 * half] * inv;
+          const float y = o[mt][nt][2 * half + 1] * inv;
+          *reinterpret_cast<uint32_t*>(out + off + col) = pack_bf16(x, y);
+          if (out32 != nullptr) {
+            *reinterpret_cast<float2*>(out32 + off + col) =
+                make_float2(x, y);
+          }
+        }
+      }
+      if (lse != nullptr && t == 0) {
+        lse[static_cast<long long>(bh) * N + row] =
+            (m_run[mt][half] * scale_log2 + log2f(l)) * kLn2;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- fp32
+constexpr int kF32Threads = 128;  // 32 x 4 lanes, two query rows each
+constexpr int kF32Rows = 64;
+constexpr int kRowsPerThread = 2;  // a K or V value read feeds two rows
+constexpr int kKeysPerLane = 16;   // keys a thread handles per chunk
+
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads)
+    sra_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int heads, int N, int M, int d,
+                Strides qs, Strides ks, Strides vs, Strides os,
+                float scale_log2) {
+  constexpr int R = kRowsPerThread;
+  constexpr int DL = DP / 32;             // lanes that split the head dim
+  constexpr int KL = 4 / DL;              // lanes that split the keys
+  constexpr int KC = kKeysPerLane * KL;   // keys per chunk
+  constexpr int LD = DP + 4 * DL;         // the 4 lanes hit 4 bank groups
+  __shared__ __align__(16) float k_s[KC * LD];
+  __shared__ __align__(16) float v_s[KC * LD];
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int hh = bh % heads;
+  // rows row0 and row0 + 32
+  const int row0 = blockIdx.x * kF32Rows + (threadIdx.x >> 2);
+  const int l4 = threadIdx.x & 3;
+  const int dl = l4 % DL;  // dims (c * DL + dl) * 4 .. + 3, c = 0..7
+  const int kl = l4 / DL;  // keys j * KL + kl of a chunk, j = 0..15
+
+  const float* k_head = k + b * ks.b + hh * ks.h;
+  const float* v_head = v + b * vs.b + hh * vs.h;
+
+  float q_r[R][32];
+  float acc[R][32];
+  float m_run[R], l_run[R];  // base-2 running max, sum
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + 32 * r;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = (c * DL + dl) * 4;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row < N && col < d) {
+        x = *reinterpret_cast<const float4*>(q + b * qs.b + hh * qs.h +
+                                             row * qs.n + col);
+      }
+      q_r[r][4 * c] = x.x;
+      q_r[r][4 * c + 1] = x.y;
+      q_r[r][4 * c + 2] = x.z;
+      q_r[r][4 * c + 3] = x.w;
+      acc[r][4 * c] = acc[r][4 * c + 1] = 0.0f;
+      acc[r][4 * c + 2] = acc[r][4 * c + 3] = 0.0f;
+    }
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.0f;
+  }
 
   for (int c0 = 0; c0 < M; c0 += KC) {
     const int kc = min(KC, M - c0);
     __syncthreads();  // the previous chunk has been consumed
-    for (int e = threadIdx.x; e < KC * DMAX; e += kRows) {
-      const int j = e / DMAX;
-      const int col = e % DMAX;
-      float kv = 0.0f, vv = 0.0f;
-      if (j < kc && col < d) {
-        kv = to_f32(k_head[(c0 + j) * ks.n + col]);
-        vv = to_f32(v_head[(c0 + j) * vs.n + col]);
-      }
-      k_s[j][col] = kv;
-      v_s[j][col] = vv;
-    }
+    load_tile<float, KC, DP, LD, kF32Threads>(k_s, k_head + c0 * ks.n, ks.n,
+                                              kc, d);
+    load_tile<float, KC, DP, LD, kF32Threads>(v_s, v_head + c0 * vs.n, vs.n,
+                                              kc, d);
+    cp_async_wait_all();
     __syncthreads();
 
-    float s[KC];
-    float c_max = -INFINITY;
+    float s[R][kKeysPerLane];
 #pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      float dot = 0.0f;
+    for (int j0 = 0; j0 < kKeysPerLane; j0 += 4) {
+      float dot[R][4];  // four keys in flight per row
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) dot = fmaf(q_r[i], k_s[j][i], dot);
-      s[j] = (j < kc) ? dot * scale : -INFINITY;
-      c_max = fmaxf(c_max, s[j]);
-    }
-    const float m_new = fmaxf(m_run, c_max);  // finite: kc >= 1
-    const float corr = expf(m_run - m_new);   // 0 on the first chunk
-    l_run *= corr;
+      for (int r = 0; r < R; ++r) {
+        dot[r][0] = dot[r][1] = dot[r][2] = dot[r][3] = 0.0f;
+      }
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) acc[i] *= corr;
+      for (int c = 0; c < 8; ++c) {
 #pragma unroll
-    for (int j = 0; j < KC; ++j) {
-      const float p = expf(s[j] - m_new);  // 0 for masked keys
-      l_run += p;
+        for (int u = 0; u < 4; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              &k_s[((j0 + u) * KL + kl) * LD + (c * DL + dl) * 4]);
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) acc[i] = fmaf(p, v_s[j][i], acc[i]);
-    }
-    m_run = m_new;
-  }
-
-  if (active) {
-    const long long o_off = b * os.b + hh * os.h + row * os.n;
-    const float inv_l = 1.0f / l_run;
+          for (int r = 0; r < R; ++r) {
+            dot[r][u] = fmaf(q_r[r][4 * c], x.x, dot[r][u]);
+            dot[r][u] = fmaf(q_r[r][4 * c + 1], x.y, dot[r][u]);
+            dot[r][u] = fmaf(q_r[r][4 * c + 2], x.z, dot[r][u]);
+            dot[r][u] = fmaf(q_r[r][4 * c + 3], x.w, dot[r][u]);
+          }
+        }
+      }
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      if (i < d) out[o_off + i] = from_f32<T>(acc[i] * inv_l);
-    }
-    if (out32 != nullptr) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) {
-        if (i < d) out32[o_off + i] = acc[i] * inv_l;
+        for (int u = 0; u < 4; ++u) s[r][j0 + u] = dot[r][u];
       }
     }
-    if (lse != nullptr) {
-      lse[static_cast<long long>(bh) * N + row] = m_run + logf(l_run);
-    }
-  }
-}
-
-// K9 (1): dq and D = rowsum(dO o O) of one query row per thread.
-template <typename T, int DMAX, int KC>
-__global__ void __launch_bounds__(kRows)
-    sra_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ o,
-               const T* __restrict__ g, const float* __restrict__ lse,
-               float* __restrict__ dsum, T* __restrict__ dq, int heads,
-               int N, int M, int d, Strides qs, Strides ks, Strides vs,
-               Strides os, Strides gs, Strides dqs, float scale) {
-  __shared__ float k_s[KC][DMAX];
-  __shared__ float v_s[KC][DMAX];
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int hh = bh % heads;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < N;
-  const int r = active ? row : 0;
-
-  const T* q_row = q + b * qs.b + hh * qs.h + r * qs.n;
-  const float* o_row = o + b * os.b + hh * os.h + r * os.n;
-  const T* g_row = g + b * gs.b + hh * gs.h + r * gs.n;
-  const T* k_head = k + b * ks.b + hh * ks.h;
-  const T* v_head = v + b * vs.b + hh * vs.h;
-
-  float q_r[DMAX];
-  float g_r[DMAX];
-  float acc[DMAX];
-  float dsum_r = 0.0f;
+    float m_safe[R];
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    q_r[i] = (i < d) ? to_f32(q_row[i]) : 0.0f;
-    g_r[i] = (i < d) ? to_f32(g_row[i]) : 0.0f;
-    if (i < d) dsum_r = fmaf(g_r[i], o_row[i], dsum_r);
-    acc[i] = 0.0f;
-  }
-  const float lse_r = lse[static_cast<long long>(bh) * N + r];
-
-  for (int c0 = 0; c0 < M; c0 += KC) {
-    const int kc = min(KC, M - c0);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int e = threadIdx.x; e < KC * DMAX; e += kRows) {
-      const int j = e / DMAX;
-      const int col = e % DMAX;
-      float kv = 0.0f, vv = 0.0f;
-      if (j < kc && col < d) {
-        kv = to_f32(k_head[(c0 + j) * ks.n + col]);
-        vv = to_f32(v_head[(c0 + j) * vs.n + col]);
+    for (int r = 0; r < R; ++r) {
+      float c_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeysPerLane; ++j) {
+#pragma unroll
+        for (int mask = 1; mask < DL; mask <<= 1) {
+          s[r][j] += __shfl_xor_sync(0xffffffffu, s[r][j], mask);
+        }
+        s[r][j] = (j * KL + kl < kc) ? s[r][j] * scale_log2 : -INFINITY;
+        c_max = fmaxf(c_max, s[r][j]);
       }
-      k_s[j][col] = kv;
-      v_s[j][col] = vv;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kc; ++j) {
-      float s = 0.0f, dp = 0.0f;
+      // a key lane may hold no valid key yet: its state stays (-inf, 0)
+      const float m_new = fmaxf(m_run[r], c_max);
+      m_safe[r] = m_new == -INFINITY ? 0.0f : m_new;
+      const float corr = exp2f(m_run[r] - m_safe[r]);  // 0 on the first keys
+      m_run[r] = m_new;
+      l_run[r] *= corr;
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) {
-        s = fmaf(q_r[i], k_s[j][i], s);
-        dp = fmaf(g_r[i], v_s[j][i], dp);
+      for (int i = 0; i < 32; ++i) acc[r][i] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysPerLane; ++j) {
+      float p[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p[r] = exp2f(s[r][j] - m_safe[r]);  // 0 for masked keys
+        l_run[r] += p[r];
       }
-      const float ds = expf(s * scale - lse_r) * (dp - dsum_r) * scale;
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) acc[i] = fmaf(ds, k_s[j][i], acc[i]);
-    }
-  }
-
-  if (active) {
-    T* dq_row = dq + b * dqs.b + hh * dqs.h + row * dqs.n;
+      for (int c = 0; c < 8; ++c) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            &v_s[(j * KL + kl) * LD + (c * DL + dl) * 4]);
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      if (i < d) dq_row[i] = from_f32<T>(acc[i]);
-    }
-    dsum[static_cast<long long>(bh) * N + row] = dsum_r;
-  }
-}
-
-// K9 (2): fp32 partial dk, dv of one key row per thread over one split of
-// the query rows, written to part_dk/part_dv[split][b*h][key][:d].
-template <typename T, int DMAX, int QC>
-__global__ void __launch_bounds__(kRows)
-    sra_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ g,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ dsum, float* __restrict__ part_dk,
-                 float* __restrict__ part_dv, int heads, int N, int M, int d,
-                 int rows_per_split, Strides qs, Strides ks, Strides vs,
-                 Strides gs, float scale) {
-  __shared__ float q_s[QC][DMAX];
-  __shared__ float g_s[QC][DMAX];
-  __shared__ float lse_s[QC];
-  __shared__ float dsum_s[QC];
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int hh = bh % heads;
-  const int key = blockIdx.x * kRows + threadIdx.x;
-  const bool active = key < M;
-  const int kr = active ? key : 0;
-
-  const T* k_row = k + b * ks.b + hh * ks.h + kr * ks.n;
-  const T* v_row = v + b * vs.b + hh * vs.h + kr * vs.n;
-  const T* q_head = q + b * qs.b + hh * qs.h;
-  const T* g_head = g + b * gs.b + hh * gs.h;
-  const float* lse_head = lse + static_cast<long long>(bh) * N;
-  const float* dsum_head = dsum + static_cast<long long>(bh) * N;
-
-  float k_r[DMAX];
-  float v_r[DMAX];
-  float dk[DMAX];
-  float dv[DMAX];
-#pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    k_r[i] = (i < d) ? to_f32(k_row[i]) : 0.0f;
-    v_r[i] = (i < d) ? to_f32(v_row[i]) : 0.0f;
-    dk[i] = 0.0f;
-    dv[i] = 0.0f;
-  }
-
-  const int n0 = blockIdx.z * rows_per_split;
-  const int n1 = min(N, n0 + rows_per_split);
-  for (int r0 = n0; r0 < n1; r0 += QC) {
-    const int rc = min(QC, n1 - r0);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int e = threadIdx.x; e < QC * DMAX; e += kRows) {
-      const int j = e / DMAX;
-      const int col = e % DMAX;
-      float qv = 0.0f, gv = 0.0f;
-      if (j < rc && col < d) {
-        qv = to_f32(q_head[(r0 + j) * qs.n + col]);
-        gv = to_f32(g_head[(r0 + j) * gs.n + col]);
-      }
-      q_s[j][col] = qv;
-      g_s[j][col] = gv;
-    }
-    for (int j = threadIdx.x; j < QC; j += kRows) {
-      lse_s[j] = j < rc ? lse_head[r0 + j] : 0.0f;
-      dsum_s[j] = j < rc ? dsum_head[r0 + j] : 0.0f;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < rc; ++j) {
-      float s = 0.0f, dp = 0.0f;
-#pragma unroll
-      for (int i = 0; i < DMAX; ++i) {
-        s = fmaf(q_s[j][i], k_r[i], s);
-        dp = fmaf(g_s[j][i], v_r[i], dp);
-      }
-      const float p = expf(s * scale - lse_s[j]);
-      const float ds = p * (dp - dsum_s[j]) * scale;
-#pragma unroll
-      for (int i = 0; i < DMAX; ++i) {
-        dv[i] = fmaf(p, g_s[j][i], dv[i]);
-        dk[i] = fmaf(ds, q_s[j][i], dk[i]);
+        for (int r = 0; r < R; ++r) {
+          acc[r][4 * c] = fmaf(p[r], x.x, acc[r][4 * c]);
+          acc[r][4 * c + 1] = fmaf(p[r], x.y, acc[r][4 * c + 1]);
+          acc[r][4 * c + 2] = fmaf(p[r], x.z, acc[r][4 * c + 2]);
+          acc[r][4 * c + 3] = fmaf(p[r], x.w, acc[r][4 * c + 3]);
+        }
       }
     }
   }
 
-  if (active) {
-    const long long off =
-        ((static_cast<long long>(blockIdx.z) * gridDim.y + bh) * M + key) *
-        d;
 #pragma unroll
-    for (int i = 0; i < DMAX; ++i) {
-      if (i < d) {
-        part_dk[off + i] = dk[i];
-        part_dv[off + i] = dv[i];
+  for (int r = 0; r < R; ++r) {
+    // merge the key lanes of a row: (max, sum, output) pairs
+#pragma unroll
+    for (int mask = DL; mask < 4; mask <<= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m_run[r], mask);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l_run[r], mask);
+      const float m_new = fmaxf(m_run[r], m_o);
+      const float m_safe = m_new == -INFINITY ? 0.0f : m_new;
+      const float wa = exp2f(m_run[r] - m_safe);
+      const float wb = exp2f(m_o - m_safe);
+      l_run[r] = l_run[r] * wa + l_o * wb;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float a_o = __shfl_xor_sync(0xffffffffu, acc[r][i], mask);
+        acc[r][i] = acc[r][i] * wa + a_o * wb;
+      }
+      m_run[r] = m_new;
+    }
+    const int row = row0 + 32 * r;
+    if (row < N && kl == 0) {
+      const float inv_l = 1.0f / l_run[r];
+      const long long off = b * os.b + hh * os.h + row * os.n;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = (c * DL + dl) * 4;
+        if (col < d) {
+          *reinterpret_cast<float4*>(out + off + col) = make_float4(
+              acc[r][4 * c] * inv_l, acc[r][4 * c + 1] * inv_l,
+              acc[r][4 * c + 2] * inv_l, acc[r][4 * c + 3] * inv_l);
+        }
+      }
+      if (lse != nullptr && dl == 0) {
+        lse[static_cast<long long>(bh) * N + row] =
+            (m_run[r] + log2f(l_run[r])) * kLn2;
       }
     }
   }
 }
 
-// K9 (3): dk, dv = the sums of the partials over the splits, in split
-// order, one element per thread.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    sra_bwd_reduce(const float* __restrict__ part_dk,
-                   const float* __restrict__ part_dv, int splits, int heads,
-                   int M, int d, long long n, T* __restrict__ dk,
-                   T* __restrict__ dv, Strides dks, Strides dvs) {
-  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  if (e >= n) return;
-  float sk = 0.0f, sv = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    sk += part_dk[s * n + e];
-    sv += part_dv[s * n + e];
-  }
-  const int i = static_cast<int>(e % d);
-  const long long rest = e / d;
-  const int m = static_cast<int>(rest % M);
-  const int bh = static_cast<int>(rest / M);
-  const int b = bh / heads;
-  const int hh = bh % heads;
-  dk[b * dks.b + hh * dks.h + m * dks.n + i] = from_f32<T>(sk);
-  dv[b * dvs.b + hh * dvs.h + m * dvs.n + i] = from_f32<T>(sv);
-}
-
-template <typename T, int DMAX, int KC>
-void launch(const void* q, const void* k, const void* v, void* out,
-            float* lse, float* out32, int B, int heads, int N, int M, int d,
-            Strides qs, Strides ks, Strides vs, Strides os, float scale,
-            cudaStream_t stream) {
-  const dim3 grid((N + kRows - 1) / kRows, B * heads);
-  sra_attn_kernel<T, DMAX, KC><<<grid, kRows, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, out32, heads, N,
-      M, d, qs, ks, vs, os, scale);
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             float* lse, float* out32, int B, int heads, int N, int M, int d,
-             Strides qs, Strides ks, Strides vs, Strides os, float scale,
-             cudaStream_t stream) {
-  if (d <= 32) {
-    launch<T, 32, 32>(q, k, v, out, lse, out32, B, heads, N, M, d, qs, ks,
-                      vs, os, scale, stream);
-  } else if (d <= 64) {
-    launch<T, 64, 32>(q, k, v, out, lse, out32, B, heads, N, M, d, qs, ks,
-                      vs, os, scale, stream);
-  } else {
-    launch<T, 128, 16>(q, k, v, out, lse, out32, B, heads, N, M, d, qs, ks,
-                       vs, os, scale, stream);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The arguments of one K9 call.
-struct BwdArgs {
+struct FwdArgs {
   const void* q;
   const void* k;
   const void* v;
-  const float* o;
-  const void* g;
-  const float* lse;
-  float* dsum;
-  float* part_dk;
-  float* part_dv;
-  void* dq;
-  void* dk;
-  void* dv;
-  int B, heads, N, M, d, splits, rows_per_split;
-  Strides qs, ks, vs, os, gs, dqs, dks, dvs;
+  void* out;
+  float* lse;
+  float* out32;
+  int B, heads, N, M, d;
+  Strides qs, ks, vs, os;
   float scale;
 };
 
-template <typename T, int DMAX, int KC>
-void launch_bwd(const BwdArgs& a, cudaStream_t s) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* g = static_cast<const T*>(a.g);
-  const dim3 g1((a.N + kRows - 1) / kRows, a.B * a.heads);
-  sra_bwd_dq<T, DMAX, KC><<<g1, kRows, 0, s>>>(
-      q, k, v, a.o, g, a.lse, a.dsum, static_cast<T*>(a.dq), a.heads, a.N,
-      a.M, a.d, a.qs, a.ks, a.vs, a.os, a.gs, a.dqs, a.scale);
-  const dim3 g2((a.M + kRows - 1) / kRows, a.B * a.heads, a.splits);
-  sra_bwd_dkdv<T, DMAX, KC><<<g2, kRows, 0, s>>>(
-      q, k, v, g, a.lse, a.dsum, a.part_dk, a.part_dv, a.heads, a.N, a.M,
-      a.d, a.rows_per_split, a.qs, a.ks, a.vs, a.gs, a.scale);
-  const long long n = static_cast<long long>(a.B) * a.heads * a.M * a.d;
-  sra_bwd_reduce<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      a.part_dk, a.part_dv, a.splits, a.heads, a.M, a.d, n,
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dks, a.dvs);
-}
+// Keys of a head resident in shared memory per pass of the bf16 kernel.
+constexpr int fwd_keys(int DP) { return DP <= 64 ? 256 : 128; }
 
-template <typename T>
-int dispatch_bwd(const BwdArgs& a, cudaStream_t s) {
-  if (a.d <= 32) {
-    launch_bwd<T, 32, 32>(a, s);
-  } else if (a.d <= 64) {
-    launch_bwd<T, 64, 32>(a, s);
-  } else {
-    launch_bwd<T, 128, 16>(a, s);
-  }
+// MT: the tiles of 16 query rows a warp owns.
+template <int DP, int MT>
+int launch_mma(const FwdArgs& a, cudaStream_t stream) {
+  constexpr int KS = fwd_keys(DP);
+  constexpr int smem = 2 * KS * (DP + 8) * 2;
+  auto kernel = sra_fwd_mma<DP, KS, MT>;
+  static bool allowed[kMaxDevices] = {};
+  const int err = allow_shared_memory(kernel, smem, allowed);
+  if (err != 0) return err;
+  const dim3 grid((a.N + 64 * MT - 1) / (64 * MT), a.B * a.heads);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.out32, a.heads, a.N, a.M,
+      a.d, a.qs, a.ks, a.vs, a.os, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int B, int heads, int N, int M, int d) {
-  return B < 1 || heads < 1 || N < 1 || M < 1 || d < 8 || d > 128 || d % 8 ||
-         static_cast<long long>(B) * heads > 65535;
-}
-
-Strides strides_at(const long long* s, int i) {
-  return {s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+template <int DP>
+int launch_f32(const FwdArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.N + kF32Rows - 1) / kF32Rows, a.B * a.heads);
+  sra_fwd_f32<DP><<<grid, kF32Threads, 0, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse,
+      a.heads, a.N, a.M, a.d, a.qs, a.ks, a.vs, a.os, a.scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Strides are in elements, for the (b, h, n) dims; the last dim is
-// contiguous. dtype: 0 float32, 1 bfloat16. d <= 128 and d % 8 == 0.
-// lse (B*h, N) float32 and out32 (out's shape and strides, float32) are
-// optional outputs for the backward: nullptr leaves them out.
+// strides: 12 values in elements, the (b, h, n) strides of q, k, v and out
+// in that order; the last dim is contiguous and every row starts at a
+// multiple of 16 bytes. dtype: 0 float32, 1 bfloat16. d <= 128 and
+// d % 8 == 0. lse (B*h, N) float32 and,
+// for bfloat16, out32 (out's shape and strides, float32) are optional
+// outputs for the backward: nullptr leaves them out.
 extern "C" int sra_attn_fwd(const void* q, const void* k, const void* v,
                             void* out, int B, int heads, int N, int M, int d,
-                            const long long* q_strides,
-                            const long long* k_strides,
-                            const long long* v_strides,
-                            const long long* o_strides, float scale,
-                            int dtype, float* lse, float* out32,
+                            const long long* strides, float scale, int dtype,
+                            float* lse, float* out32,
                             void* stream) {
-  if (bad_shape(B, heads, N, M, d)) {
+  if (sra::bad_shape(B, heads, N, M, d) || dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Strides qs = strides_at(q_strides, 0);
-  const Strides ks = strides_at(k_strides, 0);
-  const Strides vs = strides_at(v_strides, 0);
-  const Strides os = strides_at(o_strides, 0);
+  const FwdArgs a = {q, k, v, out, lse, out32, B, heads, N, M, d,
+                     sra::strides_at(strides, 0), sra::strides_at(strides, 1),
+                     sra::strides_at(strides, 2), sra::strides_at(strides, 3),
+                     scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return dispatch<float>(q, k, v, out, lse, out32, B, heads, N, M, d, qs,
-                           ks, vs, os, scale, s);
-  }
+  const int dp = sra::padded_dim(d);
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(q, k, v, out, lse, out32, B, heads, N, M,
-                                   d, qs, ks, vs, os, scale, s);
+    if (dp == 32) return launch_mma<32, 1>(a, s);
+    if (dp == 128) return launch_mma<128, 1>(a, s);
+    // d = 64: 32 rows a warp (each K and V fragment read from shared memory
+    // feeds two row tiles) where blocks of 128 rows still give every SM
+    // one; measured on an H100 0.0176 against 0.0256 ms at N = 16384, two
+    // heads, and slower than 16 rows a warp on small grids. At d = 32 it
+    // gains nothing.
+    const long long blocks128 =
+        static_cast<long long>((N + 127) / 128) * B * heads;
+    return blocks128 >= kSMs ? launch_mma<64, 2>(a, s)
+                             : launch_mma<64, 1>(a, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K9. q, k, v: the forward's inputs; o: its output in float32 (out32, or
-// out itself for float32 inputs), with strides; g: dO in the inputs' dtype;
-// lse: the forward's. strides: 24 values, the (b, h, n) strides of q, k, v,
-// o, g, dq, dk, dv in that order. Scratch: dsum (B*h, N) float32; part_dk
-// and part_dv, splits * B*h * M * d float32 each; the split s covers query
-// rows [s * rows_per_split, (s + 1) * rows_per_split). Outputs dq, dk, dv in
-// the inputs' dtype, every element written.
-extern "C" int sra_attn_bwd(const void* q, const void* k, const void* v,
-                            const float* o, const void* g, const float* lse,
-                            float* dsum, float* part_dk, float* part_dv,
-                            void* dq, void* dk, void* dv, int B, int heads,
-                            int N, int M, int d, int splits,
-                            int rows_per_split, const long long* strides,
-                            float scale, int dtype, void* stream) {
-  if (bad_shape(B, heads, N, M, d) || splits < 1 || splits > 65535 ||
-      rows_per_split < 1 ||
-      static_cast<long long>(splits) * rows_per_split < N) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  BwdArgs a = {q, k, v, o, g, lse, dsum, part_dk, part_dv, dq, dk, dv,
-               B, heads, N, M, d, splits, rows_per_split,
-               strides_at(strides, 0), strides_at(strides, 1),
-               strides_at(strides, 2), strides_at(strides, 3),
-               strides_at(strides, 4), strides_at(strides, 5),
-               strides_at(strides, 6), strides_at(strides, 7), scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_bwd<float>(a, s);
-  if (dtype == 1) return dispatch_bwd<__nv_bfloat16>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dp == 32 ? launch_f32<32>(a, s)
+                  : (dp == 64 ? launch_f32<64>(a, s) : launch_f32<128>(a, s));
 }

@@ -54,7 +54,7 @@ FAMILIES = [
     ('K7/K8 pixel_kl', r'pkl_'),
     ('K1 resize_sum', r'resize_sum_kernel'),
     ('K9 sra_attn_bwd', r'sra_bwd_'),
-    ('K2 sra_attn', r'sra_attn'),
+    ('K2 sra_attn', r'sra_fwd_'),
     ('K10/K11 layer_norm', r'ln_(fwd|bwd|sum_partials)'),
     ('GEMM', r'gemm|xmma|cutlass|sm90_|ampere_|matmul|nvjet'),
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),

@@ -14,6 +14,16 @@ the fp32 order error. Gradients are held to the same limits relative to
 their own scale (a backward is linear in its incoming gradient, which is
 chosen to make the plain gradient's max |value| 1); loss values to 2e-5
 relative (sums of up to 10^6 fp32 terms in other orders).
+
+The SRA attention kernels (K2, K9) under bf16 feed the tensor cores bf16
+probabilities P (and dS), so every term of a sum carries a rounding of
+2^-9: they are held (a) to the plain version run in bf16, which rounds P
+and dS the same way (independently: not bitwise), within 2^-7 of the
+magnitude plus 2^-5.5 of the rms of the element's row (or of the tensor,
+if larger), and (b) to the plain version in fp32 within 2^-8 of the
+magnitude plus 2^-6 of that rms, and their error must have no bias (its
+mean, and its mean along the sign of the plain value, within 0.05 + 4 /
+sqrt(n) of its rms). ``chip_smoke.py`` states the reasons.
 """
 
 import numpy as np
@@ -31,9 +41,9 @@ from segdistill_tpu_torch.ops.pixel_kl import fused_pixel_kl, pixel_kl_plain
 from segdistill_tpu_torch.ops.resize_sum import (fused_resize_sum,
                                                  resize_sum_plain)
 from segdistill_tpu_torch.ops.seg_ce import fused_seg_ce, seg_ce_plain
-from segdistill_tpu_torch.ops.sra_attn import (fused_sra_attention,
-                                               sra_attention_plain,
-                                               sra_attention_train)
+from segdistill_tpu_torch.ops.sra_attn import (
+    fused_sra_attention, sra_attention_backward_plain, sra_attention_plain,
+    sra_attention_train)
 
 pytestmark = pytest.mark.cuda
 
@@ -57,6 +67,35 @@ def _close(got, want32, dtype=None):
         tol = 2.0 ** -8 * want32.abs() \
             + 2.0 ** -12 * want32.square().mean().sqrt()
         assert bool((diff <= tol).all()), (diff / tol).max().item()
+
+
+def _close_sra_bf16(got, plain_bf16, want32):
+    """A bf16 result of K2 or K9 against the plain version in bf16 and in
+    fp32 (the module docstring's limits (a) and (b)), and its bias."""
+    g = got.float()
+    rms = torch.maximum(want32.square().mean(dim=-1, keepdim=True).sqrt(),
+                        want32.square().mean().sqrt())
+    for ref, rel, share in ((plain_bf16.float(), 2.0 ** -7, 2.0 ** -5.5),
+                            (want32, 2.0 ** -8, 2.0 ** -6)):
+        tol = rel * ref.abs() + share * rms
+        assert bool(((g - ref).abs() <= tol).all()), \
+            ((g - ref).abs() / tol).max().item()
+    err = g - want32
+    bias_max = (0.05 + 4.0 / err.numel() ** 0.5) \
+        * err.square().mean().sqrt().item()
+    assert abs(err.mean().item()) <= bias_max
+    assert abs((err * want32.sign()).mean().item()) <= bias_max
+
+
+def _check_sra_forward(q, k, v, scale):
+    got = fused_sra_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = sra_attention_plain(q.float(), k.float(), v.float(), scale)
+    if q.dtype == torch.float32:
+        _close(got, want)
+    else:
+        _close_sra_bf16(got, sra_attention_plain(q, k, v, scale), want)
 
 
 def _head_split(rng, b, rows, heads, d, n_maps, device, dtype):
@@ -92,15 +131,28 @@ def test_resize_sum_kernel_refuses_odd_channels(cuda):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,h,n,m,d', [
     (2, 1, 4096, 64, 32), (1, 2, 1000, 100, 32), (1, 2, 300, 70, 64),
-    (1, 1, 130, 17, 128)])
+    (1, 1, 130, 17, 128), (1, 2, 520, 600, 24), (2, 3, 70, 3, 8),
+    (1, 1, 2048, 2048, 128), (2, 2, 8200, 100, 64)])
 def test_sra_attn_kernel(cuda, dtype, b, h, n, m, d):
+    """Ragged N and M, more keys than a block keeps in shared memory, fewer
+    keys than a row has key lanes, head dims that need zero padding, a
+    d = 64 grid large enough for the 32-rows-a-warp variant."""
     rng = np.random.RandomState(1)
     q, k, v = (torch.from_numpy(rng.randn(b, h, r, d).astype(np.float32))
                .to(cuda, dtype) for r in (n, m, m))
-    got = fused_sra_attention(q, k, v, d ** -0.5)
-    torch.cuda.synchronize()
-    _close(got, sra_attention_plain(q.float(), k.float(), v.float(),
-                                    d ** -0.5))
+    _check_sra_forward(q, k, v, d ** -0.5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_sra_attn_kernel_copies_unaligned_views(cuda, dtype):
+    """Rows that do not start at a multiple of 16 bytes (a view shifted by
+    one element) are copied by the wrapper, not refused."""
+    rng = np.random.RandomState(4)
+    mem = torch.from_numpy(rng.randn(3, 1, 2, 200 * 32 + 1)
+                           .astype(np.float32)).to(cuda, dtype)
+    q, k, v = (mem[i, :, :, 1:].view(1, 2, 200, 32) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    _check_sra_forward(q, k[:, :, :50], v[:, :, :50], 32 ** -0.5)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -113,10 +165,7 @@ def test_sra_attn_kernel_head_split_views(cuda, dtype, b, h, n, m, d):
     q = _head_split(rng, b, n, h, d, 1, cuda, dtype)[0]
     k, v = _head_split(rng, b, m, h, d, 2, cuda, dtype)
     assert not (q.is_contiguous() or k.is_contiguous())
-    got = fused_sra_attention(q, k, v, d ** -0.5)
-    torch.cuda.synchronize()
-    _close(got, sra_attention_plain(q.float(), k.float(), v.float(),
-                                    d ** -0.5))
+    _check_sra_forward(q, k, v, d ** -0.5)
 
 
 def test_model_cuda_matches_cpu(cuda):
@@ -230,28 +279,43 @@ def test_pixel_kl_kernels(cuda, dtype, shape, out_hw):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,h,n,m,d', [
     (2, 1, 4096, 256, 32), (1, 2, 1000, 100, 32), (2, 5, 1024, 49, 32),
-    (1, 2, 300, 70, 64), (1, 1, 130, 17, 128)])
+    (1, 2, 300, 70, 64), (1, 1, 130, 17, 128), (1, 2, 4096, 256, 64),
+    (1, 1, 700, 300, 32), (1, 1, 520, 600, 128), (2, 3, 70, 3, 8),
+    (2, 2, 8200, 100, 64)])
 def test_sra_attention_train_kernels(cuda, dtype, b, h, n, m, d):
     """K2 keeping the row log-sum-exp and K9 on strided head views, with a
     dO that is the transposed view the model's backward hands over: the
     output and dq, dk, dv, each with its plain version divided by the plain
-    one's max |value|."""
+    one's max |value|; heads whose keys are cut into chunks (dq through
+    partials) among them. Two runs of K9 give the same bits."""
     rng = np.random.RandomState(3)
     q = _head_split(rng, b, n, h, d, 1, cuda, dtype)[0].requires_grad_()
     k, v = (t.requires_grad_()
             for t in _head_split(rng, b, m, h, d, 2, cuda, dtype))
     g = _head_split(rng, b, n, h, d, 1, cuda, dtype)[0]
-    out = sra_attention_train(q, k, v, d ** -0.5)
-    got = torch.autograd.grad(out, (q, k, v), g)
+    scale = d ** -0.5
+    out = sra_attention_train(q, k, v, scale)
+    got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), g)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
     ref = [t.detach().float().requires_grad_() for t in (q, k, v)]
-    want_out = sra_attention_plain(*ref, d ** -0.5)
+    want_out = sra_attention_plain(*ref, scale)
     want = torch.autograd.grad(want_out, ref, g.float())
-    _close(out, want_out.detach())
-    for t, a, w in zip((q, k, v), got, want):
+    for t, a in zip((q, k, v), got):
         assert a.shape == t.shape and a.dtype == dtype
-        peak = w.abs().max()
-        _close(a.float() / peak, w / peak, dtype)
+    if dtype == torch.float32:
+        _close(out, want_out.detach())
+        for a, w in zip(got, want):
+            peak = w.abs().max()
+            _close(a / peak, w / peak)
+        return
+    with torch.no_grad():
+        plain = (sra_attention_plain(q, k, v, scale),
+                 *sra_attention_backward_plain(q, k, v, g, scale))
+    for a, pb, w in zip((out.detach(), *got), plain,
+                        (want_out.detach(), *want)):
+        _close_sra_bf16(a, pb, w)
 
 
 def _small_segformer(**backbone):

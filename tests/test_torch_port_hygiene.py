@@ -159,3 +159,26 @@ def test_chip_smoke_fails_without_gpu(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_package_calls_no_library_attention():
+    """The SRA attention kernels are the port's own: PyTorch's fused
+    attention is a yardstick that only the chip smoke script times, and no
+    module of the package names it."""
+    named = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob('*.py')
+             if 'scaled_dot_product' in p.read_text()]
+    assert not named, named
+    assert 'scaled_dot_product_attention' in (ROOT /
+                                              'chip_smoke.py').read_text()
+
+
+def test_sra_sources_use_the_tensor_cores():
+    """K2 and K9 feed bf16 operands to the matrix unit with fp32 sums, and
+    share their pieces through one header that the build hash covers."""
+    csrc = PACKAGE / 'csrc'
+    header = (csrc / 'sra_common.cuh').read_text()
+    assert 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32' in header
+    for name in ('sra_attn.cu', 'sra_attn_bwd.cu'):
+        text = (csrc / name).read_text()
+        assert '#include "sra_common.cuh"' in text and 'mma_bf16(' in text
+        assert 'atomicAdd' not in text  # fixed-order sums only

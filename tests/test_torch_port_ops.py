@@ -95,6 +95,107 @@ def test_sra_attention_matches_jax_kernel(heads, n, m, d):
     assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
 
 
+# bf16 inputs: both sides compute the scores and the softmax in fp32 from the
+# same bf16 values, round the normalised probabilities to bf16 and sum the
+# product with v in fp32; what is left is the order of the fp32 sums, which
+# can move a probability or the result across one bf16 rounding boundary:
+# one bf16 step of the result, 2^-7 of its magnitude, plus a probability's
+# step (2^-8 of it) times |v|, summed over the keys as noise: 2^-9 of the
+# output's rms, generously.
+BF16_TOL_REL = 2.0 ** -7
+BF16_TOL_RMS = 2.0 ** -9
+
+
+def _bf16_pair(a):
+    """A float32 numpy array rounded to bfloat16, for torch and for JAX."""
+    t = torch.from_numpy(a).bfloat16()
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize('heads,n,m,d', [(1, 256, 128, 32),
+                                         (2, 256, 64, 64)])
+def test_sra_attention_bf16_matches_jax_kernel(heads, n, m, d):
+    """The plain version on bf16 inputs rounds the normalised P to bf16
+    before the product with v, as the JAX kernel does (interpret mode, bf16
+    operands, fp32 sums)."""
+    q, k, v = _arrays([(2, heads, n, d), (2, heads, m, d),
+                       (2, heads, m, d)], seed=5)
+    (qt, qj), (kt, kj), (vt, vj) = map(_bf16_pair, (q / 2, k / 2, v / 2))
+    scale = d ** -0.5
+    want = jax_fused_sra_attention(qj, kj, vj, scale, interpret=True,
+                                   qtile=128)
+    assert want.dtype == jnp.bfloat16
+    got = fused_sra_attention(qt, kt, vt, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, heads, n, d)
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got.float().numpy() - want)
+    tol = BF16_TOL_REL * np.abs(want) + BF16_TOL_RMS * np.sqrt(
+        np.mean(want ** 2))
+    assert (diff <= tol).all(), (diff / tol).max()
+    # and the rounding is there: the fp32-probability product differs
+    exact = torch.matmul(
+        (torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale)
+        .softmax(-1), vt.float()).bfloat16()
+    assert not torch.equal(exact, got)
+
+
+_MIT_HEADS = (1, 2, 5, 8)
+_MIT_HEAD_DIMS = {'b0': 32, 'b1': 64, 'b2': 64, 'b3': 64, 'b4': 64, 'b5': 64}
+_PLAN_CASES = [(name, b * h, (128 // 2 ** s) ** 2, 256, d)
+               for name, d in _MIT_HEAD_DIMS.items() for b in (1, 8)
+               for s, h in enumerate(_MIT_HEADS)]
+_PLAN_CASES += [('M 300 (640x480)', 1, 19200, 300, 32),
+                ('M 2048 (2048x1024)', 1, 131072, 2048, 32),
+                ('M 2048 d64', 8, 131072, 2048, 64),
+                ('d128', 2, 300, 70, 128), ('d128 long', 8, 16384, 256, 128),
+                ('one row', 1, 1, 1, 8), ('d24', 3, 1000, 100, 24)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', _PLAN_CASES,
+                         ids=lambda c: f'{c[0]}-{c[1]}x{c[2]}'.replace(' ', '_'))
+def test_sra_launch_plans(case, dtype):
+    """The launch planning of K2 and K9, pure Python: every MiT b0-b5 stage
+    at 512^2 (batch 1 and 8), M = 300, M = 2048 and d = 128 get an
+    instantiated kernel variant, shared memory that an SM can give, splits
+    that cover every query row in whole tiles, and key chunks that cover
+    every key."""
+    _, heads, n, m, d = case
+    fwd = sra_attn_mod.forward_plan(dtype, heads, n, m, d)
+    bwd = sra_attn_mod.backward_plan(dtype, heads, n, m, d)
+    family = {torch.float32: 'f32', torch.bfloat16: 'mma'}[dtype]
+    dp = 32 if d <= 32 else (64 if d <= 64 else 128)
+    assert fwd['variant'] == (f'fwd_{family}', dp)
+    assert bwd['variant'] == (f'bwd_{family}', dp)
+    for plan in (fwd, bwd):
+        assert plan['variant'] in sra_attn_mod.VARIANTS
+        assert 0 < plan['shared_bytes'] <= sra_attn_mod.MAX_SHARED_BYTES
+        assert plan['keys'] >= 16
+    assert fwd['blocks'] * fwd['rows'] >= n > (fwd['blocks'] - 1) * fwd['rows']
+    # 128-row blocks only for bf16 at d = 64 where they fill the card
+    assert fwd['rows'] == 64 or (
+        fwd['rows'] == 128 and dtype == torch.bfloat16 and dp == 64
+        and fwd['blocks'] * heads >= 132)
+    assert bwd['rows'] % bwd['tile'] == 0 and bwd['rows'] >= bwd['tile']
+    assert bwd['splits'] * bwd['rows'] >= n > (bwd['splits'] - 1) * bwd['rows']
+    assert bwd['key_chunks'] * bwd['keys'] >= m \
+        > (bwd['key_chunks'] - 1) * bwd['keys']
+    # where the tiles could fill the card's 132 SMs, the blocks fill at
+    # least half of them
+    blocks = bwd['splits'] * bwd['key_chunks'] * heads
+    if -(-n // bwd['tile']) * bwd['key_chunks'] * heads >= 132:
+        assert blocks >= 66
+
+
+def test_sra_launch_plan_refuses_head_dims():
+    for d in (4, 12, 136, 256):
+        with pytest.raises(ValueError, match='multiple of 8'):
+            sra_attn_mod.backward_plan(torch.bfloat16, 1, 64, 64, d)
+        with pytest.raises(ValueError, match='multiple of 8'):
+            sra_attn_mod.forward_plan(torch.float32, 1, 64, 64, d)
+
+
 def test_sra_attention_takes_strided_views():
     """The model hands in head-split views of the q and kv projections."""
     B, N, M, h, d = 2, 40, 10, 2, 16

@@ -153,6 +153,79 @@ def test_sra_attention_train_matches_jax(sra_case):
         assert kernel.launches == 0 and not kernel.loaded
 
 
+# bf16 inputs: the JAX kernel and the port's plain backward both recompute P
+# in fp32, round the normalised P and dS to bf16 as operands and sum in
+# fp32; what is left is the order of the fp32 sums, which can move a P or a
+# dS across one bf16 rounding boundary (a step of 2^-8 of it, entering the
+# sum over up to 256 keys or rows as noise: 2^-9 of the gradient's rms,
+# generously), and the final rounding of the gradient to bf16 (one step,
+# 2^-7 of its magnitude).
+BF16_TOL_REL = 2.0 ** -7
+BF16_TOL_RMS = 2.0 ** -9
+
+
+@pytest.fixture(scope='module', params=[(1, 256, 256, 32), (2, 256, 256, 64)],
+                ids=lambda s: 'x'.join(map(str, s)))
+def sra_bf16_case(request):
+    """JAX's custom-VJP kernel (interpret mode) on bf16 inputs: its output
+    and dq, dk, dv for a bf16 cotangent."""
+    H, N, M, d = request.param
+    rs = np.random.RandomState(2)
+    arrays = [rs.randn(2, H, n, d).astype(np.float32)
+              for n in (N, M, M, N)]
+    tensors = [torch.from_numpy(a).bfloat16() for a in arrays]
+    q, k, v, cot = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                    for t in tensors)
+    scale = d ** -0.5
+    out, vjp = jax.vjp(lambda a, b, c: jax_sra_train(a, b, c, scale, True),
+                       q, k, v)
+    grads = vjp(cot)
+    assert out.dtype == jnp.bfloat16
+    assert all(g.dtype == jnp.bfloat16 for g in grads)
+    return dict(qkv=tensors[:3], cot=tensors[3], scale=scale,
+                out=np.asarray(out.astype(jnp.float32)),
+                grads=[np.asarray(g.astype(jnp.float32)) for g in grads])
+
+
+def _bf16_close(got, want, name):
+    diff = np.abs(got.float().numpy() - want)
+    tol = BF16_TOL_REL * np.abs(want) + BF16_TOL_RMS * np.sqrt(
+        np.mean(want ** 2))
+    assert (diff <= tol).all(), (name, (diff / tol).max())
+
+
+def test_sra_attention_train_bf16_matches_jax(sra_bf16_case):
+    """On bf16 CPU tensors the forward rounds P and the written-out plain
+    backward rounds P and dS, as the JAX kernel does."""
+    c = sra_bf16_case
+    qkv = [t.clone().requires_grad_() for t in c['qkv']]
+    out = sra_attention_train(*qkv, c['scale'])
+    assert out.dtype == torch.bfloat16
+    _bf16_close(out.detach(), c['out'], 'out')
+    out.backward(c['cot'])
+    for name, t, want in zip(('dq', 'dk', 'dv'), qkv, c['grads']):
+        assert t.grad.shape == t.shape and t.grad.dtype == torch.bfloat16
+        _bf16_close(t.grad, want, name)
+    direct = sra_attn.sra_attention_backward_plain(*c['qkv'], c['cot'],
+                                                   c['scale'])
+    assert all(torch.equal(a, t.grad) for a, t in zip(direct, qkv))
+    for kernel in (sra_attn.KERNEL, sra_attn.BWD_KERNEL):
+        assert kernel.launches == 0 and not kernel.loaded
+
+
+def test_sra_backward_plain_is_the_gradient_in_fp32():
+    """For fp32 inputs nothing is rounded: the written-out backward is the
+    autograd gradient of the plain version."""
+    rs = np.random.RandomState(3)
+    q, k, v = (_torch(rs.randn(2, 2, n, 16), grad=True) for n in (40, 10, 10))
+    g = _torch(rs.randn(2, 2, 40, 16))
+    want = torch.autograd.grad(sra_attn.sra_attention_plain(q, k, v, 0.25),
+                               (q, k, v), g)
+    got = sra_attn.sra_attention_backward_plain(q, k, v, g, 0.25)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6)
+
+
 def test_sra_attention_train_without_gradient_is_the_forward():
     """Under no_grad (a frozen teacher) it is the forward-only call, and it
     carries a gradient to whichever of q, k, v needs one."""
