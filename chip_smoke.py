@@ -9,9 +9,13 @@ per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
 group-KL forward and backward, (6) K5/K6 seg-CE forward and backward, (7)
 K7/K8 pixel-KL forward and backward and (8) K9, the SRA backward, with K2
 keeping the row log-sum-exp, against their plain PyTorch versions at the
-main paths' shapes, with CUDA-event timings, then K10/K11, the LayerNorm
-forward and backward of every MiT LayerNorm, at the B0 and B3 widths
-against their plain version and beside ``F.layer_norm``, (9) full-width
+main paths' shapes, with CUDA-event timings (K6 also at odd, non-integer
+and downsampling shapes, each of its tile edges 16, 8 and 4 and the gather
+variant at two shapes or more, two runs bitwise equal), then
+K10/K11, the LayerNorm forward and backward of every MiT LayerNorm, at the
+B0 and B3 widths against their plain version and beside ``F.layer_norm``,
+by device time and by a call's host-clocked time, two backward runs bitwise
+equal, and on slices whose rows do not fold into one stride, (9) full-width
 Segformer-B0
 (ADE20K, 150 classes, random weights from seed 0) serving seeded requests
 through ``inference_segmentor`` in whole mode, again with
@@ -160,9 +164,13 @@ RESUME_TOL_ABS = 3e-6
 # tools.test against the last evaluation of the training run: the same
 #   weights and images, integer histograms.
 MIOU_TOL = 1e-6
-# The card's published peaks (H100 SXM): memory bytes/s, fp32 FLOP/s
-#   outside the tensor cores, dense bf16 FLOP/s.
-PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+
+
+def _cases():
+    """The case lists of K5/K6 and K10/K11, the card's published peaks and
+    the bounds' formulas, shared with ``tools/bench_ln_ce.py``."""
+    from segdistill_tpu_torch.tools import kernel_cases
+    return kernel_cases
 
 
 def log(msg):
@@ -274,9 +282,11 @@ def phase_resize_sum():
             ms = cuda_ms(lambda: fused_resize_sum(parts, out_hw))
             plain_ms = cuda_ms(lambda: resize_sum_plain(parts, out_hw))
             results[(name, dtype)] = (err, ms, plain_ms)
+            bound = _resize_sum_bound(shapes, out_hw, dtype)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {err:.3e} '
                 f'(tol used {used:.3f})  kernel {ms:.4f} ms  '
-                f'plain {plain_ms:.4f} ms')
+                f'plain {plain_ms:.4f} ms  bound {bound[0]:.4f} ms '
+                f'({bound[1]})')
     return results
 
 
@@ -529,30 +539,38 @@ def phase_sra_train():
 
 def phase_seg_ce():
     from segdistill_tpu_torch.ops import seg_ce as sc
-    log('== K5/K6 seg_ce vs plain (N(0,1) logits, labels in [0, 150) with a '
-        'share set to 255; backward with the incoming gradient that makes '
-        'max |plain dz| = 1)')
+    log('== K5/K6 seg_ce vs plain (N(0,1) logits, a label for every class '
+        'with a share set to 255; backward with the incoming gradient that '
+        'makes max |plain dz| = 1; two backward runs must agree bitwise; '
+        'tile: the edge of a K6 block\'s source tile, 0 the gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    cases = [('head CE bench', (8, 150, 128, 128), (512, 512), 0.05),
-             ('non-integer ratio', (2, 150, 30, 40), (125, 161), 0.05),
-             ('all ignored', (2, 150, 32, 32), (128, 128), 1.0)]
     fwd, bwd = {}, {}
-    for name, shape, out_hw, ignored in cases:
-        labels = torch.randint(0, NUM_CLASSES, (shape[0],) + out_hw,
+    for name, shape, out_hw, ignored, tile in _cases().SEG_CE_CASES:
+        classes = shape[1]
+        plan = sc.backward_plan(*shape, *out_hw, sms=torch.cuda
+                                .get_device_properties(0)
+                                .multi_processor_count)
+        if plan['tile'] != tile:  # every variant of K6 is launched here
+            raise AssertionError(f'seg_ce {name}: planned {plan}, the case '
+                                 f'is meant for tile {tile}')
+        labels = torch.randint(0, classes, (shape[0],) + out_hw,
                                device=DEVICE, generator=gen)
         labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
                < ignored] = 255
         for dtype in (torch.float32, torch.bfloat16):
             z = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             a = z.float().requires_grad_()
-            want, want_correct = sc.seg_ce_plain(a, labels, out_hw,
-                                                 NUM_CLASSES)
+            want, want_correct = sc.seg_ce_plain(a, labels, out_hw, classes)
             (dunit,) = torch.autograd.grad(want, a)
             gbar, dwant = _scaled_grads(want, dunit)
             k = z.clone().requires_grad_()
-            ce, correct = sc.fused_seg_ce(k, labels, out_hw, NUM_CLASSES)
+            ce, correct = sc.fused_seg_ce(k, labels, out_hw, classes)
             (dz,) = torch.autograd.grad(ce, k, gbar, retain_graph=True)
+            (again,) = torch.autograd.grad(ce, k, gbar, retain_graph=True)
             torch.cuda.synchronize()
+            if not torch.equal(dz, again):
+                raise AssertionError(f'seg_ce {name} {dtype}: two runs of K6 '
+                                     f'differ')
             ce_err = abs(ce.item() - want.item())
             if not (ce_err <= LOSS_TOL_REL * abs(want.item())
                     and abs(correct.item() - want_correct.item())
@@ -563,10 +581,10 @@ def phase_seg_ce():
                     f'{want_correct.item()}')
             err, used = check_close(f'seg_ce {name} {dtype} dz', dz, dwant)
             ms = _timed_pair(
-                lambda: sc.fused_seg_ce(z, labels, out_hw, NUM_CLASSES),
-                lambda: sc.seg_ce_plain(z, labels, out_hw, NUM_CLASSES))
+                lambda: sc.fused_seg_ce(z, labels, out_hw, classes),
+                lambda: sc.seg_ce_plain(z, labels, out_hw, classes))
             p = z.clone().requires_grad_()
-            plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, NUM_CLASSES)
+            plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, classes)
             bms = _timed_pair(
                 lambda: torch.autograd.grad(ce, k, gbar, retain_graph=True),
                 lambda: torch.autograd.grad(plain_ce, p, gbar,
@@ -580,33 +598,45 @@ def phase_seg_ce():
                 f'{correct.item():.0f} (plain {want_correct.item():.0f})  dz '
                 f'max_abs_err {err:.3e} (tol used {used:.3f})  fwd '
                 f'{ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd {bms[0]:.4f} ms '
-                f'plain {bms[1]:.4f} ms')
+                f'plain {bms[1]:.4f} ms  tile {plan["tile"]}, '
+                f'{plan["blocks"]} blocks of {plan["cpc"]} channels')
     return fwd, bwd
 
 
-# (rows, C) of the MiT LayerNorms at batch 8, 512x512: the B0 student's
-# four stages, three of the B3 teacher's, and a row count no tile divides
-LN_CASES = [('B0 stage1', 8 * 16384, 32), ('B0 stage2', 8 * 4096, 64),
-            ('B0 stage3', 8 * 1024, 160), ('B0 stage4', 8 * 256, 256),
-            ('B3 stage1', 8 * 16384, 64), ('B3 stage3', 8 * 1024, 320),
-            ('B3 stage4', 8 * 256, 512), ('odd rows', 1001, 160)]
 LN_CALLS = 10  # launches per timing: the kernels take microseconds
+# cycles the stream is held while they queue up: ~11 ms, since a backward
+# through autograd can take the host 0.3 ms a call
+LN_HOLD_CYCLES = 20_000_000
 
 
 def _ln_check(tag, x, w, b, g, eps):
     """K10 and K11 on (x, w, b) and the incoming gradient g against the
     plain version and its autograd in fp32: -> (forward err, backward err),
     each gradient and its plain version divided by the plain one's max
-    |value|."""
-    from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+    |value|. Two runs of K11 must agree bitwise (whichever block sums the
+    partials), and with frozen parameters it must give the same dx in one
+    launch."""
+    from segdistill_tpu_torch.ops.layer_norm import (BWD_KERNEL,
+                                                     fused_layer_norm,
                                                      layer_norm_plain)
     ref = [t.detach().float().requires_grad_() for t in (x, w, b)]
     want = layer_norm_plain(*ref, eps)
     dwant = torch.autograd.grad(want, ref, g.float())
     ins = [t.detach().clone().requires_grad_() for t in (x, w, b)]
     y = fused_layer_norm(*ins, eps)
-    got = torch.autograd.grad(y, ins, g)
+    got = torch.autograd.grad(y, ins, g, retain_graph=True)
+    before = BWD_KERNEL.launches
+    again = torch.autograd.grad(y, ins, g)
+    if BWD_KERNEL.launches != before + 1:
+        raise AssertionError(f'{tag}: a backward took '
+                             f'{BWD_KERNEL.launches - before} K11 launches')
+    y_frozen = fused_layer_norm(ins[0], w, b, eps)
+    (dx_frozen,) = torch.autograd.grad(y_frozen, ins[:1], g)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f'{tag}: two runs of K11 differ')
+    if not torch.equal(dx_frozen, got[0]):
+        raise AssertionError(f'{tag}: dx differs with frozen parameters')
     if y.dtype != x.dtype or y.shape != x.shape:
         raise AssertionError(f'{tag}: output is {y.dtype} {tuple(y.shape)}')
     ferr, fused = check_close(f'{tag} y', y.detach(), want.detach())
@@ -623,18 +653,65 @@ def _ln_check(tag, x, w, b, g, eps):
     return ferr, fused, berr, bused
 
 
+def _ln_check_cut_rows(dtype, gen):
+    """``x[:, 1:]`` of (4, 34, 64): a unit last stride but no one row
+    stride, so K10 reads a copy of the rows, and K11 must read that copy
+    (not the memory behind ``x``) and its gradient reach ``x`` through the
+    slice. Beside it ``x[:, ::2]``, whose rows fold and are read in
+    place."""
+    from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                     layer_norm_plain)
+    base = torch.randn(4, 34, 64, device=DEVICE, generator=gen).to(dtype)
+    w = 1 + 0.1 * torch.randn(64, device=DEVICE, generator=gen)
+    b = 0.1 * torch.randn(64, device=DEVICE, generator=gen)
+    worst = 0.0
+    for tag, cut in (('x[:, 1:]', lambda t: t[:, 1:]),
+                     ('x[:, ::2]', lambda t: t[:, ::2])):
+        g = torch.randn(cut(base).shape, device=DEVICE,
+                        generator=gen).to(dtype)
+        ref = [t.detach().float().requires_grad_() for t in (base, w, b)]
+        dwant = torch.autograd.grad(
+            layer_norm_plain(cut(ref[0]), ref[1], ref[2], 1e-6), ref,
+            g.float())
+        ins = [t.detach().clone().requires_grad_() for t in (base, w, b)]
+        x = cut(ins[0])
+        if x.is_contiguous():
+            raise AssertionError(f'layer_norm {tag}: the case is contiguous')
+        got = torch.autograd.grad(fused_layer_norm(x, ins[1], ins[2], 1e-6),
+                                  ins, g)
+        for name, a, d in zip(('dx', 'dweight', 'dbias'), got, dwant):
+            peak = d.abs().max()
+            err, _ = check_close(f'layer_norm {tag} {dtype} {name}',
+                                 a.float() / peak, d / peak, a.dtype)
+            worst = max(worst, err)
+    return worst
+
+
+def _check_ln_tickets(tag):
+    """Every K11 workspace's ticket counters are back at 0: each launch
+    ran to its end, and the next one's last block will know itself."""
+    from segdistill_tpu_torch.ops import layer_norm as ln
+    torch.cuda.synchronize()
+    for (_, _, c, capacity), ws in ln.WORKSPACES.items():
+        if ln.workspace_tickets(ws, c, capacity).any():
+            raise AssertionError(f'{tag}: K11 left a ticket counter of its '
+                                 f'C = {c} workspace above 0')
+
+
 def phase_layer_norm():
     import torch.nn.functional as F
     from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                      layer_norm_plain)
-    from segdistill_tpu_torch.utils.timing import cuda_ms
+    from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
     log('== K10/K11 layer_norm vs plain (N(0,1) x and dy, weight 1 + 0.1 N, '
         'bias 0.1 N; each gradient and its plain version divided by the '
-        f"plain one's max |value|; eps 1e-6 and 1e-5; times over {LN_CALLS} "
-        'launches in a row; library = F.layer_norm)')
+        'plain one\'s max |value|; eps 1e-6 and 1e-5; two backward runs must '
+        'agree bitwise; times are the device\'s, the calls queued behind a '
+        f'busy stream, and "call" the host-clocked time of one of {LN_CALLS} '
+        'calls in a row; library = F.layer_norm)')
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     fwd, bwd = {}, {}
-    for name, rows, c in LN_CASES:
+    for name, rows, c in _cases().LN_CASES:
         w = 1 + 0.1 * torch.randn(c, device=DEVICE, generator=gen)
         b = 0.1 * torch.randn(c, device=DEVICE, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
@@ -647,14 +724,24 @@ def phase_layer_norm():
             eps = 1e-6
 
             def timed(fn, params):
-                """(forward ms, backward ms) of fn(x, *params, eps)."""
-                f_ms = cuda_ms(lambda: fn(x, *params), calls=LN_CALLS)
+                """(forward, backward, forward call, backward call) ms of
+                fn(x, *params, eps): device times, then a call's."""
                 leaf = x.clone().requires_grad_()
                 ps = [t.clone().requires_grad_() for t in params]
                 y = fn(leaf, *ps)
-                b_ms = cuda_ms(lambda: torch.autograd.grad(
-                    y, [leaf] + ps, g, retain_graph=True), calls=LN_CALLS)
-                return f_ms, b_ms
+
+                def forward():
+                    with torch.no_grad():
+                        fn(x, *params)
+
+                def backward():
+                    torch.autograd.grad(y, [leaf] + ps, g, retain_graph=True)
+                return (device_ms(forward, calls=LN_CALLS,
+                                  hold_cycles=LN_HOLD_CYCLES),
+                        device_ms(backward, calls=LN_CALLS,
+                                  hold_cycles=LN_HOLD_CYCLES),
+                        cuda_ms(forward, calls=LN_CALLS),
+                        cuda_ms(backward, calls=LN_CALLS))
 
             k_ms = timed(lambda a, ww, bb: fused_layer_norm(a, ww, bb, eps),
                          (w, b))
@@ -665,11 +752,21 @@ def phase_layer_norm():
                          (w.to(dtype), b.to(dtype)))
             fwd[(name, dtype)] = (ferr, k_ms[0], p_ms[0], l_ms[0])
             bwd[(name, dtype)] = (berr, k_ms[1], p_ms[1], l_ms[1])
+            bounds = _cases().ln_bounds(rows, c, dtype)
             log(f'{name:10s} ({rows}, {c}) {str(dtype):15s} y max_abs_err '
                 f'{ferr:.3e} (tol used {fused:.3f})  gradients {berr:.3e} '
                 f'(tol used {bused:.3f})  fwd {k_ms[0]:.4f} ms plain '
-                f'{p_ms[0]:.4f} library {l_ms[0]:.4f}  bwd {k_ms[1]:.4f} ms '
-                f'plain {p_ms[1]:.4f} library {l_ms[1]:.4f}')
+                f'{p_ms[0]:.4f} library {l_ms[0]:.4f} (call {k_ms[2]:.4f} / '
+                f'{p_ms[2]:.4f} / {l_ms[2]:.4f})  bwd {k_ms[1]:.4f} ms '
+                f'plain {p_ms[1]:.4f} library {l_ms[1]:.4f} (call '
+                f'{k_ms[3]:.4f} / {p_ms[3]:.4f} / {l_ms[3]:.4f})  bounds '
+                f'{bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms '
+                f'({bounds[1][1]})')
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f'rows that do not fold, x[:, 1:] of (4, 34, 64), and rows that '
+            f'do, x[:, ::2]  {str(dtype):15s} gradients '
+            f'{_ln_check_cut_rows(dtype, gen):.3e}')
+    _check_ln_tickets('layer_norm phase')
     return fwd, bwd
 
 
@@ -1178,13 +1275,8 @@ def _pd_loss_check(last):
 # once, in their own types.
 
 
-def _bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
-    """-> (bound_ms, bound_by): the larger of bytes over the memory rate
-    and operations over the peak rate of their type."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = ops / PEAK_F32 + mm_ops / mm_peak
-    return max(t_bytes, t_ops) * 1e3, \
-        'bytes' if t_bytes >= t_ops else 'operations'
+def _bound(*args):
+    return _cases().bound(*args)
 
 
 def _sra_bound(b, h, n, m, d, dtype, backward=False):
@@ -1195,7 +1287,8 @@ def _sra_bound(b, h, n, m, d, dtype, backward=False):
     in bf16 the n * m exponentials (16 per clock and SM: ~0.009 ms at B0
     stage 1, batch 8) cost as much as the products: the products must
     leave the CUDA cores, and the softmax must stay cheap."""
-    size, peak = (2, PEAK_BF16) if dtype == torch.bfloat16 else (4, PEAK_F32)
+    size, peak = (2, _cases().PEAK_BF16) if dtype == torch.bfloat16 \
+        else (4, _cases().PEAK_F32)
     bh = b * h
     if not backward:
         return _bound(bh * size * (2 * n * d + 2 * m * d), bh * 5 * n * m,
@@ -1205,15 +1298,25 @@ def _sra_bound(b, h, n, m, d, dtype, backward=False):
                   bh * 8 * n * m, bh * 10 * n * m * d, peak)
 
 
+def _resize_sum_bound(shapes, out_hw, dtype):
+    """K1 on NHWC parts of ``shapes`` summed at ``out_hw``: every part read
+    and the output written once in ``dtype``, 8 operations per part and
+    output element."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    b, _, _, e = shapes[0]
+    o = b * out_hw[0] * out_hw[1] * e
+    return _bound(size * (sum(math.prod(sh) for sh in shapes) + o),
+                  8 * len(shapes) * o)
+
+
 def _bounds(names):
     """{kernel name: (bound_ms, bound_by)} at the shapes of
     ``main_case`` in :func:`main`."""
     k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11 = names
     out = {}
     # K1: B0 head, batch 1, fp32: three (s, s, 256) parts -> (128, 128, 256)
-    parts = sum(s * s * 256 for s in (16, 32, 64))
-    o = 128 * 128 * 256
-    out[k1] = _bound(4 * (parts + o), 8 * 3 * o)
+    out[k1] = _resize_sum_bound([(1, s, s, 256) for s in (16, 32, 64)],
+                                (128, 128), torch.float32)
     # K2: B0 stage 1, batch 1, fp32: N 16384, M 256, d 32, one head; K9:
     # the same stage at batch 8 in bf16 (the K2 phase logs K2's bound
     # there too, beside its batch-8 bf16 time)
@@ -1225,14 +1328,13 @@ def _bounds(names):
     up = 150 * px
     out[k3] = _bound(2 * 2 * src, 23 * up)
     out[k4] = _bound(2 * 2 * src + 2 * src, 32 * up)
-    out[k5] = _bound(2 * src + 4 * px + 2 * 4 * px, 10 * up)  # labels; m, se
-    out[k6] = _bound(2 * src + 4 * px + 2 * 4 * px + 2 * src, 21 * up)
+    _, shape, out_hw, _, _ = _cases().SEG_CE_CASES[0]
+    out[k5], out[k6] = _cases().seg_ce_bounds(shape, out_hw, torch.bfloat16)
     out[k7] = _bound(2 * 2 * src + 2 * 4 * px, 23 * up)  # two lse maps
     out[k8] = _bound(2 * 2 * src + 2 * 4 * px + 2 * src, 32 * up)
     # K10/K11: B0 stage 1, batch 8, bf16: (131072, 32)
-    _, rows, c = LN_CASES[0]
-    out[k10] = _bound(2 * 2 * rows * c + 2 * 4 * c, 8 * rows * c)
-    out[k11] = _bound(3 * 2 * rows * c + 3 * 4 * c, 17 * rows * c)
+    _, rows, c = _cases().LN_CASES[0]
+    out[k10], out[k11] = _cases().ln_bounds(rows, c, torch.bfloat16)
     return out
 
 
@@ -1265,6 +1367,7 @@ def main():
     paths.append(pd_launches)
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
     paths.append(phase_cli(cgd_kernels))
+    _check_ln_tickets('after the train steps')
     for path in paths:
         for name, n in path.items():
             launches[name] += n
@@ -1274,13 +1377,13 @@ def main():
                  k2.name: ('B0 stage1 b1', torch.float32),
                  k3.name: ('CGD bench perm', torch.bfloat16),
                  k4.name: ('CGD bench perm', torch.bfloat16),
-                 k5.name: ('head CE bench', torch.bfloat16),
-                 k6.name: ('head CE bench', torch.bfloat16),
+                 k5.name: (_cases().SEG_CE_CASES[0][0], torch.bfloat16),
+                 k6.name: (_cases().SEG_CE_CASES[0][0], torch.bfloat16),
                  k7.name: ('PD bench', torch.bfloat16),
                  k8.name: ('PD bench', torch.bfloat16),
                  k9.name: ('B0 stage1 b8', torch.bfloat16),
-                 k10.name: (LN_CASES[0][0], torch.bfloat16),
-                 k11.name: (LN_CASES[0][0], torch.bfloat16)}
+                 k10.name: (_cases().LN_CASES[0][0], torch.bfloat16),
+                 k11.name: (_cases().LN_CASES[0][0], torch.bfloat16)}
     bounds = _bounds([k.name for k in kernels])
     entries = []
     for k in kernels:

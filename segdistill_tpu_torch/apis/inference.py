@@ -7,6 +7,7 @@ from ..config import Config
 
 from ..datasets.pipelines import Compose
 from ..models import build_segmentor
+from ..utils import get_root_logger
 from ..utils import image as imutil
 from .test import _as_lists, _predict_one
 
@@ -28,6 +29,38 @@ def load_checkpoint(model, path, strict=True):
              if k in own or not k.startswith('decode_head.conv_seg.')}
     model.load_state_dict(state, strict=strict)
     return model
+
+
+def load_backbone_checkpoint(model, path):
+    """Load a backbone-only ``.pth`` (the config's ``pretrained``: an
+    ImageNet MiT file, say) into the segmentor ``model``, leniently. Keys
+    come with or without the ``backbone.`` prefix: where no key has it,
+    every key gets it. A key the model lacks, or whose shape differs, is
+    skipped; what was skipped and what the file did not fill are logged,
+    nothing raises. -> (matched, missing, unexpected) key lists."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    state = ckpt
+    if 'state_dict' in ckpt:
+        state = ckpt['state_dict']
+    elif isinstance(ckpt.get('model'), dict):
+        state = ckpt['model']
+    if not any(k.startswith('backbone.') for k in state):
+        state = {'backbone.' + k: v for k, v in state.items()}
+    own = model.state_dict()
+    take = {k: v for k, v in state.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(take, strict=False)
+    skip = ('num_batches_tracked',)
+    unexpected = [k for k in state if k not in take and not k.endswith(skip)]
+    missing = [k for k in own if k not in take and not k.endswith(skip)]
+    logger = get_root_logger()
+    logger.info(f'loaded {path}: {len(take)} tensors matched, '
+                f'{len(missing)} missing, {len(unexpected)} unexpected')
+    if unexpected:
+        logger.info(f'  unexpected (first 10): {unexpected[:10]}')
+    if missing:
+        logger.info(f'  missing (first 10): {missing[:10]}')
+    return sorted(take), missing, unexpected
 
 
 def init_segmentor(config, checkpoint=None, device='cuda', seed=0,

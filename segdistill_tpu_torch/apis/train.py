@@ -24,16 +24,16 @@ from ..engine import (IterBasedRunner, TrainState, build_lr_schedule,
                       resume_latest)
 from ..models import build_segmentor
 from ..utils import get_root_logger
-from .inference import load_checkpoint
+from .inference import load_backbone_checkpoint, load_checkpoint
 from .test import fast_evaluate
 
 
-def set_random_seed(seed, deterministic=False):
+def set_random_seed(seed, deterministic=True):
     """Seed python's, numpy's and torch's global generators (ref
     apis/train.py:14-29). The train step and the loader draw from their
     own generators, seeded from (seed, step) and (seed, stream position),
-    so a run repeats either way; ``deterministic`` also asks cuDNN for
-    deterministic algorithms."""
+    so a run repeats either way; ``deterministic`` (the default, as in the
+    JAX package) also asks cuDNN for deterministic algorithms."""
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -52,7 +52,7 @@ def _require_file(path, what):
 def _load_pretrained(model):
     """The config's checkpoints: t_pretrain (reference layout, lenient, ref
     SD_structure.py:36), s_pretrain (strict), and a student backbone-only
-    ``pretrained``, whose loading is not ported yet."""
+    ``pretrained`` (lenient, only where no s_pretrain is set)."""
     student = getattr(model, 'student', model)
     backbone_ckpt = getattr(model, 'student_pretrained', None)
     if getattr(model, 't_pretrain', None):
@@ -64,8 +64,7 @@ def _load_pretrained(model):
     elif backbone_ckpt:
         _require_file(backbone_ckpt, 'the student backbone checkpoint '
                       'pretrained')
-        raise NotImplementedError('loading a backbone-only pretrained '
-                                  'checkpoint is not ported yet')
+        load_backbone_checkpoint(student, backbone_ckpt)
 
 
 def init_segmentor_state(config, seed=0, device='cuda', cfg_options=None):
@@ -80,15 +79,16 @@ def init_segmentor_state(config, seed=0, device='cuda', cfg_options=None):
         config = config.copy()
         config.merge_from_dict(cfg_options)
     model_cfg = dict(config.model)
-    if model_cfg.get('type') != 'SDModule' and model_cfg.get('pretrained'):
-        _require_file(model_cfg['pretrained'], 'the backbone checkpoint '
-                      'pretrained')
-        raise NotImplementedError('loading a backbone-only pretrained '
-                                  'checkpoint is not ported yet')
-    model_cfg.pop('pretrained', None)
+    pretrained = model_cfg.pop('pretrained', None)
+    if model_cfg.get('type') == 'SDModule':
+        pretrained = None  # the student's is under cfg_s
+    elif pretrained:
+        _require_file(pretrained, 'the backbone checkpoint pretrained')
     model = build_segmentor(model_cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
     _load_pretrained(model)
+    if pretrained:
+        load_backbone_checkpoint(model, pretrained)
     model.cfg = config
     return model.to(device).train()
 

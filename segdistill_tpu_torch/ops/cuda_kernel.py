@@ -10,6 +10,7 @@ and needs no ``nvcc``: the CPU tests import every module.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -39,6 +40,13 @@ def _raw_stream(index):
     Should a torch version drop it, this raises, and
     ``torch.cuda.current_stream(index).cuda_stream`` is the public form."""
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """Streaming multiprocessors of CUDA device ``index`` (the wrappers size
+    their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def nvcc_path():

@@ -13,7 +13,8 @@ random weights from seed 0, checkpoint paths cleared:
 2. ``torch.profiler`` over ``--steps`` steps: wall and device-busy ms per
    step, kernels per step, copy kernels per step (the casts of the fp32
    weights among them), device time by kernel family, and the kernels
-   that take the most device time.
+   hand-written kernels by function and the kernels that take the most
+   device time.
 3. With ``--ab OPTION=VALUE``: the model with that option added (the same
    weights) against the model without it: the profile of 2. for the
    second arm, then ``--pairs`` rounds of ``--steps`` timed steps each, in
@@ -143,6 +144,18 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     print('  device time by kernel family:')
     for name, ms in sorted(fams.items(), key=lambda r: -r[1]):
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%}  {name}')
+    # the hand-written kernels by function, template arguments folded
+    own = {}
+    for name, (ms, n) in rows.items():
+        if re.match(r'K\d', family(name)):
+            fn = re.match(r'(?:void )?(?:\(anonymous namespace\)::)?(\w+)',
+                          name)
+            row = own.setdefault(fn.group(1) if fn else name, [0.0, 0])
+            row[0] += ms
+            row[1] += n
+    print('  hand-written kernels by function:')
+    for name, (ms, n) in sorted(own.items(), key=lambda r: -r[1][0]):
+        print(f'    {ms:8.3f} ms x{n // steps:3d}  {name}')
     print(f'  top {top} kernels:')
     for name, (ms, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:top]:
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%} x{n // steps:3d}  '

@@ -224,13 +224,27 @@ def test_group_kl_kernels(cuda, dtype, shape, out_hw, g, shuffle):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape,out_hw,ignored', [
-    ((2, 7, 8, 8), (16, 16), 0.05),
-    ((2, 150, 30, 40), (125, 161), 0.05),       # non-integer ratio
-    ((1, 150, 32, 32), (128, 128), 0.05),
-    ((2, 7, 8, 8), (16, 16), 1.0),              # every label ignored
+@pytest.mark.parametrize('shape,out_hw,ignored,tile', [
+    ((2, 7, 8, 8), (16, 16), 0.05, 16),
+    ((2, 150, 30, 40), (125, 161), 0.05, 16),   # non-integer ratio
+    ((1, 150, 32, 32), (128, 128), 0.05, 16),
+    ((2, 7, 8, 8), (16, 16), 1.0, 16),          # every label ignored
+    ((2, 150, 128, 128), (512, 512), 0.05, 16),  # 16 x 16 tiles, two chunks
+    ((2, 21, 31, 33), (97, 130), 0.05, 16),     # odd sizes
+    ((2, 19, 64, 48), (24, 20), 0.05, 16),      # downsampling
+    ((2, 19, 40, 40), (40, 40), 0.05, 16),      # ratio 1
+    ((1, 19, 16, 16), (128, 128), 0.05, 8),     # ratio 8: 8 x 8 tiles
+    ((2, 19, 21, 19), (190, 150), 0.05, 8),     # the same, tiles cut, odd
+    ((1, 19, 24, 24), (300, 300), 0.05, 4),     # ratio 12.5: 4 x 4 tiles
+    ((2, 19, 18, 22), (217, 231), 0.05, 4),     # the same, tiles cut, odd
+    ((1, 19, 8, 8), (256, 256), 0.05, 0),       # ratio 32: the gather variant
 ])
-def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored):
+def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored, tile):
+    """Every variant of K6 (source tiles of edge 16, 8 and 4, and the
+    gather variant) against the plain version's gradient."""
+    assert seg_ce.backward_plan(
+        *shape, *out_hw, sms=torch.cuda.get_device_properties(cuda)
+        .multi_processor_count)['tile'] == tile
     gen = torch.Generator(device=cuda).manual_seed(1)
     z = torch.randn(shape, device=cuda, generator=gen).to(dtype)
     labels = torch.randint(0, shape[1], (shape[0],) + out_hw, device=cuda,
@@ -242,8 +256,12 @@ def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored):
     dwant, gbar = _scaled(want, a)
     k = z.clone().requires_grad_()
     ce, correct = fused_seg_ce(k, labels, out_hw, shape[1])
-    (dz,) = torch.autograd.grad(ce, k, gbar)
+    before = seg_ce.BWD_KERNEL.launches
+    (dz,) = torch.autograd.grad(ce, k, gbar, retain_graph=True)
+    (again,) = torch.autograd.grad(ce, k, gbar)
     torch.cuda.synchronize()
+    assert seg_ce.BWD_KERNEL.launches == before + 2
+    assert torch.equal(dz, again)  # one owner per element, a fixed order
     assert ce.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
     # exact but for argmax near-ties, which another summation order may
     # break the other way
@@ -399,6 +417,99 @@ def test_layer_norm_kernels_strided(cuda, dtype):
         y = fused_layer_norm(x, w.requires_grad_(), b, 1e-6)
     assert not y.requires_grad
     assert layer_norm.FWD_KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cut,folds', [
+    (lambda t: t[:, 1:], False), (lambda t: t[1:, 2:-1], False),
+    (lambda t: t[:, ::2], True), (lambda t: t[::2, 1:], False)],
+    ids=['[:,1:]', '[1:,2:-1]', '[:,::2]', '[::2,1:]'])
+def test_layer_norm_rows_that_do_not_fold(cuda, dtype, cut, folds):
+    """A slice with a unit last stride whose leading axes have no one row
+    stride: K10 reads a copy of the rows, and K11 reads that copy too, not
+    the memory behind the slice. The gradient reaches the whole tensor
+    through the slice. ``[:, ::2]`` of an even token count folds and is
+    read in place."""
+    base, w, b, _ = _layer_norm_case(cuda, dtype, (4, 34, 64), 1e-6)
+    assert (layer_norm._rows_of('x', cut(base), 64)[0]
+            == cut(base).data_ptr()) == folds
+    g = _layer_norm_case(cuda, dtype, tuple(cut(base).shape), 1e-6, seed=1)[3]
+    ref = [t.detach().float().requires_grad_() for t in (base, w, b)]
+    dwant = torch.autograd.grad(
+        layer_norm_plain(cut(ref[0]), ref[1], ref[2], 1e-6), ref, g.float())
+    ins = [t.detach().requires_grad_() for t in (base, w, b)]
+    x = cut(ins[0])
+    assert x.stride(-1) == 1 and not x.is_contiguous()
+    before = layer_norm.FWD_KERNEL.launches, layer_norm.BWD_KERNEL.launches
+    y = fused_layer_norm(x, ins[1], ins[2], 1e-6)
+    _close(y.detach(), layer_norm_plain(cut(ref[0]), ref[1], ref[2],
+                                        1e-6).detach())
+    got = torch.autograd.grad(y, ins, g)
+    torch.cuda.synchronize()
+    assert (layer_norm.FWD_KERNEL.launches - before[0],
+            layer_norm.BWD_KERNEL.launches - before[1]) == (1, 1)
+    for a, d, dt in zip(got, dwant, (dtype, torch.float32, torch.float32)):
+        assert a.dtype == dt and a.shape == d.shape
+        peak = d.abs().max()
+        _close(a.float() / peak, d / peak, dt)
+
+
+def test_layer_norm_failed_launch_gives_its_workspace_up(cuda, monkeypatch):
+    """A K11 launch that raises may leave its ticket counters anywhere:
+    the workspace is dropped, and the next backward gets a zeroed one and
+    the right sums."""
+    x, w, b, g = _layer_norm_case(cuda, torch.float32, (4096, 32), 1e-6)
+    ins = [t.detach().requires_grad_() for t in (x, w, b)]
+    y = fused_layer_norm(*ins, 1e-6)
+    want = torch.autograd.grad(y, ins, g, retain_graph=True)
+    mine = [k for k in layer_norm.WORKSPACES if k[2] == 32]
+    assert mine
+    for key in mine:
+        ws = layer_norm.WORKSPACES[key]
+        assert not layer_norm.workspace_tickets(ws, key[2], key[3]).any()
+    with monkeypatch.context() as patch:
+        # more blocks than the rows need: the source refuses the launch
+        patch.setattr(layer_norm, 'bwd_blocks', lambda rows, C, cap: cap)
+        small = [t.detach().requires_grad_() for t in (x[:8], w, b)]
+        with pytest.raises(RuntimeError, match='launch failed'):
+            torch.autograd.grad(fused_layer_norm(*small, 1e-6), small, g[:8])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not [k for k in layer_norm.WORKSPACES
+                if k[1] == stream and k[2] == 32]
+    again = torch.autograd.grad(y, ins, g)
+    assert all(torch.equal(a, c) for a, c in zip(again, want))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(8 * 16384, 32), (10, 32), (8, 256, 256),
+                                   (3, 7, 1024), (1001, 160)])
+def test_layer_norm_backward_is_one_reproducible_launch(cuda, dtype, shape):
+    """K11 sums its per-block partials in the block that finishes last, in
+    block order: the same bits on every run, with more row groups than
+    blocks and with fewer rows than one block; frozen parameters get None
+    and leave dx as it is; the workspace is kept per (device, stream, C)."""
+    x, w, b, g = _layer_norm_case(cuda, dtype, shape, 1e-6)
+    ins = [t.detach().requires_grad_() for t in (x, w, b)]
+    y = fused_layer_norm(*ins, 1e-6)
+    before = layer_norm.BWD_KERNEL.launches
+    runs = [torch.autograd.grad(y, ins, g, retain_graph=True)
+            for _ in range(5)]
+    assert layer_norm.BWD_KERNEL.launches == before + 5
+    for run in runs[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(run, runs[0]))
+    held = len(layer_norm.WORKSPACES)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a backward runs on its forward's stream
+        other = torch.autograd.grad(fused_layer_norm(*ins, 1e-6), ins, g)
+    side.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(other, runs[0]))
+    assert len(layer_norm.WORKSPACES) == held + 1  # the side stream's own
+    y2 = fused_layer_norm(ins[0], w, b, 1e-6)
+    assert y2.grad_fn.apply(g)[1:3] == (None, None)
+    (dx,) = torch.autograd.grad(y2, ins[:1], g)
+    assert torch.equal(dx, runs[0][0])
+    assert len(layer_norm.WORKSPACES) == held + 1
 
 
 def test_layer_norm_kernels_refuse(cuda):

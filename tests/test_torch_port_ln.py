@@ -181,3 +181,138 @@ def test_rows_view_and_alignment():
     ptr, stride, rows, kept = ln._rows_of('dy', wide[..., ::2], 32, copy=True)
     assert (stride, rows) == (32, 24) and ptr == kept.data_ptr()
     assert ln.FWD_KERNEL.launches == 0 and ln.BWD_KERNEL.launches == 0
+
+
+def _grad_fn_tensors(y):
+    """Every tensor the autograd node of ``y`` saved."""
+    node = y.grad_fn
+    return [t for t in getattr(node, 'saved_tensors', ())]
+
+
+def test_bias_is_not_kept_alive_by_the_graph():
+    """The backward never reads bias: the node saves x and weight alone,
+    and dbias is right all the same."""
+    import weakref
+    x = torch.randn(6, 32, requires_grad=True)
+    w = torch.randn(32, requires_grad=True)
+    b = torch.randn(32, requires_grad=True)
+    y = ln.fused_layer_norm(x, w, b)
+    saved = _grad_fn_tensors(y)
+    assert len(saved) == 2
+    assert {t.data_ptr() for t in saved} == {x.data_ptr(), w.data_ptr()}
+    bias = torch.randn(32)
+    ref = weakref.ref(bias)
+    y2 = ln.fused_layer_norm(x, w, bias)
+    del bias
+    assert ref() is None and y2.grad_fn is not None
+    g = torch.randn(6, 32)
+    got = torch.autograd.grad(y, (x, w, b), g)
+    want = torch.autograd.grad(
+        torch.nn.functional.layer_norm(x, (32,), w, b, 1e-6), (x, w, b), g)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('frozen', [(False, True, True), (False, True, False),
+                                    (True, False, False), (False, False, True)],
+                         ids=['params', 'weight', 'x', 'bias'])
+def test_frozen_inputs_get_no_gradient(frozen):
+    """An input that needs no gradient gets None from the node (not a
+    tensor of zeros); the others get theirs."""
+    tensors = [torch.randn(5, 16), torch.randn(16), torch.randn(16)]
+    for t, f in zip(tensors, frozen):
+        t.requires_grad_(not f)
+    y = ln.fused_layer_norm(*tensors)
+    g = torch.randn(5, 16)
+    ctx_grads = y.grad_fn.apply(g)
+    assert [c is None for c in ctx_grads[:3]] == list(frozen)
+    live = [t for t, f in zip(tensors, frozen) if not f]
+    got = torch.autograd.grad(y, live, g)
+    want = torch.autograd.grad(
+        torch.nn.functional.layer_norm(tensors[0], (16,), tensors[1],
+                                       tensors[2], 1e-6), live, g)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_no_incoming_gradient_gives_none():
+    """``set_materialize_grads(False)``: an output nobody differentiates
+    costs no backward work."""
+    x = torch.randn(4, 16, requires_grad=True)
+    y = ln.fused_layer_norm(x, torch.ones(16), torch.zeros(16))
+    assert y.grad_fn.apply(None) == (None, None, None, None)
+
+
+def test_workspace_is_reused_per_device_stream_and_width(monkeypatch):
+    made = []
+
+    real_zeros = torch.zeros
+
+    def zeros(n, dtype, device):
+        made.append((n, dtype, device))
+        return real_zeros(n, dtype=dtype)
+    monkeypatch.setattr(ln, 'sm_count', lambda index: 30 + index)
+    monkeypatch.setattr(ln, 'WORKSPACES', {})
+    monkeypatch.setattr(torch, 'zeros', zeros)  # no card here
+    cap = ln._BWD_BLOCKS_PER_SM * 30
+    assert cap == ln.bwd_capacity(0, 32) == ln.bwd_capacity(0, 256)
+    assert ln.bwd_capacity(0, 320) == ln._BWD_BLOCKS_PER_SM_WIDE * 30
+    a = ln.workspace(0, 111, 32, cap)
+    # the partials, the groups' sums, the tickets of both rounds
+    groups = -(-cap // ln._GROUP_BLOCKS)
+    assert a.numel() == ln.workspace_floats(cap, 32) \
+        == (cap + groups) * 64 + 1 + groups and not a.any()
+    assert made == [(a.numel(), torch.float32, torch.device('cuda', 0))]
+    assert ln.workspace_tickets(a, 32, cap).numel() == 1 + groups
+    assert ln.workspace(0, 111, 32, cap) is a and len(made) == 1
+    b = ln.workspace(0, 111, 64, cap)       # another width: its own counter
+    c = ln.workspace(0, 222, 32, cap)       # another stream
+    cap1 = ln.bwd_capacity(1, 32)           # another device, other SM count
+    d = ln.workspace(1, 111, 32, cap1)
+    e = ln.workspace(0, 111, 32, cap // 2)  # another capacity: other offsets
+    assert len({t.data_ptr() for t in (a, b, c, d, e)}) == 5
+    assert b.numel() == ln.workspace_floats(cap, 64) \
+        and cap1 == ln._BWD_BLOCKS_PER_SM * 31 \
+        and e.numel() == ln.workspace_floats(cap // 2, 32)
+    assert len(ln.WORKSPACES) == 5 and len(made) == 5
+    assert ln.workspace(0, 222, 32, cap) is c and len(made) == 5
+
+
+def test_rows_that_do_not_fold_are_copied_and_kept():
+    """``x[:, 1:]`` has a unit last stride but no single row stride: the
+    rows handed to the kernels are a copy, and the pointer, the stride and
+    the tensor returned describe that copy, not ``x``'s memory."""
+    x = torch.arange(4 * 6 * 32, dtype=torch.float32).view(4, 6, 32)
+    cut = x[:, 1:, :]
+    ptr, stride, rows, kept = ln._rows_of('x', cut, 32)
+    assert (stride, rows) == (32, 20) and ptr == kept.data_ptr()
+    assert kept.data_ptr() != cut.data_ptr()
+    assert torch.equal(kept, cut.reshape(-1, 32))
+    # a slice that folds is read in place
+    ptr, stride, rows, kept = ln._rows_of('x', x[:, ::2], 32)
+    assert ptr == x.data_ptr() and (stride, rows) == (64, 12)
+
+
+@pytest.mark.parametrize('rows,C,capacity,want', [
+    (131072, 32, 528, 528),   # more row groups than blocks
+    (10, 32, 528, 1),         # fewer rows than one block holds
+    (65, 32, 528, 2),
+    (2048, 256, 528, 256),   # 8 values a lane: a warp holds one row
+    (2048, 512, 528, 256),
+    (1001, 160, 8, 8),
+])
+def test_bwd_blocks(rows, C, capacity, want):
+    assert ln.bwd_blocks(rows, C, capacity) == want
+
+
+def test_grid_constants_mirror_the_source():
+    import re
+    from pathlib import Path
+    src = (Path(ln.__file__).resolve().parent.parent / 'csrc'
+           / 'layer_norm.cu').read_text()
+    assert int(re.search(r'kGroupBlocks = (\d+);', src).group(1)) \
+        == ln._GROUP_BLOCKS
+    assert int(re.search(r'kThreads = (\d+);', src).group(1)) == ln._THREADS
+    assert int(re.search(r'kBwdPerLane = (\d+);', src).group(1)) == 8
+    assert [ln._bwd_lanes(c) for c in (8, 32, 40, 64, 128, 160, 256, 1024)] \
+        == [4, 4, 8, 8, 16, 32, 32, 32]
