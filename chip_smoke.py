@@ -9,9 +9,11 @@ per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
 group-KL forward and backward, (6) K5/K6 seg-CE forward and backward, (7)
 K7/K8 pixel-KL forward and backward and (8) K9, the SRA backward, with K2
 keeping the row log-sum-exp, against their plain PyTorch versions at the
-main paths' shapes, with CUDA-event timings (K6 also at odd, non-integer
-and downsampling shapes, each of its tile edges 16, 8 and 4 and the gather
-variant at two shapes or more, two runs bitwise equal), then
+main paths' shapes, with CUDA-event timings (K4, K6 and K8, the one tile
+kernel with three losses, also at odd, non-integer and downsampling
+shapes, each kernel's tile edges 16, 8 and 4 and its gather variant at two
+shapes or more with the plan asserted, two backward runs bitwise equal;
+the cases are ``tools/kernel_cases.py``'s), then
 K10/K11, the LayerNorm forward and backward of every MiT LayerNorm, at the
 B0 and B3 widths against their plain version and beside ``F.layer_norm``,
 by device time and by a call's host-clocked time, two backward runs bitwise
@@ -167,8 +169,8 @@ MIOU_TOL = 1e-6
 
 
 def _cases():
-    """The case lists of K5/K6 and K10/K11, the card's published peaks and
-    the bounds' formulas, shared with ``tools/bench_ln_ce.py``."""
+    """The case lists of K3-K8 and K10/K11, the card's published peaks and
+    the bounds' formulas, shared with ``tools/bench_kernels.py``."""
     from segdistill_tpu_torch.tools import kernel_cases
     return kernel_cases
 
@@ -366,9 +368,9 @@ def _timed_pair(kernel_fn, plain_fn):
 def _loss_case(tag, xs, xt, fused, plain):
     """A distillation-loss kernel pair (``fused(xs, xt)``, differentiable in
     xs) against ``plain`` on the same inputs: the loss to LOSS_TOL_REL, the
-    gradient with the incoming gradient that makes max |plain dxs| = 1, and
-    both directions timed. -> (loss err, fwd ms, plain fwd ms), (dxs err,
-    bwd ms, plain bwd ms)."""
+    gradient with the incoming gradient that makes max |plain dxs| = 1, two
+    backward runs bitwise equal, and both directions timed. -> (loss err,
+    fwd ms, plain fwd ms), (dxs err, bwd ms, plain bwd ms)."""
     a = xs.float().requires_grad_()
     want = plain(a, xt.float())
     (dunit,) = torch.autograd.grad(want, a)
@@ -376,7 +378,12 @@ def _loss_case(tag, xs, xt, fused, plain):
     k = xs.clone().requires_grad_()
     loss = fused(k, xt)
     (dxs,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
+    (again,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
     torch.cuda.synchronize()
+    if not torch.equal(dxs, again):
+        raise AssertionError(f'{tag}: two backward runs differ')
+    if dxs.dtype != xs.dtype or dxs.shape != xs.shape:
+        raise AssertionError(f'{tag}: dxs is {dxs.dtype} {tuple(dxs.shape)}')
     loss_err = abs(loss.item() - want.item())
     if not loss_err <= LOSS_TOL_REL * abs(want.item()):
         raise AssertionError(f'{tag}: loss {loss.item()} vs plain '
@@ -396,47 +403,59 @@ def _loss_case(tag, xs, xt, fused, plain):
     return (loss_err, *ms), (err, *bms)
 
 
+def _check_plan(tag, plan_fn, shape, out_hw, tile):
+    """The backward's plan at these shapes names the tile the case is meant
+    for: every variant is launched by the cases."""
+    plan = plan_fn(*shape, *out_hw, sms=torch.cuda.get_device_properties(0)
+                   .multi_processor_count)
+    if plan['tile'] != tile:
+        raise AssertionError(f'{tag}: planned {plan}, the case is meant for '
+                             f'tile {tile}')
+    return f'tile {tile}, {plan["blocks"]} blocks of {plan["cpc"]} channels'
+
+
 def phase_group_kl():
     from segdistill_tpu_torch.ops import group_kl as gk
     log('== K3/K4 group_kl vs plain (N(0,1) maps, tau 2; backward with the '
-        'incoming gradient that makes max |plain dxs| = 1)')
+        'incoming gradient that makes max |plain dxs| = 1; two backward runs '
+        'must agree bitwise; tile: the edge of a K4 block\'s source tile, 0 '
+        'the gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     tau = 2.0
-    cases = [('CGD bench perm', (8, 150, 128, 128), (512, 512), True),
-             ('CGD bench identity', (8, 150, 128, 128), (512, 512), False),
-             ('C19 g10 pad', (2, 19, 64, 64), (256, 256), True),
-             ('non-integer ratio', (2, 150, 30, 40), (125, 161), True)]
     fwd, bwd = {}, {}
-    for name, shape, out_hw, shuffle in cases:
+    for name, shape, out_hw, g, shuffle, tile in _cases().GROUP_KL_CASES:
+        plan = _check_plan(f'group_kl {name}', gk.backward_plan, shape,
+                           out_hw, tile)
         perm = torch.randperm(shape[1], device=DEVICE, generator=gen) \
             if shuffle else None
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
-                f'group_kl {name} {dtype}', xs, xt,
+                f'group_kl {name} {dtype} ({plan})', xs, xt,
                 lambda a, t: gk.fused_group_kl_shuffled(a, t, perm, out_hw,
-                                                        10, tau)
-                if shuffle else gk.fused_group_kl(a, t, out_hw, 10, tau),
-                lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, 10, tau))
+                                                        g, tau)
+                if shuffle else gk.fused_group_kl(a, t, out_hw, g, tau),
+                lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, g, tau))
     return fwd, bwd
 
 
 def phase_pixel_kl():
     from segdistill_tpu_torch.ops import pixel_kl as pk
     log('== K7/K8 pixel_kl vs plain (N(0,1) maps, tau 1; backward with the '
-        'incoming gradient that makes max |plain dxs| = 1)')
+        'incoming gradient that makes max |plain dxs| = 1; two backward runs '
+        'must agree bitwise; tile: the edge of a K8 block\'s source tile, 0 '
+        'the gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(8)
-    cases = [('PD bench', (8, 150, 128, 128), (512, 512)),
-             ('non-integer ratio', (2, 150, 30, 40), (125, 161)),
-             ('ratio 1', (2, 150, 64, 64), (64, 64))]
     fwd, bwd = {}, {}
-    for name, shape, out_hw in cases:
+    for name, shape, out_hw, tile in _cases().PIXEL_KL_CASES:
+        plan = _check_plan(f'pixel_kl {name}', pk.backward_plan, shape,
+                           out_hw, tile)
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
-                f'pixel_kl {name} {dtype}', xs, xt,
+                f'pixel_kl {name} {dtype} ({plan})', xs, xt,
                 lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
                 lambda a, t: pk.pixel_kl_plain(a, t, out_hw, 1.0))
     return fwd, bwd
@@ -547,12 +566,8 @@ def phase_seg_ce():
     fwd, bwd = {}, {}
     for name, shape, out_hw, ignored, tile in _cases().SEG_CE_CASES:
         classes = shape[1]
-        plan = sc.backward_plan(*shape, *out_hw, sms=torch.cuda
-                                .get_device_properties(0)
-                                .multi_processor_count)
-        if plan['tile'] != tile:  # every variant of K6 is launched here
-            raise AssertionError(f'seg_ce {name}: planned {plan}, the case '
-                                 f'is meant for tile {tile}')
+        plan = _check_plan(f'seg_ce {name}', sc.backward_plan, shape, out_hw,
+                           tile)
         labels = torch.randint(0, classes, (shape[0],) + out_hw,
                                device=DEVICE, generator=gen)
         labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
@@ -598,8 +613,7 @@ def phase_seg_ce():
                 f'{correct.item():.0f} (plain {want_correct.item():.0f})  dz '
                 f'max_abs_err {err:.3e} (tol used {used:.3f})  fwd '
                 f'{ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd {bms[0]:.4f} ms '
-                f'plain {bms[1]:.4f} ms  tile {plan["tile"]}, '
-                f'{plan["blocks"]} blocks of {plan["cpc"]} channels')
+                f'plain {bms[1]:.4f} ms  {plan}')
     return fwd, bwd
 
 
@@ -1323,15 +1337,12 @@ def _bounds(names):
     out[k2] = _sra_bound(1, 1, 16384, 256, 32, torch.float32)
     out[k9] = _sra_bound(8, 1, 16384, 256, 32, torch.bfloat16, backward=True)
     # K3-K8: (8, 150, 128, 128) bf16 maps -> 512 x 512
-    src = 8 * 150 * 128 * 128
-    px = 8 * 512 * 512
-    up = 150 * px
-    out[k3] = _bound(2 * 2 * src, 23 * up)
-    out[k4] = _bound(2 * 2 * src + 2 * src, 32 * up)
+    _, shape, out_hw, _, _, _ = _cases().GROUP_KL_CASES[0]
+    out[k3], out[k4] = _cases().kl_bounds(shape, out_hw, torch.bfloat16, 0)
     _, shape, out_hw, _, _ = _cases().SEG_CE_CASES[0]
     out[k5], out[k6] = _cases().seg_ce_bounds(shape, out_hw, torch.bfloat16)
-    out[k7] = _bound(2 * 2 * src + 2 * 4 * px, 23 * up)  # two lse maps
-    out[k8] = _bound(2 * 2 * src + 2 * 4 * px + 2 * src, 32 * up)
+    _, shape, out_hw, _ = _cases().PIXEL_KL_CASES[0]
+    out[k7], out[k8] = _cases().kl_bounds(shape, out_hw, torch.bfloat16, 2)
     # K10/K11: B0 stage 1, batch 8, bf16: (131072, 32)
     _, rows, c = _cases().LN_CASES[0]
     out[k10], out[k11] = _cases().ln_bounds(rows, c, torch.bfloat16)
@@ -1375,12 +1386,12 @@ def main():
     # K1 and K2, the bf16 bench train steps for K3-K11
     main_case = {k1.name: ('B0 head b1 E256', torch.float32),
                  k2.name: ('B0 stage1 b1', torch.float32),
-                 k3.name: ('CGD bench perm', torch.bfloat16),
-                 k4.name: ('CGD bench perm', torch.bfloat16),
+                 k3.name: (_cases().GROUP_KL_CASES[0][0], torch.bfloat16),
+                 k4.name: (_cases().GROUP_KL_CASES[0][0], torch.bfloat16),
                  k5.name: (_cases().SEG_CE_CASES[0][0], torch.bfloat16),
                  k6.name: (_cases().SEG_CE_CASES[0][0], torch.bfloat16),
-                 k7.name: ('PD bench', torch.bfloat16),
-                 k8.name: ('PD bench', torch.bfloat16),
+                 k7.name: (_cases().PIXEL_KL_CASES[0][0], torch.bfloat16),
+                 k8.name: (_cases().PIXEL_KL_CASES[0][0], torch.bfloat16),
                  k9.name: ('B0 stage1 b8', torch.bfloat16),
                  k10.name: (_cases().LN_CASES[0][0], torch.bfloat16),
                  k11.name: (_cases().LN_CASES[0][0], torch.bfloat16)}

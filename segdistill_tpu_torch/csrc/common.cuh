@@ -3,8 +3,9 @@
 // of the outputs that read one source index (for the gather backward),
 // block-wide sums and maxima (blocks of kThreads threads), and the source
 // tile of a backward through the upsample: the outputs that read a tile of
-// sources, their tap tables, and the transposed upsample of a shared-memory
-// buffer over that rectangle, one axis after the other.
+// sources, their tap tables, the transposed upsample of a shared-memory
+// buffer over that rectangle, one axis after the other, its plan, and the
+// one tile kernel that K4, K6 and K8 instantiate with their own loss.
 
 #pragma once
 
@@ -16,6 +17,7 @@ namespace segdistill {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr float kLog2e = 1.44269504f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -267,6 +269,250 @@ __device__ inline void tile_sum_y(const float* tmp, int pt, int nx,
     for (int t = 0; t < n; ++t) acc += wk[t] * col[t];
     store(ky, kx, acc);
   }
+}
+
+// ---- The tile backward: one kernel, the loss a parameter ---------------
+//
+// dx of a loss over the bilinear upsample of one or two (B, C, h, w) maps
+// (x0, and x1 beside it where the loss reads two), when the gradient at
+// each output depends only on the upsampled values of one channel there,
+// on per-output constants and on per-channel scalars. A block owns one
+// image's tile of tile x tile sources and a chunk of cpc channel positions.
+// Once per block: the tile's axes and tap tables, and the loss's per-output
+// constants over the rectangle of the tile's readers (kRectMaps maps of
+// 32-bit words, e.g. a label and a log-sum-exp). Per position: the tile and
+// its one-element halo of every map is in shared memory (the next
+// position's loads are in flight while this one computes), every output of
+// the rectangle gets its upsampled values and the loss's gradient there
+// once, into the buffer g, and tile_sum_x, tile_sum_y sum g back onto the
+// tile, scaled by the loss's factor and stored to the position's source
+// channel. Each source element has one owner and a fixed order of
+// summation: no atomics, the result is bitwise reproducible.
+//
+// A Loss provides:
+//   kSrcMaps, kRectMaps, kResident  maps read per channel (1 or 2), 32-bit
+//                                   per-output maps, blocks an SM the
+//                                   kernel is compiled for
+//   pixel(q, r, stride)             the per-output maps of output q (an
+//                                   index into the (B, H, W) grid) into
+//                                   r[0], r[stride], ...
+//   Channel channel(b, pos)         position pos's scalars; .source is the
+//                                   channel of x read and written
+//   int source(pos)                 that channel alone
+//   float eval(ch, v, r, stride)    the gradient at an output: v its
+//                                   upsampled values, r its maps
+//   float scale()                   the factor of every stored value
+constexpr int kTileThreads = 512;
+// shared memory a tile block may take: two blocks fit an SM (228 KB, 1 KB
+// of it reserved for each block)
+constexpr int kTileBudget = 113 * 1024;
+
+// Bytes of dynamic shared memory of a tile block: rect_maps per-output maps
+// and g over the (rh, rw) rectangle with an odd pitch, the x-summed buffer
+// (tile, rh) with an odd pitch, two buffers of src_maps (tile + 2)^2 source
+// tiles, the tap tables of both axes' outputs, and per tile row and column
+// the first reader, the readers' count and their weights (ny, nx a source).
+// Mirrored by the wrappers' plan (ops/tile_plan.py).
+__host__ __device__ inline int tile_smem_bytes(int tile, int rh, int rw,
+                                               int ny, int nx, int rect_maps,
+                                               int src_maps) {
+  return 4 * ((rect_maps + 1) * rh * (rw | 1) + tile * (rh | 1) +
+              2 * src_maps * (tile + 2) * (tile + 2) + 2 * rh + 2 * rw +
+              tile * (4 + ny + nx));
+}
+
+// The tile edge for these shapes: the largest of 16, 8, 4 whose block fits
+// the budget; 0: none does, the loss's gather variant runs.
+inline int plan_tile(int h, int w, int H, int W, int rect_maps,
+                     int src_maps) {
+  for (int tile = 16; tile >= 4; tile /= 2) {
+    if (tile_smem_bytes(tile, tile_reach(tile, h, H), tile_reach(tile, w, W),
+                        tile_readers(h, H), tile_readers(w, W), rect_maps,
+                        src_maps) <= kTileBudget)
+      return tile;
+  }
+  return 0;
+}
+
+// Whether a wrapper's plan (tile edge, rectangle, shared bytes, positions
+// a block) is this source's for Loss at these shapes; the gather variant
+// (tile 0) names no rectangle and no bytes and has a grid of B * C rows.
+template <typename Loss>
+bool tile_plan_ok(int B, int C, int h, int w, int H, int W, int tile, int rh,
+                  int rw, int smem, int cpc) {
+  if (tile != plan_tile(h, w, H, W, Loss::kRectMaps, Loss::kSrcMaps) ||
+      cpc < 1 || cpc > C)
+    return false;
+  if (tile == 0)
+    return static_cast<long long>(B) * C <= 65535 && !rh && !rw && !smem;
+  return rh == tile_reach(tile, h, H) && rw == tile_reach(tile, w, W) &&
+         smem == tile_smem_bytes(tile, rh, rw, tile_readers(h, H),
+                                 tile_readers(w, W), Loss::kRectMaps,
+                                 Loss::kSrcMaps);
+}
+
+template <typename T, typename Loss>
+__global__ void __launch_bounds__(kTileThreads, Loss::kResident)
+    tile_bwd(const Loss loss, const T* __restrict__ x0,
+             const T* __restrict__ x1, T* __restrict__ dx, int C, int h,
+             int w, int H, int W, int tile, int RH, int RW, int cpc,
+             int tiles_y, int tiles_x, int chunks) {
+  constexpr int kSrc = Loss::kSrcMaps;
+  constexpr int kRect = Loss::kRectMaps;
+  extern __shared__ float4 smem_raw[];
+  __shared__ TileAxis ay, ax;
+  const int tid = threadIdx.x;
+  const int PR = RW | 1;
+  const int PT = RH | 1;
+  const int SW = tile + 2;
+  const int SS = SW * SW;
+  const int RS = RH * PR;  // words of one rectangle map
+  const int NY = tile_readers(h, H), NX = tile_readers(w, W);
+  float* rect = reinterpret_cast<float*>(smem_raw);  // kRect maps of RS
+  float* g = rect + kRect * RS;
+  float* tmp = g + RS;
+  float* src = tmp + tile * PT;  // two buffers of kSrc tiles of SS
+  int* i0y = reinterpret_cast<int*>(src + 2 * kSrc * SS);
+  float* fy = reinterpret_cast<float*>(i0y + RH);
+  int* i0x = reinterpret_cast<int*>(fy + RH);
+  float* fx = reinterpret_cast<float*>(i0x + RW);
+  int* sy = reinterpret_cast<int*>(fx + RW);
+  int* cy = sy + tile;
+  int* sx = cy + tile;
+  int* cx = sx + tile;
+  float* wty = reinterpret_cast<float*>(cx + tile);
+  float* wtx = wty + tile * NY;
+
+  int t = blockIdx.x;
+  const int chunk = t % chunks;
+  t /= chunks;
+  const int tile_x = t % tiles_x;
+  t /= tiles_x;
+  const int tile_y = t % tiles_y;
+  const int b = t / tiles_y;
+  const int c0 = chunk * cpc;
+  const int c1 = min(c0 + cpc, C);
+
+  if (tid == 0) ay = tile_axis(tile_y, tile, h, H);
+  if (tid == 32) ax = tile_axis(tile_x, tile, w, W);
+  __syncthreads();
+  // the plan's rectangle holds every reader, or nothing is computed
+  if (ay.on > RH || ax.on > RW) __trap();
+  tile_taps(ay, h, H, i0y, fy, sy, cy, wty, NY, tid, kTileThreads);
+  tile_taps(ax, w, W, i0x, fx, sx, cx, wtx, NX, tid, kTileThreads);
+
+  // A thread keeps one column of the rectangle (its x tap stays in
+  // registers) and walks rows ty0, ty0 + rows_step, ...; a rectangle wider
+  // than the block is walked in column blocks.
+  const int rh = ay.on, rw = ax.on;
+  const int cw = max(min(rw, kTileThreads), 1);
+  const int rows_step = kTileThreads / cw;
+  const int ty0 = tid / cw;
+  const int txl = tid - ty0 * cw;
+  const bool walker = ty0 < rows_step;
+
+  if (kRect > 0 && walker) {
+    const long long img = static_cast<long long>(b) * H * W;
+    for (int tx = txl; tx < rw; tx += cw) {
+      for (int ty = ty0; ty < rh; ty += rows_step) {
+        loss.pixel(img + static_cast<long long>(ay.o0 + ty) * W + ax.o0 + tx,
+                   rect + ty * PR + tx, RS);
+      }
+    }
+  }
+
+  // this thread's element of the (tile + 2)^2 sources around the tile
+  // (SW * SW <= kTileThreads), 0 outside the map
+  const int si = tid / SW, sj = tid - si * SW;
+  const int gi = ay.lo - 1 + si, gj = ax.lo - 1 + sj;
+  const bool s_in = tid < SS && gi >= 0 && gi < h && gj >= 0 && gj < w;
+  const long long plane = static_cast<long long>(h) * w;
+  const long long at = static_cast<long long>(b) * C * plane +
+                       static_cast<long long>(gi) * w + gj;
+  const T* xs[2] = {x0 + at, x1 + at};
+  if (tid < SS) {
+    const long long o = loss.source(c0) * plane;
+#pragma unroll
+    for (int m = 0; m < kSrc; ++m)
+      src[m * SS + tid] = s_in ? to_f32(xs[m][o]) : 0.0f;
+  }
+  __syncthreads();
+
+  const float scale = loss.scale();
+  for (int c = c0; c < c1; ++c) {
+    const float* cur = src + ((c - c0) & 1) * kSrc * SS;
+    const typename Loss::Channel ch = loss.channel(b, c);
+    float next[kSrc];
+#pragma unroll
+    for (int m = 0; m < kSrc; ++m) next[m] = 0.0f;
+    if (s_in && c + 1 < c1) {
+      const long long o = loss.source(c + 1) * plane;
+#pragma unroll
+      for (int m = 0; m < kSrc; ++m) next[m] = to_f32(xs[m][o]);
+    }
+
+    // the loss's gradient at every output of the rectangle
+    if (walker) {
+      for (int tx = txl; tx < rw; tx += cw) {
+        const int b0 = i0x[tx], b1 = min(b0 + 1, ax.hi);
+        const float wx = fx[tx], gx = 1.0f - wx;
+        for (int ty = ty0; ty < rh; ty += rows_step) {
+          const int a0 = i0y[ty];
+          const float wy = fy[ty];
+          const int r0 = a0 * SW;
+          const int r1 = min(a0 + 1, ay.hi) * SW;
+          float v[kSrc];
+#pragma unroll
+          for (int m = 0; m < kSrc; ++m) {
+            const float* s = cur + m * SS;
+            const float top = gx * s[r0 + b0] + wx * s[r0 + b1];
+            const float bot = gx * s[r1 + b0] + wx * s[r1 + b1];
+            v[m] = (1.0f - wy) * top + wy * bot;
+          }
+          const int o = ty * PR + tx;
+          g[o] = loss.eval(ch, v, rect + o, RS);
+        }
+      }
+    }
+    if (tid < SS) {
+      float* nb = src + ((c + 1 - c0) & 1) * kSrc * SS;
+#pragma unroll
+      for (int m = 0; m < kSrc; ++m) nb[m * SS + tid] = next[m];
+    }
+    __syncthreads();
+    tile_sum_x(g, PR, rh, ax, sx, cx, wtx, NX, tmp, PT, tid, kTileThreads);
+    __syncthreads();
+    T* out = dx + (static_cast<long long>(b) * C + ch.source) * plane +
+             static_cast<long long>(ay.lo) * w + ax.lo;
+    tile_sum_y(tmp, PT, ax.n, ay, sy, cy, wty, NY, tid, kTileThreads,
+               [&](int ky, int kx, float v) {
+                 out[ky * w + kx] = from_f32<T>(v * scale);
+               });
+  }
+}
+
+// Launch tile_bwd<T, Loss> on a plan that tile_plan_ok accepted (tile > 0).
+template <typename T, typename Loss>
+cudaError_t launch_tile_bwd(const Loss& loss, const void* x0, const void* x1,
+                            void* dx, int B, int C, int h, int w, int H,
+                            int W, int tile, int cpc, cudaStream_t s) {
+  const int rh = tile_reach(tile, h, H), rw = tile_reach(tile, w, W);
+  const int smem =
+      tile_smem_bytes(tile, rh, rw, tile_readers(h, H), tile_readers(w, W),
+                      Loss::kRectMaps, Loss::kSrcMaps);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tile_bwd<T, Loss>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_y = (h + tile - 1) / tile, tiles_x = (w + tile - 1) / tile;
+  const int chunks = (C + cpc - 1) / cpc;
+  const long long blocks =
+      static_cast<long long>(B) * tiles_y * tiles_x * chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tile_bwd<T, Loss><<<static_cast<unsigned>(blocks), kTileThreads, smem, s>>>(
+      loss, static_cast<const T*>(x0), static_cast<const T*>(x1),
+      static_cast<T*>(dx), C, h, w, H, W, tile, rh, rw, cpc, tiles_y,
+      tiles_x, chunks);
+  return cudaSuccess;
 }
 
 }  // namespace segdistill

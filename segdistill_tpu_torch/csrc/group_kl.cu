@@ -28,11 +28,32 @@
 // in a fixed order, so the loss is deterministic. Each upsampled value costs
 // 8 tap loads (L1/L2) and 2 exps; no upsampled tensor reaches memory.
 //
-// K4 gathers: one thread per source element (b, shuffled position, i, j)
-// walks the ~(2r)^2 output positions whose taps read it, recomputes both
-// upsampled values there from the saved group stats and accumulates
-// w * (p_s - p_t); the result is written once, to the source channel
-// perm[position]. No atomics: the gradient is deterministic.
+// K4 is the tile kernel of common.cuh (tile_bwd) with the loss gkl_tile, as
+// K6 is with its own. What bounded the gather it replaces: one thread per
+// source element walked the ~(2r)^2 outputs that read it and evaluated
+// both upsampled values there from global memory (8 taps, 2 expf), so each
+// upsampled value was evaluated 4 times. Now a block owns one image's tile
+// of 16 x 16 source pixels (8 x 8 or 4 x 4 where the ratio is large) and a
+// chunk of shuffled positions; per position it reads the source channel
+// perm[position] and the stats of its group (scalars, loaded once a
+// position, never in the loop over outputs), loads both maps' tiles of
+// that channel (the next position's while this one computes), evaluates
+// p_s - p_t once at every output of the rectangle that reads the tile
+// (71 x 71 at 128 -> 512), sums it back through the transposed upsample
+// one axis after the other and writes the result once, to the source
+// channel. No per-output map is kept, so a block takes ~32 KB of shared
+// memory and registers bound how many fit an SM: three at 40 registers
+// (two, with more registers, were slower). What bounds it now: the
+// instructions of the evaluation (eight shared loads, two exp2f per
+// upsampled value) and the two barriers a position. Each group's (m, Z)
+// is folded into one log-sum-exp L = m / tau + log Z, and p = exp2(u *
+// log2 e / tau - L * log2 e), which moves a probability by about |L| *
+// 2^-23 against exp((u - m) / tau) / Z. Shapes whose rectangle fits no
+// tile's shared memory (ratios above ~30) take the gather variant below;
+// the variant follows from the shapes alone (plan_tile), and the wrapper's
+// plan must agree or the launch is refused. Each source channel has one
+// position, so each element one owner: no atomics, the gradient is
+// bitwise reproducible.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
@@ -155,7 +176,41 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) loss[0] = static_cast<float>(total[0] / BK);
 }
 
-// K4: dL/dxs for one source element, written to its source channel.
+// K4's loss on the tile of common.cuh: no per-output map; position pos
+// reads source channel perm[pos] and the stats of group pos / g, folded
+// into the group's log-sum-exps in base 2, and at every output p_s - p_t,
+// each p = exp2(u * log2 e / tau - L * log2 e) (one FMA and an exp2f).
+struct gkl_tile {
+  static constexpr int kSrcMaps = 2;
+  static constexpr int kRectMaps = 0;
+  static constexpr int kResident = 3;
+  struct Channel {
+    int source;
+    float ls, lt;  // the group's log-sum-exps of u / tau, times log2 e
+  };
+  const int* perm;
+  const float* stats;
+  const float* gbar;
+  int g, K;
+  float inv_tau, inv_bk;
+
+  __device__ void pixel(long long, float*, int) const {}
+  __device__ Channel channel(int b, int pos) const {
+    const float* st = stats + (b * K + pos / g) * 4;
+    return {perm[pos], fmaf(st[0], inv_tau, logf(st[2])) * kLog2e,
+            fmaf(st[1], inv_tau, logf(st[3])) * kLog2e};
+  }
+  __device__ int source(int pos) const { return perm[pos]; }
+  __device__ float eval(const Channel& ch, const float (&v)[2], const float*,
+                        int) const {
+    const float k = inv_tau * kLog2e;
+    return exp2f(fmaf(v[0], k, -ch.ls)) - exp2f(fmaf(v[1], k, -ch.lt));
+  }
+  __device__ float scale() const { return gbar[0] * inv_tau * inv_bk; }
+};
+
+// The gather variant of K4, for shapes no tile fits: dL/dxs for one source
+// element, written to its source channel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt,
@@ -225,16 +280,22 @@ void launch_fwd(const void* xs, const void* xt, const int* perm, int B,
 }
 
 template <typename T>
-void launch_bwd(const void* xs, const void* xt, const int* perm, int B,
-                int C, int h, int w, int H, int W, int g, float inv_tau,
-                const float* stats, const float* gbar, void* dxs,
-                cudaStream_t s) {
+cudaError_t launch_bwd(const void* xs, const void* xt, const int* perm,
+                       int B, int C, int h, int w, int H, int W, int g,
+                       float inv_tau, const float* stats, const float* gbar,
+                       void* dxs, int tile, int cpc, cudaStream_t s) {
   const int K = (C + g - 1) / g;
-  const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
-  gkl_bwd<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(xt), perm, C, g, K, h,
-      w, H, W, inv_tau, 1.0f / static_cast<float>(B * K), stats, gbar,
-      static_cast<T*>(dxs));
+  const float inv_bk = 1.0f / static_cast<float>(B * K);
+  if (tile == 0) {
+    const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
+    gkl_bwd<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(xs), static_cast<const T*>(xt), perm, C, g, K,
+        h, w, H, W, inv_tau, inv_bk, stats, gbar, static_cast<T*>(dxs));
+    return cudaSuccess;
+  }
+  const gkl_tile loss{perm, stats, gbar, g, K, inv_tau, inv_bk};
+  return launch_tile_bwd<T>(loss, xs, xt, dxs, B, C, h, w, H, W, tile, cpc,
+                            s);
 }
 
 }  // namespace
@@ -268,24 +329,29 @@ extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
 
 // stats: the forward's; gbar: the loss's incoming gradient, float32 (1)
 // on the device. dxs: (B, C, h, w) in the inputs' dtype, every element
-// written.
+// written. The wrapper's plan: tile, the edge of a block's source tile (16,
+// 8 or 4; 0 for the gather variant), rh, rw and smem, the rectangle and the
+// shared bytes it expects (0 with the gather variant), and cpc, the
+// positions a block takes. A plan that differs from this file's is refused.
 extern "C" int group_kl_bwd(const void* xs, const void* xt, const int* perm,
                             int B, int C, int h, int w, int H, int W, int g,
                             float tau, int dtype, const float* stats,
-                            const float* gbar, void* dxs, void* stream) {
+                            const float* gbar, void* dxs, int tile, int rh,
+                            int rw, int smem, int cpc, void* stream) {
   if (bad_shape(B, C, h, w, H, W, g) || !(tau > 0.0f) ||
-      static_cast<long long>(B) * C > 65535) {
+      !tile_plan_ok<gkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch_bwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau, stats,
-                      gbar, dxs, s);
+    err = launch_bwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
+                            stats, gbar, dxs, tile, cpc, s);
   } else if (dtype == 1) {
-    launch_bwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
-                              stats, gbar, dxs, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_bwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g,
+                                    1.0f / tau, stats, gbar, dxs, tile, cpc,
+                                    s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

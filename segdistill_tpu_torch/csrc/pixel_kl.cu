@@ -25,10 +25,27 @@
 // bench shape, and their softmaxes; K7 writes none. Per-block partial sums
 // are merged by one block in a fixed order: the loss is deterministic.
 //
-// K8 gathers, as K6 does: one thread per source element (b, c, i, j) walks
-// the ~(2r)^2 output pixels whose taps read it, recomputes both upsampled
-// logits there and the two probabilities from the saved log-sum-exps, and
-// writes its gradient once. No atomics: the gradient is deterministic.
+// K8 is the tile kernel of common.cuh (tile_bwd) with the loss pkl_tile, as
+// K6 is with its own. What bounded the gather it replaces: one thread per
+// source element walked the ~(2r)^2 outputs that read it and evaluated
+// both upsampled logits there from global memory (8 taps, 2 expf), so each
+// upsampled value was evaluated 4 times, and it read each pixel's two
+// log-sum-exps once per channel (150 x 2 x 8 MB of L2 traffic at the bench
+// shape). Now a block owns one image's tile of 16 x 16 source pixels (8 x 8
+// or 4 x 4 where the ratio is large) and a chunk of the channels; the
+// outputs that read the tile form one rectangle (71 x 71 at 128 -> 512),
+// whose two log-sum-exps go to shared memory once per block. Per channel
+// the tiles of both maps are loaded (the next channel's while this one
+// computes), every output of the rectangle gets both upsampled logits and
+// p_s - p_t once, and the transposed upsample runs over that buffer one
+// axis after the other. What bounds it now: the instructions of the
+// evaluation (per upsampled value eight shared loads of the sources, two
+// of the log-sum-exps, two exp2f) and the two barriers a channel, not
+// memory. Shapes whose rectangle fits no tile's shared memory (ratios above
+// ~15) take the gather variant below; the variant follows from the shapes
+// alone (plan_tile), and the wrapper's plan must agree or the launch is
+// refused. One owner per source element, a fixed order of summation: no
+// atomics, the gradient is bitwise reproducible.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
@@ -96,6 +113,38 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) kl_sum[0] = static_cast<float>(acc[0]);
 }
 
+// K8's loss on the tile of common.cuh: per output the two log-sum-exps
+// of z / tau, in base 2 (times log2 e); at every output p_s - p_t, each
+// p = exp2(z * log2 e / tau - lse * log2 e): one FMA and an exp2f, where
+// expf would scale its argument itself (7% of K8's time at the bench
+// shape on an H100).
+struct pkl_tile {
+  static constexpr int kSrcMaps = 2;
+  static constexpr int kRectMaps = 2;
+  static constexpr int kResident = 3;
+  struct Channel {
+    int source;
+  };
+  const float* lse_s;
+  const float* lse_t;
+  const float* gbar;
+  float inv_tau;
+
+  __device__ void pixel(long long q, float* r, int stride) const {
+    r[0] = lse_s[q] * kLog2e;
+    r[stride] = lse_t[q] * kLog2e;
+  }
+  __device__ Channel channel(int, int c) const { return {c}; }
+  __device__ int source(int c) const { return c; }
+  __device__ float eval(const Channel&, const float (&v)[2], const float* r,
+                        int stride) const {
+    const float k = inv_tau * kLog2e;
+    return exp2f(fmaf(v[0], k, -r[0])) - exp2f(fmaf(v[1], k, -r[stride]));
+  }
+  __device__ float scale() const { return gbar[0] * inv_tau; }
+};
+
+// The gather variant of K8, for shapes no tile fits.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     pkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt, int C, int h,
@@ -154,14 +203,19 @@ void launch_fwd(const void* xs, const void* xt, int B, int C, int h, int w,
 }
 
 template <typename T>
-void launch_bwd(const void* xs, const void* xt, int B, int C, int h, int w,
-                int H, int W, float tau, const float* lse_s,
-                const float* lse_t, const float* gbar, void* dxs,
-                cudaStream_t s) {
-  const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
-  pkl_bwd<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(xt), C, h, w, H, W,
-      1.0f / tau, lse_s, lse_t, gbar, static_cast<T*>(dxs));
+cudaError_t launch_bwd(const void* xs, const void* xt, int B, int C, int h,
+                       int w, int H, int W, float tau, const float* lse_s,
+                       const float* lse_t, const float* gbar, void* dxs,
+                       int tile, int cpc, cudaStream_t s) {
+  if (tile == 0) {
+    const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
+    pkl_bwd<T><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(xs), static_cast<const T*>(xt), C, h, w, H, W,
+        1.0f / tau, lse_s, lse_t, gbar, static_cast<T*>(dxs));
+    return cudaSuccess;
+  }
+  return launch_tile_bwd<T>(pkl_tile{lse_s, lse_t, gbar, 1.0f / tau}, xs, xt,
+                            dxs, B, C, h, w, H, W, tile, cpc, s);
 }
 
 }  // namespace
@@ -192,24 +246,28 @@ extern "C" int pixel_kl_fwd(const void* xs, const void* xt, int B, int C,
 
 // lse_s, lse_t: the forward's; gbar: kl_sum's incoming gradient, float32 (1)
 // on the device. dxs: (B, C, h, w) in the maps' dtype, every element
-// written.
+// written. The wrapper's plan: tile, the edge of a block's source tile (16,
+// 8 or 4; 0 for the gather variant), rh, rw and smem, the rectangle and the
+// shared bytes it expects (0 with the gather variant), and cpc, the
+// channels a block takes. A plan that differs from this file's is refused.
 extern "C" int pixel_kl_bwd(const void* xs, const void* xt, int B, int C,
                             int h, int w, int H, int W, float tau, int dtype,
                             const float* lse_s, const float* lse_t,
-                            const float* gbar, void* dxs, void* stream) {
+                            const float* gbar, void* dxs, int tile, int rh,
+                            int rw, int smem, int cpc, void* stream) {
   if (bad_shape(B, C, h, w, H, W, tau) ||
-      static_cast<long long>(B) * C > 65535) {
+      !tile_plan_ok<pkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    launch_bwd<float>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t, gbar, dxs,
-                      s);
+    err = launch_bwd<float>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t, gbar,
+                            dxs, tile, cpc, s);
   } else if (dtype == 1) {
-    launch_bwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t,
-                              gbar, dxs, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_bwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, lse_s,
+                                    lse_t, gbar, dxs, tile, cpc, s);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,13 @@ def sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def device_sm_count(device):
+    """:func:`sm_count` of a CUDA ``torch.device`` (no index: the current
+    device)."""
+    return sm_count(torch.cuda.current_device() if device.index is None
+                    else device.index)
+
+
 def nvcc_path():
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:

@@ -7,9 +7,17 @@ forward, and ``:527``, backward) and ``fused_group_kl`` (``:347``,
 ``:389``), which is the same computation with the identity permutation and
 runs on the same two kernels here. The kernels are ``csrc/group_kl.cu``:
 K3 splits each (batch, group) distribution over several blocks and merges
-the partial sums in a fixed order; K4 gathers each source element's
-gradient from the output positions that read it. Neither writes the
-upsampled maps to memory, and both take any output size.
+the partial sums in a fixed order. K4 is the tile kernel of
+``csrc/common.cuh`` that K6 and K8 share: a block owns a tile of source
+pixels and a chunk of shuffled positions; per position it reads the source
+channel and its group's two log-sum-exps (scalars), evaluates p_s - p_t
+once at every output that reads the tile and sums it back through the
+transposed upsample one axis after the other, onto the source channel.
+:func:`backward_plan` is its launch's planning (``ops/tile_plan.py``),
+which the source checks; where no tile fits (upsampling ratios above ~30
+for K4, which keeps no per-output map) the plan names the gather variant,
+one thread per source element. Neither kernel writes the upsampled maps to
+memory, and both take any output size.
 
 Both functions are ``torch.autograd.Function``s on every device: on a CPU
 tensor the forward is :func:`group_kl_plain` and the backward its autograd
@@ -22,7 +30,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernel import CudaKernel, check_cuda_inputs
+from . import tile_plan
+from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,8 +45,21 @@ FWD_KERNEL = CudaKernel(
 BWD_KERNEL = CudaKernel(
     'group_kl_bwd', 'group_kl_bwd', source='group_kl',
     argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P,
-              _P],
+              _I, _I, _I, _I, _I],
     replaces='segdistill_tpu/ops/pallas/group_kl.py:527')
+
+# K4 on the tile of csrc/common.cuh (gkl_tile in csrc/group_kl.cu): no
+# per-output map (the group stats are scalars a position), two maps read,
+# compiled for three blocks an SM
+RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM = 0, 2, 3
+
+
+def backward_plan(B, C, h, w, H, W, sms=132):
+    """K4's launch for (B, C, h, w) maps upsampled to (H, W) on a card of
+    ``sms`` SMs: :func:`tile_plan.plan` with K4's maps and blocks an SM;
+    the chunks are of shuffled positions."""
+    return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
+                          BLOCKS_PER_SM)
 
 # blocks per wave the forward aims for: 132 SMs x 8 blocks of 256 threads
 _TARGET_BLOCKS = 132 * 8
@@ -100,9 +122,11 @@ def _launch_bwd(xs, xt, perm, out_hw, g, tau, stats, gbar):
     H, W = out_hw
     dxs = torch.empty_like(xs)
     gbar = gbar.detach().to(torch.float32).contiguous()
+    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device))
     BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(),
                       perm.data_ptr(), B, C, h, w, H, W, g, tau, dtype_code,
-                      stats.data_ptr(), gbar.data_ptr(), dxs.data_ptr())
+                      stats.data_ptr(), gbar.data_ptr(), dxs.data_ptr(),
+                      *tile_plan.plan_args(plan))
     return dxs
 
 

@@ -4,10 +4,17 @@ Replaces ``segdistill_tpu/ops/pallas/pixel_kl.py::fused_pixel_kl`` (the
 Pallas calls at ``pixel_kl.py:169``, forward, and ``:200``, backward). The
 kernels are ``csrc/pixel_kl.cu``: K7 takes one output pixel per thread
 through an online softmax of both maps over the channels' bilinear taps and
-keeps each map's per-pixel log-sum-exp; K8 gathers each source element's
-gradient from the pixels that read it. The upsampled maps never reach
-memory, and any output size works: the TPU integer-ratio gate is not
-carried over.
+keeps each map's per-pixel log-sum-exp. K8 is the tile kernel of
+``csrc/common.cuh`` that K6 and K4 share: a block owns a tile of source
+pixels and a chunk of the channels, keeps the two log-sum-exps of the
+outputs that read the tile in shared memory once, and per channel
+evaluates p_s - p_t once at every one of those outputs and sums it back
+through the transposed upsample one axis after the other.
+:func:`backward_plan` is its launch's planning (``ops/tile_plan.py``),
+which the source checks; where no tile fits (upsampling ratios above ~15)
+the plan names the gather variant, one thread per source element. The
+upsampled maps never reach memory, and any output size works: the TPU
+integer-ratio gate is not carried over.
 
 :func:`fused_pixel_kl` is a ``torch.autograd.Function`` on every device: on
 a CPU tensor the forward is :func:`pixel_kl_plain` and the backward its
@@ -20,7 +27,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernel import CudaKernel, check_cuda_inputs
+from . import tile_plan
+from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,8 +41,21 @@ FWD_KERNEL = CudaKernel(
     replaces='segdistill_tpu/ops/pallas/pixel_kl.py:169')
 BWD_KERNEL = CudaKernel(
     'pixel_kl_bwd', 'pixel_kl_bwd', source='pixel_kl',
-    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _I,
+              _I, _I, _I, _I],
     replaces='segdistill_tpu/ops/pallas/pixel_kl.py:200')
+
+# K8 on the tile of csrc/common.cuh (pkl_tile in csrc/pixel_kl.cu): two
+# per-output maps (the log-sum-exps), two maps read, compiled for three
+# blocks an SM
+RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM = 2, 2, 3
+
+
+def backward_plan(B, C, h, w, H, W, sms=132):
+    """K8's launch for (B, C, h, w) maps upsampled to (H, W) on a card of
+    ``sms`` SMs: :func:`tile_plan.plan` with K8's maps and blocks an SM."""
+    return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
+                          BLOCKS_PER_SM)
 
 
 def pixel_kl_plain(xs, xt, out_hw, tau):
@@ -71,9 +92,11 @@ def _launch_bwd(xs, xt, out_hw, tau, lse, gbar):
     H, W = out_hw
     dxs = torch.empty_like(xs)
     gbar = gbar.detach().to(torch.float32).contiguous()
+    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device))
     BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w, H,
                       W, tau, dtype_code, lse[0].data_ptr(),
-                      lse[1].data_ptr(), gbar.data_ptr(), dxs.data_ptr())
+                      lse[1].data_ptr(), gbar.data_ptr(), dxs.data_ptr(),
+                      *tile_plan.plan_args(plan))
     return dxs
 
 

@@ -9,12 +9,14 @@ online softmax over the channels' bilinear taps and keeps the pixel's
 channels: the outputs that read the tile form one rectangle, whose label
 and log-sum-exp go to shared memory once; per channel every output of
 the rectangle is evaluated once and the transposed upsample runs over the
-shared buffer one axis after the other. :func:`backward_plan` is that
-launch's planning in pure Python (tile edge, rectangle, shared bytes,
-channels per block), mirrored by the source, which refuses a plan that is
-not its own. Shapes whose rectangle fits no tile (upsampling ratios above
-~15) take the source's gather variant, one thread per source element. The
-upsampled logits never reach memory, and any output size works.
+shared buffer one axis after the other. That kernel is ``tile_bwd`` of
+``csrc/common.cuh``, which K4 and K8 share. :func:`backward_plan` is the
+launch's planning in pure Python (``ops/tile_plan.py``: tile edge,
+rectangle, shared bytes, channels per block), mirrored by the source,
+which refuses a plan that is not its own. Shapes whose rectangle fits no
+tile (upsampling ratios above ~15) take the source's gather variant, one
+thread per source element. The upsampled logits never reach memory, and
+any output size works.
 
 :func:`fused_seg_ce` is a ``torch.autograd.Function`` on every device: on a
 CPU tensor the forward is :func:`seg_ce_plain` and the backward its
@@ -23,12 +25,12 @@ backward K6, or they raise. ``correct`` has no gradient.
 """
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernel import CudaKernel, check_cuda_inputs, sm_count
+from . import tile_plan
+from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,72 +47,26 @@ BWD_KERNEL = CudaKernel(
               _I, _I, _I, _I, _I, _P],
     replaces='segdistill_tpu/ops/pallas/seg_ce.py:293')
 
-# K6's tiles (csrc/seg_ce.cu): the edges tried, largest first; the shared
-# memory a block may take (kTileBudget: two blocks fit an SM's 228 KB, 1 KB
-# of it reserved per block); what setting a block up costs, in channels
-# (the rectangle's labels, maxima and exp-sums, the tap tables).
-TILE_EDGES = (16, 8, 4)
-TILE_BUDGET = 113 * 1024
-_SM_SHARED = 228 * 1024
-_SETUP_CHANNELS = 4
-_MAX_BLOCKS_PER_SM = 3  # the source's __launch_bounds__(512, 3): registers
-_PLAN_KEYS = ('tile', 'rh', 'rw', 'shared_bytes', 'cpc', 'chunks', 'blocks')
-
-
-def tile_reach(tile, n_in, n_out):
-    """The most outputs along one axis whose taps can read ``tile``
-    neighbouring sources (``tile_reach`` in csrc/common.cuh): those whose
-    source position falls into a window of ``tile + 1`` source steps, and 3
-    for the window's ends and the rounding of the positions."""
-    return min(-(-(tile + 1) * n_out // n_in) + 3, n_out)
+# K6 on the tile of csrc/common.cuh (ce_tile in csrc/seg_ce.cu): two
+# per-output maps (the label and the log-sum-exp), one map read, compiled
+# for three blocks an SM (registers)
+RECT_MAPS, SRC_MAPS = 2, 1
+_MAX_BLOCKS_PER_SM = 3
+TILE_EDGES, TILE_BUDGET = tile_plan.TILE_EDGES, tile_plan.TILE_BUDGET
+tile_reach = tile_plan.tile_reach
 
 
 def tile_shared_bytes(tile, h, w, H, W):
     """Dynamic shared memory of a K6 block with a ``tile`` x ``tile`` source
-    tile (``tile_smem_bytes`` in the source): three maps over the rectangle
-    of its readers, the x-summed buffer, two source tiles with their halo,
-    the taps of the rectangle's rows and columns, and for each row and
-    column of the tile its first reader, their count and their weights."""
-    rh, rw = tile_reach(tile, h, H), tile_reach(tile, w, W)
-    ny, nx = tile_reach(1, h, H), tile_reach(1, w, W)
-    return 4 * (3 * rh * (rw | 1) + tile * (rh | 1) + 2 * (tile + 2) ** 2
-                + 2 * rh + 2 * rw + tile * (4 + ny + nx))
+    tile (``tile_plan.shared_bytes`` with K6's maps)."""
+    return tile_plan.shared_bytes(tile, h, w, H, W, RECT_MAPS, SRC_MAPS)
 
 
 def backward_plan(B, C, h, w, H, W, sms=132):
     """K6's launch for (B, C, h, w) logits and (H, W) labels on a card of
-    ``sms`` SMs -> dict: ``tile`` (the edge of a block's source tile; 0:
-    the gather variant), ``rh, rw`` (the rectangle of outputs a block
-    holds), ``shared_bytes``, ``cpc`` (channels per block), ``chunks`` and
-    ``blocks``.
-
-    The tile is the largest edge whose block fits :data:`TILE_BUDGET`. The
-    channels are cut into the number of chunks that costs the least: waves
-    of blocks over the card's slots times the channels (and the set-up) of
-    one block."""
-    return dict(zip(_PLAN_KEYS, _plan(B, C, h, w, H, W, sms)))
-
-
-@functools.lru_cache(maxsize=64)
-def _plan(B, C, h, w, H, W, sms):
-    for tile in TILE_EDGES:
-        shared = tile_shared_bytes(tile, h, w, H, W)
-        if shared <= TILE_BUDGET:
-            break
-    else:
-        return 0, 0, 0, 0, 1, C, B * C * -(-h * w // _THREADS)
-    tiles = B * -(-h // tile) * -(-w // tile)
-    slots = sms * min(_SM_SHARED // (shared + 1024), _MAX_BLOCKS_PER_SM)
-    best = None
-    for k in range(1, C + 1):
-        cpc = -(-C // k)
-        chunks = -(-C // cpc)
-        cost = -(-tiles * chunks // slots) * (cpc + _SETUP_CHANNELS)
-        if best is None or cost < best[0]:
-            best = (cost, cpc, chunks)
-    _, cpc, chunks = best
-    return (tile, tile_reach(tile, h, H), tile_reach(tile, w, W), shared,
-            cpc, chunks, tiles * chunks)
+    ``sms`` SMs: :func:`tile_plan.plan` with K6's maps and blocks an SM."""
+    return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
+                          _MAX_BLOCKS_PER_SM)
 
 
 def _valid(labels, num_classes, ignore_index):
@@ -158,14 +114,11 @@ def _launch_bwd(z, labels, num_classes, ignore_index, m, se, gbar):
     B, C, h, w, H, W = _dims(z, labels)
     dz = torch.empty_like(z)
     gbar = gbar.detach().to(torch.float32).contiguous()
-    index = z.device.index
-    plan = backward_plan(B, C, h, w, H, W, sm_count(
-        torch.cuda.current_device() if index is None else index))
+    plan = backward_plan(B, C, h, w, H, W, device_sm_count(z.device))
     BWD_KERNEL.launch(z.device, z.data_ptr(), labels.data_ptr(), B, C, h, w,
                       H, W, num_classes, ignore_index, dtype_code,
                       m.data_ptr(), se.data_ptr(), gbar.data_ptr(),
-                      dz.data_ptr(), plan['tile'], plan['rh'], plan['rw'],
-                      plan['shared_bytes'], plan['cpc'])
+                      dz.data_ptr(), *tile_plan.plan_args(plan))
     return dz
 
 

@@ -1,19 +1,22 @@
-"""Time the LayerNorm kernels (K10 forward, K11 backward) and the seg-CE
-kernels (K5, K6) on the card: the quick loop for work on these kernels.
-``chip_smoke.py`` holds them to their limits against the plain versions, at
-the same shapes (``tools/kernel_cases.py``); nothing is checked here.
+"""Time the loss and LayerNorm kernels on the card: K3/K4 (group KL), K5/K6
+(seg CE), K7/K8 (pixel KL), K10/K11 (LayerNorm), the quick loop for work
+on them. ``chip_smoke.py`` holds them to their limits against the plain
+versions, at the same shapes (``tools/kernel_cases.py``); nothing is
+checked here.
 
-    python -m segdistill_tpu_torch.tools.bench_ln_ce [--times-only]
+    python -m segdistill_tpu_torch.tools.bench_kernels [--times-only]
 
-Builds only ``csrc/layer_norm.cu`` and ``csrc/seg_ce.cu`` (two ``nvcc`` at
-once) and prints ptxas' registers and spills. Then
+Builds only ``csrc/layer_norm.cu``, ``seg_ce.cu``, ``group_kl.cu`` and
+``pixel_kl.cu`` (one ``nvcc`` each, at once) and prints ptxas' registers
+and spills. Then
 
 - K10/K11 at the MiT-B0 LayerNorm shapes of a batch of 8 at 512x512 and two
   of B3's: forward and backward, the median device time (the calls queued
   behind a busy stream, so the host's time to launch them is left out) and
   the host-clocked time of a call, for the kernel, the plain version and
   ``F.layer_norm``, beside the bounds;
-- K5 and K6 at the head's bench shape and three smaller ones: device time
+- K3/K4, K5/K6 and K7/K8 at the train step's bench shape and smaller ones:
+  forward and backward device time and a backward call's host-clocked time,
   beside the bounds;
 - without ``--times-only``: K11's device time with other numbers of blocks
   per SM, and where the host time of a K10 and a K11 call goes (the launch
@@ -24,34 +27,38 @@ once) and prints ptxas' registers and spills. Then
 ``--times-only`` goes through the wrappers' public functions alone: run
 from another checkout with ``PYTHONPATH`` pointing at it
 (``PYTHONPATH=<checkout> python <this file> --times-only``), it times that
-checkout's kernels, so two trees can be compared inside one process-pair on
-one card. Needs a CUDA device; prints the card's name and power limit first.
+checkout's kernels at this file's cases, so two trees can be compared
+inside one process-pair on one card. Needs a CUDA device; prints the card's
+name and power limit first.
 """
 
 import argparse
+import importlib.util
+import pathlib
 import subprocess
 import time
 
 import torch
 import torch.nn.functional as F
 
+from segdistill_tpu_torch.ops import group_kl as gk
 from segdistill_tpu_torch.ops import layer_norm as ln
+from segdistill_tpu_torch.ops import pixel_kl as pk
 from segdistill_tpu_torch.ops import seg_ce as sc
 from segdistill_tpu_torch.ops.cuda_kernel import build_all
 from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
 
-try:
-    from segdistill_tpu_torch.tools import kernel_cases
-except ImportError:  # PYTHONPATH names a checkout from before that module
-    import importlib.util
-    import pathlib
-    _spec = importlib.util.spec_from_file_location(
-        'kernel_cases', pathlib.Path(__file__).with_name('kernel_cases.py'))
-    kernel_cases = importlib.util.module_from_spec(_spec)
-    _spec.loader.exec_module(kernel_cases)
+# the case lists beside this file, whichever checkout PYTHONPATH names
+_spec = importlib.util.spec_from_file_location(
+    'kernel_cases', pathlib.Path(__file__).with_name('kernel_cases.py'))
+kernel_cases = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(kernel_cases)
 
 LN_CASES = [(rows, c) for _, rows, c in kernel_cases.LN_CASES[:7]]
 CE_CASES = kernel_cases.SEG_CE_CASES[:4]
+# the bench shape, a non-integer ratio, odd sizes
+GKL_CASES = [kernel_cases.GROUP_KL_CASES[i] for i in (0, 4, 5)]
+PKL_CASES = kernel_cases.PIXEL_KL_CASES[:3]
 LN_CALLS = 10
 
 
@@ -201,18 +208,40 @@ def ce_times(name, shape, out_hw, ignored, tile, dtype, gen):
           f'{bb[0]:.4f} ({bb[1]})', flush=True)
 
 
+def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
+    """Forward and backward device time of ``fused(xs, xt)`` on N(0, 1)
+    maps, and a backward call's host-clocked time."""
+    xs = torch.randn(shape, device='cuda', generator=gen).to(dtype)
+    xt = torch.randn(shape, device='cuda', generator=gen).to(dtype)
+    with torch.no_grad():
+        fwd = device_ms(lambda: fused(xs, xt), calls=3)
+    k = xs.clone().requires_grad_()
+    loss = fused(k, xt)
+    gbar = torch.ones((), device='cuda')
+
+    def backward():
+        torch.autograd.grad(loss, k, gbar, retain_graph=True)
+    bwd = device_ms(backward, calls=3)
+    call = cuda_ms(backward)
+    fb, bb = kernel_cases.kl_bounds(shape, out_hw, dtype, pixel_maps)
+    print(f'{tag} {name:18s} {shape}->{out_hw} {str(dtype)[6:]:8s} fwd '
+          f'device {fwd:.4f} ms | bwd device {bwd:.4f} ms, call {call:.4f} '
+          f'| bounds {fb[0]:.4f} {bb[0]:.4f} ({bb[1]})', flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--times-only', action='store_true')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
-        raise SystemExit('bench_ln_ce: needs a CUDA device')
+        raise SystemExit('bench_kernels: needs a CUDA device')
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     print(f'kernels of {ln.__file__}', flush=True)
-    kernels = [ln.FWD_KERNEL, ln.BWD_KERNEL, sc.FWD_KERNEL, sc.BWD_KERNEL]
+    kernels = [ln.FWD_KERNEL, ln.BWD_KERNEL, sc.FWD_KERNEL, sc.BWD_KERNEL,
+               gk.FWD_KERNEL, gk.BWD_KERNEL, pk.FWD_KERNEL, pk.BWD_KERNEL]
     build_all(kernels)
     for kern in kernels[::2]:
         print(f'{kern.source.name}: built in {kern.build_seconds:.1f} s')
@@ -226,12 +255,24 @@ def main(argv=None):
     for case in CE_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             ce_times(*case, dtype, gen)
+    for name, shape, out_hw, g, shuffle, _ in GKL_CASES:
+        perm = torch.randperm(shape[1], device='cuda', generator=gen) \
+            if shuffle else None
+        for dtype in (torch.bfloat16, torch.float32):
+            kl_times('K3/K4', name, shape, out_hw,
+                     lambda a, t: gk.fused_group_kl_shuffled(
+                         a, t, perm, out_hw, g, 2.0), dtype, gen, 0)
+    for name, shape, out_hw, _ in PKL_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            kl_times('K7/K8', name, shape, out_hw,
+                     lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
+                     dtype, gen, 2)
     if not args.times_only:
         for rows, c in LN_CASES:
             ln_block_sweep(rows, c, torch.bfloat16, gen)
         ln_host_breakdown(*LN_CASES[3], torch.bfloat16, gen)
         ln_host_breakdown(*LN_CASES[0], torch.bfloat16, gen)
-    print('bench_ln_ce: ok')
+    print('bench_kernels: ok')
 
 
 if __name__ == '__main__':

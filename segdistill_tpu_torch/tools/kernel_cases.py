@@ -1,7 +1,8 @@
-"""The shapes at which the LayerNorm kernels (K10, K11) and the seg-CE
-kernels (K5, K6) are checked and timed on the card, and the least time the
-card could take for them: one list for ``chip_smoke.py``, which holds the
-kernels to their limits, and ``tools/bench_ln_ce.py``, which only times
+"""The shapes at which the group-KL (K3, K4), seg-CE (K5, K6), pixel-KL
+(K7, K8) and LayerNorm (K10, K11) kernels are checked and timed on the
+card, and the least time the card could take for them: one list for
+``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``, which hold the
+kernels to their limits, and ``tools/bench_kernels.py``, which only times
 them.
 """
 
@@ -36,7 +37,48 @@ SEG_CE_CASES = [
     ('ratio ~8, odd', (2, 19, 21, 19), (190, 150), 0.05, 8),
     ('ratio 12.5', (1, 19, 24, 24), (300, 300), 0.05, 4),
     ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 0.05, 4),
-    ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0.05, 0)]
+    ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0.05, 0),
+    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0.05, 0)]
+
+# (name, maps' shape, output size, group size, channels permuted, the edge
+# of the source tile K4 must plan there: 0 is the gather variant). K4 keeps
+# no per-output map, so its tiles fit larger ratios than K6's and K8's:
+# 16 up to ~10, 8 up to ~16, 4 up to ~30. Each variant at least twice, once
+# with tiles cut by the map's edge; 'C7 g3 pad' has a last group of one
+# channel and two -1e9 pad channels.
+GROUP_KL_CASES = [
+    ('CGD bench perm', (8, 150, 128, 128), (512, 512), 10, True, 16),
+    ('CGD bench identity', (8, 150, 128, 128), (512, 512), 10, False, 16),
+    ('C19 g10 pad', (2, 19, 64, 64), (256, 256), 10, True, 16),
+    ('C7 g3 pad', (2, 7, 8, 8), (16, 16), 3, True, 16),
+    ('non-integer ratio', (2, 150, 30, 40), (125, 161), 10, True, 16),
+    ('odd sizes', (2, 150, 31, 33), (97, 130), 10, True, 16),
+    ('downsampling', (2, 19, 64, 48), (24, 20), 10, True, 16),
+    ('ratio 1', (2, 19, 40, 40), (40, 40), 10, True, 16),
+    ('ratio 8', (1, 19, 16, 16), (128, 128), 10, True, 16),
+    ('ratio ~8, odd', (2, 19, 21, 19), (190, 150), 10, True, 16),
+    ('ratio 12.5', (1, 19, 24, 24), (300, 300), 10, True, 8),
+    ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 10, True, 8),
+    ('ratio 32', (1, 19, 8, 8), (256, 256), 10, True, 4),
+    ('ratio 30, odd', (2, 19, 10, 9), (300, 270), 10, False, 4),
+    ('ratio 40 (gather)', (1, 19, 8, 8), (320, 320), 10, True, 0),
+    ('ratio ~50, odd (gather)', (2, 7, 6, 5), (300, 250), 3, True, 0)]
+
+# (name, maps' shape, output size, the edge of the source tile K8 must plan
+# there: 0 is the gather variant). Each variant at least twice, once with
+# tiles cut by the map's edge.
+PIXEL_KL_CASES = [
+    ('PD bench', (8, 150, 128, 128), (512, 512), 16),
+    ('non-integer ratio', (2, 150, 30, 40), (125, 161), 16),
+    ('odd sizes', (2, 150, 31, 33), (97, 130), 16),
+    ('downsampling', (2, 19, 64, 48), (24, 20), 16),
+    ('ratio 1', (2, 150, 64, 64), (64, 64), 16),
+    ('ratio 8', (1, 19, 16, 16), (128, 128), 8),
+    ('ratio ~8, odd', (2, 19, 21, 19), (190, 150), 8),
+    ('ratio 12.5', (1, 19, 24, 24), (300, 300), 4),
+    ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 4),
+    ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0),
+    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0)]
 
 
 def bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
@@ -59,6 +101,19 @@ def ln_bounds(rows, c, dtype):
     size = _size(dtype)
     return (bound(2 * size * rows * c + 2 * 4 * c, 8 * rows * c),
             bound(3 * size * rows * c + 3 * 4 * c, 17 * rows * c))
+
+
+def kl_bounds(shape, out_hw, dtype, pixel_maps):
+    """(forward's, backward's) bound of a two-map KL on (B, C, h, w) maps
+    upsampled to (H, W) in ``dtype``: both maps read (the backward: and dxs
+    written), and ``pixel_maps`` fp32 maps of (B, H, W) written by the
+    forward and read by the backward (K7/K8: the two log-sum-exps; K3/K4:
+    none); 23 (32) operations per upsampled value."""
+    b, c, h, w = shape
+    src = _size(dtype) * b * c * h * w
+    px = b * out_hw[0] * out_hw[1]
+    return (bound(2 * src + 4 * pixel_maps * px, 23 * c * px),
+            bound(3 * src + 4 * pixel_maps * px, 32 * c * px))
 
 
 def seg_ce_bounds(shape, out_hw, dtype):

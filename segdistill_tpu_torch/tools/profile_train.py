@@ -48,10 +48,11 @@ OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
            'model.cfg_s.backbone.dtype': 'bfloat16',
            'model.cfg_t.backbone.dtype': 'bfloat16'}
 BATCH = 8
-# kernel families, first match wins (device kernel names)
+# kernel families, first match wins (device kernel names; K4, K6 and K8
+# are the tile kernel tile_bwd with the losses gkl_tile, ce_tile, pkl_tile)
 FAMILIES = [
     ('K3/K4 group_kl', r'gkl_'),
-    ('K5/K6 seg_ce', r'ce_(fwd|bwd|finalize)'),
+    ('K5/K6 seg_ce', r'ce_(fwd|bwd|finalize|tile)'),
     ('K7/K8 pixel_kl', r'pkl_'),
     ('K1 resize_sum', r'resize_sum_kernel'),
     ('K9 sra_attn_bwd', r'sra_bwd_'),
@@ -144,13 +145,16 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     print('  device time by kernel family:')
     for name, ms in sorted(fams.items(), key=lambda r: -r[1]):
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%}  {name}')
-    # the hand-written kernels by function, template arguments folded
+    # the hand-written kernels by function, template arguments folded but
+    # for the tile kernel's loss
     own = {}
     for name, (ms, n) in rows.items():
         if re.match(r'K\d', family(name)):
-            fn = re.match(r'(?:void )?(?:\(anonymous namespace\)::)?(\w+)',
-                          name)
-            row = own.setdefault(fn.group(1) if fn else name, [0.0, 0])
+            fn = re.match(r'(\w+)(?:<[^,<>]*, (\w+_tile)>)?', re.sub(
+                r'void |\(anonymous namespace\)::|segdistill::', '', name))
+            key = fn.group(1) + (f'<{fn.group(2)}>' if fn.group(2) else '') \
+                if fn else name
+            row = own.setdefault(key, [0.0, 0])
             row[0] += ms
             row[1] += n
     print('  hand-written kernels by function:')

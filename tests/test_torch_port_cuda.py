@@ -44,6 +44,7 @@ from segdistill_tpu_torch.ops.seg_ce import fused_seg_ce, seg_ce_plain
 from segdistill_tpu_torch.ops.sra_attn import (
     fused_sra_attention, sra_attention_backward_plain, sra_attention_plain,
     sra_attention_train)
+from segdistill_tpu_torch.tools import kernel_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -197,30 +198,51 @@ def _scaled(loss, x):
     return g * gbar, gbar
 
 
+def _planned_tile(module, shape, out_hw, cuda):
+    return module.backward_plan(
+        *shape, *out_hw, sms=torch.cuda.get_device_properties(cuda)
+        .multi_processor_count)['tile']
+
+
+def _check_kl_backward(module, fused, plain, xs, xt):
+    """A KL kernel pair against its plain version: the loss, the gradient
+    scaled to max |plain| = 1, two backward runs bitwise equal, and one
+    launch of the backward kernel each."""
+    a = xs.float().requires_grad_()
+    want = plain(a, xt.float())
+    dwant, gbar = _scaled(want, a)
+    k = xs.clone().requires_grad_()
+    loss = fused(k, xt)
+    before = module.BWD_KERNEL.launches
+    (dxs,) = torch.autograd.grad(loss, k, gbar, retain_graph=True)
+    (again,) = torch.autograd.grad(loss, k, gbar)
+    torch.cuda.synchronize()
+    assert module.BWD_KERNEL.launches == before + 2
+    assert torch.equal(dxs, again)  # one owner per element, a fixed order
+    assert loss.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    assert dxs.dtype == xs.dtype
+    _close(dxs, dwant)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape,out_hw,g,shuffle', [
-    ((2, 7, 8, 8), (16, 16), 3, True),          # a -1e9 pad channel
-    ((2, 19, 30, 40), (125, 161), 10, True),    # non-integer ratio, pad
-    ((1, 150, 32, 32), (128, 128), 10, False),  # identity: fused_group_kl
-    ((2, 6, 9, 9), (4, 5), 2, True),            # a downsample
-])
-def test_group_kl_kernels(cuda, dtype, shape, out_hw, g, shuffle):
+@pytest.mark.parametrize('name,shape,out_hw,g,shuffle,tile',
+                         kernel_cases.GROUP_KL_CASES,
+                         ids=[c[0] for c in kernel_cases.GROUP_KL_CASES])
+def test_group_kl_kernels(cuda, dtype, name, shape, out_hw, g, shuffle, tile):
+    """Every variant of K4 (source tiles of edge 16, 8 and 4, and the
+    gather variant), with and without a permutation and with -1e9 pad
+    channels, against the plain version's gradient."""
+    assert _planned_tile(group_kl, shape, out_hw, cuda) == tile, name
     gen = torch.Generator(device=cuda).manual_seed(0)
     xs, xt = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
               for _ in range(2))
     perm = torch.randperm(shape[1], device=cuda, generator=gen) \
         if shuffle else None
-    a = xs.float().requires_grad_()
-    want = group_kl_plain(a, xt.float(), perm, out_hw, g, 2.0)
-    dwant, gbar = _scaled(want, a)
-    k = xs.clone().requires_grad_()
-    loss = fused_group_kl_shuffled(k, xt, perm, out_hw, g, 2.0) if shuffle \
-        else fused_group_kl(k, xt, out_hw, g, 2.0)
-    (dxs,) = torch.autograd.grad(loss, k, gbar)
-    torch.cuda.synchronize()
-    assert loss.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
-    assert dxs.dtype == dtype
-    _close(dxs, dwant)
+    _check_kl_backward(
+        group_kl,
+        lambda a, t: fused_group_kl_shuffled(a, t, perm, out_hw, g, 2.0)
+        if shuffle else fused_group_kl(a, t, out_hw, g, 2.0),
+        lambda a, t: group_kl_plain(a, t, perm, out_hw, g, 2.0), xs, xt)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -238,6 +260,7 @@ def test_group_kl_kernels(cuda, dtype, shape, out_hw, g, shuffle):
     ((1, 19, 24, 24), (300, 300), 0.05, 4),     # ratio 12.5: 4 x 4 tiles
     ((2, 19, 18, 22), (217, 231), 0.05, 4),     # the same, tiles cut, odd
     ((1, 19, 8, 8), (256, 256), 0.05, 0),       # ratio 32: the gather variant
+    ((2, 19, 10, 9), (300, 270), 0.05, 0),      # ratio 30, odd: gather
 ])
 def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored, tile):
     """Every variant of K6 (source tiles of edge 16, 8 and 4, and the
@@ -272,26 +295,18 @@ def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored, tile):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('shape,out_hw', [
-    ((2, 7, 8, 8), (16, 16)),
-    ((2, 150, 30, 40), (125, 161)),             # non-integer ratio
-    ((1, 150, 32, 32), (32, 32)),               # ratio 1
-    ((2, 6, 9, 9), (4, 5)),                     # a downsample
-])
-def test_pixel_kl_kernels(cuda, dtype, shape, out_hw):
+@pytest.mark.parametrize('name,shape,out_hw,tile', kernel_cases.PIXEL_KL_CASES,
+                         ids=[c[0] for c in kernel_cases.PIXEL_KL_CASES])
+def test_pixel_kl_kernels(cuda, dtype, name, shape, out_hw, tile):
+    """Every variant of K8 (source tiles of edge 16, 8 and 4, and the
+    gather variant) against the plain version's gradient."""
+    assert _planned_tile(pixel_kl, shape, out_hw, cuda) == tile, name
     gen = torch.Generator(device=cuda).manual_seed(2)
     xs, xt = (torch.randn(shape, device=cuda, generator=gen).to(dtype)
               for _ in range(2))
-    a = xs.float().requires_grad_()
-    want = pixel_kl_plain(a, xt.float(), out_hw, 1.0)
-    dwant, gbar = _scaled(want, a)
-    k = xs.clone().requires_grad_()
-    loss = fused_pixel_kl(k, xt, out_hw, 1.0)
-    (dxs,) = torch.autograd.grad(loss, k, gbar)
-    torch.cuda.synchronize()
-    assert loss.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
-    assert dxs.dtype == dtype
-    _close(dxs, dwant)
+    _check_kl_backward(pixel_kl,
+                       lambda a, t: fused_pixel_kl(a, t, out_hw, 1.0),
+                       lambda a, t: pixel_kl_plain(a, t, out_hw, 1.0), xs, xt)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

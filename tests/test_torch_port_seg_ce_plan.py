@@ -165,19 +165,28 @@ def test_plan_fills_the_card_at_the_bench_shape():
 
 
 def test_plan_constants_mirror_the_source():
-    src = (CSRC / 'seg_ce.cu').read_text()
-    budget = re.search(r'kTileBudget = (\d+) \* 1024;', src)
+    """K6 is the tile kernel of csrc/common.cuh with the loss ce_tile of
+    csrc/seg_ce.cu: the budget, edges and shared bytes live in the former,
+    K6's maps and blocks an SM in the latter."""
+    common = (CSRC / 'common.cuh').read_text()
+    budget = re.search(r'kTileBudget = (\d+) \* 1024;', common)
     assert int(budget.group(1)) * 1024 == sc.TILE_BUDGET
     edges = re.search(r'for \(int tile = (\d+); tile >= (\d+); tile /= 2\)',
-                      src)
+                      common)
     assert (int(edges.group(1)), int(edges.group(2))) == (
         sc.TILE_EDGES[0], sc.TILE_EDGES[-1])
     assert all(a == 2 * b for a, b in zip(sc.TILE_EDGES, sc.TILE_EDGES[1:]))
-    resident = re.search(r'__launch_bounds__\(kTileThreads, (\d+)\)', src)
+    assert '__launch_bounds__(kTileThreads, Loss::kResident)' in common
+    loss = (CSRC / 'seg_ce.cu').read_text()
+    loss = loss[loss.index('struct ce_tile {'):]
+    resident = re.search(r'kResident = (\d+);', loss)
     assert int(resident.group(1)) == sc._MAX_BLOCKS_PER_SM
-    assert 'return 4 * (3 * rh * (rw | 1) + tile * (rh | 1) +' in src
-    assert 'tile * (4 + ny + nx));' in src
-    common = (CSRC / 'common.cuh').read_text()
+    assert re.search(r'kRectMaps = (\d+);', loss).group(1) == \
+        str(sc.RECT_MAPS)
+    assert re.search(r'kSrcMaps = (\d+);', loss).group(1) == str(sc.SRC_MAPS)
+    assert 'return 4 * ((rect_maps + 1) * rh * (rw | 1) + tile * (rh | 1) +' \
+        in common
+    assert 'tile * (4 + ny + nx));' in common
     assert '(static_cast<long long>(tile + 1) * out + in - 1) / in + 3' \
         in common
 
