@@ -137,6 +137,9 @@ LOSS_TOL_REL = 2e-5
 #   |value|, which is the same thing (the incoming dO is N(0, 1)).
 # Correct-pixel count (K5): exact but for argmax near-ties, which another
 #   summation order may break the other way; at most 1e-4 of the pixels.
+#   Exactly equal on logits whose every lerp is exact (the tie cases of
+#   tools/kernel_cases.py), where exact ties abound and the first maximum
+#   must win.
 CORRECT_TOL_SHARE = 1e-4
 # Untrained model: logits near 0, so the CE is near ln(150) at step 1.
 CE_INIT = math.log(NUM_CLASSES)
@@ -414,29 +417,49 @@ def _check_plan(tag, plan_fn, shape, out_hw, tile):
     return f'tile {tile}, {plan["blocks"]} blocks of {plan["cpc"]} channels'
 
 
+def _fwd_plan(plan):
+    return f'fwd tile {plan["oh"]}x64' if plan['oh'] else 'fwd gather'
+
+
+def _same(tag, first, again):
+    """Two forward runs on the same inputs agree bitwise (fixed merge
+    orders)."""
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f'{tag}: two forward runs differ')
+
+
 def phase_group_kl():
     from segdistill_tpu_torch.ops import group_kl as gk
-    log('== K3/K4 group_kl vs plain (N(0,1) maps, tau 2; backward with the '
-        'incoming gradient that makes max |plain dxs| = 1; two backward runs '
-        'must agree bitwise; tile: the edge of a K4 block\'s source tile, 0 '
-        'the gather variant)')
+    log('== K3/K4 group_kl vs plain (N(0,1) maps, and N(0, 30^2) in the '
+        'spread cases, tau 2; backward with the incoming gradient that makes '
+        'max |plain dxs| = 1; two forward runs (loss, stats) and two '
+        'backward runs must agree bitwise; fwd: K3\'s output tile or its '
+        'gather variant; tile: the edge of a K4 block\'s source tile, 0 the '
+        'gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     tau = 2.0
     fwd, bwd = {}, {}
-    for name, shape, out_hw, g, shuffle, tile in _cases().GROUP_KL_CASES:
-        plan = _check_plan(f'group_kl {name}', gk.backward_plan, shape,
-                           out_hw, tile)
+    cases = [c + (1.0,) for c in _cases().GROUP_KL_CASES] + \
+        [c + (_cases().SPREAD,) for c in _cases().GROUP_KL_SPREAD_CASES]
+    for name, shape, out_hw, g, shuffle, tile, scale in cases:
+        plan = _fwd_plan(gk.forward_plan(*shape[2:], *out_hw)) + ', ' + \
+            _check_plan(f'group_kl {name}', gk.backward_plan, shape, out_hw,
+                        tile)
         perm = torch.randperm(shape[1], device=DEVICE, generator=gen) \
             if shuffle else None
         for dtype in (torch.float32, torch.bfloat16):
-            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
-            xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xs, xt = (scale * torch.randn(shape, device=DEVICE, generator=gen)
+                      for _ in range(2))
+            xs, xt = xs.to(dtype), xt.to(dtype)
             fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
                 f'group_kl {name} {dtype} ({plan})', xs, xt,
                 lambda a, t: gk.fused_group_kl_shuffled(a, t, perm, out_hw,
                                                         g, tau)
                 if shuffle else gk.fused_group_kl(a, t, out_hw, g, tau),
                 lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, g, tau))
+            args = gk._prepare(xs, xt, perm, out_hw, g, tau)
+            _same(f'group_kl {name} {dtype}', gk._launch_fwd(*args),
+                  gk._launch_fwd(*args))
     return fwd, bwd
 
 
@@ -558,22 +581,35 @@ def phase_sra_train():
 
 def phase_seg_ce():
     from segdistill_tpu_torch.ops import seg_ce as sc
-    log('== K5/K6 seg_ce vs plain (N(0,1) logits, a label for every class '
-        'with a share set to 255; backward with the incoming gradient that '
-        'makes max |plain dz| = 1; two backward runs must agree bitwise; '
-        'tile: the edge of a K6 block\'s source tile, 0 the gather variant)')
+    log('== K5/K6 seg_ce vs plain (N(0,1) logits, N(0, 30^2) in the spread '
+        'cases, multiples of 1/8 with a channel copied in the tie cases, '
+        'where `correct` must equal the plain count; a label for every '
+        'class with a share set to 255; backward with the incoming gradient '
+        'that makes max |plain dz| = 1; two forward runs (ce_sum, correct, '
+        'm, se) and two backward runs must agree bitwise; fwd: K5\'s output '
+        'tile or its gather variant; tile: the edge of a K6 block\'s source '
+        'tile, 0 the gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     fwd, bwd = {}, {}
-    for name, shape, out_hw, ignored, tile in _cases().SEG_CE_CASES:
+    cases = [c + ('N(0,1)',) for c in _cases().SEG_CE_CASES] + \
+        [c + ('spread',) for c in _cases().SEG_CE_SPREAD_CASES] + \
+        [c + ('ties',) for c in _cases().SEG_CE_TIE_CASES]
+    for name, shape, out_hw, ignored, tile, kind in cases:
         classes = shape[1]
-        plan = _check_plan(f'seg_ce {name}', sc.backward_plan, shape, out_hw,
-                           tile)
+        plan = _fwd_plan(sc.forward_plan(*shape[2:], *out_hw)) + ', ' + \
+            _check_plan(f'seg_ce {name}', sc.backward_plan, shape, out_hw,
+                        tile)
         labels = torch.randint(0, classes, (shape[0],) + out_hw,
                                device=DEVICE, generator=gen)
         labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
                < ignored] = 255
         for dtype in (torch.float32, torch.bfloat16):
-            z = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            if kind == 'ties':
+                z = _cases().tie_logits(shape, labels, gen).to(dtype)
+            else:
+                z = torch.randn(shape, device=DEVICE, generator=gen)
+                z = (z * (_cases().SPREAD if kind == 'spread' else 1.0)) \
+                    .to(dtype)
             a = z.float().requires_grad_()
             want, want_correct = sc.seg_ce_plain(a, labels, out_hw, classes)
             (dunit,) = torch.autograd.grad(want, a)
@@ -586,10 +622,15 @@ def phase_seg_ce():
             if not torch.equal(dz, again):
                 raise AssertionError(f'seg_ce {name} {dtype}: two runs of K6 '
                                      f'differ')
+            lab32 = labels.to(torch.int32)
+            _same(f'seg_ce {name} {dtype}',
+                  sc._launch_fwd(z, lab32, classes, 255),
+                  sc._launch_fwd(z, lab32, classes, 255))
             ce_err = abs(ce.item() - want.item())
+            miss = abs(correct.item() - want_correct.item())
             if not (ce_err <= LOSS_TOL_REL * abs(want.item())
-                    and abs(correct.item() - want_correct.item())
-                    <= CORRECT_TOL_SHARE * labels.numel()):
+                    and miss <= (0 if kind == 'ties' else
+                                 CORRECT_TOL_SHARE * labels.numel())):
                 raise AssertionError(
                     f'seg_ce {name} {dtype}: ce {ce.item()} correct '
                     f'{correct.item()} vs plain {want.item()} '

@@ -5,7 +5,11 @@
 // tile of a backward through the upsample: the outputs that read a tile of
 // sources, their tap tables, the transposed upsample of a shared-memory
 // buffer over that rectangle, one axis after the other, its plan, and the
-// one tile kernel that K4, K6 and K8 instantiate with their own loss.
+// one tile kernel that K4, K6 and K8 instantiate with their own loss. Then
+// the output tile of a forward that reduces the upsample: the window of
+// sources it reads, its plan, the double-buffered staging of the windows,
+// the column walker, the one forward kernel that K3 and K5 instantiate with
+// their own loss, and the last-block merge of per-block partials.
 
 #pragma once
 
@@ -513,6 +517,320 @@ cudaError_t launch_tile_bwd(const Loss& loss, const void* x0, const void* x1,
       static_cast<T*>(dx), C, h, w, H, W, tile, rh, rw, cpc, tiles_y,
       tiles_x, chunks);
   return cudaSuccess;
+}
+
+// ---- The forward on output tiles: one kernel, the loss a parameter -----
+//
+// K3 and K5 reduce, and never write, the bilinear upsample of (B, C, h, w)
+// maps. A block owns an output tile of kFwdCols columns and oh rows of one
+// slice (K3: an image's channel group, K5: an image) and walks its units
+// (K3: the group's positions, two maps each; K5: chunks of channels). The
+// sources that the tile's outputs read form one window an axis, which is
+// staged in shared memory for every unit of a step, double-buffered: the
+// next step's loads are in flight while this one computes. A thread owns
+// one column of the tile (its x tap in registers) and walks kRows rows of
+// it; it keeps the x-lerped values of the two source rows it stands
+// between and x-lerps a new source row only when the y tap moves on, so an
+// upsampled value costs one lerp (two instructions) and whatever the loss
+// does with it: no integer division, no tap and no global load per value.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdCols = 64;  // a tile's columns: a thread each
+constexpr int kFwdSegs = kFwdThreads / kFwdCols;  // row segments of a tile
+
+// 2^x in one instruction (denormal results flush to 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The sources read by the outputs [o0, o0 + on) of one axis: [lo, lo + n),
+// from the first output's first tap to the last output's second one (the
+// taps' indices grow with the output index), clamped to the map by tap()
+// itself; hi is the local index of the map's last source.
+struct FwdAxis {
+  int lo;
+  int n;
+  int hi;
+};
+
+__device__ inline FwdAxis fwd_axis(int o0, int on, int in, int out) {
+  const Tap first = tap(o0, in, out), last = tap(o0 + on - 1, in, out);
+  return {first.i0, last.i1 - first.i0 + 1, in - 1 - first.i0};
+}
+
+// The most sources that `on` neighbouring outputs read: their positions
+// span (on - 1) * in / out source steps, whose floors differ by at most its
+// ceiling, plus the second tap of the last, plus 2 for the float32 rounding
+// of either end's position; never more than the map. Sizes the window
+// buffers; mirrored by the wrappers' planning (ops/tile_plan.py).
+__host__ __device__ inline int fwd_reach(int on, int in, int out) {
+  const long long r = (static_cast<long long>(on - 1) * in + out - 1) / out + 4;
+  return static_cast<int>(r < in ? r : in);
+}
+
+// Bytes of dynamic shared memory of a forward block: two buffers of `units`
+// (wy, wx) windows and the tile rows' y taps (source row, fraction).
+__host__ __device__ inline int fwd_smem_bytes(int units, int oh, int wy,
+                                              int wx) {
+  return 4 * (2 * units * wy * wx + 2 * oh);
+}
+
+// The tile's rows for a loss whose threads walk `rows` rows each and stage
+// `slots` window elements a unit, or 0 where a window is larger than the
+// block stages at once (strong downsampling, ratios near 1): the loss's
+// gather variant runs.
+inline int plan_fwd(int h, int w, int H, int W, int rows, int slots) {
+  const int oh = kFwdSegs * rows;
+  return fwd_reach(oh, h, H) * fwd_reach(kFwdCols, w, W) <=
+                 slots * kFwdThreads
+             ? oh
+             : 0;
+}
+
+// Whether a wrapper's forward plan (tile rows, window, shared bytes) is
+// this source's for Loss at these shapes; the gather variant (oh 0) names
+// no window and no bytes.
+template <typename Loss>
+bool fwd_plan_ok(int h, int w, int H, int W, int oh, int wy, int wx,
+                 int smem) {
+  if (oh != plan_fwd(h, w, H, W, Loss::kRows, Loss::kSlots)) return false;
+  if (oh == 0) return !wy && !wx && !smem;
+  return wy == fwd_reach(oh, h, H) && wx == fwd_reach(kFwdCols, w, W) &&
+         smem == fwd_smem_bytes(Loss::kUnits, oh, wy, wx);
+}
+
+// One block's outputs [oy0, oy0 + rows) x [ox0, ox0 + cols) (fewer at the
+// map's far edges).
+struct FwdTile {
+  int oy0, ox0, rows, cols;
+};
+
+// The value of a unit past the slice's last (K5: channels past C) in the
+// staged windows: finite, so that its lerps stay finite, and below any map's
+// value, so that it adds 2^-inf = 0 to a sum and never wins a maximum.
+constexpr float kFwdPad = -1e30f;
+
+// A thread's share of one step's windows: element e = tid + j * kFwdThreads
+// of every unit's window (row-major, pitch ax.n) is its slot j; sp[j] is
+// its offset in a source plane, or -1 past the window. Loaded into
+// registers (fetch) while the previous step computes, then stored (store).
+template <typename T, int U, int S>
+struct FwdStage {
+  int sp[S];
+  T v[U][S];
+
+  __device__ __forceinline__ void init(const FwdAxis& ay, const FwdAxis& ax,
+                                       int w, int tid) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int e = tid + j * kFwdThreads;
+      const int ly = e / ax.n;
+      sp[j] = e < ay.n * ax.n ? (ay.lo + ly) * w + ax.lo + (e - ly * ax.n)
+                              : -1;
+    }
+  }
+  // base(i): the plane of unit i of the step; units past n are not read
+  template <typename Base>
+  __device__ __forceinline__ void fetch(Base base, int n) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if (i < n) {
+        const T* p = base(i);
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          if (sp[j] >= 0) v[i][j] = p[sp[j]];
+      }
+    }
+  }
+  // units past n get kFwdPad
+  __device__ __forceinline__ void store(float* buf, int ws, int n,
+                                        int tid) const {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+#pragma unroll
+      for (int j = 0; j < S; ++j)
+        if (sp[j] >= 0)
+          buf[i * ws + tid + j * kFwdThreads] =
+              i < n ? to_f32(v[i][j]) : kFwdPad;
+    }
+  }
+};
+
+// A thread walking down one output column: top holds, for each of U units,
+// the x-lerped value of the window row `at`, and d the x-lerped value of
+// row min(at + 1, hi) less top, so that an upsampled value is one FMA. A
+// row's y tap (a0, a1 = min(a0 + 1, hi), fy) moves them on only where a0
+// changed: by one row, top takes top + d and only row a1 is x-lerped; by
+// more, both rows are.
+template <int U>
+struct ColumnWalker {
+  float top[U], d[U];
+  int at = -2;
+
+  __device__ __forceinline__ static float xlerp(const float* row, int b0,
+                                                int b1, float fx) {
+    const float v0 = row[b0];
+    return fmaf(fx, row[b1] - v0, v0);
+  }
+  __device__ __forceinline__ void move_to(int a0, int a1, const float* buf,
+                                          int ws, int pitch, int b0, int b1,
+                                          float fx) {
+    if (a0 == at) return;
+    if (a0 == at + 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) top[u] += d[u];
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        top[u] = xlerp(buf + u * ws + a0 * pitch, b0, b1, fx);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      d[u] = xlerp(buf + u * ws + a1 * pitch, b0, b1, fx) - top[u];
+    at = a0;
+  }
+  __device__ __forceinline__ float value(int u, float fy) const {
+    return fmaf(fy, d[u], top[u]);
+  }
+};
+
+// Rows [row0, row0 + nr) of one column at step s: each row's y tap (local
+// source row as float bits, fraction) from the block's table, the walk,
+// and the loss's sums. kFull: nr == R, no row past the tile's edge.
+template <int R, bool kFull, typename Loss>
+__device__ __forceinline__ void fwd_walk(
+    const Loss& loss, typename Loss::State& st, const float2* ytap, int row0,
+    int nr, int hi, const float* cur, int ws, int pitch, int b0, int b1,
+    float fx, int s) {
+  constexpr int U = Loss::kUnits;
+  ColumnWalker<U> walk;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!kFull && r >= nr) break;
+    const float2 yt = ytap[row0 + r];
+    const int a0 = __float_as_int(yt.x);
+    walk.move_to(a0, min(a0 + 1, hi), cur, ws, pitch, b0, b1, fx);
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = walk.value(u, yt.y);
+    loss.row(st, r, v, s);
+  }
+}
+
+// A Loss provides:
+//   kUnits, kRows, kSlots, kResident  maps a step reads, rows a thread
+//                                     walks, window elements a thread
+//                                     stages a unit, blocks an SM
+//   State                             a thread's running sums
+//   int steps(slice), units(slice, s) the slice's steps, step s's units
+//                                     (past them: kFwdPad)
+//   const T* base(slice, s, i)        the source plane of unit i of step s
+//   begin(st, slice, tile, seg, col, ok)  per-thread set-up (ok: the
+//                                     thread's column lies in the map)
+//   row(st, r, v, s)                  output row r of the thread's walk at
+//                                     step s: v its upsampled values
+//   finish(st, slice, tile, seg, col, ok)  the block's result and merge
+template <typename T, typename Loss>
+__global__ void __launch_bounds__(kFwdThreads, Loss::kResident)
+    fwd_tile(const Loss loss, int h, int w, int H, int W, int OH, int WY,
+             int WX, int tiles_x) {
+  constexpr int U = Loss::kUnits;
+  constexpr int R = Loss::kRows;
+  extern __shared__ float4 smem_raw[];
+  __shared__ FwdAxis sy, sx;
+  const int tid = threadIdx.x;
+  const int WS = WY * WX;  // floats of one unit's window
+  float* buf = reinterpret_cast<float*>(smem_raw);  // two steps of U windows
+  float2* ytap = reinterpret_cast<float2*>(buf + 2 * U * WS);
+
+  const int slice = blockIdx.y;
+  const int tile_y = blockIdx.x / tiles_x;
+  FwdTile t;
+  t.oy0 = tile_y * OH;
+  t.ox0 = (blockIdx.x - tile_y * tiles_x) * kFwdCols;
+  t.rows = min(OH, H - t.oy0);
+  t.cols = min(kFwdCols, W - t.ox0);
+  if (tid == 0) sy = fwd_axis(t.oy0, t.rows, h, H);
+  if (tid == 32) sx = fwd_axis(t.ox0, t.cols, w, W);
+  __syncthreads();
+  const FwdAxis ay = sy, ax = sx;
+  // the plan's window holds every source the tile reads, or nothing runs
+  if (ay.n > WY || ax.n > WX) __trap();
+  if (tid < t.rows) {
+    const Tap p = tap(t.oy0 + tid, h, H);
+    ytap[tid] = make_float2(__int_as_float(p.i0 - ay.lo), p.f);
+  }
+  const int col = tid % kFwdCols;
+  const int seg = tid / kFwdCols;  // uniform in a warp
+  const bool ok = col < t.cols;
+  const int nr = min(max(t.rows - seg * R, 0), R);
+  const Tap px = tap(t.ox0 + min(col, t.cols - 1), w, W);
+  const int b0 = px.i0 - ax.lo, b1 = px.i1 - ax.lo;
+  const float fx = px.f;
+
+  typename Loss::State st;
+  loss.begin(st, slice, t, seg, col, ok);
+  FwdStage<T, U, Loss::kSlots> stage;
+  stage.init(ay, ax, w, tid);
+  const int steps = loss.steps(slice);
+  stage.fetch([&](int i) { return loss.base(slice, 0, i); },
+              loss.units(slice, 0));
+  stage.store(buf, WS, loss.units(slice, 0), tid);
+  __syncthreads();
+
+  for (int s = 0; s < steps; ++s) {
+    const float* cur = buf + (s & 1) * U * WS;
+    const bool more = s + 1 < steps;
+    if (more)
+      stage.fetch([&](int i) { return loss.base(slice, s + 1, i); },
+                  loss.units(slice, s + 1));
+    if (ok && nr == R)
+      fwd_walk<R, true>(loss, st, ytap, seg * R, nr, ay.hi, cur, WS, ax.n,
+                        b0, b1, fx, s);
+    else if (ok)
+      fwd_walk<R, false>(loss, st, ytap, seg * R, nr, ay.hi, cur, WS, ax.n,
+                         b0, b1, fx, s);
+    if (more)
+      stage.store(buf + ((s + 1) & 1) * U * WS, WS, loss.units(slice, s + 1),
+                  tid);
+    __syncthreads();
+  }
+  loss.finish(st, slice, t, seg, col, ok);
+}
+
+// Launch fwd_tile<T, Loss> over `slices` on a plan that fwd_plan_ok
+// accepted (oh > 0). Its shared memory stays under the 48 KB that needs no
+// opt-in: at most 2 * kUnits * kSlots * kFwdThreads floats and the y taps.
+template <typename T, typename Loss>
+cudaError_t launch_fwd_tile(const Loss& loss, int slices, int h, int w,
+                            int H, int W, int oh, cudaStream_t s) {
+  const int wy = fwd_reach(oh, h, H), wx = fwd_reach(kFwdCols, w, W);
+  const int smem = fwd_smem_bytes(Loss::kUnits, oh, wy, wx);
+  const int tiles_x = (W + kFwdCols - 1) / kFwdCols;
+  const long long tiles = static_cast<long long>((H + oh - 1) / oh) * tiles_x;
+  if (tiles > 0x7fffffffLL || slices > 65535 || smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  fwd_tile<T, Loss><<<dim3(static_cast<unsigned>(tiles), slices), kFwdThreads,
+                      smem, s>>>(loss, h, w, H, W, oh, wy, wx, tiles_x);
+  return cudaSuccess;
+}
+
+// The last block to finish, among `count` that each call this once after
+// writing their partial result (thread 0 at least), sees true; every
+// thread of the block gets the answer. `ticket` counts the arrivals; the
+// writes before it are visible to the last block (__threadfence), which
+// reads them with __ldcg (past L1).
+__device__ inline bool last_to_arrive(int* ticket, int count) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1) == count - 1;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 }  // namespace segdistill

@@ -6,8 +6,16 @@ Replaces ``segdistill_tpu/ops/pallas/group_kl.py``'s
 forward, and ``:527``, backward) and ``fused_group_kl`` (``:347``,
 ``:389``), which is the same computation with the identity permutation and
 runs on the same two kernels here. The kernels are ``csrc/group_kl.cu``:
-K3 splits each (batch, group) distribution over several blocks and merges
-the partial sums in a fixed order. K4 is the tile kernel of
+K3 takes the group's source maxima in one pass, then is the forward tile
+kernel of ``csrc/common.cuh`` that K5 shares: a block owns an (image,
+group)'s tile of 128 x 64 outputs, stages per position the window of
+sources it reads of both maps in shared memory and sums the group's
+(Z_s, Z_t, W) over the tile; the group's last block merges its tiles'
+partials and the last group's block the KLs, in fixed orders.
+:func:`forward_plan` is its launch's planning (``ops/tile_plan.py``),
+which the source checks; where a window is larger than the block stages
+(upsampling ratios near 1, downsampling) it names the gather variant,
+blocks over flat ranges of a group's values. K4 is the tile kernel of
 ``csrc/common.cuh`` that K6 and K8 share: a block owns a tile of source
 pixels and a chunk of shuffled positions; per position it reads the source
 channel and its group's two log-sum-exps (scalars), evaluates p_s - p_t
@@ -39,8 +47,8 @@ _F = ctypes.c_float
 
 FWD_KERNEL = CudaKernel(
     'group_kl_fwd', 'group_kl_fwd', source='group_kl',
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P,
-              _P, _P, _P, _P],
+    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+              _I, _I, _I, _P, _P, _P, _P],
     replaces='segdistill_tpu/ops/pallas/group_kl.py:474')
 BWD_KERNEL = CudaKernel(
     'group_kl_bwd', 'group_kl_bwd', source='group_kl',
@@ -61,7 +69,22 @@ def backward_plan(B, C, h, w, H, W, sms=132):
     return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
                           BLOCKS_PER_SM)
 
-# blocks per wave the forward aims for: 132 SMs x 8 blocks of 256 threads
+
+# K3 on the forward tile of csrc/common.cuh (gkl_fwd_tile in
+# csrc/group_kl.cu): both maps of a position a step, 32 rows a thread, 3
+# window elements a thread and map
+FWD_UNITS, FWD_ROWS, FWD_SLOTS = 2, 32, 3
+
+
+def forward_plan(h, w, H, W):
+    """K3's launch for (h, w) maps upsampled to (H, W):
+    :func:`tile_plan.forward_plan` with K3's counts."""
+    return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
+                                  FWD_SLOTS)
+
+
+# blocks per wave the gather variant and the max pass aim for: 132 SMs x 8
+# blocks of 256 threads
 _TARGET_BLOCKS = 132 * 8
 
 
@@ -101,18 +124,22 @@ def _launch_fwd(xs, xt, perm, out_hw, g, tau):
     dtype_code = check_cuda_inputs('fused_group_kl', (xs, xt))
     B, C, h, w = xs.shape
     H, W = out_hw
-    K = -(-C // g)
-    max_splits = _splits(B * K, min(g, C) * h * w)
-    sum_splits = _splits(B * K, min(g, C) * H * W)
+    BK = B * -(-C // g)
+    plan = forward_plan(h, w, H, W)
+    max_splits = _splits(BK, h * w)  # slices of each plane
+    sum_splits = _splits(BK, min(g, C) * H * W)
     f32 = dict(dtype=torch.float32, device=xs.device)
-    pmax = torch.empty(B * K * max_splits * 2, **f32)
-    psum = torch.empty(B * K * sum_splits * 3, **f32)
-    stats = torch.empty(B * K, 4, **f32)
+    pmax = torch.empty(BK * max_splits * 2, **f32)
+    # the tile variant's partials, KLs and tickets; the gather's partials
+    psum = torch.empty(BK * (plan['tiles'] * 3 + 2) + 1 if plan['oh']
+                       else BK * sum_splits * 3, **f32)
+    stats = torch.empty(BK, 4, **f32)
     loss = torch.empty((), **f32)
     FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(),
                       perm.data_ptr(), B, C, h, w, H, W, g, tau, dtype_code,
-                      max_splits, sum_splits, pmax.data_ptr(),
-                      psum.data_ptr(), stats.data_ptr(), loss.data_ptr())
+                      *tile_plan.forward_plan_args(plan), max_splits,
+                      sum_splits, pmax.data_ptr(), psum.data_ptr(),
+                      stats.data_ptr(), loss.data_ptr())
     return loss, stats
 
 

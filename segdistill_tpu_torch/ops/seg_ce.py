@@ -3,20 +3,27 @@ backward.
 
 Replaces ``segdistill_tpu/ops/pallas/seg_ce.py::fused_seg_ce`` (the Pallas
 calls at ``seg_ce.py:241``, forward, and ``:293``, backward). The kernels
-are ``csrc/seg_ce.cu``: K5 takes one output pixel per thread through an
-online softmax over the channels' bilinear taps and keeps the pixel's
-(max, exp-sum). K6 gives a block a tile of source pixels and a chunk of the
-channels: the outputs that read the tile form one rectangle, whose label
-and log-sum-exp go to shared memory once; per channel every output of
-the rectangle is evaluated once and the transposed upsample runs over the
-shared buffer one axis after the other. That kernel is ``tile_bwd`` of
-``csrc/common.cuh``, which K4 and K8 share. :func:`backward_plan` is the
-launch's planning in pure Python (``ops/tile_plan.py``: tile edge,
-rectangle, shared bytes, channels per block), mirrored by the source,
-which refuses a plan that is not its own. Shapes whose rectangle fits no
-tile (upsampling ratios above ~15) take the source's gather variant, one
-thread per source element. The upsampled logits never reach memory, and
-any output size works.
+are ``csrc/seg_ce.cu``: K5 is the forward tile kernel of
+``csrc/common.cuh`` that K3 shares: a block owns an image's tile of 32 x
+64 output pixels and walks the channels in chunks of 8 whose windows of
+sources sit in shared memory; each pixel keeps its running (max, exp-sum),
+rescaled once a chunk, and its first argmax, writes its (max, exp-sum) for
+K6 and lerps its label's logit once; the last block to finish sums the
+blocks' (ce_sum, correct) in a fixed order. :func:`forward_plan` is its
+launch's planning, which the source checks; where a window is larger than
+the block stages (upsampling ratios near 1, downsampling) it names the
+gather variant, one output pixel per thread. K6 gives a block a tile of
+source pixels and a chunk of the channels: the outputs that read the tile
+form one rectangle, whose label and log-sum-exp go to shared memory once;
+per channel every output of the rectangle is evaluated once and the
+transposed upsample runs over the shared buffer one axis after the other.
+That kernel is ``tile_bwd`` of ``csrc/common.cuh``, which K4 and K8 share.
+:func:`backward_plan` is the launch's planning in pure Python
+(``ops/tile_plan.py``: tile edge, rectangle, shared bytes, channels per
+block), mirrored by the source, which refuses a plan that is not its own.
+Shapes whose rectangle fits no tile (upsampling ratios above ~15) take the
+source's gather variant, one thread per source element. The upsampled
+logits never reach memory, and any output size works.
 
 :func:`fused_seg_ce` is a ``torch.autograd.Function`` on every device: on a
 CPU tensor the forward is :func:`seg_ce_plain` and the backward its
@@ -34,12 +41,12 @@ from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_THREADS = 256  # kThreads in csrc/common.cuh: one pixel per thread
+_THREADS = 256  # kThreads in csrc/common.cuh: the gather variant's block
 
 FWD_KERNEL = CudaKernel(
     'seg_ce_fwd', 'seg_ce_fwd', source='seg_ce',
-    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-              _P, _P],
+    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _P, _P, _P, _P, _P, _P],
     replaces='segdistill_tpu/ops/pallas/seg_ce.py:241')
 BWD_KERNEL = CudaKernel(
     'seg_ce_bwd', 'seg_ce_bwd', source='seg_ce',
@@ -69,6 +76,34 @@ def backward_plan(B, C, h, w, H, W, sms=132):
                           _MAX_BLOCKS_PER_SM)
 
 
+# K5 on the forward tile of csrc/common.cuh (ce_fwd_tile in
+# csrc/seg_ce.cu): a chunk of 8 channels a step, 8 rows a thread, one window
+# element a thread and channel
+FWD_UNITS, FWD_ROWS, FWD_SLOTS = 8, 8, 1
+
+
+def forward_plan(h, w, H, W):
+    """K5's launch for (h, w) logits upsampled to (H, W):
+    :func:`tile_plan.forward_plan` with K5's counts."""
+    return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
+                                  FWD_SLOTS)
+
+
+# K5's ticket counter, one int32 for each (device index, stream): zeroed
+# when it is made; a launch that runs to its end leaves it at 0, one that
+# raised gives it up. Launches on one stream run in order, so they share it.
+TICKETS = {}
+
+
+def _ticket(index):
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    t = TICKETS.get(key)
+    if t is None:
+        t = TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                       device=torch.device('cuda', index))
+    return key, t
+
+
 def _valid(labels, num_classes, ignore_index):
     return (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
 
@@ -96,16 +131,30 @@ def _dims(z, labels):
 def _launch_fwd(z, labels, num_classes, ignore_index):
     dtype_code = check_cuda_inputs('fused_seg_ce', (z,))
     B, C, h, w, H, W = _dims(z, labels)
+    plan = forward_plan(h, w, H, W)
     f32 = dict(dtype=torch.float32, device=z.device)
     m = torch.empty((B, H, W), **f32)
     se = torch.empty((B, H, W), **f32)
-    part = torch.empty(2 * B * (-(-H * W // _THREADS)), **f32)
+    blocks = plan['tiles'] if plan['oh'] else -(-H * W // _THREADS)
+    part = torch.empty(2 * B * blocks, **f32)
     ce = torch.empty((), **f32)
     correct = torch.empty((), **f32)
-    FWD_KERNEL.launch(z.device, z.data_ptr(), labels.data_ptr(), B, C, h, w,
-                      H, W, num_classes, ignore_index, dtype_code,
-                      m.data_ptr(), se.data_ptr(), part.data_ptr(),
-                      ce.data_ptr(), correct.data_ptr())
+    key = ticket = None
+    if plan['oh']:
+        index = z.device.index
+        key, ticket = _ticket(torch.cuda.current_device() if index is None
+                              else index)
+    try:
+        FWD_KERNEL.launch(z.device, z.data_ptr(), labels.data_ptr(), B, C, h,
+                          w, H, W, num_classes, ignore_index, dtype_code,
+                          *tile_plan.forward_plan_args(plan), m.data_ptr(),
+                          se.data_ptr(), part.data_ptr(),
+                          ticket.data_ptr() if ticket is not None else None,
+                          ce.data_ptr(), correct.data_ptr())
+    except BaseException:
+        # its ticket may not be at 0: the next launch gets a fresh one
+        TICKETS.pop(key, None)
+        raise
     return ce, correct, m, se
 
 

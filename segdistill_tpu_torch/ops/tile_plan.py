@@ -1,7 +1,9 @@
-"""The launch plan of a backward through a bilinear upsample on a
-shared-memory source tile: K4 (group KL), K6 (seg CE) and K8 (pixel KL),
-which are one kernel (``tile_bwd`` in ``csrc/common.cuh``) with three
-losses.
+"""The launch plans of the kernels on shared-memory tiles of
+``csrc/common.cuh``: the backward through a bilinear upsample on a source
+tile (``tile_bwd``: K4 group KL, K6 seg CE, K8 pixel KL), and the forward
+on an output tile (``fwd_tile``: K3 group KL, K5 seg CE).
+
+The backward.
 
 A block owns one image's ``tile`` x ``tile`` source pixels and a chunk of
 ``cpc`` channels (K4: positions of the permutation). The outputs whose taps
@@ -14,6 +16,18 @@ the rectangle and the bytes again (``plan_tile``, ``tile_plan_ok``) and
 refuses a plan that is not its own. Where no tile fits (upsampling ratios
 above ~15; ~30 for K4, which keeps no per-output map) the plan names tile
 0, the loss's gather variant: one thread per source element.
+
+The forward. A block owns ``oh`` x 64 outputs of one slice (K3: an image's
+channel group; K5: an image); each of its 256 threads walks ``rows`` rows
+of one column (``oh`` = 4 ``rows``). The sources those outputs read form a
+window of at most ``wy`` x ``wx`` (:func:`fwd_reach`), which the block
+stages in shared memory for the ``units`` maps of a step (K3: both maps of
+one position; K5: a chunk of 8 channels), double-buffered, each thread
+``slots`` elements a unit. :func:`forward_plan` is that planning; the
+source computes it again (``plan_fwd``, ``fwd_plan_ok``) and refuses a plan
+that is not its own. Where a window is larger than ``slots`` x 256
+elements (upsampling ratios near 1 and downsampling) the plan names ``oh``
+0, the loss's gather variant.
 """
 
 import functools
@@ -95,3 +109,46 @@ def plan_args(plan_):
     rw, shared bytes, channels per block."""
     return (plan_['tile'], plan_['rh'], plan_['rw'], plan_['shared_bytes'],
             plan_['cpc'])
+
+
+# threads of a forward block (kFwdThreads), the columns of its tile
+# (kFwdCols): one a thread, so a tile has 4 segments of rows
+FWD_THREADS = 256
+FWD_COLS = 64
+FWD_SEGS = FWD_THREADS // FWD_COLS
+FWD_KEYS = ('oh', 'wy', 'wx', 'shared_bytes', 'tiles')
+
+
+def fwd_reach(n, n_in, n_out):
+    """The most sources along one axis that ``n`` neighbouring outputs read
+    (``fwd_reach`` in csrc/common.cuh): their positions span (n - 1) *
+    n_in / n_out source steps, whose floors differ by at most its ceiling,
+    one more for the last output's second tap and two for the float32
+    rounding of either end's position; never more than the map."""
+    return min(-(-(n - 1) * n_in // n_out) + 4, n_in)
+
+
+def fwd_shared_bytes(units, oh, wy, wx):
+    """Dynamic shared memory of a forward block (``fwd_smem_bytes``): two
+    buffers of ``units`` windows and the tile rows' y taps."""
+    return 4 * (2 * units * wy * wx + 2 * oh)
+
+
+def forward_plan(h, w, H, W, units, rows, slots):
+    """The forward's launch for (h, w) maps upsampled to (H, W), for a loss
+    whose steps read ``units`` maps, whose threads walk ``rows`` rows and
+    stage ``slots`` window elements a unit -> dict: ``oh`` (the tile's rows;
+    0: the gather variant), ``wy, wx`` (the window), ``shared_bytes`` and
+    ``tiles`` (blocks a slice)."""
+    oh = FWD_SEGS * rows
+    wy, wx = fwd_reach(oh, h, H), fwd_reach(FWD_COLS, w, W)
+    if wy * wx > slots * FWD_THREADS:
+        return dict(zip(FWD_KEYS, (0, 0, 0, 0, 0)))
+    return dict(zip(FWD_KEYS, (oh, wy, wx, fwd_shared_bytes(units, oh, wy, wx),
+                               -(-H // oh) * -(-W // FWD_COLS))))
+
+
+def forward_plan_args(plan_):
+    """The forward plan as the sources' ``*_fwd`` entry points take it:
+    tile rows, window rows and columns, shared bytes."""
+    return plan_['oh'], plan_['wy'], plan_['wx'], plan_['shared_bytes']

@@ -205,12 +205,22 @@ def ce_times(name, shape, out_hw, ignored, tile, dtype, gen):
     fb, bb = kernel_cases.seg_ce_bounds(shape, out_hw, dtype)
     print(f'CE {name:18s} {shape}->{out_hw} {str(dtype)[6:]:8s} K5 device '
           f'{fwd:.4f} ms | K6 device {bwd:.4f} ms | bounds {fb[0]:.4f} '
-          f'{bb[0]:.4f} ({bb[1]})', flush=True)
+          f'{bb[0]:.4f} ({bb[1]}) | K5 exp floor '
+          f'{_exp_floor_ms(shape, out_hw, 1 + 1 / 8):.4f}', flush=True)
+
+
+def _exp_floor_ms(shape, out_hw, per_value):
+    """The special-function units' floor of a forward that takes
+    ``per_value`` exponentials per upsampled value."""
+    b, c = shape[:2]
+    return per_value * b * c * out_hw[0] * out_hw[1] \
+        / kernel_cases.PEAK_EXP2 * 1e3
 
 
 def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
     """Forward and backward device time of ``fused(xs, xt)`` on N(0, 1)
-    maps, and a backward call's host-clocked time."""
+    maps, and a backward call's host-clocked time; beside the bounds, the
+    floor of the forward's two exponentials per value."""
     xs = torch.randn(shape, device='cuda', generator=gen).to(dtype)
     xt = torch.randn(shape, device='cuda', generator=gen).to(dtype)
     with torch.no_grad():
@@ -226,7 +236,8 @@ def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
     fb, bb = kernel_cases.kl_bounds(shape, out_hw, dtype, pixel_maps)
     print(f'{tag} {name:18s} {shape}->{out_hw} {str(dtype)[6:]:8s} fwd '
           f'device {fwd:.4f} ms | bwd device {bwd:.4f} ms, call {call:.4f} '
-          f'| bounds {fb[0]:.4f} {bb[0]:.4f} ({bb[1]})', flush=True)
+          f'| bounds {fb[0]:.4f} {bb[0]:.4f} ({bb[1]}) | fwd exp floor '
+          f'{_exp_floor_ms(shape, out_hw, 2):.4f}', flush=True)
 
 
 def main(argv=None):

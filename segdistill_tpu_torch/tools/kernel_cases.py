@@ -3,7 +3,10 @@
 card, and the least time the card could take for them: one list for
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``, which hold the
 kernels to their limits, and ``tools/bench_kernels.py``, which only times
-them.
+them. K3's and K5's forward variants (the output tile, or the gather
+variant where a window is larger than the block stages: ratios near 1 and
+downsampling) follow from the same shapes; ``tests/test_torch_port_fwd_plan.py``
+checks that each runs at two of them or more.
 """
 
 import torch
@@ -11,6 +14,10 @@ import torch
 # NVIDIA H100 SXM: HBM3 bytes/s, fp32 FLOP/s outside the tensor cores, dense
 # bf16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+# exponentials a second on the special-function units: 16 a clock an SM, 132
+# SMs at 1.98 GHz (a floor beside the bound, which counts an exponential as
+# one fp32 operation)
+PEAK_EXP2 = 16 * 132 * 1.98e9
 
 # (name, rows, C) of the MiT LayerNorms at batch 8, 512x512: the B0
 # student's four stages (stage 1: four times more row groups than K11 has
@@ -63,6 +70,39 @@ GROUP_KL_CASES = [
     ('ratio 30, odd', (2, 19, 10, 9), (300, 270), 10, False, 4),
     ('ratio 40 (gather)', (1, 19, 8, 8), (320, 320), 10, True, 0),
     ('ratio ~50, odd (gather)', (2, 7, 6, 5), (300, 250), 3, True, 0)]
+
+# The forwards' stress cases, in the layouts above: logits of N(0, 30²), so
+# that K3's group maxima and K5's chunk rescale shift far from 0 (K4 and
+# K6 run on what they saved), at the bench shape and with tiles cut by the
+# map's edge and a pad group.
+SPREAD = 30.0
+GROUP_KL_SPREAD_CASES = [
+    ('spread 30 bench', (8, 150, 128, 128), (512, 512), 10, True, 16),
+    ('spread 30 pad', (2, 19, 30, 40), (125, 161), 10, True, 16)]
+SEG_CE_SPREAD_CASES = [
+    ('spread 30 bench', (8, 150, 128, 128), (512, 512), 0.05, 16),
+    ('spread 30 cut', (2, 19, 30, 40), (125, 161), 0.05, 16)]
+# K5's exact ties (tie_logits): the first maximum must win, and `correct`
+# equal the plain version's count exactly.
+SEG_CE_TIE_CASES = [
+    ('ties bench', (8, 150, 128, 128), (512, 512), 0.05, 16),
+    ('ties ratio 4', (2, 19, 32, 32), (128, 128), 0.05, 16)]
+TIE_COPY = (4, 11)  # channel 11 is a copy of channel 4
+
+
+def tie_logits(shape, labels, gen):
+    """Logits that are multiples of 1/8 in [-1, 1] (every bilinear lerp at
+    ratio 4 is exact in float32, so the kernel and the plain version see
+    the same values, with many exact ties), channel 11 a copy of channel 4;
+    every other row of ``labels`` is set to 11, the later of that pair, so
+    that an argmax other than the first maximum counts other pixels."""
+    z = torch.randint(-8, 9, shape, device=labels.device,
+                      generator=gen).float() / 8
+    src, dst = TIE_COPY
+    z[:, dst] = z[:, src]
+    labels[:, ::2] = dst
+    return z
+
 
 # (name, maps' shape, output size, the edge of the source tile K8 must plan
 # there: 0 is the gather variant). Each variant at least twice, once with

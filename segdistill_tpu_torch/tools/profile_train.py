@@ -49,7 +49,9 @@ OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
            'model.cfg_t.backbone.dtype': 'bfloat16'}
 BATCH = 8
 # kernel families, first match wins (device kernel names; K4, K6 and K8
-# are the tile kernel tile_bwd with the losses gkl_tile, ce_tile, pkl_tile)
+# are the tile kernel tile_bwd with the losses gkl_tile, ce_tile, pkl_tile;
+# K3 and K5 the forward tile kernel fwd_tile with gkl_fwd_tile (after
+# gkl_max) and ce_fwd_tile)
 FAMILIES = [
     ('K3/K4 group_kl', r'gkl_'),
     ('K5/K6 seg_ce', r'ce_(fwd|bwd|finalize|tile)'),
@@ -146,12 +148,14 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     for name, ms in sorted(fams.items(), key=lambda r: -r[1]):
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%}  {name}')
     # the hand-written kernels by function, template arguments folded but
-    # for the tile kernel's loss
+    # for the tile kernels' loss (tile_bwd<ce_tile>, fwd_tile<ce_fwd_tile>)
     own = {}
     for name, (ms, n) in rows.items():
         if re.match(r'K\d', family(name)):
-            fn = re.match(r'(\w+)(?:<[^,<>]*, (\w+_tile)>)?', re.sub(
-                r'void |\(anonymous namespace\)::|segdistill::', '', name))
+            short = re.sub(r'void |\(anonymous namespace\)::|segdistill::',
+                           '', name)
+            fn = re.match(r'(\w+)(?:<[^,<>]*, (\w+_tile)(?:<[^<>]*>)?\s*>)?',
+                          short)
             key = fn.group(1) + (f'<{fn.group(2)}>' if fn.group(2) else '') \
                 if fn else name
             row = own.setdefault(key, [0.0, 0])

@@ -294,6 +294,141 @@ def test_seg_ce_kernels(cuda, dtype, shape, out_hw, ignored, tile):
     _close(dz, dwant)
 
 
+_GKL_FWD = [c + (1.0,) for c in kernel_cases.GROUP_KL_CASES] \
+    + [c + (kernel_cases.SPREAD,) for c in kernel_cases.GROUP_KL_SPREAD_CASES]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name,shape,out_hw,g,shuffle,tile,scale', _GKL_FWD,
+                         ids=[c[0] for c in _GKL_FWD])
+def test_group_kl_forward(cuda, dtype, name, shape, out_hw, g, shuffle, tile,
+                          scale):
+    """K3 (its output tile or its gather variant, as planned) on N(0, 1)
+    and N(0, 30²) maps: two runs give the same loss and stats bitwise; the
+    stats are each group's source maxima and sums of exp((u - m) / tau)
+    over the plain upsample (1e-5: float32 sums of up to 2.6 M terms); K4
+    runs on them. The sums carry the kernel's and F.interpolate's roundings
+    of the upsampled values, ~2^-22 of their size each, in the exponent:
+    2^-20 of the largest |value| relative, plus 2^-20."""
+    del tile
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs, xt = ((scale * torch.randn(shape, device=cuda, generator=gen))
+              .to(dtype) for _ in range(2))
+    perm = torch.randperm(shape[1], device=cuda, generator=gen) \
+        if shuffle else None
+    args = group_kl._prepare(xs, xt, perm, out_hw, g, 2.0)
+    loss, stats = group_kl._launch_fwd(*args)
+    again = group_kl._launch_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, again[0]) and torch.equal(stats, again[1])
+    B, C = shape[:2]
+    order = args[2].long()
+    for i, x in enumerate((xs, xt)):
+        up = torch.nn.functional.interpolate(
+            x.float(), size=out_hw, mode='bilinear', align_corners=False)
+        for k in range(-(-C // g)):
+            chans = order[k * g:(k + 1) * g]
+            m = x[:, chans].float().amax(dim=(1, 2, 3))
+            z = torch.exp((up[:, chans] - m[:, None, None, None]) / 2.0) \
+                .sum(dim=(1, 2, 3))
+            st = stats.view(B, -1, 4)[:, k]
+            assert torch.equal(st[:, i], m)
+            rtol = 2.0 ** -20 * (1.0 + up.abs().max().item())
+            torch.testing.assert_close(st[:, 2 + i], z, rtol=rtol, atol=0)
+    _check_kl_backward(
+        group_kl,
+        lambda a, t: fused_group_kl_shuffled(a, t, perm, out_hw, g, 2.0),
+        lambda a, t: group_kl_plain(a, t, perm, out_hw, g, 2.0), xs, xt)
+
+
+_CE_FWD = [c + ('N(0,1)',) for c in kernel_cases.SEG_CE_CASES] \
+    + [c + ('spread',) for c in kernel_cases.SEG_CE_SPREAD_CASES] \
+    + [c + ('ties',) for c in kernel_cases.SEG_CE_TIE_CASES]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name,shape,out_hw,ignored,tile,kind', _CE_FWD,
+                         ids=[c[0] for c in _CE_FWD])
+def test_seg_ce_forward(cuda, dtype, name, shape, out_hw, ignored, tile,
+                        kind):
+    """K5 (its output tile or its gather variant, as planned) on N(0, 1),
+    N(0, 30²) and exactly tying logits: two runs give the same ce_sum,
+    correct, m and se bitwise; m is each pixel's maximum over the plain
+    upsample (2^-20 of the largest |logit| + 1: the two upsamples round
+    differently, a few ulps of their operands) and se its sum of exp(z - m)
+    (those roundings in the exponent: 2^-20 of the largest |upsampled
+    logit| + 1, relative); ce_sum to 2e-5 and correct
+    exactly where every lerp is exact (ties), within 1e-4 of the pixels
+    elsewhere (near-ties); K6 runs on them."""
+    del name, tile
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    classes = shape[1]
+    labels = torch.randint(0, classes, (shape[0],) + out_hw, device=cuda,
+                           generator=gen)
+    labels[torch.rand(labels.shape, device=cuda, generator=gen)
+           < ignored] = 255
+    if kind == 'ties':
+        z = kernel_cases.tie_logits(shape, labels, gen).to(dtype)
+    else:
+        z = (torch.randn(shape, device=cuda, generator=gen)
+             * (kernel_cases.SPREAD if kind == 'spread' else 1.0)).to(dtype)
+    lab32 = labels.to(torch.int32)
+    first = seg_ce._launch_fwd(z, lab32, classes, 255)
+    again = seg_ce._launch_fwd(z, lab32, classes, 255)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    ce, correct, m, se = first
+    up = torch.nn.functional.interpolate(
+        z.float(), size=out_hw, mode='bilinear', align_corners=False)
+    # each side's lerps round to a few ulps of the largest source value
+    scale = 1.0 + z.float().abs().max().item()
+    torch.testing.assert_close(m, up.amax(dim=1), rtol=0,
+                               atol=2.0 ** -20 * scale)
+    torch.testing.assert_close(
+        se, torch.exp(up - m[:, None]).sum(dim=1), atol=0,
+        rtol=2.0 ** -20 * (1.0 + up.abs().max().item()))
+    want, want_correct = seg_ce_plain(z.float(), labels, out_hw, classes)
+    assert ce.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    miss = abs(correct.item() - want_correct.item())
+    assert miss == 0 if kind == 'ties' else miss <= 1e-4 * labels.numel()
+    a = z.float().requires_grad_()
+    dwant, gbar = _scaled(seg_ce_plain(a, labels, out_hw, classes)[0], a)
+    k = z.clone().requires_grad_()
+    (dz,) = torch.autograd.grad(fused_seg_ce(k, labels, out_hw, classes)[0],
+                                k, gbar)
+    _close(dz, dwant)
+
+
+def test_forward_plans_are_the_sources_and_k5_gives_its_ticket_up(
+        cuda, monkeypatch):
+    """A forward plan other than the source's is refused (K3 and K5); K5's
+    ticket is 0 after every launch, and a launch that raised drops it, so
+    the next one gets a zeroed ticket and the same sums."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shape, out_hw = (2, 19, 32, 32), (128, 128)
+    z = torch.randn(shape, device=cuda, generator=gen)
+    labels = torch.randint(0, 19, (2,) + out_hw, device=cuda, generator=gen,
+                           dtype=torch.int32)
+    want = seg_ce._launch_fwd(z, labels, 19, 255)
+    stream = torch.cuda.current_stream().cuda_stream
+    mine = [k for k in seg_ce.TICKETS if k[1] == stream]
+    assert mine and not any(seg_ce.TICKETS[k].item() for k in mine)
+    xs, xt = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
+    with monkeypatch.context() as patch:
+        for mod in (seg_ce, group_kl):
+            plan = mod.forward_plan(*shape[2:], *out_hw)
+            patch.setattr(mod, 'forward_plan', lambda *a, p=plan: dict(
+                p, wy=p['wy'] + 1))
+        with pytest.raises(RuntimeError, match='launch failed'):
+            seg_ce._launch_fwd(z, labels, 19, 255)
+        with pytest.raises(RuntimeError, match='launch failed'):
+            group_kl._launch_fwd(*group_kl._prepare(xs, xt, None, out_hw, 10,
+                                                    2.0))
+    assert not [k for k in seg_ce.TICKETS if k[1] == stream]
+    again = seg_ce._launch_fwd(z, labels, 19, 255)
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('name,shape,out_hw,tile', kernel_cases.PIXEL_KL_CASES,
                          ids=[c[0] for c in kernel_cases.PIXEL_KL_CASES])
