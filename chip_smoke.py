@@ -9,11 +9,14 @@ per source, all at once, (3) K1 resize_sum, (4) K2 sra_attn, (5) K3/K4
 group-KL forward and backward, (6) K5/K6 seg-CE forward and backward, (7)
 K7/K8 pixel-KL forward and backward and (8) K9, the SRA backward, with K2
 keeping the row log-sum-exp, against their plain PyTorch versions at the
-main paths' shapes, with CUDA-event timings (K4, K6 and K8, the one tile
-kernel with three losses, also at odd, non-integer and downsampling
-shapes, each kernel's tile edges 16, 8 and 4 and its gather variant at two
-shapes or more with the plan asserted, two backward runs bitwise equal;
-the cases are ``tools/kernel_cases.py``'s), then
+main paths' shapes, with CUDA-event timings (K1 and K2 by device time;
+K4, K6 and K8, the one tile kernel with three losses, also at odd,
+non-integer and downsampling shapes, each kernel's tile edges 16, 8 and 4
+and its gather variant at two shapes or more with the plan asserted, two
+backward runs bitwise equal; K3, K5 and K7, the one forward tile kernel,
+at its output tile and its gather variant with the plan asserted, two
+forward runs bitwise equal, K7's log-sum-exps against a float64 evaluation
+and at tau 0.5 and 4; the cases are ``tools/kernel_cases.py``'s), then
 K10/K11, the LayerNorm forward and backward of every MiT LayerNorm, at the
 B0 and B3 widths against their plain version and beside ``F.layer_norm``,
 by device time and by a call's host-clocked time, two backward runs bitwise
@@ -265,18 +268,12 @@ def phase_build(kernels):
 def phase_resize_sum():
     from segdistill_tpu_torch.ops.resize_sum import (fused_resize_sum,
                                                      resize_sum_plain)
-    from segdistill_tpu_torch.utils.timing import cuda_ms
-    log('== K1 resize_sum vs plain (N(0,1) parts)')
+    from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
+    log('== K1 resize_sum vs plain (N(0,1) parts; times are the device\'s, '
+        '"call" the host-clocked time of one call)')
     rng = np.random.RandomState(0)
-    cases = []
-    for b, e in ((1, 256), (8, 256), (8, 768)):  # B0 head; B3 head E=768
-        cases.append((f'B0 head b{b} E{e}',
-                      [(b, 16, 16, e), (b, 32, 32, e), (b, 64, 64, e)],
-                      (128, 128)))
-    cases.append(('non-integer ratio', [(2, 15, 20, 256), (2, 23, 31, 256)],
-                  (61, 83)))
     results = {}
-    for name, shapes, out_hw in cases:
+    for name, shapes, out_hw in _cases().RESIZE_SUM_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             parts = [torch.from_numpy(rng.randn(*s).astype(np.float32))
                      .to(DEVICE, dtype) for s in shapes]
@@ -284,14 +281,16 @@ def phase_resize_sum():
             torch.cuda.synchronize()
             want = resize_sum_plain([p.float() for p in parts], out_hw)
             err, used = check_close(f'resize_sum {name} {dtype}', got, want)
-            ms = cuda_ms(lambda: fused_resize_sum(parts, out_hw))
-            plain_ms = cuda_ms(lambda: resize_sum_plain(parts, out_hw))
+            ms = device_ms(lambda: fused_resize_sum(parts, out_hw))
+            call_ms = cuda_ms(lambda: fused_resize_sum(parts, out_hw))
+            plain_ms = device_ms(lambda: resize_sum_plain(parts, out_hw),
+                                 calls=3)
             results[(name, dtype)] = (err, ms, plain_ms)
-            bound = _resize_sum_bound(shapes, out_hw, dtype)
+            bound = _cases().resize_sum_bound(shapes, out_hw, dtype)
             log(f'{name:20s} {str(dtype):15s} max_abs_err {err:.3e} '
-                f'(tol used {used:.3f})  kernel {ms:.4f} ms  '
-                f'plain {plain_ms:.4f} ms  bound {bound[0]:.4f} ms '
-                f'({bound[1]})')
+                f'(tol used {used:.3f})  kernel {ms:.4f} ms (call '
+                f'{call_ms:.4f})  plain {plain_ms:.4f} ms  bound '
+                f'{bound[0]:.4f} ms ({bound[1]})')
     return results
 
 
@@ -463,24 +462,64 @@ def phase_group_kl():
     return fwd, bwd
 
 
+def _check_lse(tag, lse, xs, xt, out_hw, tau):
+    """K7's per-pixel log-sum-exps of z / tau against a float64 evaluation
+    of the plain (fp32) upsample, within 2^-19 of (1 + max |z / tau|): both
+    sides round each upsampled value to a few ulps of the largest source,
+    which moves a log-sum-exp by as much; the kernel's exponentials
+    (ex2.approx, 2^-22 relative), its fp32 sums over C terms and its log
+    add ~2^-21 of it. A pixel that reads a wrong channel or tap, or a chunk
+    rescaled with the wrong maximum, is off by ~1e-2 or more."""
+    import torch.nn.functional as F
+    worst = 0.0
+    for i, x in enumerate((xs, xt)):
+        u = F.interpolate(x.float(), size=out_hw, mode='bilinear',
+                          align_corners=False).double() / tau
+        want = torch.logsumexp(u, dim=1)
+        tol = 2.0 ** -19 * (1.0 + u.abs().max().item())
+        err = (lse[i].double() - want).abs().max().item()
+        del u, want
+        worst = max(worst, err / tol)
+    if not worst <= 1.0:
+        raise AssertionError(f'{tag}: the log-sum-exps use {worst:.2f}x '
+                             f'their limit')
+    return worst
+
+
 def phase_pixel_kl():
     from segdistill_tpu_torch.ops import pixel_kl as pk
-    log('== K7/K8 pixel_kl vs plain (N(0,1) maps, tau 1; backward with the '
-        'incoming gradient that makes max |plain dxs| = 1; two backward runs '
-        'must agree bitwise; tile: the edge of a K8 block\'s source tile, 0 '
-        'the gather variant)')
+    log('== K7/K8 pixel_kl vs plain (N(0,1) maps, N(0, 30^2) in the spread '
+        'cases, tau 1 but where named; backward with the incoming gradient '
+        'that makes max |plain dxs| = 1; two forward runs (loss, log-sum-'
+        'exps) and two backward runs must agree bitwise; lse: the share of '
+        'its limit that K7\'s log-sum-exps use against a float64 '
+        'evaluation; fwd: K7\'s output tile or its gather variant; tile: '
+        'the edge of a K8 block\'s source tile, 0 the gather variant)')
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     fwd, bwd = {}, {}
-    for name, shape, out_hw, tile in _cases().PIXEL_KL_CASES:
-        plan = _check_plan(f'pixel_kl {name}', pk.backward_plan, shape,
-                           out_hw, tile)
+    cases = [c + (1.0, 1.0) for c in _cases().PIXEL_KL_CASES] + \
+        [c + (_cases().SPREAD,) for c in _cases().PIXEL_KL_SPREAD_CASES] + \
+        [c + (1.0,) for c in _cases().PIXEL_KL_TAU_CASES]
+    for name, shape, out_hw, tile, oh, tau, scale in cases:
+        fplan = pk.forward_plan(*shape[2:], *out_hw)
+        if fplan['oh'] != oh:
+            raise AssertionError(f'pixel_kl {name}: forward planned {fplan}, '
+                                 f'the case is meant for {oh} rows')
+        plan = _fwd_plan(fplan) + ', ' + _check_plan(
+            f'pixel_kl {name}', pk.backward_plan, shape, out_hw, tile)
         for dtype in (torch.float32, torch.bfloat16):
-            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
-            xt = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xs, xt = ((scale * torch.randn(shape, device=DEVICE,
+                                           generator=gen)).to(dtype)
+                      for _ in range(2))
+            tag = f'pixel_kl {name} {dtype}'
             fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
-                f'pixel_kl {name} {dtype} ({plan})', xs, xt,
-                lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
-                lambda a, t: pk.pixel_kl_plain(a, t, out_hw, 1.0))
+                f'{tag} ({plan})', xs, xt,
+                lambda a, t: pk.fused_pixel_kl(a, t, out_hw, tau),
+                lambda a, t: pk.pixel_kl_plain(a, t, out_hw, tau))
+            first = pk._launch_fwd(xs, xt, out_hw, tau)
+            _same(tag, first, pk._launch_fwd(xs, xt, out_hw, tau))
+            used = _check_lse(tag, first[1], xs, xt, out_hw, tau)
+            log(f'{tag:40s} lse tol used {used:.3f}')
     return fwd, bwd
 
 
@@ -740,6 +779,16 @@ def _ln_check_cut_rows(dtype, gen):
                                  a.float() / peak, d / peak, a.dtype)
             worst = max(worst, err)
     return worst
+
+
+def _check_fwd_tickets(tag):
+    """Every ticket of the forward tile kernels (K5, K7) is back at 0: each
+    launch's last block set it back."""
+    from segdistill_tpu_torch.ops.cuda_kernel import TICKETS
+    left = {k: t.item() for k, t in TICKETS.items() if t.item()}
+    if left or not TICKETS:
+        raise AssertionError(f'{tag}: forward tickets {left or TICKETS}')
+    log(f'{tag}: {len(TICKETS)} forward ticket(s), all 0')
 
 
 def _check_ln_tickets(tag):
@@ -1353,25 +1402,14 @@ def _sra_bound(b, h, n, m, d, dtype, backward=False):
                   bh * 8 * n * m, bh * 10 * n * m * d, peak)
 
 
-def _resize_sum_bound(shapes, out_hw, dtype):
-    """K1 on NHWC parts of ``shapes`` summed at ``out_hw``: every part read
-    and the output written once in ``dtype``, 8 operations per part and
-    output element."""
-    size = 2 if dtype == torch.bfloat16 else 4
-    b, _, _, e = shapes[0]
-    o = b * out_hw[0] * out_hw[1] * e
-    return _bound(size * (sum(math.prod(sh) for sh in shapes) + o),
-                  8 * len(shapes) * o)
-
-
 def _bounds(names):
     """{kernel name: (bound_ms, bound_by)} at the shapes of
     ``main_case`` in :func:`main`."""
     k1, k2, k3, k4, k5, k6, k7, k8, k9, k10, k11 = names
     out = {}
     # K1: B0 head, batch 1, fp32: three (s, s, 256) parts -> (128, 128, 256)
-    out[k1] = _resize_sum_bound([(1, s, s, 256) for s in (16, 32, 64)],
-                                (128, 128), torch.float32)
+    _, shapes, out_hw = _cases().RESIZE_SUM_CASES[0]
+    out[k1] = _cases().resize_sum_bound(shapes, out_hw, torch.float32)
     # K2: B0 stage 1, batch 1, fp32: N 16384, M 256, d 32, one head; K9:
     # the same stage at batch 8 in bf16 (the K2 phase logs K2's bound
     # there too, beside its batch-8 bf16 time)
@@ -1382,7 +1420,7 @@ def _bounds(names):
     out[k3], out[k4] = _cases().kl_bounds(shape, out_hw, torch.bfloat16, 0)
     _, shape, out_hw, _, _ = _cases().SEG_CE_CASES[0]
     out[k5], out[k6] = _cases().seg_ce_bounds(shape, out_hw, torch.bfloat16)
-    _, shape, out_hw, _ = _cases().PIXEL_KL_CASES[0]
+    _, shape, out_hw, _, _ = _cases().PIXEL_KL_CASES[0]
     out[k7], out[k8] = _cases().kl_bounds(shape, out_hw, torch.bfloat16, 2)
     # K10/K11: B0 stage 1, batch 8, bf16: (131072, 32)
     _, rows, c = _cases().LN_CASES[0]
@@ -1405,6 +1443,7 @@ def main():
     results[k3.name], results[k4.name] = phase_group_kl()
     results[k5.name], results[k6.name] = phase_seg_ce()
     results[k7.name], results[k8.name] = phase_pixel_kl()
+    _check_fwd_tickets('seg_ce and pixel_kl phases')
     results[k9.name] = phase_sra_train()
     results[k10.name], results[k11.name] = phase_layer_norm()
     launches = {k.name: 0 for k in kernels}
@@ -1420,12 +1459,13 @@ def main():
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
     paths.append(phase_cli(cgd_kernels))
     _check_ln_tickets('after the train steps')
+    _check_fwd_tickets('after the train steps')
     for path in paths:
         for name, n in path.items():
             launches[name] += n
     # each kernel at its main path's shape: serving at batch 1 (fp32) for
     # K1 and K2, the bf16 bench train steps for K3-K11
-    main_case = {k1.name: ('B0 head b1 E256', torch.float32),
+    main_case = {k1.name: (_cases().RESIZE_SUM_CASES[0][0], torch.float32),
                  k2.name: ('B0 stage1 b1', torch.float32),
                  k3.name: (_cases().GROUP_KL_CASES[0][0], torch.bfloat16),
                  k4.name: (_cases().GROUP_KL_CASES[0][0], torch.bfloat16),

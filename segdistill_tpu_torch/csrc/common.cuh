@@ -8,8 +8,8 @@
 // one tile kernel that K4, K6 and K8 instantiate with their own loss. Then
 // the output tile of a forward that reduces the upsample: the window of
 // sources it reads, its plan, the double-buffered staging of the windows,
-// the column walker, the one forward kernel that K3 and K5 instantiate with
-// their own loss, and the last-block merge of per-block partials.
+// the column walker, the one forward kernel that K3, K5 and K7 instantiate
+// with their own loss, and the last-block merge of per-block partials.
 
 #pragma once
 
@@ -521,10 +521,11 @@ cudaError_t launch_tile_bwd(const Loss& loss, const void* x0, const void* x1,
 
 // ---- The forward on output tiles: one kernel, the loss a parameter -----
 //
-// K3 and K5 reduce, and never write, the bilinear upsample of (B, C, h, w)
-// maps. A block owns an output tile of kFwdCols columns and oh rows of one
-// slice (K3: an image's channel group, K5: an image) and walks its units
-// (K3: the group's positions, two maps each; K5: chunks of channels). The
+// K3, K5 and K7 reduce, and never write, the bilinear upsample of (B, C, h,
+// w) maps. A block owns an output tile of kFwdCols columns and oh rows of
+// one slice (K3: an image's channel group, K5 and K7: an image) and walks
+// its units (K3: the group's positions, two maps each; K5: chunks of
+// channels; K7: chunks of channels of both maps). The
 // sources that the tile's outputs read form one window an axis, which is
 // staged in shared memory for every unit of a step, double-buffered: the
 // next step's loads are in flight while this one computes. A thread owns

@@ -9,6 +9,7 @@ Importing this module, or a module that declares a kernel, builds nothing
 and needs no ``nvcc``: the CPU tests import every module.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -54,6 +55,37 @@ def device_sm_count(device):
     device)."""
     return sm_count(torch.cuda.current_device() if device.index is None
                     else device.index)
+
+
+# The forward tile kernels' ticket counters (K5, K7: the last block to
+# finish merges the partials), one int32 for each (device index, stream):
+# zeroed when it is made; a launch that runs to its end leaves it at 0, one
+# that raised gives it up (:func:`ticket`). Launches on one stream run in
+# order, so K5 and K7 share it.
+TICKETS = {}
+
+
+@contextlib.contextmanager
+def ticket(device, needed=True):
+    """The address of the ticket of ``device``'s current stream for one
+    launch (None where the launch takes none); if the launch raises, the
+    ticket is dropped, since it may not be at 0, and the next launch gets
+    a fresh one."""
+    if not needed:
+        yield None
+        return
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    t = TICKETS.get(key)
+    if t is None:
+        t = TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                       device=torch.device('cuda', index))
+    try:
+        yield t.data_ptr()
+    except BaseException:
+        TICKETS.pop(key, None)
+        raise
 
 
 def nvcc_path():

@@ -2,9 +2,16 @@
 
 Replaces ``segdistill_tpu/ops/pallas/pixel_kl.py::fused_pixel_kl`` (the
 Pallas calls at ``pixel_kl.py:169``, forward, and ``:200``, backward). The
-kernels are ``csrc/pixel_kl.cu``: K7 takes one output pixel per thread
-through an online softmax of both maps over the channels' bilinear taps and
-keeps each map's per-pixel log-sum-exp. K8 is the tile kernel of
+kernels are ``csrc/pixel_kl.cu``: K7 is the forward tile kernel of
+``csrc/common.cuh`` that K3 and K5 share: a block owns an image's tile of
+32 x 64 output pixels and walks the channels in chunks of 4 of both maps,
+whose windows of sources sit in shared memory; each pixel keeps, per map,
+its running maximum and exp-sum and the cross term of the KL, rescaled once
+a chunk, and writes its two log-sum-exps for K8; the last block to finish
+sums the blocks' KLs in a fixed order. :func:`forward_plan` is its launch's
+planning, which the source checks; where a window is larger than the block
+stages (upsampling ratios near 1, downsampling) it names the gather
+variant, one output pixel per thread. K8 is the tile kernel of
 ``csrc/common.cuh`` that K6 and K4 share: a block owns a tile of source
 pixels and a chunk of the channels, keeps the two log-sum-exps of the
 outputs that read the tile in shared memory once, and per channel
@@ -28,16 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from . import tile_plan
-from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
+from .cuda_kernel import (CudaKernel, check_cuda_inputs, device_sm_count,
+                          ticket)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_THREADS = 256  # kThreads in csrc/common.cuh: one pixel per thread
+_THREADS = 256  # kThreads in csrc/common.cuh: the gather variant's block
 
 FWD_KERNEL = CudaKernel(
     'pixel_kl_fwd', 'pixel_kl_fwd', source='pixel_kl',
-    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P,
+              _P, _P, _P, _P],
     replaces='segdistill_tpu/ops/pallas/pixel_kl.py:169')
 BWD_KERNEL = CudaKernel(
     'pixel_kl_bwd', 'pixel_kl_bwd', source='pixel_kl',
@@ -58,6 +67,19 @@ def backward_plan(B, C, h, w, H, W, sms=132):
                           BLOCKS_PER_SM)
 
 
+# K7 on the forward tile of csrc/common.cuh (pkl_fwd_tile in
+# csrc/pixel_kl.cu): a step reads 4 channels of both maps (8 units), 8 rows
+# a thread, one window element a thread and unit
+FWD_UNITS, FWD_ROWS, FWD_SLOTS = 8, 8, 1
+
+
+def forward_plan(h, w, H, W):
+    """K7's launch for (h, w) maps upsampled to (H, W):
+    :func:`tile_plan.forward_plan` with K7's counts."""
+    return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
+                                  FWD_SLOTS)
+
+
 def pixel_kl_plain(xs, xt, out_hw, tau):
     """The plain version: fp32 ``F.interpolate`` of both maps to
     ``out_hw`` and ``KL(softmax(xt/tau) || softmax(xs/tau))`` over the
@@ -76,13 +98,18 @@ def _launch_fwd(xs, xt, out_hw, tau):
     dtype_code = check_cuda_inputs('fused_pixel_kl', (xs, xt))
     B, C, h, w = xs.shape
     H, W = out_hw
+    plan = forward_plan(h, w, H, W)
     f32 = dict(dtype=torch.float32, device=xs.device)
     lse = torch.empty((2, B, H, W), **f32)
-    part = torch.empty(B * (-(-H * W // _THREADS)), **f32)
+    blocks = plan['tiles'] if plan['oh'] else -(-H * W // _THREADS)
+    part = torch.empty(B * blocks, **f32)
     kl = torch.empty((), **f32)
-    FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w, H,
-                      W, tau, dtype_code, lse[0].data_ptr(),
-                      lse[1].data_ptr(), part.data_ptr(), kl.data_ptr())
+    with ticket(xs.device, plan['oh'] > 0) as ticket_ptr:
+        FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h,
+                          w, H, W, tau, dtype_code,
+                          *tile_plan.forward_plan_args(plan),
+                          lse[0].data_ptr(), lse[1].data_ptr(),
+                          part.data_ptr(), ticket_ptr, kl.data_ptr())
     return kl, lse
 
 

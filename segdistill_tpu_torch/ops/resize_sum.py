@@ -2,11 +2,15 @@
 
 Replaces ``segdistill_tpu/ops/pallas/resize_sum.py::fused_resize_sum``
 (the Pallas call at ``resize_sum.py:235``). The kernel is
-``csrc/resize_sum.cu``: one thread per 16-byte channel vector of one output
-pixel, fp32 taps and sum, one store. It is bound by memory traffic: the
-output write (67 MB at the B0 head, batch 8, bf16) and four tap loads per
-part for every stored vector, which L1/L2 serve. It takes any ratio,
-integer or not; the TPU kernel's eligibility gate is not carried over.
+``csrc/resize_sum.cu``: a thread owns one 16-byte channel vector at one
+output column and walks 16 output rows of it, keeping each part's two
+x-lerped source rows in registers and loading a source row only when the
+part's y tap moves on (~2.5 loads a stored vector at the head's ratios,
+where one thread per stored vector took 12); fp32 lerps and sum, one
+streaming store per vector. Its bound is the output write (67 MB at the B0
+head, batch 8, bf16; 201 MB at the B3 teacher's E = 768). It takes any
+ratio, integer or not; the TPU kernel's eligibility gate is not carried
+over.
 
 :func:`fused_resize_sum` is a ``torch.autograd.Function`` on every device:
 its forward runs :func:`resize_sum_plain` on a CPU tensor and launches the

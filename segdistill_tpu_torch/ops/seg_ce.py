@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from . import tile_plan
-from .cuda_kernel import CudaKernel, check_cuda_inputs, device_sm_count
+from .cuda_kernel import (CudaKernel, check_cuda_inputs, device_sm_count,
+                          ticket)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -89,21 +90,6 @@ def forward_plan(h, w, H, W):
                                   FWD_SLOTS)
 
 
-# K5's ticket counter, one int32 for each (device index, stream): zeroed
-# when it is made; a launch that runs to its end leaves it at 0, one that
-# raised gives it up. Launches on one stream run in order, so they share it.
-TICKETS = {}
-
-
-def _ticket(index):
-    key = (index, torch._C._cuda_getCurrentRawStream(index))
-    t = TICKETS.get(key)
-    if t is None:
-        t = TICKETS[key] = torch.zeros(1, dtype=torch.int32,
-                                       device=torch.device('cuda', index))
-    return key, t
-
-
 def _valid(labels, num_classes, ignore_index):
     return (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
 
@@ -139,22 +125,12 @@ def _launch_fwd(z, labels, num_classes, ignore_index):
     part = torch.empty(2 * B * blocks, **f32)
     ce = torch.empty((), **f32)
     correct = torch.empty((), **f32)
-    key = ticket = None
-    if plan['oh']:
-        index = z.device.index
-        key, ticket = _ticket(torch.cuda.current_device() if index is None
-                              else index)
-    try:
+    with ticket(z.device, plan['oh'] > 0) as ticket_ptr:
         FWD_KERNEL.launch(z.device, z.data_ptr(), labels.data_ptr(), B, C, h,
                           w, H, W, num_classes, ignore_index, dtype_code,
                           *tile_plan.forward_plan_args(plan), m.data_ptr(),
-                          se.data_ptr(), part.data_ptr(),
-                          ticket.data_ptr() if ticket is not None else None,
+                          se.data_ptr(), part.data_ptr(), ticket_ptr,
                           ce.data_ptr(), correct.data_ptr())
-    except BaseException:
-        # its ticket may not be at 0: the next launch gets a fresh one
-        TICKETS.pop(key, None)
-        raise
     return ce, correct, m, se
 
 

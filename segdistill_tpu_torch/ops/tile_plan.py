@@ -1,7 +1,7 @@
 """The launch plans of the kernels on shared-memory tiles of
 ``csrc/common.cuh``: the backward through a bilinear upsample on a source
 tile (``tile_bwd``: K4 group KL, K6 seg CE, K8 pixel KL), and the forward
-on an output tile (``fwd_tile``: K3 group KL, K5 seg CE).
+on an output tile (``fwd_tile``: K3 group KL, K5 seg CE, K7 pixel KL).
 
 The backward.
 
@@ -18,16 +18,17 @@ above ~15; ~30 for K4, which keeps no per-output map) the plan names tile
 0, the loss's gather variant: one thread per source element.
 
 The forward. A block owns ``oh`` x 64 outputs of one slice (K3: an image's
-channel group; K5: an image); each of its 256 threads walks ``rows`` rows
-of one column (``oh`` = 4 ``rows``). The sources those outputs read form a
-window of at most ``wy`` x ``wx`` (:func:`fwd_reach`), which the block
-stages in shared memory for the ``units`` maps of a step (K3: both maps of
-one position; K5: a chunk of 8 channels), double-buffered, each thread
-``slots`` elements a unit. :func:`forward_plan` is that planning; the
-source computes it again (``plan_fwd``, ``fwd_plan_ok``) and refuses a plan
-that is not its own. Where a window is larger than ``slots`` x 256
-elements (upsampling ratios near 1 and downsampling) the plan names ``oh``
-0, the loss's gather variant.
+channel group; K5, K7: an image); each of its 256 threads walks ``rows``
+rows of one column (``oh`` = 4 ``rows``). The sources those outputs read
+form a window of at most ``wy`` x ``wx`` (:func:`fwd_reach`), which the
+block stages in shared memory for the ``units`` maps of a step (K3: both
+maps of one position; K5: a chunk of 8 channels; K7: both maps of 4
+channels), double-buffered, each thread ``slots`` elements a unit.
+:func:`forward_plan` is that planning; the source computes it again
+(``plan_fwd``, ``fwd_plan_ok``) and refuses a plan that is not its own.
+Where a window is larger than ``slots`` x 256 elements (upsampling ratios
+near 1 and downsampling) the plan names ``oh`` 0, the loss's gather
+variant.
 """
 
 import functools

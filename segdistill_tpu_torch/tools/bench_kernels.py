@@ -1,14 +1,15 @@
-"""Time the loss and LayerNorm kernels on the card: K3/K4 (group KL), K5/K6
-(seg CE), K7/K8 (pixel KL), K10/K11 (LayerNorm), the quick loop for work
-on them. ``chip_smoke.py`` holds them to their limits against the plain
-versions, at the same shapes (``tools/kernel_cases.py``); nothing is
-checked here.
+"""Time the loss, LayerNorm and resize-sum kernels on the card: K3/K4
+(group KL), K5/K6 (seg CE), K7/K8 (pixel KL), K10/K11 (LayerNorm), K1
+(resize-sum), the quick loop for work on them. ``chip_smoke.py`` holds
+them to their limits against the plain versions, at the same shapes
+(``tools/kernel_cases.py``); nothing is checked here.
 
     python -m segdistill_tpu_torch.tools.bench_kernels [--times-only]
+        [--only ln ce gkl pkl k1]
 
-Builds only ``csrc/layer_norm.cu``, ``seg_ce.cu``, ``group_kl.cu`` and
-``pixel_kl.cu`` (one ``nvcc`` each, at once) and prints ptxas' registers
-and spills. Then
+Builds only ``csrc/layer_norm.cu``, ``seg_ce.cu``, ``group_kl.cu``,
+``pixel_kl.cu`` and ``resize_sum.cu`` (one ``nvcc`` each, at once) and
+prints ptxas' registers and spills. Then
 
 - K10/K11 at the MiT-B0 LayerNorm shapes of a batch of 8 at 512x512 and two
   of B3's: forward and backward, the median device time (the calls queued
@@ -17,7 +18,11 @@ and spills. Then
   ``F.layer_norm``, beside the bounds;
 - K3/K4, K5/K6 and K7/K8 at the train step's bench shape and smaller ones:
   forward and backward device time and a backward call's host-clocked time,
-  beside the bounds;
+  beside the bounds (the forwards' also beside the floor of their
+  exponentials on the special-function units);
+- K1 at the B0 head's shapes (batch 1 and 8, E = 256) and the B3
+  teacher's (batch 8, E = 768), fp32 and bf16: device time and a call's
+  host-clocked time, the plain version's device time, beside the bound;
 - without ``--times-only``: K11's device time with other numbers of blocks
   per SM, and where the host time of a K10 and a K11 call goes (the launch
   alone, the autograd node, ``torch.autograd.grad`` through it) beside the
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 from segdistill_tpu_torch.ops import group_kl as gk
 from segdistill_tpu_torch.ops import layer_norm as ln
 from segdistill_tpu_torch.ops import pixel_kl as pk
+from segdistill_tpu_torch.ops import resize_sum as rs
 from segdistill_tpu_torch.ops import seg_ce as sc
 from segdistill_tpu_torch.ops.cuda_kernel import build_all
 from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
@@ -59,7 +65,9 @@ CE_CASES = kernel_cases.SEG_CE_CASES[:4]
 # the bench shape, a non-integer ratio, odd sizes
 GKL_CASES = [kernel_cases.GROUP_KL_CASES[i] for i in (0, 4, 5)]
 PKL_CASES = kernel_cases.PIXEL_KL_CASES[:3]
+RS_CASES = kernel_cases.RESIZE_SUM_CASES[:3]
 LN_CALLS = 10
+FAMILIES = ('ln', 'ce', 'gkl', 'pkl', 'k1')
 
 
 def _ln_inputs(rows, c, dtype, gen):
@@ -240,9 +248,27 @@ def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
           f'{_exp_floor_ms(shape, out_hw, 2):.4f}', flush=True)
 
 
+def resize_sum_times(name, shapes, out_hw, dtype, gen):
+    """K1's device time (10 calls queued behind a held stream) and a
+    call's host-clocked time, and the plain version's device time, on
+    N(0, 1) parts, beside the bound."""
+    parts = [torch.randn(sh, device='cuda', generator=gen).to(dtype)
+             for sh in shapes]
+    with torch.no_grad():
+        dev = device_ms(lambda: rs.fused_resize_sum(parts, out_hw))
+        call = cuda_ms(lambda: rs.fused_resize_sum(parts, out_hw))
+        plain = device_ms(lambda: rs.resize_sum_plain(parts, out_hw), calls=3)
+    bound, by = kernel_cases.resize_sum_bound(shapes, out_hw, dtype)
+    print(f'K1 {name:18s} {str(dtype)[6:]:8s} device {dev:.4f} ms '
+          f'({dev / bound:.2f}x the bound) call {call:.4f} | plain device '
+          f'{plain:.4f} | bound {bound:.4f} ({by})', flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--times-only', action='store_true')
+    parser.add_argument('--only', nargs='*', default=FAMILIES,
+                        choices=FAMILIES, help='the kernels to time')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('bench_kernels: needs a CUDA device')
@@ -252,7 +278,8 @@ def main(argv=None):
         check=True).stdout.strip(), flush=True)
     print(f'kernels of {ln.__file__}', flush=True)
     kernels = [ln.FWD_KERNEL, ln.BWD_KERNEL, sc.FWD_KERNEL, sc.BWD_KERNEL,
-               gk.FWD_KERNEL, gk.BWD_KERNEL, pk.FWD_KERNEL, pk.BWD_KERNEL]
+               gk.FWD_KERNEL, gk.BWD_KERNEL, pk.FWD_KERNEL, pk.BWD_KERNEL,
+               rs.KERNEL]
     build_all(kernels)
     for kern in kernels[::2]:
         print(f'{kern.source.name}: built in {kern.build_seconds:.1f} s')
@@ -260,25 +287,34 @@ def main(argv=None):
             if 'registers' in line or 'spill' in line or 'Compiling' in line:
                 print('  ' + line.strip())
     gen = torch.Generator(device='cuda').manual_seed(0)
-    for rows, c in LN_CASES:
-        ln_times(rows, c, torch.bfloat16, gen)
-    ln_times(*LN_CASES[0], torch.float32, gen)
-    for case in CE_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            ce_times(*case, dtype, gen)
-    for name, shape, out_hw, g, shuffle, _ in GKL_CASES:
-        perm = torch.randperm(shape[1], device='cuda', generator=gen) \
-            if shuffle else None
-        for dtype in (torch.bfloat16, torch.float32):
-            kl_times('K3/K4', name, shape, out_hw,
-                     lambda a, t: gk.fused_group_kl_shuffled(
-                         a, t, perm, out_hw, g, 2.0), dtype, gen, 0)
-    for name, shape, out_hw, _ in PKL_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            kl_times('K7/K8', name, shape, out_hw,
-                     lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
-                     dtype, gen, 2)
-    if not args.times_only:
+    only = set(args.only)
+    if 'ln' in only:
+        for rows, c in LN_CASES:
+            ln_times(rows, c, torch.bfloat16, gen)
+        ln_times(*LN_CASES[0], torch.float32, gen)
+    if 'ce' in only:
+        for case in CE_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                ce_times(*case, dtype, gen)
+    if 'gkl' in only:
+        for name, shape, out_hw, g, shuffle, _ in GKL_CASES:
+            perm = torch.randperm(shape[1], device='cuda', generator=gen) \
+                if shuffle else None
+            for dtype in (torch.bfloat16, torch.float32):
+                kl_times('K3/K4', name, shape, out_hw,
+                         lambda a, t: gk.fused_group_kl_shuffled(
+                             a, t, perm, out_hw, g, 2.0), dtype, gen, 0)
+    if 'pkl' in only:
+        for name, shape, out_hw, _, _ in PKL_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                kl_times('K7/K8', name, shape, out_hw,
+                         lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
+                         dtype, gen, 2)
+    if 'k1' in only:
+        for name, shapes, out_hw in RS_CASES:
+            for dtype in (torch.float32, torch.bfloat16):
+                resize_sum_times(name, shapes, out_hw, dtype, gen)
+    if not args.times_only and 'ln' in only:
         for rows, c in LN_CASES:
             ln_block_sweep(rows, c, torch.bfloat16, gen)
         ln_host_breakdown(*LN_CASES[3], torch.bfloat16, gen)

@@ -3,10 +3,12 @@
 card, and the least time the card could take for them: one list for
 ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``, which hold the
 kernels to their limits, and ``tools/bench_kernels.py``, which only times
-them. K3's and K5's forward variants (the output tile, or the gather
-variant where a window is larger than the block stages: ratios near 1 and
-downsampling) follow from the same shapes; ``tests/test_torch_port_fwd_plan.py``
-checks that each runs at two of them or more.
+them (and K1 at its own shapes, :data:`RESIZE_SUM_CASES`). K3's, K5's and
+K7's forward variants (the output tile, or the gather variant where a
+window is larger than the block stages: ratios near 1 and downsampling)
+follow from the same shapes (the K7 cases name theirs);
+``tests/test_torch_port_fwd_plan.py`` checks that each runs at two of them
+or more.
 """
 
 import torch
@@ -18,6 +20,15 @@ PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # SMs at 1.98 GHz (a floor beside the bound, which counts an exponential as
 # one fp32 operation)
 PEAK_EXP2 = 16 * 132 * 1.98e9
+
+# (name, NHWC parts' shapes, output size) of K1: the B0 head (three stage
+# maps upsampled to the first stage's grid and summed) at serving batch 1
+# and train batch 8, the B3 teacher's head at E = 768 (it runs under no_grad
+# on every CGD step), and a non-integer ratio
+RESIZE_SUM_CASES = [
+    (f'B0 head b{b} E{e}', [(b, s, s, e) for s in (16, 32, 64)], (128, 128))
+    for b, e in ((1, 256), (8, 256), (8, 768))] + [
+    ('non-integer ratio', [(2, 15, 20, 256), (2, 23, 31, 256)], (61, 83))]
 
 # (name, rows, C) of the MiT LayerNorms at batch 8, 512x512: the B0
 # student's four stages (stage 1: four times more row groups than K11 has
@@ -105,20 +116,33 @@ def tie_logits(shape, labels, gen):
 
 
 # (name, maps' shape, output size, the edge of the source tile K8 must plan
-# there: 0 is the gather variant). Each variant at least twice, once with
-# tiles cut by the map's edge.
+# there: 0 is the gather variant, the rows of K7's output tile: 0 is its
+# gather variant). Each variant of either at least twice, once with tiles
+# cut by the map's edge.
 PIXEL_KL_CASES = [
-    ('PD bench', (8, 150, 128, 128), (512, 512), 16),
-    ('non-integer ratio', (2, 150, 30, 40), (125, 161), 16),
-    ('odd sizes', (2, 150, 31, 33), (97, 130), 16),
-    ('downsampling', (2, 19, 64, 48), (24, 20), 16),
-    ('ratio 1', (2, 150, 64, 64), (64, 64), 16),
-    ('ratio 8', (1, 19, 16, 16), (128, 128), 8),
-    ('ratio ~8, odd', (2, 19, 21, 19), (190, 150), 8),
-    ('ratio 12.5', (1, 19, 24, 24), (300, 300), 4),
-    ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 4),
-    ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0),
-    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0)]
+    ('PD bench', (8, 150, 128, 128), (512, 512), 16, 32),
+    ('non-integer ratio', (2, 150, 30, 40), (125, 161), 16, 32),
+    ('odd sizes', (2, 150, 31, 33), (97, 130), 16, 0),
+    ('downsampling', (2, 19, 64, 48), (24, 20), 16, 0),
+    ('ratio 1', (2, 150, 64, 64), (64, 64), 16, 0),
+    ('ratio 8', (1, 19, 16, 16), (128, 128), 8, 32),
+    ('ratio ~8, odd', (2, 19, 21, 19), (190, 150), 8, 32),
+    ('ratio 12.5', (1, 19, 24, 24), (300, 300), 4, 32),
+    ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 4, 32),
+    ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0, 32),
+    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0, 32)]
+# K7's stress cases, in that layout and with the temperature: maps of N(0,
+# 30²), whose chunk maxima jump far from the running ones (every rescale is
+# tested), at the bench shape and cut by the map's edge with C = 19, not a
+# multiple of K7's chunk (its pad units run); and tau 0.5 and 4 on N(0, 1)
+# maps, where the base-2 scale k = log2 e / tau moves the pad units'
+# kFwdPad * k and every exponent.
+PIXEL_KL_SPREAD_CASES = [
+    ('spread 30 bench', (8, 150, 128, 128), (512, 512), 16, 32, 1.0),
+    ('spread 30 cut', (2, 19, 30, 40), (125, 161), 16, 32, 1.0)]
+PIXEL_KL_TAU_CASES = [
+    ('tau 0.5 non-integer', (2, 150, 30, 40), (125, 161), 16, 32, 0.5),
+    ('tau 4 ratio ~8', (2, 19, 21, 19), (190, 150), 8, 32, 4.0)]
 
 
 def bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
@@ -132,6 +156,16 @@ def bound(nbytes, ops, mm_ops=0.0, mm_peak=PEAK_F32):
 
 def _size(dtype):
     return 2 if dtype == torch.bfloat16 else 4
+
+
+def resize_sum_bound(shapes, out_hw, dtype):
+    """K1's bound on NHWC parts of ``shapes`` summed at ``out_hw``: every
+    part read and the output written once in ``dtype``, 8 operations per
+    part and output element."""
+    b, _, _, e = shapes[0]
+    o = b * out_hw[0] * out_hw[1] * e
+    n_in = sum(x[0] * x[1] * x[2] * x[3] for x in shapes)
+    return bound(_size(dtype) * (n_in + o), 8 * len(shapes) * o)
 
 
 def ln_bounds(rows, c, dtype):

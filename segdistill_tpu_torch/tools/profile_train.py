@@ -50,8 +50,8 @@ OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
 BATCH = 8
 # kernel families, first match wins (device kernel names; K4, K6 and K8
 # are the tile kernel tile_bwd with the losses gkl_tile, ce_tile, pkl_tile;
-# K3 and K5 the forward tile kernel fwd_tile with gkl_fwd_tile (after
-# gkl_max) and ce_fwd_tile)
+# K3, K5 and K7 the forward tile kernel fwd_tile with gkl_fwd_tile (after
+# gkl_max), ce_fwd_tile and pkl_fwd_tile)
 FAMILIES = [
     ('K3/K4 group_kl', r'gkl_'),
     ('K5/K6 seg_ce', r'ce_(fwd|bwd|finalize|tile)'),
@@ -148,7 +148,8 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     for name, ms in sorted(fams.items(), key=lambda r: -r[1]):
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%}  {name}')
     # the hand-written kernels by function, template arguments folded but
-    # for the tile kernels' loss (tile_bwd<ce_tile>, fwd_tile<ce_fwd_tile>)
+    # for the tile kernels' loss (tile_bwd<ce_tile>, fwd_tile<ce_fwd_tile>,
+    # fwd_tile<pkl_fwd_tile>)
     own = {}
     for name, (ms, n) in rows.items():
         if re.match(r'K\d', family(name)):

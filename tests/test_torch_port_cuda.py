@@ -30,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from segdistill_tpu_torch.ops import (group_kl, layer_norm, pixel_kl,
-                                      resize_sum, seg_ce, sra_attn)
+from segdistill_tpu_torch.ops import (cuda_kernel, group_kl, layer_norm,
+                                      pixel_kl, resize_sum, seg_ce, sra_attn)
 from segdistill_tpu_torch.ops.group_kl import (fused_group_kl,
                                                fused_group_kl_shuffled,
                                                group_kl_plain)
@@ -401,40 +401,94 @@ def test_seg_ce_forward(cuda, dtype, name, shape, out_hw, ignored, tile,
 
 def test_forward_plans_are_the_sources_and_k5_gives_its_ticket_up(
         cuda, monkeypatch):
-    """A forward plan other than the source's is refused (K3 and K5); K5's
-    ticket is 0 after every launch, and a launch that raised drops it, so
-    the next one gets a zeroed ticket and the same sums."""
+    """A forward plan other than the source's is refused (K3, K5 and K7);
+    the ticket K5 and K7 share on a stream is 0 after every launch, and a
+    launch that raised drops it, so the next one gets a zeroed ticket and
+    the same sums."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     shape, out_hw = (2, 19, 32, 32), (128, 128)
     z = torch.randn(shape, device=cuda, generator=gen)
     labels = torch.randint(0, 19, (2,) + out_hw, device=cuda, generator=gen,
                            dtype=torch.int32)
-    want = seg_ce._launch_fwd(z, labels, 19, 255)
-    stream = torch.cuda.current_stream().cuda_stream
-    mine = [k for k in seg_ce.TICKETS if k[1] == stream]
-    assert mine and not any(seg_ce.TICKETS[k].item() for k in mine)
     xs, xt = (torch.randn(shape, device=cuda, generator=gen) for _ in range(2))
-    with monkeypatch.context() as patch:
-        for mod in (seg_ce, group_kl):
-            plan = mod.forward_plan(*shape[2:], *out_hw)
+    want = seg_ce._launch_fwd(z, labels, 19, 255)
+    want_kl = pixel_kl._launch_fwd(xs, xt, out_hw, 1.0)
+    stream = torch.cuda.current_stream().cuda_stream
+    mine = [k for k in cuda_kernel.TICKETS if k[1] == stream]
+    assert len(mine) == 1 and not cuda_kernel.TICKETS[mine[0]].item()
+    for mod, launch in (
+            (seg_ce, lambda: seg_ce._launch_fwd(z, labels, 19, 255)),
+            (pixel_kl, lambda: pixel_kl._launch_fwd(xs, xt, out_hw, 1.0)),
+            (group_kl, lambda: group_kl._launch_fwd(*group_kl._prepare(
+                xs, xt, None, out_hw, 10, 2.0)))):
+        launch()  # a ticket again, left at 0
+        plan = mod.forward_plan(*shape[2:], *out_hw)
+        with monkeypatch.context() as patch:
             patch.setattr(mod, 'forward_plan', lambda *a, p=plan: dict(
                 p, wy=p['wy'] + 1))
-        with pytest.raises(RuntimeError, match='launch failed'):
-            seg_ce._launch_fwd(z, labels, 19, 255)
-        with pytest.raises(RuntimeError, match='launch failed'):
-            group_kl._launch_fwd(*group_kl._prepare(xs, xt, None, out_hw, 10,
-                                                    2.0))
-    assert not [k for k in seg_ce.TICKETS if k[1] == stream]
+            with pytest.raises(RuntimeError, match='launch failed'):
+                launch()
+        assert not [k for k in cuda_kernel.TICKETS if k[1] == stream]
     again = seg_ce._launch_fwd(z, labels, 19, 255)
     assert all(torch.equal(a, b) for a, b in zip(again, want))
+    again = pixel_kl._launch_fwd(xs, xt, out_hw, 1.0)
+    assert all(torch.equal(a, b) for a, b in zip(again, want_kl))
+    mine = [k for k in cuda_kernel.TICKETS if k[1] == stream]
+    assert len(mine) == 1 and not cuda_kernel.TICKETS[mine[0]].item()
+
+
+_PKL_FWD = [c + (1.0, 1.0) for c in kernel_cases.PIXEL_KL_CASES] \
+    + [c + (kernel_cases.SPREAD,)
+       for c in kernel_cases.PIXEL_KL_SPREAD_CASES] \
+    + [c + (1.0,) for c in kernel_cases.PIXEL_KL_TAU_CASES]
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('name,shape,out_hw,tile', kernel_cases.PIXEL_KL_CASES,
+@pytest.mark.parametrize('name,shape,out_hw,tile,oh,tau,scale', _PKL_FWD,
+                         ids=[c[0] for c in _PKL_FWD])
+def test_pixel_kl_forward(cuda, dtype, name, shape, out_hw, tile, oh, tau,
+                          scale):
+    """K7 (its output tile or its gather variant, as the case names it) on
+    N(0, 1) and N(0, 30²) maps at tau 1, 0.5 and 4: two runs give the same
+    loss and log-sum-exps bitwise; the log-sum-exps of each map are those
+    of the plain upsample, in float64, within 2^-19 of (1 + max |z / tau|)
+    (both upsamples round a value to a few ulps of the largest source; the
+    kernel's ex2.approx, fp32 sums and log add ~2^-21); the loss is the
+    plain version's (2e-5); K8 runs on them."""
+    del tile
+    assert pixel_kl.forward_plan(*shape[2:], *out_hw)['oh'] == oh, name
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xs, xt = ((scale * torch.randn(shape, device=cuda, generator=gen))
+              .to(dtype) for _ in range(2))
+    before = pixel_kl.FWD_KERNEL.launches
+    kl, lse = pixel_kl._launch_fwd(xs, xt, out_hw, tau)
+    again = pixel_kl._launch_fwd(xs, xt, out_hw, tau)
+    torch.cuda.synchronize()
+    assert pixel_kl.FWD_KERNEL.launches == before + 2
+    assert torch.equal(kl, again[0]) and torch.equal(lse, again[1])
+    assert lse.shape == (2, shape[0]) + out_hw and lse.dtype == torch.float32
+    for i, x in enumerate((xs, xt)):
+        u = torch.nn.functional.interpolate(
+            x.float(), size=out_hw, mode='bilinear',
+            align_corners=False).double() / tau
+        torch.testing.assert_close(
+            lse[i].double(), torch.logsumexp(u, dim=1), rtol=0,
+            atol=2.0 ** -19 * (1.0 + u.abs().max().item()))
+    want = pixel_kl_plain(xs.float(), xt.float(), out_hw, tau)
+    assert kl.item() == pytest.approx(want.item(), rel=LOSS_RTOL)
+    _check_kl_backward(pixel_kl,
+                       lambda a, t: fused_pixel_kl(a, t, out_hw, tau),
+                       lambda a, t: pixel_kl_plain(a, t, out_hw, tau), xs, xt)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name,shape,out_hw,tile,oh',
+                         kernel_cases.PIXEL_KL_CASES,
                          ids=[c[0] for c in kernel_cases.PIXEL_KL_CASES])
-def test_pixel_kl_kernels(cuda, dtype, name, shape, out_hw, tile):
+def test_pixel_kl_kernels(cuda, dtype, name, shape, out_hw, tile, oh):
     """Every variant of K8 (source tiles of edge 16, 8 and 4, and the
     gather variant) against the plain version's gradient."""
+    del oh
     assert _planned_tile(pixel_kl, shape, out_hw, cuda) == tile, name
     gen = torch.Generator(device=cuda).manual_seed(2)
     xs, xt = (torch.randn(shape, device=cuda, generator=gen).to(dtype)

@@ -1,8 +1,8 @@
-"""K3's and K5's forward on output tiles (``fwd_tile`` in
-``csrc/common.cuh`` with the losses ``gkl_fwd_tile`` and ``ce_fwd_tile``):
-the launch planning (``ops/tile_plan.py::forward_plan`` through
-``group_kl.forward_plan`` and ``seg_ce.forward_plan``) and a model of the
-kernels' arithmetic, on the CPU.
+"""K3's, K5's and K7's forward on output tiles (``fwd_tile`` in
+``csrc/common.cuh`` with the losses ``gkl_fwd_tile``, ``ce_fwd_tile`` and
+``pkl_fwd_tile``): the launch planning (``ops/tile_plan.py::forward_plan``
+through each module's ``forward_plan``) and a model of the kernels'
+arithmetic, on the CPU.
 
 A block owns ``oh`` x 64 outputs; the sources they read form one window an
 axis (``fwd_axis``: the first output's first tap to the last output's
@@ -17,10 +17,12 @@ the sources share are read from the sources; (d) a float64 numpy model of
 the kernels, tile by tile as the plan cuts the outputs (the window staged,
 a thread walking its column and x-lerping a source row only when the y tap
 moves on, K5's channels in chunks of 8 with one rescale a chunk and the
-first maximum as argmax, the partials merged in block order), equals the
-plain versions (``group_kl_plain``, ``seg_ce_plain``: loss, ce_sum,
-correct) and a direct float64 evaluation (stats, m, se), and once the JAX
-functions in interpret mode.
+first maximum as argmax, K7's channels of both maps in chunks of 4 with
+one rescale of each map's exp-sum and of the cross term a chunk and the pad
+units of the last chunk, the partials merged in block order), equals the
+plain versions (``group_kl_plain``, ``seg_ce_plain``, ``pixel_kl_plain``:
+loss, ce_sum, correct, kl_sum) and a direct float64 evaluation (stats, m,
+se, the log-sum-exps), and once the JAX functions in interpret mode.
 
 Limits of (d): the model and the direct evaluation share the float64
 upsampled values up to the order of the lerps, 1e-12 relative; the plain
@@ -43,15 +45,17 @@ import torch
 
 from segdistill_tpu.ops.pallas import (
     fused_group_kl_shuffled as jax_group_kl_shuffled)
+from segdistill_tpu.ops.pallas.pixel_kl import fused_pixel_kl as jax_pixel_kl
 from segdistill_tpu.ops.pallas.seg_ce import fused_seg_ce as jax_seg_ce
 from segdistill_tpu_torch.ops import group_kl as gk
+from segdistill_tpu_torch.ops import pixel_kl as pk
 from segdistill_tpu_torch.ops import seg_ce as sc
 from segdistill_tpu_torch.ops import tile_plan
 from segdistill_tpu_torch.tools import kernel_cases
 from test_torch_port_seg_ce_plan import AXES, taps
 
 CSRC = Path(tile_plan.__file__).resolve().parent.parent / 'csrc'
-KERNELS = {'K3': gk, 'K5': sc}
+KERNELS = {'K3': gk, 'K5': sc, 'K7': pk}
 LN2 = float(np.log(2.0))
 LOG2E = float(np.log2(np.e))
 
@@ -60,7 +64,10 @@ CASE_SHAPES = {
     + [c[1] + c[2] for c in kernel_cases.GROUP_KL_SPREAD_CASES],
     'K5': [c[1] + c[2] for c in kernel_cases.SEG_CE_CASES]
     + [c[1] + c[2] for c in kernel_cases.SEG_CE_SPREAD_CASES]
-    + [c[1] + c[2] for c in kernel_cases.SEG_CE_TIE_CASES]}
+    + [c[1] + c[2] for c in kernel_cases.SEG_CE_TIE_CASES],
+    'K7': [c[1] + c[2] for c in kernel_cases.PIXEL_KL_CASES]
+    + [c[1] + c[2] for c in kernel_cases.PIXEL_KL_SPREAD_CASES]
+    + [c[1] + c[2] for c in kernel_cases.PIXEL_KL_TAU_CASES]}
 EXTRA_SHAPES = [(16, 150, 128, 128, 512, 512), (4, 21, 60, 60, 473, 473),
                 (1, 3, 4, 4, 512, 512), (2, 19, 256, 256, 512, 512),
                 (1, 150, 64, 64, 512, 512)]
@@ -98,7 +105,7 @@ def _starts(n_out, edge):
 @pytest.mark.parametrize('n_in,n_out', AXES + [(128, 512), (8, 320),
                                                (6, 300), (10, 300)])
 @pytest.mark.parametrize('edge', [tile_plan.FWD_COLS, 4 * gk.FWD_ROWS,
-                                  4 * sc.FWD_ROWS])
+                                  4 * sc.FWD_ROWS, 4 * pk.FWD_ROWS])
 def test_every_tap_lies_in_its_tiles_window(n_in, n_out, edge):
     reach = tile_plan.fwd_reach(edge, n_in, n_out)
     for i0, i1 in (_taps(n_in, n_out)[:2], _taps_fma(n_in, n_out)):
@@ -145,6 +152,25 @@ def test_plans_at_the_bench_shape():
         oh=32, wy=12, wx=20, shared_bytes=15616, tiles=128)
 
 
+def test_k7_plan_at_the_bench_shape():
+    """K7 at (8, 150, 128, 128) -> 512²: 32 x 64 tiles, 12 x 20 windows,
+    128 tiles an image (1,024 blocks), one staging slot a unit (8 units:
+    4 channels of both maps)."""
+    assert pk.forward_plan(128, 128, 512, 512) == dict(
+        oh=32, wy=12, wx=20, shared_bytes=15616, tiles=128)
+
+
+def test_the_pixel_kl_cases_name_k7s_variant():
+    """The K7 cases name the tile rows the plan chooses (0: the gather
+    variant), the gather at least twice, a tile cut by the map's edge."""
+    cases = kernel_cases.PIXEL_KL_CASES + kernel_cases.PIXEL_KL_SPREAD_CASES \
+        + kernel_cases.PIXEL_KL_TAU_CASES
+    for name, shape, out_hw, _, oh, *_ in cases:
+        assert pk.forward_plan(*shape[2:], *out_hw)['oh'] == oh, name
+    assert sum(c[4] == 0 for c in cases) >= 2
+    assert any(c[4] and c[2][0] % c[4] for c in cases)
+
+
 def test_the_case_lists_plan_every_forward_variant():
     """Each forward variant (the tile and the gather) at two case shapes
     or more per kernel, the tile once with tiles cut by the map's edge."""
@@ -163,7 +189,8 @@ def _constant(src, name):
 
 
 @pytest.mark.parametrize('kernel,source,loss', [
-    ('K3', 'group_kl.cu', 'gkl_fwd_tile'), ('K5', 'seg_ce.cu', 'ce_fwd_tile')])
+    ('K3', 'group_kl.cu', 'gkl_fwd_tile'), ('K5', 'seg_ce.cu', 'ce_fwd_tile'),
+    ('K7', 'pixel_kl.cu', 'pkl_fwd_tile')])
 def test_forward_constants_mirror_the_sources(kernel, source, loss):
     mod = KERNELS[kernel]
     src = (CSRC / source).read_text()
@@ -475,3 +502,122 @@ def test_seg_ce_forward_model_matches_jax_kernel():
     ce, correct, _, _ = seg_ce_fwd_model(z, labels, out_hw, 7)
     assert ce == pytest.approx(float(ce_want), rel=1e-5)
     assert correct == float(correct_want)
+
+
+def pixel_kl_fwd_model(xs, xt, out_hw, tau, oh=None):
+    """K7 in float64: -> (kl_sum, lse (2, B, H, W), x-lerps a value). Per
+    image and tile the windows of both maps of every channel and the walk;
+    per pixel the channels in chunks of ``FWD_UNITS / 2`` (those past C:
+    -1e30 in both maps), with w = z log2 e / tau: each map's chunk maximum,
+    its running maximum M and exp-sum Z = sum 2^(w - M), and A = sum
+    2^(w_t - M_t) (z_t - z_s), each rescaled once a chunk (A with the
+    teacher's factor); at the end lse = M ln 2 + log Z, the pixel's KL A /
+    (tau Z_t) - (M_t - M_s) ln 2 + log(Z_s / Z_t), summed per block and the
+    blocks' partials in block order."""
+    B, C, h, w = xs.shape
+    H, W = out_hw
+    oh = oh or 4 * pk.FWD_ROWS
+    chans = pk.FWD_UNITS // 2
+    k2 = LOG2E / tau
+    lse = np.zeros((2, B, H, W))
+    parts, lerps = [], 0
+    for b in range(B):
+        for tile in _tiles(H, W, oh):
+            oy0, ox0, rows, cols = tile
+            v, n = _tile_values(np.concatenate([xs[b], xt[b]]), h, w, H, W,
+                                oh, pk.FWD_ROWS, tile)
+            lerps += n
+            ms = np.full((rows, cols), -np.inf)
+            mt = np.full((rows, cols), -np.inf)
+            zs, zt, a = (np.zeros((rows, cols)) for _ in range(3))
+            for c0 in range(0, C, chans):
+                n_c = min(chans, C - c0)
+                vs = np.full((chans, rows, cols), -1e30)
+                vt = np.full((chans, rows, cols), -1e30)
+                vs[:n_c], vt[:n_c] = v[c0:c0 + n_c], v[C + c0:C + c0 + n_c]
+                ms_new = np.maximum(ms, vs.max(0) * k2)
+                mt_new = np.maximum(mt, vt.max(0) * k2)
+                rt = np.exp2(mt - mt_new)
+                et = np.exp2(vt * k2 - mt_new)
+                zs = zs * np.exp2(ms - ms_new) + np.exp2(
+                    vs * k2 - ms_new).sum(0)
+                zt = zt * rt + et.sum(0)
+                a = a * rt + (et * (vt - vs)).sum(0)
+                ms, mt = ms_new, mt_new
+            lse[0, b, oy0:oy0 + rows, ox0:ox0 + cols] = ms * LN2 + np.log(zs)
+            lse[1, b, oy0:oy0 + rows, ox0:ox0 + cols] = mt * LN2 + np.log(zt)
+            parts.append((a / (tau * zt) - (mt - ms) * LN2
+                          + np.log(zs / zt)).sum())
+    return float(np.sum(parts)), lse, lerps / (2 * C * B * H * W)
+
+
+# (maps' shape, output size, tau): C not a multiple of K7's chunk (pad
+# units), a non-integer ratio with tiles cut by the edge, odd sizes, ratio
+# ~8 and ~30, the tile arithmetic at ratio 1 and under downsampling (where
+# the plan names the gather variant), and tau 0.5 and 4
+PKL_MODEL_CASES = [((2, 7, 8, 8), (32, 32), 1.0),
+                   ((2, 6, 30, 40), (125, 161), 1.0),
+                   ((1, 5, 31, 33), (97, 130), 0.5),
+                   ((2, 5, 21, 19), (190, 150), 4.0),
+                   ((1, 3, 10, 9), (300, 270), 1.0),
+                   ((2, 5, 40, 40), (40, 40), 1.0),
+                   ((2, 9, 64, 48), (24, 20), 2.0)]
+
+
+@pytest.mark.parametrize('shape,out_hw,tau', PKL_MODEL_CASES)
+@pytest.mark.parametrize('scale', [1.0, 30.0])
+def test_pixel_kl_forward_model_matches_plain(shape, out_hw, tau, scale):
+    xs, xt = _maps(shape, 22, scale)
+    kl, lse, _ = pixel_kl_fwd_model(xs, xt, out_hw, tau)
+    want = pk.pixel_kl_plain(torch.from_numpy(xs), torch.from_numpy(xt),
+                             out_hw, tau).item()
+    assert kl == pytest.approx(want, rel=1e-5, abs=1e-7)
+    # the log-sum-exps against a direct float64 evaluation
+    for i, x in enumerate((xs, xt)):
+        u = _upsample(x, *out_hw) / tau
+        m = u.max(1)
+        direct = m + np.log(np.exp(u - m[:, None]).sum(1))
+        np.testing.assert_allclose(lse[i], direct, rtol=1e-12, atol=1e-12)
+
+
+def test_pixel_kl_forward_model_pads_add_nothing():
+    """A map of one channel is one real unit pair and three pad pairs a
+    chunk: its KL is 0 and its log-sum-exps are the upsampled values, at
+    tau 0.5, 1 and 4. In float32, as the kernel computes them, a pad's
+    exponent kFwdPad * k - M stays finite, its 2^x is exactly 0, and its
+    z_t - z_s is exactly 0, so it adds exactly 0 to each exp-sum and to A
+    (no inf - inf)."""
+    xs, xt = _maps((1, 1, 8, 8), 23, 3.0)
+    for tau in (0.5, 1.0, 4.0):
+        kl, lse, _ = pixel_kl_fwd_model(xs, xt, (32, 32), tau)
+        assert abs(kl) <= 1e-12  # one channel: both softmaxes are 1
+        for i, x in enumerate((xs, xt)):
+            np.testing.assert_allclose(lse[i], _upsample(x, 32, 32)[:, 0]
+                                       / tau, rtol=1e-12, atol=1e-12)
+        k2 = np.float32(LOG2E / tau)
+        pad = np.float32(-1e30)
+        for m in np.float32([-200.0, 0.0, 200.0]):
+            x = pad * k2 - m
+            assert np.isfinite(x) and np.exp2(x) == 0.0
+        assert pad - pad == 0.0
+
+
+def test_pixel_kl_forward_model_reuses_the_x_lerps():
+    """At ratio 4 a thread walking 8 rows x-lerps its two starting source
+    rows and about two more: at most 0.5 x-lerps an upsampled value (a
+    value from its four taps takes 3 lerps and 4 loads)."""
+    xs, xt = _maps((1, 4, 16, 16), 24)
+    _, _, lerps = pixel_kl_fwd_model(xs, xt, (64, 64), 1.0)
+    assert lerps <= 0.5
+
+
+@pytest.mark.parametrize('shape,out_hw,tau', [((2, 7, 8, 8), (32, 32), 1.0),
+                                              ((2, 6, 6, 6), (12, 12), 2.0)])
+def test_pixel_kl_forward_model_matches_jax_kernel(shape, out_hw, tau):
+    """Once against the JAX kernel in interpret mode, fp32 (1e-5)."""
+    xs, xt = _maps(shape, 25, 3.0)
+    want = float(jax_pixel_kl(jnp.asarray(xs, jnp.float32),
+                              jnp.asarray(xt, jnp.float32), out_hw, tau,
+                              True))
+    kl, _, _ = pixel_kl_fwd_model(xs, xt, out_hw, tau)
+    assert kl == pytest.approx(want, rel=1e-5)
