@@ -17,10 +17,14 @@ backward runs bitwise equal; K3, K5 and K7, the one forward tile kernel,
 at its output tile and its gather variant with the plan asserted, two
 forward runs bitwise equal, K7's log-sum-exps against a float64 evaluation
 and at tau 0.5 and 4; the cases are ``tools/kernel_cases.py``'s), then
-K10/K11, the LayerNorm forward and backward of every MiT LayerNorm, at the
-B0 and B3 widths against their plain version and beside ``F.layer_norm``,
-by device time and by a call's host-clocked time, two backward runs bitwise
-equal, and on slices whose rows do not fold into one stride, (9) full-width
+K10/K11, the LayerNorm forward and backward, at every shape of the CGD
+step (B0 student, B3 teacher) and of a serving request, against their
+plain version, K10's plan as the case names it, two forward and two
+backward runs bitwise equal, K10's device time at each shape and, at the
+kernels line's, beside ``F.layer_norm``, the plain version and the floor
+of an empty kernel on K10's grid, K10 right after the kernel that makes
+its input, and on slices whose rows do not fold into one stride, (9)
+full-width
 Segformer-B0
 (ADE20K, 150 classes, random weights from seed 0) serving seeded requests
 through ``inference_segmentor`` in whole mode, again with
@@ -52,6 +56,7 @@ function); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -701,6 +706,9 @@ LN_CALLS = 10  # launches per timing: the kernels take microseconds
 # cycles the stream is held while they queue up: ~11 ms, since a backward
 # through autograd can take the host 0.3 ms a call
 LN_HOLD_CYCLES = 20_000_000
+# bytes of inputs a timed LayerNorm forward cycles through: twice the
+# H100's 50 MB L2 cache
+LN_COLD_BYTES = 100 * 2 ** 20
 
 
 def _ln_check(tag, x, w, b, g, eps):
@@ -802,76 +810,156 @@ def _check_ln_tickets(tag):
                                  f'C = {c} workspace above 0')
 
 
-def phase_layer_norm():
+def _ln_timed(x, w, b, g, eps):
+    """(forward, backward, forward call, backward call) ms of the kernels,
+    the plain version and ``F.layer_norm`` on (x, w, b) with the incoming
+    gradient g: device times, then a call's; the forwards on copies of x
+    that do not fit the L2 cache together."""
     import torch.nn.functional as F
     from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                      layer_norm_plain)
     from segdistill_tpu_torch.utils.timing import cuda_ms, device_ms
+    c = x.shape[-1]
+    # the forward reads another copy of x at each call, more than twice the
+    # L2 cache in all, so that its bytes come from device memory
+    copies = [x] + [x.clone() for _ in range(
+        min(15, -(-LN_COLD_BYTES // (x.numel() * x.element_size())) - 1))]
+    turn = itertools.count()
+
+    def timed(fn, params):
+        leaf = x.clone().requires_grad_()
+        ps = [t.clone().requires_grad_() for t in params]
+        y = fn(leaf, *ps)
+
+        def forward():
+            with torch.no_grad():
+                fn(copies[next(turn) % len(copies)], *params)
+
+        def backward():
+            torch.autograd.grad(y, [leaf] + ps, g, retain_graph=True)
+        return (device_ms(forward, calls=LN_CALLS,
+                          hold_cycles=LN_HOLD_CYCLES),
+                device_ms(backward, calls=LN_CALLS,
+                          hold_cycles=LN_HOLD_CYCLES),
+                cuda_ms(forward, calls=LN_CALLS),
+                cuda_ms(backward, calls=LN_CALLS))
+    # the library call takes its parameters in x's dtype
+    return (timed(lambda a, ww, bb: fused_layer_norm(a, ww, bb, eps), (w, b)),
+            timed(lambda a, ww, bb: layer_norm_plain(a, ww, bb, eps), (w, b)),
+            timed(lambda a, ww, bb: F.layer_norm(a, (c,), ww, bb, eps),
+                  (w.to(x.dtype), b.to(x.dtype))))
+
+
+def _ln_planned(name, rows, c, dtype):
+    """K10's plan at (rows, c) in ``dtype``; where the case list names the
+    plan for that dtype (the step's in bf16, the serving path's in fp32),
+    the planner must give it."""
+    from segdistill_tpu_torch.ops import layer_norm as ln
+    from segdistill_tpu_torch.ops.ln_plan import forward_plan
+    plan = forward_plan(rows, c, ln.DTYPE_CODES[dtype], ln.sm_count(0))
+    named = {(n, torch.bfloat16): want
+             for n, _, _, _, want in _cases().LN_STEP_CASES}
+    named.update({(n, torch.float32): want
+                  for n, _, _, _, want in _cases().LN_SERVING_CASES})
+    want = named.get((name, dtype))
+    if want is not None and tuple(plan[:4]) != want:
+        raise AssertionError(f'layer_norm {name} {dtype}: K10 planned '
+                             f'{tuple(plan)}, the case names {want}')
+    return plan
+
+
+def _ln_after_producer(dtype, gen):
+    """x made by the kernel just before K10 (x = a + b_i, b_i other
+    random rows each round), twenty rounds at B3's (8192, 320): a launch
+    that read x before its producer ended (the memory of the round
+    before, which the allocator hands out again) would differ. -> the
+    largest share of the tolerance used."""
+    from segdistill_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                     layer_norm_plain)
+    a = torch.randn(8192, 320, device=DEVICE, generator=gen).to(dtype)
+    adds = [torch.randn(8192, 320, device=DEVICE, generator=gen).to(dtype)
+            for _ in range(20)]
+    w = 1 + 0.1 * torch.randn(320, device=DEVICE, generator=gen)
+    b = 0.1 * torch.randn(320, device=DEVICE, generator=gen)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, add in enumerate(adds):
+        x = a + add
+        y = fused_layer_norm(x, w, b, 1e-6)
+        want = layer_norm_plain(x.float(), w, b, 1e-6)
+        worst = max(worst, check_close(f'layer_norm after its producer, '
+                                       f'round {i}', y, want)[1])
+    return worst
+
+
+def phase_layer_norm():
+    from segdistill_tpu_torch.ops import layer_norm as ln
+    from segdistill_tpu_torch.ops.layer_norm import fused_layer_norm
+    from segdistill_tpu_torch.utils.timing import device_ms
     log('== K10/K11 layer_norm vs plain (N(0,1) x and dy, weight 1 + 0.1 N, '
         'bias 0.1 N; each gradient and its plain version divided by the '
-        'plain one\'s max |value|; eps 1e-6 and 1e-5; two backward runs must '
-        'agree bitwise; times are the device\'s, the calls queued behind a '
-        f'busy stream, and "call" the host-clocked time of one of {LN_CALLS} '
-        'calls in a row; library = F.layer_norm)')
+        'plain one\'s max |value|; eps 1e-6 and 1e-5; two forward and two '
+        'backward runs must agree bitwise; K10\'s plan as the case names '
+        'it; "K10" is the device time of a forward, the calls queued behind '
+        'a busy stream)')
     gen = torch.Generator(device=DEVICE).manual_seed(10)
+    main = _cases().LN_CASES[0][0]
     fwd, bwd = {}, {}
+    floor = None
     for name, rows, c in _cases().LN_CASES:
         w = 1 + 0.1 * torch.randn(c, device=DEVICE, generator=gen)
         b = 0.1 * torch.randn(c, device=DEVICE, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(rows, c, device=DEVICE, generator=gen).to(dtype)
             g = torch.randn(rows, c, device=DEVICE, generator=gen).to(dtype)
+            plan = _ln_planned(name, rows, c, dtype)
             errs = [_ln_check(f'layer_norm {name} {dtype} eps {eps}', x, w, b,
                               g, eps) for eps in (1e-6, 1e-5)]
             ferr, fused, berr, bused = (max(e[i] for e in errs)
                                         for i in range(4))
-            eps = 1e-6
-
-            def timed(fn, params):
-                """(forward, backward, forward call, backward call) ms of
-                fn(x, *params, eps): device times, then a call's."""
-                leaf = x.clone().requires_grad_()
-                ps = [t.clone().requires_grad_() for t in params]
-                y = fn(leaf, *ps)
-
-                def forward():
-                    with torch.no_grad():
-                        fn(x, *params)
-
-                def backward():
-                    torch.autograd.grad(y, [leaf] + ps, g, retain_graph=True)
-                return (device_ms(forward, calls=LN_CALLS,
-                                  hold_cycles=LN_HOLD_CYCLES),
-                        device_ms(backward, calls=LN_CALLS,
-                                  hold_cycles=LN_HOLD_CYCLES),
-                        cuda_ms(forward, calls=LN_CALLS),
-                        cuda_ms(backward, calls=LN_CALLS))
-
-            k_ms = timed(lambda a, ww, bb: fused_layer_norm(a, ww, bb, eps),
-                         (w, b))
-            p_ms = timed(lambda a, ww, bb: layer_norm_plain(a, ww, bb, eps),
-                         (w, b))
-            # the library call takes its parameters in x's dtype
-            l_ms = timed(lambda a, ww, bb: F.layer_norm(a, (c,), ww, bb, eps),
-                         (w.to(dtype), b.to(dtype)))
+            with torch.no_grad():
+                once = fused_layer_norm(x, w, b, 1e-6)
+                again = fused_layer_norm(x, w, b, 1e-6)
+                k10 = device_ms(lambda: fused_layer_norm(x, w, b, 1e-6),
+                                calls=LN_CALLS, hold_cycles=LN_HOLD_CYCLES)
+            if not torch.equal(once, again):
+                raise AssertionError(f'layer_norm {name} {dtype}: two runs '
+                                     f'of K10 differ')
+            line = (f'{name:16s} ({rows}, {c}) {str(dtype):15s} plan '
+                    f'{tuple(plan)} y max_abs_err {ferr:.3e} (tol used '
+                    f'{fused:.3f})  gradients {berr:.3e} (tol used '
+                    f'{bused:.3f})  K10 {k10:.4f} ms')
+            times = (None,) * 4, (None,) * 4, (None,) * 4
+            if name == main:
+                times = _ln_timed(x, w, b, g, 1e-6)
+                k_ms, p_ms, l_ms = times
+                bounds = _cases().ln_bounds(rows, c, dtype)
+                line += (f'  fwd {k_ms[0]:.4f} ms plain {p_ms[0]:.4f} '
+                         f'library {l_ms[0]:.4f} (call {k_ms[2]:.4f} / '
+                         f'{p_ms[2]:.4f} / {l_ms[2]:.4f})  bwd {k_ms[1]:.4f} '
+                         f'ms plain {p_ms[1]:.4f} library {l_ms[1]:.4f} (call '
+                         f'{k_ms[3]:.4f} / {p_ms[3]:.4f} / {l_ms[3]:.4f})  '
+                         f'bounds {bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms '
+                         f'({bounds[1][1]})')
+                if dtype == torch.bfloat16:
+                    floor = device_ms(lambda: ln.EMPTY_KERNEL.launch(
+                        x.device, plan.blocks, plan.threads), calls=LN_CALLS,
+                        hold_cycles=LN_HOLD_CYCLES)
+                    line += (f'  floor (an empty kernel on K10\'s grid) '
+                             f'{floor:.4f} ms')
+            k_ms, p_ms, l_ms = times
             fwd[(name, dtype)] = (ferr, k_ms[0], p_ms[0], l_ms[0])
             bwd[(name, dtype)] = (berr, k_ms[1], p_ms[1], l_ms[1])
-            bounds = _cases().ln_bounds(rows, c, dtype)
-            log(f'{name:10s} ({rows}, {c}) {str(dtype):15s} y max_abs_err '
-                f'{ferr:.3e} (tol used {fused:.3f})  gradients {berr:.3e} '
-                f'(tol used {bused:.3f})  fwd {k_ms[0]:.4f} ms plain '
-                f'{p_ms[0]:.4f} library {l_ms[0]:.4f} (call {k_ms[2]:.4f} / '
-                f'{p_ms[2]:.4f} / {l_ms[2]:.4f})  bwd {k_ms[1]:.4f} ms '
-                f'plain {p_ms[1]:.4f} library {l_ms[1]:.4f} (call '
-                f'{k_ms[3]:.4f} / {p_ms[3]:.4f} / {l_ms[3]:.4f})  bounds '
-                f'{bounds[0][0]:.4f} / {bounds[1][0]:.4f} ms '
-                f'({bounds[1][1]})')
+            log(line)
     for dtype in (torch.float32, torch.bfloat16):
         log(f'rows that do not fold, x[:, 1:] of (4, 34, 64), and rows that '
             f'do, x[:, ::2]  {str(dtype):15s} gradients '
             f'{_ln_check_cut_rows(dtype, gen):.3e}')
+        log(f'K10 right after its producer, 20 rounds of x = a + b_i at '
+            f'(8192, 320) {str(dtype):15s} tol used '
+            f'{_ln_after_producer(dtype, gen):.3f}')
     _check_ln_tickets('layer_norm phase')
-    return fwd, bwd
+    return fwd, bwd, floor
 
 
 def _requests():
@@ -1445,7 +1533,7 @@ def main():
     results[k7.name], results[k8.name] = phase_pixel_kl()
     _check_fwd_tickets('seg_ce and pixel_kl phases')
     results[k9.name] = phase_sra_train()
-    results[k10.name], results[k11.name] = phase_layer_norm()
+    results[k10.name], results[k11.name], k10_floor = phase_layer_norm()
     launches = {k.name: 0 for k in kernels}
     cgd_kernels = [k1, k3, k4, k5, k6, k10, k11]
     paths = [phase_serving([k1, k2, k10]),
@@ -1491,6 +1579,8 @@ def main():
             'ms': case[1], 'plain_ms': case[2], 'bound_ms': bound_ms,
             'bound_by': bound_by,
             'library_ms': case[3] if len(case) > 3 else None})
+        if k is k10:  # the queued floor of an empty kernel on K10's grid
+            entries[-1]['floor_ms'] = k10_floor
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line'), paths))))
     print(json.dumps({'kernels': entries}))

@@ -18,14 +18,18 @@
 // loaded once, as 16-byte vectors, and stays in registers through both
 // reductions; nothing but y (or dx and the small partials) is written.
 //
-// A row belongs to a group of G lanes of one warp, G in {4, 8, 16, 32}
-// chosen by C so that a lane holds at most 16 values in the forward and 8
-// in the backward (more beyond 32 lanes): at C = 32 in bf16 a row is four
-// 16-byte vectors, so eight rows share a warp and no lane idles, where one
-// warp per row would leave 28 of 32 without a load. Widths that are not a power of two (160, 320) mask the vectors past
-// the row's end. Rows may be strided (the row stride is an argument); the
-// last axis is contiguous and every row starts on a 16-byte boundary (the
-// wrapper copies a tensor whose last axis is strided).
+// A row belongs to a group of G lanes of one warp. The forward takes G,
+// the vectors a lane holds and the grid from its plan (ops/ln_plan.py; the
+// K10 section below): no idle lane at C = 160 and 320, small blocks that
+// cover every SM at small row counts, two rows in flight at large ones.
+// The backward takes G in {4, 8, 16, 32} by C so that a lane holds at most
+// 8 values (more beyond 32 lanes): at C = 32 in bf16 a row is four 16-byte
+// vectors, so eight rows share a warp, where one warp per row would leave
+// 28 of 32 without a load; widths that are not a power of two (160, 320)
+// mask the vectors past the row's end. Rows may be strided (the row
+// stride is an argument); the last axis is contiguous and every row starts
+// on a 16-byte boundary (the wrapper copies a tensor whose last axis is
+// strided).
 //
 // The backward recomputes mu and rstd from x, as the TPU kernel does: x is
 // read for xhat anyway, two more group reductions cost no memory traffic,
@@ -164,36 +168,161 @@ __device__ __forceinline__ float centre(const T* __restrict__ row, bool active,
   return rsqrtf(group_sum<G>(sq) * inv_c + eps);
 }
 
+// ---- K10, the forward --------------------------------------------------
+//
+// A group of G lanes holds a row, lane l its vectors l, l + G, ... (NCH of
+// them), so that a group reads neighbouring 16-byte vectors. G, NCH and
+// the rows in flight R are template arguments, one instance for each entry
+// of LN_FWD_INSTANCES below; the plan (ops/ln_plan.py) picks the instance,
+// the block size and the grid. What sets the time at the small row counts
+// of the SRA norms (2048 rows) is not bytes but a launch's fixed cost and
+// the chain of latencies a thread walks, so a lane loads its weight and
+// bias into registers before its row (their loads overlap the row's,
+// where loading them at the store was a second round trip). At R = 1 a
+// group owns one row and the grid covers the rows. At R = 2 the grid is
+// persistent: a group walks rows grid-stride, the next row's loads issued
+// before the current row's sums and store. The sums are taken in one order
+// (a lane's values in order, then an xor tree over the group): two
+// launches on the same input give the same bits. K10 is launched as a
+// programmatic dependent launch: its grid is set up while the kernel ahead
+// finishes (the floor of a queued launch, ~2 us, is most of a 2048-row
+// launch), and it waits (griddepcontrol.wait) before it reads anything,
+// since x, the weight or the bias may be that kernel's output.
+
+// the most values a lane of the forward holds (ops/ln_plan.py MAX_VALUES),
+// the largest block
+constexpr int kFwdMaxValues = 40;
+constexpr int kFwdMaxThreads = 256;
+
+// The lane's vectors of one row, widened to fp32; zeros past the row's end
+// or for a row past the last.
 template <typename T, int G, int NCH>
-__global__ void __launch_bounds__(kThreads)
-    ln_fwd(const T* __restrict__ x, long long sx, const float* __restrict__ w,
-           const float* __restrict__ b, int rows, int C, float eps,
-           T* __restrict__ y) {
+__device__ __forceinline__ void load_lane(const T* __restrict__ row,
+                                          bool active, int lane, int nvec,
+                                          float (&v)[NCH][Vec<T>::N]) {
   constexpr int V = Vec<T>::N;
-  constexpr int kGroups = kThreads / G;
-  const int lane = threadIdx.x % G;
-  const long long r =
-      static_cast<long long>(blockIdx.x) * kGroups + threadIdx.x / G;
-  const bool active = r < rows;
-  const int nvec = C / V;
-  float v[NCH][V];
-  const float rstd =
-      centre<T, G, NCH>(x + r * sx, active, lane, nvec, C, eps, v);
-  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const int c = lane + i * G;
+    if (active && c < nvec) {
+      Vec<T>::load(row + c * V, v[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[i][j] = 0.0f;
+    }
+  }
+}
+
+// The weight and bias of the lane's columns (zeros past the row's end).
+template <int G, int NCH, int V>
+__device__ __forceinline__ void load_params(const float* __restrict__ w,
+                                            const float* __restrict__ b,
+                                            int lane, int nvec,
+                                            float (&wv)[NCH][V],
+                                            float (&bv)[NCH][V]) {
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const int c = lane + i * G;
+    if (c < nvec) {
+      load_param<V>(w + c * V, wv[i]);
+      load_param<V>(b + c * V, bv[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) wv[i][j] = bv[i][j] = 0.0f;
+    }
+  }
+}
+
+// Normalises the lane's part of row r, held in v: the mean, then the mean
+// square of the centred values, each summed over the group; y = (v - mu)
+// * rstd * w + b, stored unless the row is past the last.
+template <typename T, int G, int NCH>
+__device__ __forceinline__ void finish_row(
+    float (&v)[NCH][Vec<T>::N], long long r, int rows, int lane, int nvec,
+    float inv_c, float eps, const float (&wv)[NCH][Vec<T>::N],
+    const float (&bv)[NCH][Vec<T>::N], T* __restrict__ y, int C) {
+  constexpr int V = Vec<T>::N;
+  float sum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+#pragma unroll
+    for (int j = 0; j < V; ++j) sum += v[i][j];
+  const float mu = group_sum<G>(sum) * inv_c;
+  float sq = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    if (lane + i * G < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        v[i][j] -= mu;
+        sq += v[i][j] * v[i][j];
+      }
+    }
+  }
+  const float rstd = rsqrtf(group_sum<G>(sq) * inv_c + eps);
+  if (r >= rows) return;
   T* out = y + r * C;
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
     const int c = lane + i * G;
     if (c < nvec) {
-      float wv[V], bv[V];
-      load_param<V>(w + c * V, wv);
-      load_param<V>(b + c * V, bv);
 #pragma unroll
-      for (int j = 0; j < V; ++j) v[i][j] = v[i][j] * rstd * wv[j] + bv[j];
+      for (int j = 0; j < V; ++j)
+        v[i][j] = v[i][j] * rstd * wv[i][j] + bv[i][j];
       Vec<T>::store(out + c * V, v[i]);
     }
   }
 }
+
+// Waits for the grid this launch depends on (a programmatic dependent
+// launch); pdl is 0 for an ordinary launch.
+__device__ __forceinline__ void grid_dependency_wait(int pdl) {
+  if (pdl) asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename T, int G, int NCH, int R>
+__global__ void __launch_bounds__(kFwdMaxThreads)
+    ln_fwd(const T* __restrict__ x, long long sx, const float* __restrict__ w,
+           const float* __restrict__ b, int rows, int C, float eps,
+           T* __restrict__ y, int pdl) {
+  constexpr int V = Vec<T>::N;
+  const int lane = threadIdx.x % G;
+  const int group = threadIdx.x / G;
+  const int groups = blockDim.x / G;
+  const int nvec = C / V;
+  const float inv_c = 1.0f / static_cast<float>(C);
+  long long base = static_cast<long long>(blockIdx.x) * groups;
+  float wv[NCH][V], bv[NCH][V], a[NCH][V];
+  grid_dependency_wait(pdl);
+  load_params<G, NCH, V>(w, b, lane, nvec, wv, bv);
+  long long r = base + group;
+  load_lane<T, G, NCH>(x + r * sx, r < rows, lane, nvec, a);
+  if constexpr (R == 1) {
+    finish_row<T, G, NCH>(a, r, rows, lane, nvec, inv_c, eps, wv, bv, y, C);
+  } else {
+    static_assert(R == 2, "one or two rows in flight");
+    // every group of a block takes the same turns: the group sums are
+    // warp-wide shuffles
+    const long long step = static_cast<long long>(gridDim.x) * groups;
+    float n[NCH][V];
+    for (; base < rows; base += 2 * step) {
+      r = base + group;
+      // the next row's loads first, then this row's sums and store
+      load_lane<T, G, NCH>(x + (r + step) * sx, r + step < rows, lane, nvec,
+                           n);
+      finish_row<T, G, NCH>(a, r, rows, lane, nvec, inv_c, eps, wv, bv, y, C);
+      if (base + step >= rows) break;
+      load_lane<T, G, NCH>(x + (r + 2 * step) * sx, r + 2 * step < rows,
+                           lane, nvec, a);
+      finish_row<T, G, NCH>(n, r + step, rows, lane, nvec, inv_c, eps, wv,
+                            bv, y, C);
+    }
+  }
+}
+
+// Does nothing: the floor of a launch, which tools/bench_kernels.py times
+// beside K10 with K10's grid.
+__global__ void ln_empty() {}
 
 // dst[col] = sum over the n rows of src (ncol floats each, ncol % 16 == 0),
 // by all kThreads threads of one block: 16-byte loads that bypass L1
@@ -377,13 +506,31 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) tickets[0] = 0u;
 }
 
-template <typename T, int G, int NCH>
+// One K10 launch; with pdl, a programmatic dependent launch (it may start
+// before the grid ahead of it ends, and waits for it before reading
+// anything).
+template <typename T, int G, int NCH, int R>
 void launch_fwd(const void* x, long long sx, const float* w, const float* b,
-                int rows, int C, float eps, void* y, cudaStream_t s) {
-  constexpr int kGroups = kThreads / G;
-  const unsigned blocks = (rows + kGroups - 1) / kGroups;
-  ln_fwd<T, G, NCH><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), sx, w, b, rows, C, eps, static_cast<T*>(y));
+                int rows, int C, float eps, void* y, int threads, int blocks,
+                bool pdl, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (!pdl) {
+    ln_fwd<T, G, NCH, R><<<blocks, threads, 0, s>>>(xt, sx, w, b, rows, C,
+                                                    eps, yt, 0);
+    return;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, ln_fwd<T, G, NCH, R>, xt, sx, w, b, rows, C, eps,
+                     yt, 1);
 }
 
 template <typename T, int G, int NCH>
@@ -399,8 +546,7 @@ void launch_bwd(const void* x, long long sx, const void* dy, long long sdy,
 // Lanes per row for width C: the fewest of 4, 8, 16, 32 that keep a lane
 // at per_lane values, with *mult = 1; beyond 32 lanes a lane holds 2 or 4
 // times per_lane (*mult), up to C = 1024; -1 for an unsupported width.
-// The forward holds 16 values a lane. The backward holds 8: it keeps x, dy
-// and two running sums, and at 16 its ~106 registers leave an SM two blocks
+// The backward holds 8 values a lane: it keeps x, dy and two running sums, and at 16 its ~106 registers leave an SM two blocks
 // of loads in flight, too few for the memory's latency.
 int lanes_for(int C, int per_lane, int* mult) {
   *mult = 1;
@@ -411,31 +557,68 @@ int lanes_for(int C, int per_lane, int* mult) {
   return 32;
 }
 
-constexpr int kFwdPerLane = 16;
 constexpr int kBwdPerLane = 8;
 
 bool bad_rows(int rows, long long stride, int C) {
   return rows <= 0 || stride < C;
 }
 
-template <typename T>
-bool dispatch_fwd(const void* x, long long sx, const float* w, const float* b,
-                  int rows, int C, float eps, void* y, cudaStream_t s) {
-  constexpr int B = kFwdPerLane / Vec<T>::N;
-#define LN_FWD(G, NCH) launch_fwd<T, G, NCH>(x, sx, w, b, rows, C, eps, y, s)
-  int mult;
-  switch (lanes_for(C, kFwdPerLane, &mult)) {
-    case 4: LN_FWD(4, B); break;
-    case 8: LN_FWD(8, B); break;
-    case 16: LN_FWD(16, B); break;
-    case 32:
-      if (mult == 1) LN_FWD(32, B);
-      else LN_FWD(32, 2 * B);
-      break;
-    default: return false;
+// The instances of ln_fwd: (dtype code, storage type, lanes a row,
+// vectors a lane, rows in flight). ops/ln_plan.py::INSTANCES mirrors this
+// list.
+#define LN_FWD_INSTANCES(X)        \
+  X(1, __nv_bfloat16, 4, 1, 1)     \
+  X(1, __nv_bfloat16, 4, 2, 1)     \
+  X(1, __nv_bfloat16, 4, 5, 1)     \
+  X(1, __nv_bfloat16, 8, 2, 1)     \
+  X(1, __nv_bfloat16, 8, 5, 1)     \
+  X(1, __nv_bfloat16, 16, 2, 1)    \
+  X(1, __nv_bfloat16, 16, 4, 1)    \
+  X(1, __nv_bfloat16, 32, 4, 1)    \
+  X(1, __nv_bfloat16, 4, 1, 2)     \
+  X(1, __nv_bfloat16, 8, 1, 2)     \
+  X(1, __nv_bfloat16, 16, 1, 2)    \
+  X(1, __nv_bfloat16, 32, 1, 2)    \
+  X(0, float, 4, 1, 1)             \
+  X(0, float, 8, 1, 1)             \
+  X(0, float, 8, 2, 1)             \
+  X(0, float, 8, 5, 1)             \
+  X(0, float, 16, 2, 1)            \
+  X(0, float, 16, 4, 1)            \
+  X(0, float, 16, 5, 1)            \
+  X(0, float, 32, 4, 1)            \
+  X(0, float, 32, 8, 1)            \
+  X(0, float, 8, 1, 2)             \
+  X(0, float, 16, 1, 2)
+
+// K10's plan (ops/ln_plan.py::forward_plan), checked: an instance, whole
+// warps up to kFwdMaxThreads, the row covered (lanes * NCH vectors), and a
+// grid that covers the rows at one row a group (R = 1) or has no block
+// without a row (R = 2); false, launching nothing, for any other. The
+// instance list keeps a lane at kFwdMaxValues values or fewer.
+bool dispatch_fwd(int dtype, const void* x, long long sx, const float* w,
+                  const float* b, int rows, int C, float eps, void* y,
+                  int lanes, int nch, int rif, int threads, int blocks,
+                  bool pdl, cudaStream_t s) {
+  if (threads < 32 || threads > kFwdMaxThreads || threads % 32 != 0)
+    return false;
+  const int V = dtype == 0 ? 4 : 8;
+  if (lanes < 1 || lanes > 32 || nch < 1 || lanes * nch * V < C)
+    return false;
+  const long long groups = threads / lanes;
+  const long long need = (rows + groups - 1) / groups;
+  if (blocks < 1 || blocks > need || (rif == 1 && blocks != need))
+    return false;
+#define LN_FWD(CODE, TYPE, LANES, NCH, ROWS)                               \
+  static_assert(NCH * Vec<TYPE>::N <= kFwdMaxValues, "too many values");   \
+  if (dtype == CODE && lanes == LANES && nch == NCH && rif == ROWS) {      \
+    launch_fwd<TYPE, LANES, NCH, ROWS>(x, sx, w, b, rows, C, eps, y,       \
+                                       threads, blocks, pdl, s);           \
+    return true;                                                           \
   }
+  LN_FWD_INSTANCES(LN_FWD)
 #undef LN_FWD
-  return true;
+  return false;
 }
 
 template <typename T>
@@ -478,18 +661,21 @@ int bwd_blocks_needed(int rows, int C) {
 
 // x: rows of C values in float32 (dtype 0) or bfloat16 (1), row r at
 // x + r * sx elements, every row 16-byte aligned; w, b: (C,) float32.
-// y: (rows, C) contiguous in x's dtype. C % 8 == 0 and C <= 1024.
+// y: (rows, C) contiguous in x's dtype. C % 8 == 0 and C <= 1024. lanes,
+// nch, rif (rows in flight), threads, blocks: the plan of
+// ops/ln_plan.py::forward_plan; pdl: launch as a programmatic dependent
+// launch.
 extern "C" int layer_norm_fwd(const void* x, long long sx, const float* w,
                               const float* b, int rows, int C, float eps,
-                              int dtype, void* y, void* stream) {
-  if (bad_rows(rows, sx, C)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0) {
-    ok = dispatch_fwd<float>(x, sx, w, b, rows, C, eps, y, s);
-  } else if (dtype == 1) {
-    ok = dispatch_fwd<__nv_bfloat16>(x, sx, w, b, rows, C, eps, y, s);
-  }
+                              int dtype, void* y, int lanes, int nch, int rif,
+                              int threads, int blocks, int pdl,
+                              void* stream) {
+  if (bad_rows(rows, sx, C) || C % 8 != 0 || C > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = (dtype == 0 || dtype == 1) &&
+                  dispatch_fwd(dtype, x, sx, w, b, rows, C, eps, y, lanes,
+                               nch, rif, threads, blocks, pdl != 0,
+                               static_cast<cudaStream_t>(stream));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
@@ -530,5 +716,14 @@ extern "C" int layer_norm_bwd(const void* x, long long sx, const void* dy,
                                      gpart, tickets, blocks, dwdb, s);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10's floor: an empty kernel on a grid of blocks x threads, which
+// tools/bench_kernels.py and chip_smoke.py time beside K10.
+extern "C" int layer_norm_empty(int blocks, int threads, void* stream) {
+  if (blocks < 1 || threads < 1 || threads > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ln_empty<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

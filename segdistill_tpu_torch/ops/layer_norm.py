@@ -4,7 +4,9 @@ Replaces ``segdistill_tpu/ops/pallas/layer_norm.py::fused_layer_norm`` (the
 Pallas calls at ``layer_norm.py:113``, forward, and ``:144``, backward). The
 kernels are ``csrc/layer_norm.cu``: a row is held by a group of lanes of one
 warp, loaded once as 16-byte vectors and kept in registers through the mean
-and the centred variance (fp32 statistics whatever the storage type). K11
+and the centred variance (fp32 statistics whatever the storage type). K10
+launches on the plan of ``ops/ln_plan.py`` (lanes a row, vectors a lane,
+rows in flight, block and grid), which the source checks. K11
 recomputes the statistics from ``x``, as the TPU kernel does, so the forward
 saves nothing but ``x`` and ``weight``. K11 is one launch: it writes ``dx``
 and one fp32 partial of ``dweight`` and ``dbias`` per block into a workspace
@@ -27,7 +29,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .cuda_kernel import DTYPE_CODES, CudaKernel, sm_count
+from .cuda_kernel import DTYPE_CODES, CudaKernel, device_sm_count, sm_count
+from .ln_plan import forward_plan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,8 +50,17 @@ _GROUP_BLOCKS = 16
 
 FWD_KERNEL = CudaKernel(
     'layer_norm_fwd', 'layer_norm_fwd', source='layer_norm',
-    argtypes=[_P, _L, _P, _P, _I, _I, _F, _I, _P, _P],
+    argtypes=[_P, _L, _P, _P, _I, _I, _F, _I, _P] + [_I] * 6 + [_P],
     replaces='segdistill_tpu/ops/pallas/layer_norm.py:113')
+# launch K10 as a programmatic dependent launch: its grid is set up while
+# the kernel ahead of it finishes, and it waits for that kernel before it
+# reads anything (x, weight or bias may be that kernel's output)
+PDL = True
+# an empty kernel on a given grid: the floor under a K10 launch, which the
+# measuring tools time beside it; no path launches it
+EMPTY_KERNEL = CudaKernel(
+    'layer_norm_empty', 'layer_norm_empty', source='layer_norm',
+    argtypes=[_I, _I, _P], replaces='none: a measuring floor')
 BWD_KERNEL = CudaKernel(
     'layer_norm_bwd', 'layer_norm_bwd', source='layer_norm',
     argtypes=[_P, _L, _P, _L, _P, _I, _I, _F, _I, _P, _P, _I, _I, _P, _P],
@@ -154,7 +166,9 @@ def _launch_fwd(x, weight, bias, eps):
     ptr, stride, rows, xrows = _rows_of('x', x, C)
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     FWD_KERNEL.launch(x.device, ptr, stride, weight.data_ptr(),
-                      bias.data_ptr(), rows, C, eps, code, y.data_ptr())
+                      bias.data_ptr(), rows, C, eps, code, y.data_ptr(),
+                      *forward_plan(rows, C, code, device_sm_count(x.device)),
+                      PDL)
     return y, xrows, (stride, rows, C, code, x.shape)
 
 

@@ -30,15 +30,44 @@ RESIZE_SUM_CASES = [
     for b, e in ((1, 256), (8, 256), (8, 768))] + [
     ('non-integer ratio', [(2, 15, 20, 256), (2, 23, 31, 256)], (61, 83))]
 
-# (name, rows, C) of the MiT LayerNorms at batch 8, 512x512: the B0
-# student's four stages (stage 1: four times more row groups than K11 has
-# blocks), three of the B3 teacher's, a row count no tile divides, and
-# fewer rows than one block holds
-LN_CASES = [('B0 stage1', 8 * 16384, 32), ('B0 stage2', 8 * 4096, 64),
-            ('B0 stage3', 8 * 1024, 160), ('B0 stage4', 8 * 256, 256),
-            ('B3 stage1', 8 * 16384, 64), ('B3 stage3', 8 * 1024, 320),
-            ('B3 stage4', 8 * 256, 512), ('odd rows', 1001, 160),
-            ('few rows', 10, 32)]
+# K10 in one CGD (or PD) train step, batch 8 at 512x512, bf16 backbones:
+# (name, rows, C, launches, the plan K10 must take there: lanes a row,
+# vectors a lane, rows in flight, threads a block). Each stage has its
+# patch-embedding norm, norm1 and norm2 in every block and the stage norm
+# at (8 H W, C); stages 1-3 also the SRA norm of every block at the keys'
+# grid, 2048 rows. The B0 student's 30 launches (it also runs K11 on each),
+# then the frozen B3 teacher's 89 (no gradient).
+LN_STEP_CASES = [
+    ('B0 stage1', 131072, 32, 6, (4, 1, 2, 256)),
+    ('B0 stage1 sr', 2048, 32, 2, (4, 1, 1, 64)),
+    ('B0 stage2', 32768, 64, 6, (4, 2, 1, 256)),
+    ('B0 stage2 sr', 2048, 64, 2, (4, 2, 1, 64)),
+    ('B0 stage3', 8192, 160, 6, (4, 5, 1, 128)),
+    ('B0 stage3 sr', 2048, 160, 2, (4, 5, 1, 64)),
+    ('B0 stage4', 2048, 256, 6, (16, 2, 1, 128)),
+    ('B3 stage1', 131072, 64, 8, (8, 1, 2, 256)),
+    ('B3 stage1 sr', 2048, 64, 3, (4, 2, 1, 64)),
+    ('B3 stage2', 32768, 128, 10, (16, 1, 2, 256)),
+    ('B3 stage2 sr', 2048, 128, 4, (8, 2, 1, 64)),
+    ('B3 stage3', 8192, 320, 38, (8, 5, 1, 256)),
+    ('B3 stage3 sr', 2048, 320, 18, (8, 5, 1, 64)),
+    ('B3 stage4', 2048, 512, 8, (16, 4, 1, 128))]
+# the serving path's, fp32, the B0 student at batch 1, 512x512: (name,
+# rows, C, launches a request, the plan)
+LN_SERVING_CASES = [
+    ('B0 b1 stage1', 16384, 32, 6, (8, 1, 1, 256)),
+    ('B0 b1 stage1 sr', 256, 32, 2, (8, 1, 1, 64)),
+    ('B0 b1 stage2', 4096, 64, 6, (8, 2, 1, 128)),
+    ('B0 b1 stage2 sr', 256, 64, 2, (8, 2, 1, 64)),
+    ('B0 b1 stage3', 1024, 160, 6, (8, 5, 1, 64)),
+    ('B0 b1 stage3 sr', 256, 160, 2, (8, 5, 1, 64)),
+    ('B0 b1 stage4', 256, 256, 6, (16, 4, 1, 64))]
+# (name, rows, C) of every K10/K11 check on the card: the step's shapes
+# (the first, B0 stage 1, is the kernels line's), the serving path's, a row
+# count no block divides, and fewer rows than one block holds
+LN_CASES = [(name, rows, c) for name, rows, c, _, _ in
+            LN_STEP_CASES + LN_SERVING_CASES] + [
+    ('odd rows', 1001, 160), ('few rows', 10, 32)]
 
 # (name, logits' shape, labels' size, share of labels ignored, the edge of
 # the source tile K6 must plan there: 0 is the gather variant). Each of

@@ -11,7 +11,8 @@ random weights from seed 0, checkpoint paths cleared:
 1. The step's phases by CUDA events, ms per step: student forward with
    the head CE, teacher forward, distillation loss, backward, AdamW.
 2. ``torch.profiler`` over ``--steps`` steps: wall and device-busy ms per
-   step, kernels per step, copy kernels per step (the casts of the fp32
+   step (the kernels' times summed, and the union of their intervals),
+   kernels per step, copy kernels per step (the casts of the fp32
    weights among them), device time by kernel family, and the kernels
    hand-written kernels by function and the kernels that take the most
    device time.
@@ -116,6 +117,22 @@ def phase_times(model, optimizer, img, gt, steps):
     print(f'  {"total":28s} {ms.sum():8.3f} ms')
 
 
+def _union_ms(events):
+    """Milliseconds of device time covered by at least one of ``events``."""
+    total, start, end = 0.0, None, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if end is None or a > end:
+            if end is not None:
+                total += end - start
+            start, end = a, b
+        else:
+            end = max(end, b)
+    if end is not None:
+        total += end - start
+    return total / 1e3
+
+
 def profile_steps(state, train_step, img, gt, steps, top=20):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -133,6 +150,11 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
     print(f'  wall {wall_ms:.3f} ms/step (profiled), device busy '
           f'{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), '
           f'{len(events) / steps:.0f} kernels/step')
+    # a kernel launched as a programmatic dependent launch (K10) starts
+    # before the one ahead of it ends and waits inside its own time: the
+    # union of the kernels' intervals counts that overlap once
+    print(f'  device busy as the union of kernel intervals '
+          f'{_union_ms(events) / steps:.3f} ms/step')
     # dtype casts (of the fp32 weights, mostly) and layout copies
     copies = [e for e in events if re.search(r'copy', e.name)]
     print(f'  copy kernels: {len(copies) / steps:.0f} per step, '

@@ -740,6 +740,82 @@ def test_layer_norm_kernels_refuse(cuda):
     assert layer_norm.FWD_KERNEL.launches == before + 1
 
 
+def _k10(x, w, b, plan, pdl=False, eps=1e-6):
+    """One K10 launch on (rows, C) ``x`` with the given plan."""
+    rows, c = x.shape
+    y = torch.empty_like(x)
+    layer_norm.FWD_KERNEL.launch(
+        x.device, x.data_ptr(), c, w.data_ptr(), b.data_ptr(), rows, c, eps,
+        layer_norm.DTYPE_CODES[x.dtype], y.data_ptr(), *plan, pdl)
+    return y
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows,c', [(1001, 160), (4099, 32), (300, 320),
+                                    (77, 1000), (129, 1024), (9, 8)])
+def test_layer_norm_forward_every_instance(cuda, dtype, rows, c):
+    """K10 under every instance that covers the width, at 64-256 threads a
+    block, the two-row instances also on grids smaller than the rows need
+    (a group walks several rows), and as a programmatic dependent launch:
+    the plain version's values, and the same bits whatever the grid."""
+    from segdistill_tpu_torch.ops.ln_plan import INSTANCES, VEC, Plan
+    x, w, b, _ = _layer_norm_case(cuda, dtype, (rows, c), 1e-6)
+    want = layer_norm_plain(x.float(), w, b, 1e-6)
+    code = layer_norm.DTYPE_CODES[dtype]
+    runs = 0
+    for lanes, nch, rif in INSTANCES[code]:
+        if lanes * nch * VEC[code] < c:
+            continue
+        first = None
+        for threads in (64, 128, 256):
+            need = -(-rows // (threads // lanes))
+            grids = {need} if rif == 1 else {1, max(1, need // 3), need}
+            for blocks in sorted(grids):
+                for pdl in (False, True):
+                    y = _k10(x, w, b, Plan(lanes, nch, rif, threads, blocks),
+                             pdl)
+                    torch.cuda.synchronize()
+                    _close(y, want)
+                    first = y if first is None else first
+                    assert torch.equal(y, first), (lanes, nch, rif, threads,
+                                                   blocks)
+                    runs += 1
+    assert runs > 0
+
+
+@pytest.mark.parametrize('plan', [
+    (3, 1, 1, 64, 48),      # no instance of 3 lanes
+    (64, 1, 1, 64, 1000),   # more lanes than a warp
+    (4, 1, 1, 512, 8),      # a block above 256 threads
+    (4, 1, 1, 48, 84),      # not whole warps
+    (4, 3, 1, 64, 63),      # no instance holds 3 vectors a lane
+    (4, 1, 1, 64, 10),      # one row a group: the grid must cover the rows
+    (4, 1, 2, 64, 200),     # blocks without a row: 64 / 4 rows a block
+    (4, 2, 2, 64, 10),      # no two-row instance of 2 vectors
+])
+def test_layer_norm_forward_refuses_a_bad_plan(cuda, plan):
+    x, w, b, _ = _layer_norm_case(cuda, torch.bfloat16, (1000, 32), 1e-6)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        _k10(x, w, b, plan)
+
+
+@pytest.mark.parametrize('pdl', [False, True])
+def test_layer_norm_forward_after_its_producer(cuda, pdl, monkeypatch):
+    """x made by the kernel just before K10 (x = a + b_i, b_i other random
+    rows each time), twenty times: a launch that read x before its
+    producer ended (the memory of the round before, which the allocator
+    hands out again) would differ."""
+    monkeypatch.setattr(layer_norm, 'PDL', pdl)
+    a, w, b, _ = _layer_norm_case(cuda, torch.bfloat16, (8192, 320), 1e-6)
+    adds = [_layer_norm_case(cuda, torch.bfloat16, (8192, 320), 1e-6,
+                             seed=i + 1)[0] for i in range(20)]
+    torch.cuda.synchronize()
+    for add in adds:
+        x = a + add
+        y = fused_layer_norm(x, w, b, 1e-6)
+        _close(y, layer_norm_plain(x.float(), w, b, 1e-6))
+
+
 def test_resize_sum_gradient_on_the_card(cuda):
     """K1 is differentiable: the head's parameter gradients on the card
     (K1 forward, torch's upsample adjoint backward) against the same head
