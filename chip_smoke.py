@@ -44,8 +44,20 @@ for 12 iterations through the real training pipeline (512x512 crops, batch
 8, bf16 backbones) with checkpoints and evaluations at 6 and 12, a second
 run resumes from the iteration-6 checkpoint to the same losses (and a
 resume that takes no step restores that file bitwise), and ``tools.test``
-reproduces the last evaluation's mIoU. The launch count of
-each kernel is read over each main path (9, 10, 12 and 14).
+reproduces the last evaluation's mIoU; then the Tab5 students of
+``configs/exp_tab5/{psp,swin}_*.py``: (15, 16) the PSPNet-R50 (ResNetV1c-d8
++ PSPHead) and Swin-T + UPerHead students of ``psp_baseline.py`` and
+``swin_baseline.py`` served through ``init_segmentor`` (the student of a
+distillation config) at full width and depth, four 512x512 requests, the
+fp32 GPU logits against the CPU; (17, 18) the timed ``psp_CGD`` and
+``swin_CGD`` steps, bf16 backbones, the configs' batch of 2 at 512x512; and
+(19-21) fp32 steps of ``psp_CGD``, ``psp_PD`` and ``swin_CGD`` at batch 1
+and 256x256 against the CPU. The KL phases (5, 7) also hold K3/K4 and
+K7/K8 with a teacher of another size than the student (the PSP student's
+logits at stride 8 against the B3 teacher's at stride 4), which take the
+gather variants, and the LayerNorm phase K10/K11 at C = 1536, Swin-T's last
+PatchMerging norm. The launch count of each kernel is read over each main
+path (9, 10, 12, 14, 15-18).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -55,6 +67,7 @@ that work, and a PyTorch library call's where one computes the same
 function); the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import itertools
 import json
@@ -72,6 +85,12 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / 'configs' / 'segformer' / 'segformer_b0_512x512_ade_160k.py'
 CGD_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_CGD.py'
 PD_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_PD.py'
+# the Tab5 PSPNet-R50 (ResNetV1c-d8 + PSPHead) and Swin-T + UPerHead students
+TAB5 = ROOT / 'configs' / 'exp_tab5'
+PSP_BASELINE = TAB5 / 'psp_baseline.py'
+SWIN_BASELINE = TAB5 / 'swin_baseline.py'
+PSP_CGD, PSP_PD, SWIN_CGD = (TAB5 / 'psp_CGD.py', TAB5 / 'psp_PD.py',
+                             TAB5 / 'swin_CGD.py')
 # the config's checkpoints are not in the repository: random weights
 NO_CHECKPOINTS = {'model.t_pretrain': None, 'model.s_pretrain': None,
                   'model.cfg_s.pretrained': None}
@@ -81,6 +100,16 @@ BF16_BACKBONES = {'model.cfg_s.backbone.dtype': 'bfloat16',
                   'model.cfg_t.backbone.dtype': 'bfloat16'}
 NUM_CLASSES = 150
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+# the psp and swin configs' own batch (samples_per_gpu 2); their fp32
+# GPU-vs-CPU step at batch 1 and 256x256, full width and depth
+TAB5_BATCH = 2
+TAB5_VS_CPU_BATCH, TAB5_VS_CPU_HW = 1, 256
+TAB5_REQUESTS = 4  # seeded 512x512 requests to each Tab5 student
+# dropout and drop-path off for the GPU-vs-CPU steps (no draw to match)
+NO_DROP = {'model.cfg_s.decode_head.dropout_ratio': 0.0,
+           'model.cfg_t.decode_head.dropout_ratio': 0.0,
+           'model.cfg_t.backbone.drop_path_rate': 0.0}
+NO_DROP_PATH_S = {'model.cfg_s.backbone.drop_path_rate': 0.0}
 # the command-line phase: dataset size, iterations, and where it saves and
 # evaluates
 CLI_TRAIN_IMAGES, CLI_VAL_IMAGES = 32, 8
@@ -162,6 +191,18 @@ CE_INIT_TOL = 0.05
 TRAIN_LOSS_TOL_REL = 1e-6
 TRAIN_LOSS_TOL_ABS = 2.5e-5
 TRAIN_GRAD_TOL_REL_L2 = 1e-3
+# The Tab5 PSP and Swin steps (batch 1, 256x256) hold their gradients to
+#   the same step run in float64 on the CPU, at the same relative L2 limit.
+#   Against the fp32 CPU step they would not fit it, and neither side is at
+#   fault: the heads' pyramid pooling runs train-mode BN over 4 to 36
+#   values a channel, which magnifies fp32 rounding ~13x (an activation
+#   error of ~7e-6 reaches the bottleneck), and each ReLU whose input lies
+#   within that error of 0 opens on one side and not the other, which moves
+#   the gradient by that element's whole share: measured on an H100, the
+#   GPU and CPU fp32 psp_CGD gradients 1.27e-3 apart while their
+#   activations agree to 7e-6 and the gradient above the bottleneck's ReLU
+#   to 1.5e-6 (9.7e-4 below it); the GPU's against float64, 4.8e-4. The
+#   loss terms keep the limits above against the fp32 CPU step.
 # A run resumed from a checkpoint against the uninterrupted one, each
 #   logged loss: the weights, the optimizer state, the batches and every
 #   random draw are the same, so only kernels that sum in an order that
@@ -464,7 +505,46 @@ def phase_group_kl():
             args = gk._prepare(xs, xt, perm, out_hw, g, tau)
             _same(f'group_kl {name} {dtype}', gk._launch_fwd(*args),
                   gk._launch_fwd(*args))
+    # a teacher of another size: the gather variants, never a fallback
+    for name, shape, thw, out_hw, g, shuffle in \
+            _cases().GROUP_KL_TWO_SIZE_CASES:
+        _check_gather(f'group_kl {name}', gk, shape, thw, out_hw)
+        perm = torch.randperm(shape[1], device=DEVICE, generator=gen) \
+            if shuffle else None
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xt = torch.randn(shape[:2] + thw, device=DEVICE,
+                             generator=gen).to(dtype)
+            before = gk.FWD_KERNEL.launches, gk.BWD_KERNEL.launches
+            fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
+                f'group_kl {name} {dtype} (teacher {thw}, gather)', xs, xt,
+                lambda a, t: gk.fused_group_kl_shuffled(a, t, perm, out_hw,
+                                                        g, tau)
+                if shuffle else gk.fused_group_kl(a, t, out_hw, g, tau),
+                lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, g, tau))
+            _launched(f'group_kl {name}', gk, before)
+            args = gk._prepare(xs, xt, perm, out_hw, g, tau)
+            _same(f'group_kl {name} {dtype}', gk._launch_fwd(*args),
+                  gk._launch_fwd(*args))
     return fwd, bwd
+
+
+def _check_gather(tag, mod, shape, teacher_hw, out_hw):
+    """A student and a teacher of different sizes plan the gather
+    variants of both kernels."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fplan = mod.forward_plan(*shape[2:], *out_hw, teacher_hw)
+    bplan = mod.backward_plan(*shape, *out_hw, sms, teacher_hw)
+    if fplan['oh'] or bplan['tile']:
+        raise AssertionError(f'{tag}: two sizes planned {fplan}, {bplan}')
+
+
+def _launched(tag, mod, before):
+    """The case's calls launched the forward and the backward kernel (the
+    plain version is no fallback on a CUDA tensor)."""
+    if mod.FWD_KERNEL.launches <= before[0] \
+            or mod.BWD_KERNEL.launches <= before[1]:
+        raise AssertionError(f'{tag}: the kernels were not launched')
 
 
 def _check_lse(tag, lse, xs, xt, out_hw, tau):
@@ -524,6 +604,24 @@ def phase_pixel_kl():
             first = pk._launch_fwd(xs, xt, out_hw, tau)
             _same(tag, first, pk._launch_fwd(xs, xt, out_hw, tau))
             used = _check_lse(tag, first[1], xs, xt, out_hw, tau)
+            log(f'{tag:40s} lse tol used {used:.3f}')
+    # a teacher of another size: the gather variants, never a fallback
+    for name, shape, thw, out_hw in _cases().PIXEL_KL_TWO_SIZE_CASES:
+        _check_gather(f'pixel_kl {name}', pk, shape, thw, out_hw)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            xt = torch.randn(shape[:2] + thw, device=DEVICE,
+                             generator=gen).to(dtype)
+            tag = f'pixel_kl {name} {dtype}'
+            before = pk.FWD_KERNEL.launches, pk.BWD_KERNEL.launches
+            fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
+                f'{tag} (teacher {thw}, gather)', xs, xt,
+                lambda a, t: pk.fused_pixel_kl(a, t, out_hw, 1.0),
+                lambda a, t: pk.pixel_kl_plain(a, t, out_hw, 1.0))
+            _launched(tag, pk, before)
+            first = pk._launch_fwd(xs, xt, out_hw, 1.0)
+            _same(tag, first, pk._launch_fwd(xs, xt, out_hw, 1.0))
+            used = _check_lse(tag, first[1], xs, xt, out_hw, 1.0)
             log(f'{tag:40s} lse tol used {used:.3f}')
     return fwd, bwd
 
@@ -861,6 +959,8 @@ def _ln_planned(name, rows, c, dtype):
              for n, _, _, _, want in _cases().LN_STEP_CASES}
     named.update({(n, torch.float32): want
                   for n, _, _, _, want in _cases().LN_SERVING_CASES})
+    for n, _, _, _, bf16, fp32 in _cases().LN_WIDE_CASES:
+        named[(n, torch.bfloat16)], named[(n, torch.float32)] = bf16, fp32
     want = named.get((name, dtype))
     if want is not None and tuple(plan[:4]) != want:
         raise AssertionError(f'layer_norm {name} {dtype}: K10 planned '
@@ -1095,6 +1195,70 @@ def phase_serving(path_kernels):
     return launches
 
 
+def phase_serving_tab5(config, path_kernels, tag):
+    """A Tab5 student served from its distillation config through
+    ``init_segmentor`` (which builds the student alone): full width and
+    depth, whole mode, seeded 512x512 requests; the fp32 GPU logits of one
+    request against the same model on the CPU. -> the launch counts of
+    ``path_kernels`` over the requests (the PSP student runs none of the
+    hand-written kernels; Swin runs K10 in every LayerNorm)."""
+    from segdistill_tpu_torch.apis import init_segmentor
+    log(f'== serving: {tag} student of {config.name} through init_segmentor, '
+        f'150 classes, random weights (seed 0), {TAB5_REQUESTS} requests at '
+        f'512x512')
+    model = init_segmentor(str(config), device=DEVICE, seed=0)
+    if type(model).__name__ != 'EncoderDecoder':
+        raise AssertionError(f'{tag}: init_segmentor served a '
+                             f'{type(model).__name__}, not the student')
+    rng = np.random.RandomState(4)
+    imgs = [rng.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+            for _ in range(TAB5_REQUESTS)]
+    with torch.no_grad():  # warm up: cuDNN heuristics, allocator
+        _serve_tab5(model, imgs[:1], tag)
+    torch.cuda.synchronize()
+
+    # the serving path: every launch count starts at 0 here
+    for k in path_kernels:
+        k.launches = 0
+    _serve_tab5(model, imgs, tag)
+    launches = {k.name: k.launches for k in path_kernels}
+    log(f'launches during the {tag} serving path: {launches}')
+    _check_launched(launches, f'{tag} serving')
+
+    x = _normalized(model.cfg, imgs[0], DEVICE)
+    with torch.no_grad():
+        gpu = model.encode_decode(x).cpu()
+        cpu = copy.deepcopy(model).cpu().encode_decode(x.cpu())
+    err = (gpu - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    log(f'{tag} fp32 logits GPU vs CPU at 512x512: max abs err {err:.3e}, '
+        f'max |logit| {scale:.3e}, relative {err / scale:.3e} (limit '
+        f'{MODEL_TOL_REL}), argmax agreement '
+        f'{(gpu.argmax(1) == cpu.argmax(1)).float().mean().item():.6f}')
+    if not (torch.isfinite(gpu).all() and gpu.shape == (1, NUM_CLASSES, 512,
+                                                        512)
+            and err <= MODEL_TOL_REL * scale):
+        raise AssertionError(f'{tag}: GPU logits {tuple(gpu.shape)} differ '
+                             f'from the CPU run: {err:.3e} > '
+                             f'{MODEL_TOL_REL} * {scale:.3e}')
+    return launches
+
+
+def _serve_tab5(model, imgs, tag):
+    from segdistill_tpu_torch.apis import inference_segmentor
+    lat = []
+    for img in imgs:
+        t0 = time.perf_counter()
+        pred = inference_segmentor(model, img)[0]
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if pred.shape != img.shape[:2] or pred.min() < 0 \
+                or pred.max() >= NUM_CLASSES:
+            raise AssertionError(f'{tag}: bad prediction {pred.shape}')
+    log(f'{tag}: per-request latency ms '
+        + ', '.join(f'{t:.2f}' for t in lat))
+
+
 def _check_launched(launches, path):
     for name, n in launches.items():
         if n <= 0:
@@ -1102,28 +1266,29 @@ def _check_launched(launches, path):
                                  f'{path} path')
 
 
-def _train_batch(batch, seed):
+def _train_batch(batch, seed, hw=512):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    img = torch.randn(batch, 3, 512, 512, device=DEVICE, generator=gen)
-    gt = torch.randint(0, NUM_CLASSES, (batch, 512, 512), device=DEVICE,
+    img = torch.randn(batch, 3, hw, hw, device=DEVICE, generator=gen)
+    gt = torch.randint(0, NUM_CLASSES, (batch, hw, hw), device=DEVICE,
                        generator=gen)
     return img, gt
 
 
-def phase_train(path_kernels, config, options, tag):
+def phase_train(path_kernels, config, options, tag, batch=TRAIN_BATCH,
+                pair='B0 student <- B3 teacher'):
     """The distillation train step of ``config`` with bf16 backbones (and
-    ``options``) at batch 8: -> the launch counts of ``path_kernels`` over
+    ``options``) at ``batch``: -> the launch counts of ``path_kernels`` over
     the timed steps, and the last step's log vars."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
-    log(f'== train: {tag}, B0 student <- B3 teacher, bf16 backbones, batch '
-        f'{TRAIN_BATCH} at 512x512, random weights (seed 0)')
+    log(f'== train: {tag}, {pair}, bf16 backbones, batch {batch} at '
+        f'512x512, random weights (seed 0)')
     t0 = time.perf_counter()
     model = init_segmentor_state(
         str(config), seed=0, device=DEVICE,
         cfg_options=dict(NO_CHECKPOINTS, **BF16_BACKBONES, **options))
     state, train_step = prepare_training(model)
-    img, gt = _train_batch(TRAIN_BATCH, seed=5)
+    img, gt = _train_batch(batch, seed=5)
     log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
     first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
     torch.cuda.synchronize()
@@ -1144,7 +1309,7 @@ def phase_train(path_kernels, config, options, tag):
     log(f'step {state.step}: ' + ', '.join(
         f'{k} {float(v):.6g}' for k, v in sorted(logs[-1].items())))
     log(f'train step {step_ms:.2f} ms, '
-        f'{TRAIN_BATCH * TRAIN_STEPS / seconds:.2f} images/s over '
+        f'{batch * TRAIN_STEPS / seconds:.2f} images/s over '
         f'{TRAIN_STEPS} steps; peak memory allocated {peak / 2**30:.2f} GiB')
     log(f'launches during the {tag} training path: {launches}')
     _check_launched(launches, f'{tag} training')
@@ -1169,21 +1334,54 @@ def _loss_and_grads(model, img, gt, perm):
              model.student.named_parameters()})
 
 
-def phase_train_vs_cpu(config, options, tag):
+@contextlib.contextmanager
+def _float64_kept():
+    """Within the block, ``Tensor.float()`` leaves a float64 tensor as it
+    is: the plain versions and the norms upcast their inputs to fp32 with
+    it, which a float64 reference step must not do."""
+    upcast = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 \
+        else upcast(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = upcast
+
+
+def _float64_grads(cpu_model, img, gt, perm):
+    """The student gradients of the step run in float64 on the CPU."""
+    model = copy.deepcopy(cpu_model).double()
+    for part in (model.student, model.teacher):
+        part.backbone.dtype = torch.float64
+    with _float64_kept():
+        return _loss_and_grads(model, img.double(), gt, perm)
+
+
+def _grad_rel_l2(got, want):
+    num = sum(float((got[n].double() - g.double()).square().sum())
+              for n, g in want.items())
+    return math.sqrt(num / sum(float(g.double().square().sum())
+                               for g in want.values()))
+
+
+def phase_train_vs_cpu(config, options, tag, batch=2, hw=512,
+                       pair='B0 <- B3', no_drop=(NO_DROP, NO_DROP_PATH_S),
+                       float64_grads=False):
+    """One fp32 train step on the card against the same step on the CPU:
+    the loss terms and the student gradients; with ``float64_grads`` the
+    gradients against the CPU step in float64 (TRAIN_GRAD_TOL_REL_L2's
+    note)."""
     from segdistill_tpu_torch.apis import init_segmentor_state
     log(f'== train step, fp32 GPU (kernels) vs CPU (plain versions): the '
-        f'same B0 <- B3 {tag} model, batch 2 at 512x512, dropout and '
+        f'same {pair} {tag} model, batch {batch} at {hw}x{hw}, dropout and '
         f'drop-path 0, step 1000 (a CGD step: one seeded channel '
         f'permutation)')
     model = init_segmentor_state(
         str(config), seed=0, device=DEVICE,
-        cfg_options=dict(NO_CHECKPOINTS, **options, **{
-            'model.cfg_s.decode_head.dropout_ratio': 0.0,
-            'model.cfg_t.decode_head.dropout_ratio': 0.0,
-            'model.cfg_s.backbone.drop_path_rate': 0.0,
-            'model.cfg_t.backbone.drop_path_rate': 0.0}))
+        cfg_options=dict(NO_CHECKPOINTS, **options,
+                         **{k: v for d in no_drop for k, v in d.items()}))
     cpu_model = copy.deepcopy(model).cpu()
-    img, gt = _train_batch(2, seed=6)
+    img, gt = _train_batch(batch, seed=6, hw=hw)
     perm = torch.randperm(NUM_CLASSES,
                           generator=torch.Generator().manual_seed(7))
     gpu_losses, gpu_grads = _loss_and_grads(model, img, gt,
@@ -1199,14 +1397,22 @@ def phase_train_vs_cpu(config, options, tag):
                                   + TRAIN_LOSS_TOL_ABS))
         log(f'  {k}: GPU {gpu_losses[k]:.9g} CPU {want:.9g} abs err '
             f'{err:.3e} relative {err / max(abs(want), 1e-30):.3e}')
-    num = sum(float((gpu_grads[n] - g).square().sum())
-              for n, g in cpu_grads.items())
-    den = sum(float(g.square().sum()) for g in cpu_grads.values())
-    grad_rel = math.sqrt(num / den)
+    grad_rel = _grad_rel_l2(gpu_grads, cpu_grads)
+    against = 'the CPU step'
+    if float64_grads:
+        t0 = time.perf_counter()
+        _, f64_grads = _float64_grads(cpu_model, img.cpu(), gt.cpu(), perm)
+        gpu64 = _grad_rel_l2(gpu_grads, f64_grads)
+        log(f'CPU float64 step {time.perf_counter() - t0:.1f} s; fp32 '
+            f'gradients against it: GPU {gpu64:.3e}, CPU '
+            f'{_grad_rel_l2(cpu_grads, f64_grads):.3e}; GPU against the CPU '
+            f'fp32 step {grad_rel:.3e}')
+        grad_rel = gpu64
+        against = 'the CPU step in float64'
     log(f'loss terms: {worst:.3f} of the limit {TRAIN_LOSS_TOL_REL} * '
         f'|loss| + {TRAIN_LOSS_TOL_ABS} used at most; student gradients: '
-        f'relative L2 err {grad_rel:.3e} over {len(cpu_grads)} tensors '
-        f'(limit {TRAIN_GRAD_TOL_REL_L2})')
+        f'relative L2 err {grad_rel:.3e} against {against} over '
+        f'{len(cpu_grads)} tensors (limit {TRAIN_GRAD_TOL_REL_L2})')
     if not (worst <= 1.0 and grad_rel <= TRAIN_GRAD_TOL_REL_L2):
         raise AssertionError('the GPU train step differs from the CPU one')
 
@@ -1546,6 +1752,26 @@ def main():
     paths.append(pd_launches)
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
     paths.append(phase_cli(cgd_kernels))
+    # the Tab5 PSP and Swin students: serving, the timed CGD steps (the PSP
+    # student has no LayerNorm: K11 runs only on the Swin path), and fp32
+    # steps against the CPU, where the PSP pair takes K3/K4 and K7/K8 at
+    # two sizes and Swin's last PatchMerging norm K10/K11 at C = 1536
+    paths.append(phase_serving_tab5(PSP_BASELINE, [], 'PSP'))
+    paths.append(phase_serving_tab5(SWIN_BASELINE, [k10], 'Swin'))
+    paths.append(phase_train([k1, k3, k4, k5, k6, k10], PSP_CGD, {},
+                             'psp_CGD', TAB5_BATCH,
+                             'PSPNet-R50 student <- B3 teacher')[0])
+    paths.append(phase_train([k1, k3, k4, k5, k6, k10, k11], SWIN_CGD, {},
+                             'swin_CGD', TAB5_BATCH,
+                             'Swin-T + UPerHead student <- B3 teacher')[0])
+    tab5_vs_cpu = dict(batch=TAB5_VS_CPU_BATCH, hw=TAB5_VS_CPU_HW)
+    tab5_vs_cpu = dict(tab5_vs_cpu, float64_grads=True)
+    phase_train_vs_cpu(PSP_CGD, {}, 'psp_CGD', pair='PSPNet-R50 <- B3',
+                       no_drop=(NO_DROP,), **tab5_vs_cpu)
+    phase_train_vs_cpu(PSP_PD, {}, 'psp_PD', pair='PSPNet-R50 <- B3',
+                       no_drop=(NO_DROP,), **tab5_vs_cpu)
+    phase_train_vs_cpu(SWIN_CGD, {}, 'swin_CGD', pair='Swin-T <- B3',
+                       **tab5_vs_cpu)
     _check_ln_tickets('after the train steps')
     _check_fwd_tickets('after the train steps')
     for path in paths:
@@ -1582,7 +1808,8 @@ def main():
         if k is k10:  # the queued floor of an empty kernel on K10's grid
             entries[-1]['floor_ms'] = k10_floor
     log('launches per path: ' + json.dumps(
-        dict(zip(('serving', 'CGD', 'PD', 'command line'), paths))))
+        dict(zip(('serving', 'CGD', 'PD', 'command line', 'PSP serving',
+                  'Swin serving', 'psp_CGD', 'swin_CGD'), paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 from .inference import (LoadImage, inference_segmentor, init_segmentor,
-                        load_checkpoint, serving_pipeline)
+                        load_checkpoint, serving_pipeline,
+                        student_config)
 from .test import fast_evaluate, single_device_test
 from .train import (init_segmentor_state, prepare_training, set_random_seed,
                     train_segmentor)
 
 __all__ = ['LoadImage', 'inference_segmentor', 'init_segmentor',
-           'load_checkpoint', 'single_device_test', 'fast_evaluate',
-           'serving_pipeline', 'init_segmentor_state', 'prepare_training',
-           'set_random_seed', 'train_segmentor']
+           'load_checkpoint', 'student_config', 'single_device_test',
+           'fast_evaluate', 'serving_pipeline', 'init_segmentor_state',
+           'prepare_training', 'set_random_seed', 'train_segmentor']

@@ -14,7 +14,10 @@ from .test import _as_lists, _predict_one
 
 def load_checkpoint(model, path, strict=True):
     """Load a reference-layout ``.pth`` (a state dict, or a dict holding
-    one under 'state_dict'), strictly by default.
+    one under 'state_dict'), strictly by default. With ``strict=False``,
+    as the JAX package's loader is lenient, a key the model lacks or whose
+    shape differs is skipped and a key the file lacks keeps its value;
+    the counts are logged.
 
     The reference BaseDecodeHead always builds a ``conv_seg`` classifier,
     which SegFormerHead never runs; published SegFormer checkpoints carry
@@ -27,6 +30,14 @@ def load_checkpoint(model, path, strict=True):
     own = model.state_dict()
     state = {k: v for k, v in state.items()
              if k in own or not k.startswith('decode_head.conv_seg.')}
+    if not strict:
+        take = {k: v for k, v in state.items()
+                if k in own and tuple(v.shape) == tuple(own[k].shape)}
+        get_root_logger().info(
+            f'loaded {path}: {len(take)} tensors matched, '
+            f'{len(own) - len(take)} missing, '
+            f'{len(state) - len(take)} unexpected')
+        state = take
     model.load_state_dict(state, strict=strict)
     return model
 
@@ -63,24 +74,42 @@ def load_backbone_checkpoint(model, path):
     return sorted(take), missing, unexpected
 
 
+def student_config(cfg):
+    """``cfg`` with the student's config as its model where the model is a
+    distillation module (SDModule): serving and evaluation are the
+    student's, and a training checkpoint holds the student alone."""
+    if cfg.model.get('type') != 'SDModule':
+        return cfg
+    cfg = cfg.copy()
+    student = dict(cfg.model['cfg_s'])
+    student.setdefault('test_cfg', cfg.model.get('test_cfg'))
+    cfg.model = student
+    return cfg
+
+
 def init_segmentor(config, checkpoint=None, device='cuda', seed=0,
                    cfg_options=None):
     """Build a segmentor from a config (path or :class:`Config`) with
     ``cfg_options`` (dotted keys, as ``--cfg-options`` takes them) merged
     into a copy, initialise it from ``torch.Generator().manual_seed(seed)``,
-    load ``checkpoint`` if given, and move it to ``device`` in eval mode
-    (ref inference.py:11-39)."""
+    load ``checkpoint`` if given, leniently (:func:`load_checkpoint` with
+    ``strict=False``), and move it to ``device`` in eval mode (ref
+    inference.py:11-39). For a distillation config (SDModule) the model is
+    the student (:func:`student_config`), which the checkpoint fills, as
+    the JAX ``init_segmentor`` loads into the student; ``model.cfg`` is
+    then the config with the student as its model."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     if cfg_options:
         config = config.copy()
         config.merge_from_dict(cfg_options)
+    config = student_config(config)
     model_cfg = dict(config.model)
     model_cfg.pop('pretrained', None)
     model = build_segmentor(model_cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint is not None:
-        load_checkpoint(model, checkpoint)
+        load_checkpoint(model, checkpoint, strict=False)
     model.cfg = config
     return model.to(device).eval()
 

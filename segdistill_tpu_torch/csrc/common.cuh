@@ -355,6 +355,14 @@ bool tile_plan_ok(int B, int C, int h, int w, int H, int W, int tile, int rh,
                                  Loss::kSrcMaps);
 }
 
+// The gather plan (tile 0, no rectangle and no bytes, a grid of B * C
+// rows), which a student and a teacher of different sizes always take.
+inline bool gather_plan_ok(int B, int C, int tile, int rh, int rw, int smem,
+                           int cpc) {
+  return tile == 0 && !rh && !rw && !smem && cpc >= 1 && cpc <= C &&
+         static_cast<long long>(B) * C <= 65535;
+}
+
 template <typename T, typename Loss>
 __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
     tile_bwd(const Loss loss, const T* __restrict__ x0,

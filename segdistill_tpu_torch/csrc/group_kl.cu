@@ -48,6 +48,15 @@
 // gkl_finalize below; the variant follows from the shapes alone, and the
 // wrapper's plan must agree or the launch is refused.
 //
+// A student and a teacher of different sizes (the PSP student's logits at
+// stride 8 against the B3 teacher's at stride 4) are each upsampled at
+// their own ratio, as the reference resizes each map to the label size
+// before the KL. Such a pair takes the gather variants (gkl_sum and
+// gkl_finalize forward, gkl_bwd backward, instantiated with kTwo), with
+// the teacher's taps and plane its own: the tiles of fwd_tile and tile_bwd
+// stage one window of one geometry. Same-size pairs keep the plans and
+// kernels below unchanged.
+//
 // K4 is the tile kernel of common.cuh (tile_bwd) with the loss gkl_tile, as
 // K6 is with its own. What bounded the gather it replaces: one thread per
 // source element walked the ~(2r)^2 outputs that read it and evaluated
@@ -85,14 +94,15 @@ using namespace segdistill;
 
 // Pass 1: partial maxima of one group's source values, student and
 // teacher: block (bk, split) takes the split-th slice of each of the
-// group's planes in turn.
+// group's planes in turn (hws and hwt the student's and the teacher's
+// plane).
 // It also sets the tile variant's tickets (one a group and one for all,
 // `tickets`, or null) to 0 for the launch that follows on its stream.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gkl_max(const T* __restrict__ xs, const T* __restrict__ xt,
-            const int* __restrict__ perm, int C, int g, int K, int hw,
-            float* __restrict__ pmax, int* __restrict__ tickets) {
+            const int* __restrict__ perm, int C, int g, int K, int hws,
+            int hwt, float* __restrict__ pmax, int* __restrict__ tickets) {
   const int bk = blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
@@ -103,18 +113,26 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bk / K;
   const int k = bk - b * K;
   const int n = min(g, C - k * g);
-  const int chunk = (hw + splits - 1) / splits;
+  const int chunk = (hws + splits - 1) / splits;
   const int lo = split * chunk;
-  const int hi = min(hw, lo + chunk);
+  const int hi = min(hws, lo + chunk);
   float v[2] = {-INFINITY, -INFINITY};
   for (int l = 0; l < n; ++l) {
-    const long long off = (static_cast<long long>(b) * C + perm[k * g + l]) *
-                          hw;
-    const T* s = xs + off;
-    const T* t = xt + off;
-    for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-      v[0] = fmaxf(v[0], to_f32(s[i]));
-      v[1] = fmaxf(v[1], to_f32(t[i]));
+    const long long ch = static_cast<long long>(b) * C + perm[k * g + l];
+    const T* s = xs + ch * hws;
+    const T* t = xt + ch * hwt;
+    if (hwt == hws) {
+      for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+        v[0] = fmaxf(v[0], to_f32(s[i]));
+        v[1] = fmaxf(v[1], to_f32(t[i]));
+      }
+    } else {
+      for (int i = lo + threadIdx.x; i < hi; i += kThreads)
+        v[0] = fmaxf(v[0], to_f32(s[i]));
+      const int chunk_t = (hwt + splits - 1) / splits;
+      const int hi_t = min(hwt, (split + 1) * chunk_t);
+      for (int i = split * chunk_t + threadIdx.x; i < hi_t; i += kThreads)
+        v[1] = fmaxf(v[1], to_f32(t[i]));
     }
   }
   block_max<2>(v);
@@ -251,15 +269,17 @@ struct gkl_fwd_tile {
 };
 
 // The gather variant of K3's forward, for shapes whose windows the tile
-// does not stage (ratios near 1 and below): pass 2, partial (Z_s, Z_t, W)
-// over a slice of one group's upsampled values, each from its four taps
-// in global memory, then gkl_finalize.
-template <typename T>
+// does not stage (ratios near 1 and below) and for a teacher of another
+// size than the student (kTwo: its taps from its own (ht, wt)): pass 2,
+// partial (Z_s, Z_t, W) over a slice of one group's upsampled values, each
+// from its four taps in global memory, then gkl_finalize.
+template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     gkl_sum(const T* __restrict__ xs, const T* __restrict__ xt,
             const int* __restrict__ perm, int C, int g, int K, int h, int w,
-            int H, int W, float inv_tau, const float* __restrict__ pmax,
-            int max_splits, float* __restrict__ psum) {
+            int ht, int wt, int H, int W, float inv_tau,
+            const float* __restrict__ pmax, int max_splits,
+            float* __restrict__ psum) {
   const int bk = blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
@@ -273,6 +293,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lo = split * chunk;
   const int hi = min(n, lo + chunk);
   const long long plane = static_cast<long long>(h) * w;
+  const long long plane_t = static_cast<long long>(ht) * wt;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int idx = lo + threadIdx.x; idx < hi; idx += kThreads) {
     const int l = idx / HW;
@@ -280,10 +301,15 @@ __global__ void __launch_bounds__(kThreads)
     const int y = r / W;
     const Tap ty = tap(y, h, H);
     const Tap tx = tap(r - y * W, w, W);
-    const long long base =
-        (static_cast<long long>(b) * C + perm[k * g + l]) * plane;
-    const float ds = (bilerp(xs + base, w, ty, tx) - ms) * inv_tau;
-    const float dt = (bilerp(xt + base, w, ty, tx) - mt) * inv_tau;
+    const long long ch = static_cast<long long>(b) * C + perm[k * g + l];
+    const float ds = (bilerp(xs + ch * plane, w, ty, tx) - ms) * inv_tau;
+    float dt;
+    if constexpr (kTwo) {
+      dt = (bilerp(xt + ch * plane_t, wt, tap(y, ht, H),
+                   tap(r - y * W, wt, W)) - mt) * inv_tau;
+    } else {
+      dt = (bilerp(xt + ch * plane, w, ty, tx) - mt) * inv_tau;
+    }
     const float et = expf(dt);
     acc[0] += expf(ds);
     acc[1] += et;
@@ -358,13 +384,14 @@ struct gkl_tile {
   __device__ float scale() const { return gbar[0] * inv_tau * inv_bk; }
 };
 
-// The gather variant of K4, for shapes no tile fits: dL/dxs for one source
-// element, written to its source channel.
-template <typename T>
+// The gather variant of K4, for shapes no tile fits and for a teacher of
+// another size (kTwo: its taps from its own (ht, wt) at each output):
+// dL/dxs for one source element, written to its source channel.
+template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     gkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt,
             const int* __restrict__ perm, int C, int g, int K, int h, int w,
-            int H, int W, float inv_tau, float inv_bk,
+            int ht, int wt, int H, int W, float inv_tau, float inv_bk,
             const float* __restrict__ stats, const float* __restrict__ gbar,
             T* __restrict__ dxs) {
   const int hw = h * w;
@@ -377,10 +404,10 @@ __global__ void __launch_bounds__(kThreads)
   const float mt = st[1];
   const float izs = 1.0f / st[2];
   const float izt = 1.0f / st[3];
-  const long long base =
-      (static_cast<long long>(b) * C + perm[pos]) * static_cast<long long>(hw);
+  const long long ch = static_cast<long long>(b) * C + perm[pos];
+  const long long base = ch * hw;
   const T* s = xs + base;
-  const T* t = xt + base;
+  const T* t = xt + (kTwo ? ch * ht * wt : base);
   const int i = p / w;
   const int j = p - i * w;
   const int x_start = first_reader(j, w, W);
@@ -390,42 +417,55 @@ __global__ void __launch_bounds__(kThreads)
     if (ty.i0 > i) break;
     const float wy = tap_weight(ty, i);
     if (wy == 0.0f) continue;
+    const Tap tyt = kTwo ? tap(y, ht, H) : ty;
     for (int x = x_start; x < W; ++x) {
       const Tap tx = tap(x, w, W);
       if (tx.i0 > j) break;
       const float wx = tap_weight(tx, j);
       if (wx == 0.0f) continue;
       const float ps = expf((bilerp(s, w, ty, tx) - ms) * inv_tau) * izs;
-      const float pt = expf((bilerp(t, w, ty, tx) - mt) * inv_tau) * izt;
+      const float pt =
+          kTwo ? expf((bilerp(t, wt, tyt, tap(x, wt, W)) - mt) * inv_tau) * izt
+               : expf((bilerp(t, w, ty, tx) - mt) * inv_tau) * izt;
       acc += wy * wx * (ps - pt);
     }
   }
   dxs[base + p] = from_f32<T>(acc * gbar[0] * inv_tau * inv_bk);
 }
 
-bool bad_shape(int B, int C, int h, int w, int H, int W, int g) {
+bool bad_shape(int B, int C, int h, int w, int ht, int wt, int H, int W,
+               int g) {
   const long long lim = 0x7fffffffLL;
-  return B < 1 || C < 1 || h < 1 || w < 1 || H < 1 || W < 1 || g < 1 ||
-         static_cast<long long>(g) * H * W > lim ||
+  return B < 1 || C < 1 || h < 1 || w < 1 || ht < 1 || wt < 1 || H < 1 ||
+         W < 1 || g < 1 || static_cast<long long>(g) * H * W > lim ||
          static_cast<long long>(h) * w > lim ||
+         static_cast<long long>(ht) * wt > lim ||
          static_cast<long long>(B) * ((C + g - 1) / g) > lim;
 }
 
 template <typename T>
 cudaError_t launch_fwd(const void* xs, const void* xt, const int* perm,
-                       int B, int C, int h, int w, int H, int W, int g,
-                       float inv_tau, int oh, int max_splits, int sum_splits,
-                       float* pmax, float* psum, float* stats, float* loss,
-                       cudaStream_t s) {
+                       int B, int C, int h, int w, int ht, int wt, int H,
+                       int W, int g, float inv_tau, int oh, int max_splits,
+                       int sum_splits, float* pmax, float* psum,
+                       float* stats, float* loss, cudaStream_t s) {
   const int K = (C + g - 1) / g;
   const int BK = B * K;
   const T* a = static_cast<const T*>(xs);
   const T* b = static_cast<const T*>(xt);
   if (oh == 0) {
     gkl_max<T><<<dim3(BK, max_splits), kThreads, 0, s>>>(
-        a, b, perm, C, g, K, h * w, pmax, nullptr);
-    gkl_sum<T><<<dim3(BK, sum_splits), kThreads, 0, s>>>(
-        a, b, perm, C, g, K, h, w, H, W, inv_tau, pmax, max_splits, psum);
+        a, b, perm, C, g, K, h * w, ht * wt, pmax, nullptr);
+    const dim3 grid(BK, sum_splits);
+    if (ht != h || wt != w) {
+      gkl_sum<T, true><<<grid, kThreads, 0, s>>>(a, b, perm, C, g, K, h, w,
+                                                 ht, wt, H, W, inv_tau, pmax,
+                                                 max_splits, psum);
+    } else {
+      gkl_sum<T, false><<<grid, kThreads, 0, s>>>(a, b, perm, C, g, K, h, w,
+                                                  h, w, H, W, inv_tau, pmax,
+                                                  max_splits, psum);
+    }
     gkl_finalize<<<1, kThreads, 0, s>>>(BK, pmax, max_splits, psum,
                                         sum_splits, stats, loss);
     return cudaSuccess;
@@ -435,7 +475,7 @@ cudaError_t launch_fwd(const void* xs, const void* xt, const int* perm,
   float* kl = psum + BK * tiles * 3;
   int* tickets = reinterpret_cast<int*>(kl + BK);
   gkl_max<T><<<dim3(BK, max_splits), kThreads, 0, s>>>(
-      a, b, perm, C, g, K, h * w, pmax, tickets);
+      a, b, perm, C, g, K, h * w, h * w, pmax, tickets);
   const gkl_fwd_tile<T> fwd{a, b, perm, pmax, psum, kl, tickets, stats, loss,
                             C, g, K, max_splits,
                             static_cast<long long>(h) * w, inv_tau * kLog2e};
@@ -444,16 +484,25 @@ cudaError_t launch_fwd(const void* xs, const void* xt, const int* perm,
 
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* xt, const int* perm,
-                       int B, int C, int h, int w, int H, int W, int g,
-                       float inv_tau, const float* stats, const float* gbar,
-                       void* dxs, int tile, int cpc, cudaStream_t s) {
+                       int B, int C, int h, int w, int ht, int wt, int H,
+                       int W, int g, float inv_tau, const float* stats,
+                       const float* gbar, void* dxs, int tile, int cpc,
+                       cudaStream_t s) {
   const int K = (C + g - 1) / g;
   const float inv_bk = 1.0f / static_cast<float>(B * K);
   if (tile == 0) {
     const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
-    gkl_bwd<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(xs), static_cast<const T*>(xt), perm, C, g, K,
-        h, w, H, W, inv_tau, inv_bk, stats, gbar, static_cast<T*>(dxs));
+    const T* a = static_cast<const T*>(xs);
+    const T* b = static_cast<const T*>(xt);
+    if (ht != h || wt != w) {
+      gkl_bwd<T, true><<<grid, kThreads, 0, s>>>(
+          a, b, perm, C, g, K, h, w, ht, wt, H, W, inv_tau, inv_bk, stats,
+          gbar, static_cast<T*>(dxs));
+    } else {
+      gkl_bwd<T, false><<<grid, kThreads, 0, s>>>(
+          a, b, perm, C, g, K, h, w, h, w, H, W, inv_tau, inv_bk, stats,
+          gbar, static_cast<T*>(dxs));
+    }
     return cudaSuccess;
   }
   const gkl_tile loss{perm, stats, gbar, g, K, inv_tau, inv_bk};
@@ -463,37 +512,41 @@ cudaError_t launch_bwd(const void* xs, const void* xt, const int* perm,
 
 }  // namespace
 
-// xs, xt: (B, C, h, w) contiguous, both float32 (dtype 0) or bfloat16 (1).
-// perm: int32 (C,) on the device, shuffled position -> source channel.
-// The wrapper's plan: oh, the rows of an output tile (0: the gather
-// variant), wy, wx and smem, the window and the shared bytes it expects (0
-// with the gather variant); a plan that differs from this file's is
-// refused. Scratch from the caller, float32: pmax (B*K*max_splits*2) and
+// xs: (B, C, h, w) and xt: (B, C, ht, wt) contiguous, both float32 (dtype
+// 0) or bfloat16 (1). perm: int32 (C,) on the device, shuffled position ->
+// source channel. The wrapper's plan: oh, the rows of an output tile (0:
+// the gather variant, the only one for a teacher of another size), wy, wx
+// and smem, the window and the shared bytes it expects (0 with the gather
+// variant); a plan that differs from this file's is refused. Scratch from the caller, float32: pmax (B*K*max_splits*2) and
 // psum, of B*K*sum_splits*3 floats for the gather variant and, for the
 // tile variant, B*K*tiles*3 partials, B*K KLs and B*K + 1 int32 tickets
 // (tiles = ceil(H / oh) * ceil(W / 64); sum_splits unused). Outputs:
 // stats (B*K*4) float32 and loss (1) float32.
 extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
-                            int B, int C, int h, int w, int H, int W, int g,
-                            float tau, int dtype, int oh, int wy, int wx,
-                            int smem, int max_splits, int sum_splits,
-                            float* pmax, float* psum, float* stats,
-                            float* loss, void* stream) {
-  if (bad_shape(B, C, h, w, H, W, g) || !(tau > 0.0f) || max_splits < 1 ||
-      max_splits > 65535 || sum_splits < 1 || sum_splits > 65535 ||
-      !fwd_plan_ok<gkl_fwd_tile<float>>(h, w, H, W, oh, wy, wx, smem)) {
+                            int B, int C, int h, int w, int ht, int wt,
+                            int H, int W, int g, float tau, int dtype, int oh,
+                            int wy, int wx, int smem, int max_splits,
+                            int sum_splits, float* pmax, float* psum,
+                            float* stats, float* loss, void* stream) {
+  const bool two = ht != h || wt != w;
+  const bool plan_ok =
+      two ? !(oh || wy || wx || smem)
+          : fwd_plan_ok<gkl_fwd_tile<float>>(h, w, H, W, oh, wy, wx, smem);
+  if (bad_shape(B, C, h, w, ht, wt, H, W, g) || !(tau > 0.0f) ||
+      max_splits < 1 || max_splits > 65535 || sum_splits < 1 ||
+      sum_splits > 65535 || !plan_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_fwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
-                            oh, max_splits, sum_splits, pmax, psum, stats,
-                            loss, s);
+    err = launch_fwd<float>(xs, xt, perm, B, C, h, w, ht, wt, H, W, g,
+                            1.0f / tau, oh, max_splits, sum_splits, pmax,
+                            psum, stats, loss, s);
   } else if (dtype == 1) {
-    err = launch_fwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g,
-                                    1.0f / tau, oh, max_splits, sum_splits,
-                                    pmax, psum, stats, loss, s);
+    err = launch_fwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, ht, wt, H, W,
+                                    g, 1.0f / tau, oh, max_splits,
+                                    sum_splits, pmax, psum, stats, loss, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -502,27 +555,32 @@ extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
 // stats: the forward's; gbar: the loss's incoming gradient, float32 (1)
 // on the device. dxs: (B, C, h, w) in the inputs' dtype, every element
 // written. The wrapper's plan: tile, the edge of a block's source tile (16,
-// 8 or 4; 0 for the gather variant), rh, rw and smem, the rectangle and the
-// shared bytes it expects (0 with the gather variant), and cpc, the
-// positions a block takes. A plan that differs from this file's is refused.
+// 8 or 4; 0 for the gather variant, the only one for a teacher of another
+// size), rh, rw and smem, the rectangle and the shared bytes it expects (0
+// with the gather variant), and cpc, the positions a block takes. A plan
+// that differs from this file's is refused.
 extern "C" int group_kl_bwd(const void* xs, const void* xt, const int* perm,
-                            int B, int C, int h, int w, int H, int W, int g,
-                            float tau, int dtype, const float* stats,
-                            const float* gbar, void* dxs, int tile, int rh,
-                            int rw, int smem, int cpc, void* stream) {
-  if (bad_shape(B, C, h, w, H, W, g) || !(tau > 0.0f) ||
-      !tile_plan_ok<gkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc)) {
+                            int B, int C, int h, int w, int ht, int wt,
+                            int H, int W, int g, float tau, int dtype,
+                            const float* stats, const float* gbar, void* dxs,
+                            int tile, int rh, int rw, int smem, int cpc,
+                            void* stream) {
+  const bool two = ht != h || wt != w;
+  const bool plan_ok =
+      two ? gather_plan_ok(B, C, tile, rh, rw, smem, cpc)
+          : tile_plan_ok<gkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc);
+  if (bad_shape(B, C, h, w, ht, wt, H, W, g) || !(tau > 0.0f) || !plan_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_bwd<float>(xs, xt, perm, B, C, h, w, H, W, g, 1.0f / tau,
-                            stats, gbar, dxs, tile, cpc, s);
+    err = launch_bwd<float>(xs, xt, perm, B, C, h, w, ht, wt, H, W, g,
+                            1.0f / tau, stats, gbar, dxs, tile, cpc, s);
   } else if (dtype == 1) {
-    err = launch_bwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, H, W, g,
-                                    1.0f / tau, stats, gbar, dxs, tile, cpc,
-                                    s);
+    err = launch_bwd<__nv_bfloat16>(xs, xt, perm, B, C, h, w, ht, wt, H, W,
+                                    g, 1.0f / tau, stats, gbar, dxs, tile,
+                                    cpc, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -191,8 +191,11 @@ __device__ __forceinline__ float centre(const T* __restrict__ row, bool active,
 
 // the most values a lane of the forward holds (ops/ln_plan.py MAX_VALUES),
 // the largest block
-constexpr int kFwdMaxValues = 40;
+constexpr int kFwdMaxValues = 48;
 constexpr int kFwdMaxThreads = 256;
+// the widest row either kernel takes: 32 lanes of 48 values (the forward's
+// (32, 6) and (32, 12) instances, the backward's mult 6)
+constexpr int kMaxC = 1536;
 
 // The lane's vectors of one row, widened to fp32; zeros past the row's end
 // or for a row past the last.
@@ -383,9 +386,10 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kGroups = kThreads / G;
   // one (warps, C) plane, C <= G * NCH * V; the last block's (slices, 2 C)
   constexpr int kPlane = (kThreads / 32) * G * NCH * V;
+  // at C = 1536 the plane is 48 KB, all the static shared memory a block
+  // may hold: the last-block flags below go through __syncthreads_or
   __shared__ __align__(16) float sh[kPlane > 4 * kThreads ? kPlane
                                                           : 4 * kThreads];
-  __shared__ bool last;
   const int lane = threadIdx.x % G;
   const int group = threadIdx.x / G;
   const int nvec = C / V;
@@ -488,9 +492,9 @@ __global__ void __launch_bounds__(kThreads)
   const int gsize = min(kGroupBlocks, static_cast<int>(gridDim.x) - first);
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(tickets + 1 + grp, 1u) == gsize - 1;
-  __syncthreads();
-  if (!last) return;
+  if (!__syncthreads_or(threadIdx.x == 0 &&
+                        atomicAdd(tickets + 1 + grp, 1u) == gsize - 1))
+    return;
   __threadfence();
   sum_partials(part + static_cast<long long>(first) * ncol, gsize, ncol,
                gpart + static_cast<long long>(grp) * ncol, sh);
@@ -498,9 +502,9 @@ __global__ void __launch_bounds__(kThreads)
   __threadfence();
   __syncthreads();
   const int groups = (gridDim.x + kGroupBlocks - 1) / kGroupBlocks;
-  if (threadIdx.x == 0) last = atomicAdd(tickets, 1u) == groups - 1;
-  __syncthreads();
-  if (!last) return;
+  if (!__syncthreads_or(threadIdx.x == 0 &&
+                        atomicAdd(tickets, 1u) == groups - 1))
+    return;
   __threadfence();
   sum_partials(gpart, groups, ncol, dwdb, sh);
   if (threadIdx.x == 0) tickets[0] = 0u;
@@ -544,16 +548,17 @@ void launch_bwd(const void* x, long long sx, const void* dy, long long sdy,
 }
 
 // Lanes per row for width C: the fewest of 4, 8, 16, 32 that keep a lane
-// at per_lane values, with *mult = 1; beyond 32 lanes a lane holds 2 or 4
-// times per_lane (*mult), up to C = 1024; -1 for an unsupported width.
+// at per_lane values, with *mult = 1; beyond 32 lanes a lane holds 2, 4 or
+// 6 times per_lane (*mult: 2 up to C = 512, 4 up to 1024, 6 up to 1536,
+// Swin's last PatchMerging norm); -1 for an unsupported width.
 // The backward holds 8 values a lane: it keeps x, dy and two running sums, and at 16 its ~106 registers leave an SM two blocks
 // of loads in flight, too few for the memory's latency.
 int lanes_for(int C, int per_lane, int* mult) {
   *mult = 1;
-  if (C <= 0 || C % 8 != 0 || C > 1024) return -1;
+  if (C <= 0 || C % 8 != 0 || C > kMaxC) return -1;
   for (int g = 4; g <= 32; g *= 2)
     if (C <= per_lane * g) return g;
-  while (C > *mult * per_lane * 32) *mult *= 2;
+  while (C > *mult * per_lane * 32) *mult += *mult < 4 ? *mult : 2;
   return 32;
 }
 
@@ -575,6 +580,7 @@ bool bad_rows(int rows, long long stride, int C) {
   X(1, __nv_bfloat16, 16, 2, 1)    \
   X(1, __nv_bfloat16, 16, 4, 1)    \
   X(1, __nv_bfloat16, 32, 4, 1)    \
+  X(1, __nv_bfloat16, 32, 6, 1)    \
   X(1, __nv_bfloat16, 4, 1, 2)     \
   X(1, __nv_bfloat16, 8, 1, 2)     \
   X(1, __nv_bfloat16, 16, 1, 2)    \
@@ -588,6 +594,7 @@ bool bad_rows(int rows, long long stride, int C) {
   X(0, float, 16, 5, 1)            \
   X(0, float, 32, 4, 1)            \
   X(0, float, 32, 8, 1)            \
+  X(0, float, 32, 12, 1)           \
   X(0, float, 8, 1, 2)             \
   X(0, float, 16, 1, 2)
 
@@ -638,7 +645,8 @@ bool dispatch_bwd(const void* x, long long sx, const void* dy, long long sdy,
     case 32:
       if (mult == 1) LN_BWD(32, B);
       else if (mult == 2) LN_BWD(32, 2 * B);
-      else LN_BWD(32, 4 * B);
+      else if (mult == 4) LN_BWD(32, 4 * B);
+      else LN_BWD(32, 6 * B);
       break;
     default: return false;
   }
@@ -661,7 +669,7 @@ int bwd_blocks_needed(int rows, int C) {
 
 // x: rows of C values in float32 (dtype 0) or bfloat16 (1), row r at
 // x + r * sx elements, every row 16-byte aligned; w, b: (C,) float32.
-// y: (rows, C) contiguous in x's dtype. C % 8 == 0 and C <= 1024. lanes,
+// y: (rows, C) contiguous in x's dtype. C % 8 == 0 and C <= kMaxC. lanes,
 // nch, rif (rows in flight), threads, blocks: the plan of
 // ops/ln_plan.py::forward_plan; pdl: launch as a programmatic dependent
 // launch.
@@ -670,7 +678,7 @@ extern "C" int layer_norm_fwd(const void* x, long long sx, const float* w,
                               int dtype, void* y, int lanes, int nch, int rif,
                               int threads, int blocks, int pdl,
                               void* stream) {
-  if (bad_rows(rows, sx, C) || C % 8 != 0 || C > 1024)
+  if (bad_rows(rows, sx, C) || C % 8 != 0 || C > kMaxC)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok = (dtype == 0 || dtype == 1) &&
                   dispatch_fwd(dtype, x, sx, w, b, rows, C, eps, y, lanes,

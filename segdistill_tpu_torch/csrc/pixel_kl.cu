@@ -44,6 +44,14 @@
 // the gather variant, pkl_fwd and pkl_finalize; the variant follows from the
 // shapes alone, and the wrapper's plan must agree or the launch is refused.
 //
+// A student and a teacher of different sizes (the PSP student at stride 8,
+// the B3 teacher at stride 4) are each upsampled at their own ratio, as the
+// reference resizes each map to the label size before the KL. Such a pair
+// takes the gather variants (pkl_fwd and pkl_finalize forward, pkl_bwd
+// backward, instantiated with kTwo), with the teacher's taps and plane its
+// own: the tiles of fwd_tile and tile_bwd stage one window of one geometry.
+// Same-size pairs keep the plans and kernels below unchanged.
+//
 // K8 is the tile kernel of common.cuh (tile_bwd) with the loss pkl_tile, as
 // K6 is with its own. What bounded the gather it replaces: one thread per
 // source element walked the ~(2r)^2 outputs that read it and evaluated
@@ -192,14 +200,16 @@ struct pkl_fwd_tile {
 };
 
 // The gather variant of K7, for shapes whose windows the tile does not
-// stage (ratios near 1 and below): one thread per output pixel, an online
+// stage (ratios near 1 and below) and for a teacher of another size (kTwo:
+// its taps from its own (ht, wt)): one thread per output pixel, an online
 // softmax of both maps over the channels from four taps each in global
 // memory, then pkl_finalize.
-template <typename T>
+template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     pkl_fwd(const T* __restrict__ xs, const T* __restrict__ xt, int C, int h,
-            int w, int H, int W, float inv_tau, float* __restrict__ lse_s,
-            float* __restrict__ lse_t, float* __restrict__ part) {
+            int w, int ht, int wt, int H, int W, float inv_tau,
+            float* __restrict__ lse_s, float* __restrict__ lse_t,
+            float* __restrict__ part) {
   const int HW = H * W;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
@@ -208,16 +218,19 @@ __global__ void __launch_bounds__(kThreads)
     const int y = p / W;
     const Tap ty = tap(y, h, H);
     const Tap tx = tap(p - y * W, w, W);
+    const Tap tyt = kTwo ? tap(y, ht, H) : ty;
+    const Tap txt = kTwo ? tap(p - y * W, wt, W) : tx;
     const long long plane = static_cast<long long>(h) * w;
-    const long long img = static_cast<long long>(b) * C * plane;
-    const T* sb = xs + img;
-    const T* tb = xt + img;
+    const long long plane_t = kTwo ? static_cast<long long>(ht) * wt : plane;
+    const T* sb = xs + static_cast<long long>(b) * C * plane;
+    const T* tb = xt + static_cast<long long>(b) * C * plane_t;
     float ms = -INFINITY, zs = 0.0f;  // student: running max and exp-sum
     float mt = -INFINITY, zt = 0.0f;  // teacher
     float a = 0.0f;                   // sum e_t (u_t - u_s), at shift mt
     for (int c = 0; c < C; ++c) {
       const float us = bilerp(sb + c * plane, w, ty, tx) * inv_tau;
-      const float ut = bilerp(tb + c * plane, w, ty, tx) * inv_tau;
+      const float ut =
+          bilerp(tb + c * plane_t, kTwo ? wt : w, tyt, txt) * inv_tau;
       if (us > ms) {
         zs = zs * expf(ms - us) + 1.0f;
         ms = us;
@@ -284,11 +297,12 @@ struct pkl_tile {
   __device__ float scale() const { return gbar[0] * inv_tau; }
 };
 
-// The gather variant of K8, for shapes no tile fits.
-template <typename T>
+// The gather variant of K8, for shapes no tile fits and for a teacher of
+// another size (kTwo: its taps from its own (ht, wt) at each output).
+template <typename T, bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     pkl_bwd(const T* __restrict__ xs, const T* __restrict__ xt, int C, int h,
-            int w, int H, int W, float inv_tau,
+            int w, int ht, int wt, int H, int W, float inv_tau,
             const float* __restrict__ lse_s, const float* __restrict__ lse_t,
             const float* __restrict__ gbar, T* __restrict__ dxs) {
   const int hw = h * w;
@@ -297,7 +311,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / C;
   const long long base = static_cast<long long>(blockIdx.y) * hw;
   const T* sc = xs + base;
-  const T* tc = xt + base;
+  const T* tc = xt + (kTwo ? static_cast<long long>(blockIdx.y) * ht * wt
+                           : base);
   const long long img = static_cast<long long>(b) * H * W;
   const float* lsb = lse_s + img;
   const float* ltb = lse_t + img;
@@ -310,6 +325,7 @@ __global__ void __launch_bounds__(kThreads)
     if (ty.i0 > i) break;
     const float wy = tap_weight(ty, i);
     if (wy == 0.0f) continue;
+    const Tap tyt = kTwo ? tap(y, ht, H) : ty;
     for (int x = x_start; x < W; ++x) {
       const Tap tx = tap(x, w, W);
       if (tx.i0 > j) break;
@@ -317,31 +333,40 @@ __global__ void __launch_bounds__(kThreads)
       if (wx == 0.0f) continue;
       const int q = y * W + x;
       const float ps = expf(bilerp(sc, w, ty, tx) * inv_tau - lsb[q]);
-      const float pt = expf(bilerp(tc, w, ty, tx) * inv_tau - ltb[q]);
+      const float pt =
+          kTwo ? expf(bilerp(tc, wt, tyt, tap(x, wt, W)) * inv_tau - ltb[q])
+               : expf(bilerp(tc, w, ty, tx) * inv_tau - ltb[q]);
       acc = fmaf(wy * wx, ps - pt, acc);
     }
   }
   dxs[base + p] = from_f32<T>(acc * (gbar[0] * inv_tau));
 }
 
-bool bad_shape(int B, int C, int h, int w, int H, int W, float tau) {
-  return B < 1 || B > 65535 || C < 1 || h < 1 || w < 1 || H < 1 || W < 1 ||
-         !(tau > 0.0f) ||
+bool bad_shape(int B, int C, int h, int w, int ht, int wt, int H, int W,
+               float tau) {
+  return B < 1 || B > 65535 || C < 1 || h < 1 || w < 1 || ht < 1 || wt < 1 ||
+         H < 1 || W < 1 || !(tau > 0.0f) ||
          static_cast<long long>(H) * W > 0x7fffffffLL - kThreads ||
-         static_cast<long long>(h) * w > 0x7fffffffLL - kThreads;
+         static_cast<long long>(h) * w > 0x7fffffffLL - kThreads ||
+         static_cast<long long>(ht) * wt > 0x7fffffffLL - kThreads;
 }
 
 template <typename T>
 cudaError_t launch_fwd(const void* xs, const void* xt, int B, int C, int h,
-                       int w, int H, int W, float tau, int oh, float* lse_s,
-                       float* lse_t, float* part, int* ticket, float* kl_sum,
-                       cudaStream_t s) {
+                       int w, int ht, int wt, int H, int W, float tau, int oh,
+                       float* lse_s, float* lse_t, float* part, int* ticket,
+                       float* kl_sum, cudaStream_t s) {
   const T* ps = static_cast<const T*>(xs);
   const T* pt = static_cast<const T*>(xt);
   if (oh == 0) {
     const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-    pkl_fwd<T><<<grid, kThreads, 0, s>>>(ps, pt, C, h, w, H, W, 1.0f / tau,
-                                         lse_s, lse_t, part);
+    if (ht != h || wt != w) {
+      pkl_fwd<T, true><<<grid, kThreads, 0, s>>>(
+          ps, pt, C, h, w, ht, wt, H, W, 1.0f / tau, lse_s, lse_t, part);
+    } else {
+      pkl_fwd<T, false><<<grid, kThreads, 0, s>>>(
+          ps, pt, C, h, w, h, w, H, W, 1.0f / tau, lse_s, lse_t, part);
+    }
     pkl_finalize<<<1, kThreads, 0, s>>>(part, grid.x * grid.y, kl_sum);
     return cudaSuccess;
   }
@@ -353,14 +378,23 @@ cudaError_t launch_fwd(const void* xs, const void* xt, int B, int C, int h,
 
 template <typename T>
 cudaError_t launch_bwd(const void* xs, const void* xt, int B, int C, int h,
-                       int w, int H, int W, float tau, const float* lse_s,
-                       const float* lse_t, const float* gbar, void* dxs,
-                       int tile, int cpc, cudaStream_t s) {
+                       int w, int ht, int wt, int H, int W, float tau,
+                       const float* lse_s, const float* lse_t,
+                       const float* gbar, void* dxs, int tile, int cpc,
+                       cudaStream_t s) {
   if (tile == 0) {
     const dim3 grid((h * w + kThreads - 1) / kThreads, B * C);
-    pkl_bwd<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(xs), static_cast<const T*>(xt), C, h, w, H, W,
-        1.0f / tau, lse_s, lse_t, gbar, static_cast<T*>(dxs));
+    const T* a = static_cast<const T*>(xs);
+    const T* b = static_cast<const T*>(xt);
+    if (ht != h || wt != w) {
+      pkl_bwd<T, true><<<grid, kThreads, 0, s>>>(
+          a, b, C, h, w, ht, wt, H, W, 1.0f / tau, lse_s, lse_t, gbar,
+          static_cast<T*>(dxs));
+    } else {
+      pkl_bwd<T, false><<<grid, kThreads, 0, s>>>(
+          a, b, C, h, w, h, w, H, W, 1.0f / tau, lse_s, lse_t, gbar,
+          static_cast<T*>(dxs));
+    }
     return cudaSuccess;
   }
   return launch_tile_bwd<T>(pkl_tile{lse_s, lse_t, gbar, 1.0f / tau}, xs, xt,
@@ -369,9 +403,10 @@ cudaError_t launch_bwd(const void* xs, const void* xt, int B, int C, int h,
 
 }  // namespace
 
-// xs, xt: (B, C, h, w) contiguous, float32 (dtype 0) or bfloat16 (1). The
-// wrapper's plan: oh, the rows of an output tile (0: the gather variant),
-// wy, wx and smem, the window and the shared bytes it expects (0 with the
+// xs: (B, C, h, w) and xt: (B, C, ht, wt) contiguous, float32 (dtype 0) or
+// bfloat16 (1). The wrapper's plan: oh, the rows of an output tile (0: the
+// gather variant, the only one for a teacher of another size), wy, wx and
+// smem, the window and the shared bytes it expects (0 with the
 // gather variant); a plan that differs from this file's is refused.
 // Outputs: lse_s, lse_t (B, H, W) float32, the per-pixel log-sum-exp of
 // z / tau for each map; kl_sum (1) float32. Scratch: part, a float a block:
@@ -379,23 +414,27 @@ cudaError_t launch_bwd(const void* xs, const void* xt, int B, int C, int h,
 // ceil(H*W / 256) of the gather one; ticket, an int32 on the device that is
 // 0 (the tile variant leaves it at 0; null for the gather variant).
 extern "C" int pixel_kl_fwd(const void* xs, const void* xt, int B, int C,
-                            int h, int w, int H, int W, float tau, int dtype,
-                            int oh, int wy, int wx, int smem, float* lse_s,
-                            float* lse_t, float* part, int* ticket,
-                            float* kl_sum, void* stream) {
-  if (bad_shape(B, C, h, w, H, W, tau) ||
-      !fwd_plan_ok<pkl_fwd_tile<float>>(h, w, H, W, oh, wy, wx, smem) ||
+                            int h, int w, int ht, int wt, int H, int W,
+                            float tau, int dtype, int oh, int wy, int wx,
+                            int smem, float* lse_s, float* lse_t,
+                            float* part, int* ticket, float* kl_sum,
+                            void* stream) {
+  const bool two = ht != h || wt != w;
+  const bool plan_ok =
+      two ? !(oh || wy || wx || smem)
+          : fwd_plan_ok<pkl_fwd_tile<float>>(h, w, H, W, oh, wy, wx, smem);
+  if (bad_shape(B, C, h, w, ht, wt, H, W, tau) || !plan_ok ||
       (oh && !ticket)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_fwd<float>(xs, xt, B, C, h, w, H, W, tau, oh, lse_s, lse_t,
-                            part, ticket, kl_sum, s);
+    err = launch_fwd<float>(xs, xt, B, C, h, w, ht, wt, H, W, tau, oh, lse_s,
+                            lse_t, part, ticket, kl_sum, s);
   } else if (dtype == 1) {
-    err = launch_fwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, oh, lse_s,
-                                    lse_t, part, ticket, kl_sum, s);
+    err = launch_fwd<__nv_bfloat16>(xs, xt, B, C, h, w, ht, wt, H, W, tau, oh,
+                                    lse_s, lse_t, part, ticket, kl_sum, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -404,26 +443,31 @@ extern "C" int pixel_kl_fwd(const void* xs, const void* xt, int B, int C,
 // lse_s, lse_t: the forward's; gbar: kl_sum's incoming gradient, float32 (1)
 // on the device. dxs: (B, C, h, w) in the maps' dtype, every element
 // written. The wrapper's plan: tile, the edge of a block's source tile (16,
-// 8 or 4; 0 for the gather variant), rh, rw and smem, the rectangle and the
-// shared bytes it expects (0 with the gather variant), and cpc, the
-// channels a block takes. A plan that differs from this file's is refused.
+// 8 or 4; 0 for the gather variant, the only one for a teacher of another
+// size), rh, rw and smem, the rectangle and the shared bytes it expects (0
+// with the gather variant), and cpc, the channels a block takes. A plan
+// that differs from this file's is refused.
 extern "C" int pixel_kl_bwd(const void* xs, const void* xt, int B, int C,
-                            int h, int w, int H, int W, float tau, int dtype,
-                            const float* lse_s, const float* lse_t,
-                            const float* gbar, void* dxs, int tile, int rh,
-                            int rw, int smem, int cpc, void* stream) {
-  if (bad_shape(B, C, h, w, H, W, tau) ||
-      !tile_plan_ok<pkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc)) {
+                            int h, int w, int ht, int wt, int H, int W,
+                            float tau, int dtype, const float* lse_s,
+                            const float* lse_t, const float* gbar, void* dxs,
+                            int tile, int rh, int rw, int smem, int cpc,
+                            void* stream) {
+  const bool two = ht != h || wt != w;
+  const bool plan_ok =
+      two ? gather_plan_ok(B, C, tile, rh, rw, smem, cpc)
+          : tile_plan_ok<pkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc);
+  if (bad_shape(B, C, h, w, ht, wt, H, W, tau) || !plan_ok) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = launch_bwd<float>(xs, xt, B, C, h, w, H, W, tau, lse_s, lse_t, gbar,
-                            dxs, tile, cpc, s);
+    err = launch_bwd<float>(xs, xt, B, C, h, w, ht, wt, H, W, tau, lse_s,
+                            lse_t, gbar, dxs, tile, cpc, s);
   } else if (dtype == 1) {
-    err = launch_bwd<__nv_bfloat16>(xs, xt, B, C, h, w, H, W, tau, lse_s,
-                                    lse_t, gbar, dxs, tile, cpc, s);
+    err = launch_bwd<__nv_bfloat16>(xs, xt, B, C, h, w, ht, wt, H, W, tau,
+                                    lse_s, lse_t, gbar, dxs, tile, cpc, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -218,6 +218,12 @@ class ATLoss:
     def __call__(self, x_student, x_teacher, gt, step, generator=None,
                  perm=None):
         del gt, step, generator, perm
+        if x_student.shape != x_teacher.shape:
+            # the reference's MSELoss raises here too (a PSP student at
+            # stride 8 against a teacher at stride 4), as does the JAX loss
+            raise ValueError(f'ATLoss compares maps of one shape, got '
+                             f'{tuple(x_student.shape)} and '
+                             f'{tuple(x_teacher.shape)}')
         x_s, x_t = x_student.float(), x_teacher.float()
         loss_at = (x_s.mean(dim=1) - x_t.mean(dim=1)).square().mean()
         loss_pd = _kl_div_sum(F.log_softmax(x_s, dim=1),

@@ -45,7 +45,6 @@ class BaseDecodeHead(nn.Module):
                  loss_decode=None, decoder_params=None, ignore_index=255,
                  sampler=None, align_corners=False):
         super().__init__()
-        del conv_cfg, act_cfg  # the heads ported so far build their own
         if sampler is not None:
             raise NotImplementedError('pixel samplers (OHEM) are not ported '
                                       'yet')
@@ -53,6 +52,8 @@ class BaseDecodeHead(nn.Module):
         self.channels = channels
         self.num_classes = num_classes
         self.norm_cfg = norm_cfg
+        self.conv_cfg = conv_cfg
+        self.act_cfg = act_cfg  # 'default': ReLU (ref :71)
         self.in_index = in_index
         self.input_transform = input_transform
         self.loss_decode = loss_decode
@@ -75,6 +76,14 @@ class BaseDecodeHead(nn.Module):
         if self.input_transform == 'multiple_select':
             return [inputs[i] for i in self.in_index]
         return inputs[self.in_index]
+
+    @torch.no_grad()
+    def init_cls_seg(self, generator):
+        """The classifier's N(0, 0.01) weight and zero bias (ref :104-106),
+        drawn from ``generator``."""
+        conv = getattr(self, self.CLS_LAYER)
+        conv.weight.normal_(0, 0.01, generator=generator)
+        nn.init.zeros_(conv.bias)
 
     def cls_seg(self, feat, generator=None):
         """Per-pixel classifier (ref :210-215), in the features' dtype."""

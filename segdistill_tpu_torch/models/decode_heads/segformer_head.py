@@ -24,7 +24,7 @@ from torch import nn
 
 from ...ops.resize_sum import fused_resize_sum
 from ..builder import HEADS
-from ..utils import build_norm_layer
+from ..utils import ConvModule
 from .decode_head import BaseDecodeHead
 
 
@@ -34,21 +34,6 @@ class MLP(nn.Module):
     def __init__(self, input_dim, embed_dim):
         super().__init__()
         self.proj = nn.Linear(input_dim, embed_dim)
-
-
-class _FuseModule(nn.Module):
-    """mmcv ConvModule(4E, E, 1) layout: bias-free ``conv`` + norm."""
-
-    def __init__(self, in_channels, channels, norm_cfg):
-        super().__init__()
-        self.conv = nn.Conv2d(in_channels, channels, 1, bias=False)
-        name, norm = build_norm_layer(norm_cfg, channels)
-        self.norm_name = name
-        self.add_module(name, norm)
-
-    @property
-    def norm(self):
-        return getattr(self, self.norm_name)
 
 
 @HEADS.register_module()
@@ -68,8 +53,11 @@ class SegFormerHead(BaseDecodeHead):
         self.linear_c3 = MLP(c3, embed_dim)
         self.linear_c2 = MLP(c2, embed_dim)
         self.linear_c1 = MLP(c1, embed_dim)
-        self.linear_fuse = _FuseModule(4 * embed_dim, embed_dim,
-                                       self.norm_cfg or dict(type='SyncBN'))
+        # ConvModule(4E, E, 1): bias-free ``conv`` + norm; the ReLU runs
+        # after the stage sum (forward)
+        self.linear_fuse = ConvModule(4 * embed_dim, embed_dim, 1,
+                                      norm_cfg=self.norm_cfg
+                                      or dict(type='SyncBN'), act_cfg=None)
         self.linear_pred = nn.Conv2d(embed_dim, self.num_classes, 1)
 
     @torch.no_grad()

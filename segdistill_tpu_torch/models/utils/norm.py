@@ -15,6 +15,7 @@ holds.
 backbones, through the hand-written kernels of ``ops/layer_norm.py``.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -22,9 +23,30 @@ from ...ops.layer_norm import fused_layer_norm
 
 
 class BatchNorm2d(nn.BatchNorm2d):
+    """In training, a batch of one value a channel (the 1x1 pyramid branch
+    of a PSP head at batch 1) normalises to the bias and moves the running
+    variance toward 0, as flax's BatchNorm does; torch's would raise, and
+    its unbiased variance is undefined there."""
 
     def forward(self, x):
+        if self.training and x.numel() == x.shape[1]:
+            return self._single(x.float()).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
+
+    def _single(self, x):
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims, keepdim=True)
+        var = (x - mean).square().mean(dim=dims, keepdim=True)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean.flatten())
+                self.running_var.mul_(1 - m).add_(m * var.flatten())
+                self.num_batches_tracked += 1
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y
 
 
 class GroupNorm(nn.GroupNorm):

@@ -15,7 +15,9 @@ import functools
 
 
 def tap(module, name, value):
-    """Expose ``value`` as ``<module path>.<name>``; returns ``value``."""
+    """Expose ``value`` as ``<module path>.<name>``, or with an empty
+    ``name`` as ``<module path>`` (a block's output, which the JAX package
+    sows as 'OUT'); returns ``value``."""
     sink = module.__dict__.get('_tap_sink')
     if sink is not None:
         sink(name, value)
@@ -32,7 +34,7 @@ class Taps(dict):
 
 
 def _record(store, prefix, names, name, value):
-    key = f'{prefix}.{name}' if prefix else name
+    key = '.'.join(p for p in (prefix, name) if p)
     store.seen.add(key)
     if names is None or key in names:
         store[key] = value

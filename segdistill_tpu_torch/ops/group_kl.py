@@ -27,6 +27,13 @@ for K4, which keeps no per-output map) the plan names the gather variant,
 one thread per source element. Neither kernel writes the upsampled maps to
 memory, and both take any output size.
 
+The teacher may have another size than the student (the PSP student's
+logits at stride 8 against the B3 teacher's at stride 4): each map is
+upsampled to the output at its own ratio, as the reference resizes each to
+the label size before the KL. Such a pair runs the gather variants of both
+kernels (:func:`forward_plan` and :func:`backward_plan` given
+``teacher_hw``), with the teacher's taps its own.
+
 Both functions are ``torch.autograd.Function``s on every device: on a CPU
 tensor the forward is :func:`group_kl_plain` and the backward its autograd
 gradient; on a CUDA tensor the forward launches K3 and the backward K4, or
@@ -47,13 +54,11 @@ _F = ctypes.c_float
 
 FWD_KERNEL = CudaKernel(
     'group_kl_fwd', 'group_kl_fwd', source='group_kl',
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-              _I, _I, _I, _P, _P, _P, _P],
+    argtypes=[_P, _P, _P] + [_I] * 9 + [_F] + [_I] * 7 + [_P] * 4,
     replaces='segdistill_tpu/ops/pallas/group_kl.py:474')
 BWD_KERNEL = CudaKernel(
     'group_kl_bwd', 'group_kl_bwd', source='group_kl',
-    argtypes=[_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P,
-              _I, _I, _I, _I, _I],
+    argtypes=[_P, _P, _P] + [_I] * 9 + [_F, _I, _P, _P, _P] + [_I] * 5,
     replaces='segdistill_tpu/ops/pallas/group_kl.py:527')
 
 # K4 on the tile of csrc/common.cuh (gkl_tile in csrc/group_kl.cu): no
@@ -62,10 +67,13 @@ BWD_KERNEL = CudaKernel(
 RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM = 0, 2, 3
 
 
-def backward_plan(B, C, h, w, H, W, sms=132):
+def backward_plan(B, C, h, w, H, W, sms=132, teacher_hw=None):
     """K4's launch for (B, C, h, w) maps upsampled to (H, W) on a card of
     ``sms`` SMs: :func:`tile_plan.plan` with K4's maps and blocks an SM;
-    the chunks are of shuffled positions."""
+    the chunks are of shuffled positions. A teacher of another size
+    (``teacher_hw``) takes the gather variant."""
+    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
+        return tile_plan.gather_plan(B, C, h, w)
     return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
                           BLOCKS_PER_SM)
 
@@ -76,9 +84,12 @@ def backward_plan(B, C, h, w, H, W, sms=132):
 FWD_UNITS, FWD_ROWS, FWD_SLOTS = 2, 32, 3
 
 
-def forward_plan(h, w, H, W):
+def forward_plan(h, w, H, W, teacher_hw=None):
     """K3's launch for (h, w) maps upsampled to (H, W):
-    :func:`tile_plan.forward_plan` with K3's counts."""
+    :func:`tile_plan.forward_plan` with K3's counts; the gather variant
+    where the teacher has another size (``teacher_hw``)."""
+    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
+        return tile_plan.gather_forward_plan()
     return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
                                   FWD_SLOTS)
 
@@ -89,9 +100,10 @@ _TARGET_BLOCKS = 132 * 8
 
 
 def group_kl_plain(xs, xt, perm, out_hw, group_size, tau):
-    """The plain version: fp32 ``F.interpolate`` of both maps to
-    ``out_hw``, channels gathered by ``perm`` (None: identity), padded with
-    -1e9 channels to a multiple of ``group_size``, and
+    """The plain version: fp32 ``F.interpolate`` of both maps (each at its
+    own size) to ``out_hw``, channels gathered by ``perm`` (None:
+    identity), padded with -1e9 channels to a multiple of ``group_size``,
+    and
     ``KL(softmax(xt/tau) || softmax(xs/tau))`` over each (b, group) of
     g*H*W values, summed and divided by B*K. Differentiable."""
     xs = F.interpolate(xs.float(), size=tuple(out_hw), mode='bilinear',
@@ -123,10 +135,11 @@ def _splits(n_groups, per_group):
 def _launch_fwd(xs, xt, perm, out_hw, g, tau):
     dtype_code = check_cuda_inputs('fused_group_kl', (xs, xt))
     B, C, h, w = xs.shape
+    ht, wt = xt.shape[2:]
     H, W = out_hw
     BK = B * -(-C // g)
-    plan = forward_plan(h, w, H, W)
-    max_splits = _splits(BK, h * w)  # slices of each plane
+    plan = forward_plan(h, w, H, W, (ht, wt))
+    max_splits = _splits(BK, max(h * w, ht * wt))  # slices of each plane
     sum_splits = _splits(BK, min(g, C) * H * W)
     f32 = dict(dtype=torch.float32, device=xs.device)
     pmax = torch.empty(BK * max_splits * 2, **f32)
@@ -136,7 +149,8 @@ def _launch_fwd(xs, xt, perm, out_hw, g, tau):
     stats = torch.empty(BK, 4, **f32)
     loss = torch.empty((), **f32)
     FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(),
-                      perm.data_ptr(), B, C, h, w, H, W, g, tau, dtype_code,
+                      perm.data_ptr(), B, C, h, w, ht, wt, H, W, g, tau,
+                      dtype_code,
                       *tile_plan.forward_plan_args(plan), max_splits,
                       sum_splits, pmax.data_ptr(), psum.data_ptr(),
                       stats.data_ptr(), loss.data_ptr())
@@ -146,12 +160,15 @@ def _launch_fwd(xs, xt, perm, out_hw, g, tau):
 def _launch_bwd(xs, xt, perm, out_hw, g, tau, stats, gbar):
     dtype_code = check_cuda_inputs('fused_group_kl', (xs, xt))
     B, C, h, w = xs.shape
+    ht, wt = xt.shape[2:]
     H, W = out_hw
     dxs = torch.empty_like(xs)
     gbar = gbar.detach().to(torch.float32).contiguous()
-    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device))
+    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device),
+                         (ht, wt))
     BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(),
-                      perm.data_ptr(), B, C, h, w, H, W, g, tau, dtype_code,
+                      perm.data_ptr(), B, C, h, w, ht, wt, H, W, g, tau,
+                      dtype_code,
                       stats.data_ptr(), gbar.data_ptr(), dxs.data_ptr(),
                       *tile_plan.plan_args(plan))
     return dxs
@@ -186,10 +203,10 @@ class _GroupKL(torch.autograd.Function):
 
 
 def _prepare(xs, xt, perm, out_hw, group_size, tau):
-    if xs.ndim != 4 or xs.shape != xt.shape:
-        raise ValueError(f'fused_group_kl takes two (B, C, h, w) maps of one '
-                         f'shape, got {tuple(xs.shape)} and '
-                         f'{tuple(xt.shape)}')
+    if xs.ndim != 4 or xt.ndim != 4 or xs.shape[:2] != xt.shape[:2]:
+        raise ValueError(f'fused_group_kl takes a (B, C, h, w) student map '
+                         f'and a (B, C, h_t, w_t) teacher map, got '
+                         f'{tuple(xs.shape)} and {tuple(xt.shape)}')
     C = xs.shape[1]
     H, W = (int(s) for s in out_hw)
     if H < 1 or W < 1 or int(group_size) < 1 or not tau > 0:
@@ -214,8 +231,9 @@ def _prepare(xs, xt, perm, out_hw, group_size, tau):
 def fused_group_kl_shuffled(xs, xt, perm, out_hw, group_size, tau):
     """Group KL with the channels taken in ``perm`` order (shuffled
     position -> source channel, shape (C,)): a 0-d fp32 loss, the mean over
-    (b, group) of KL(teacher || student). xs, xt: (B, C, h, w) NCHW in
-    float32 or bfloat16; only ``xs`` gets a gradient."""
+    (b, group) of KL(teacher || student). xs: (B, C, h, w) and xt: (B, C,
+    h_t, w_t) NCHW in float32 or bfloat16, each upsampled to ``out_hw``
+    from its own size; only ``xs`` gets a gradient."""
     return _GroupKL.apply(*_prepare(xs, xt, perm, out_hw, group_size, tau))
 
 

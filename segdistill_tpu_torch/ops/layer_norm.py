@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-MAX_C = 1024      # 32 lanes x 32 values in registers
+MAX_C = 1536      # 32 lanes x 48 values in registers (kMaxC)
 _THREADS = 256    # kThreads in csrc/layer_norm.cu
 # K11's grid: at most this many blocks for each SM, each writing one (2, C)
 # partial: 4 x 256 threads keep 32 KB of loads in flight on an SM; beyond

@@ -39,14 +39,16 @@ import functools
 # 1 bfloat16)
 VEC = {0: 4, 1: 8}
 # values a lane holds at most (kFwdMaxValues in the source)
-MAX_VALUES = 40
+MAX_VALUES = 48
 # the (lanes, nch, rows_in_flight) instances of ln_fwd, by dtype code
 # (LN_FWD_INSTANCES in the source): those the rules take at some width
 INSTANCES = {
     1: ((4, 1, 1), (4, 2, 1), (4, 5, 1), (8, 2, 1), (8, 5, 1), (16, 2, 1),
-        (16, 4, 1), (32, 4, 1), (4, 1, 2), (8, 1, 2), (16, 1, 2), (32, 1, 2)),
+        (16, 4, 1), (32, 4, 1), (32, 6, 1), (4, 1, 2), (8, 1, 2), (16, 1, 2),
+        (32, 1, 2)),
     0: ((4, 1, 1), (8, 1, 1), (8, 2, 1), (8, 5, 1), (16, 2, 1), (16, 4, 1),
-        (16, 5, 1), (32, 4, 1), (32, 8, 1), (8, 1, 2), (16, 1, 2))}
+        (16, 5, 1), (32, 4, 1), (32, 8, 1), (32, 12, 1), (8, 1, 2),
+        (16, 1, 2))}
 BLOCK_THREADS = (256, 128, 64)
 # threads an SM holds at once (Hopper: 2048)
 SM_THREADS = 2048
@@ -61,7 +63,7 @@ Plan = collections.namedtuple('Plan',
 
 def lanes_and_vectors(C, code):
     """-> (lanes, nch) of one row a group at width ``C`` (a multiple of 8 up
-    to 1024) in the dtype of ``code``: the fewest idle vector slots, then
+    to 1536) in the dtype of ``code``: the fewest idle vector slots, then
     the fewest lanes."""
     nvec = C // VEC[code]
     pairs = [(g, n) for g, n, r in INSTANCES[code] if r == 1 and g * n >= nvec]

@@ -23,6 +23,13 @@ the plan names the gather variant, one thread per source element. The
 upsampled maps never reach memory, and any output size works: the TPU
 integer-ratio gate is not carried over.
 
+The teacher may have another size than the student (the PSP student's
+logits at stride 8 against the B3 teacher's at stride 4): each map is
+upsampled to the output at its own ratio, as the reference resizes each to
+the label size before the KL. Such a pair runs the gather variants of both
+kernels (:func:`forward_plan` and :func:`backward_plan` given
+``teacher_hw``), with the teacher's taps its own.
+
 :func:`fused_pixel_kl` is a ``torch.autograd.Function`` on every device: on
 a CPU tensor the forward is :func:`pixel_kl_plain` and the backward its
 autograd gradient; on a CUDA tensor the forward launches K7 and the backward
@@ -45,13 +52,11 @@ _THREADS = 256  # kThreads in csrc/common.cuh: the gather variant's block
 
 FWD_KERNEL = CudaKernel(
     'pixel_kl_fwd', 'pixel_kl_fwd', source='pixel_kl',
-    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P,
-              _P, _P, _P, _P],
+    argtypes=[_P, _P] + [_I] * 8 + [_F] + [_I] * 5 + [_P] * 5,
     replaces='segdistill_tpu/ops/pallas/pixel_kl.py:169')
 BWD_KERNEL = CudaKernel(
     'pixel_kl_bwd', 'pixel_kl_bwd', source='pixel_kl',
-    argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _I,
-              _I, _I, _I, _I],
+    argtypes=[_P, _P] + [_I] * 8 + [_F, _I] + [_P] * 4 + [_I] * 5,
     replaces='segdistill_tpu/ops/pallas/pixel_kl.py:200')
 
 # K8 on the tile of csrc/common.cuh (pkl_tile in csrc/pixel_kl.cu): two
@@ -60,9 +65,12 @@ BWD_KERNEL = CudaKernel(
 RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM = 2, 2, 3
 
 
-def backward_plan(B, C, h, w, H, W, sms=132):
+def backward_plan(B, C, h, w, H, W, sms=132, teacher_hw=None):
     """K8's launch for (B, C, h, w) maps upsampled to (H, W) on a card of
-    ``sms`` SMs: :func:`tile_plan.plan` with K8's maps and blocks an SM."""
+    ``sms`` SMs: :func:`tile_plan.plan` with K8's maps and blocks an SM; the
+    gather variant where the teacher has another size (``teacher_hw``)."""
+    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
+        return tile_plan.gather_plan(B, C, h, w)
     return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
                           BLOCKS_PER_SM)
 
@@ -73,17 +81,20 @@ def backward_plan(B, C, h, w, H, W, sms=132):
 FWD_UNITS, FWD_ROWS, FWD_SLOTS = 8, 8, 1
 
 
-def forward_plan(h, w, H, W):
+def forward_plan(h, w, H, W, teacher_hw=None):
     """K7's launch for (h, w) maps upsampled to (H, W):
-    :func:`tile_plan.forward_plan` with K7's counts."""
+    :func:`tile_plan.forward_plan` with K7's counts; the gather variant
+    where the teacher has another size (``teacher_hw``)."""
+    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
+        return tile_plan.gather_forward_plan()
     return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
                                   FWD_SLOTS)
 
 
 def pixel_kl_plain(xs, xt, out_hw, tau):
-    """The plain version: fp32 ``F.interpolate`` of both maps to
-    ``out_hw`` and ``KL(softmax(xt/tau) || softmax(xs/tau))`` over the
-    channels at every pixel, summed over all B*H*W pixels (no ignore
+    """The plain version: fp32 ``F.interpolate`` of both maps (each at its
+    own size) to ``out_hw`` and ``KL(softmax(xt/tau) || softmax(xs/tau))``
+    over the channels at every pixel, summed over all B*H*W pixels (no ignore
     mask). Differentiable."""
     xs = F.interpolate(xs.float(), size=tuple(out_hw), mode='bilinear',
                        align_corners=False)
@@ -97,8 +108,9 @@ def pixel_kl_plain(xs, xt, out_hw, tau):
 def _launch_fwd(xs, xt, out_hw, tau):
     dtype_code = check_cuda_inputs('fused_pixel_kl', (xs, xt))
     B, C, h, w = xs.shape
+    ht, wt = xt.shape[2:]
     H, W = out_hw
-    plan = forward_plan(h, w, H, W)
+    plan = forward_plan(h, w, H, W, (ht, wt))
     f32 = dict(dtype=torch.float32, device=xs.device)
     lse = torch.empty((2, B, H, W), **f32)
     blocks = plan['tiles'] if plan['oh'] else -(-H * W // _THREADS)
@@ -106,7 +118,7 @@ def _launch_fwd(xs, xt, out_hw, tau):
     kl = torch.empty((), **f32)
     with ticket(xs.device, plan['oh'] > 0) as ticket_ptr:
         FWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h,
-                          w, H, W, tau, dtype_code,
+                          w, ht, wt, H, W, tau, dtype_code,
                           *tile_plan.forward_plan_args(plan),
                           lse[0].data_ptr(), lse[1].data_ptr(),
                           part.data_ptr(), ticket_ptr, kl.data_ptr())
@@ -116,12 +128,14 @@ def _launch_fwd(xs, xt, out_hw, tau):
 def _launch_bwd(xs, xt, out_hw, tau, lse, gbar):
     dtype_code = check_cuda_inputs('fused_pixel_kl', (xs, xt))
     B, C, h, w = xs.shape
+    ht, wt = xt.shape[2:]
     H, W = out_hw
     dxs = torch.empty_like(xs)
     gbar = gbar.detach().to(torch.float32).contiguous()
-    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device))
-    BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w, H,
-                      W, tau, dtype_code, lse[0].data_ptr(),
+    plan = backward_plan(B, C, h, w, H, W, device_sm_count(xs.device),
+                         (ht, wt))
+    BWD_KERNEL.launch(xs.device, xs.data_ptr(), xt.data_ptr(), B, C, h, w,
+                      ht, wt, H, W, tau, dtype_code, lse[0].data_ptr(),
                       lse[1].data_ptr(), gbar.data_ptr(), dxs.data_ptr(),
                       *tile_plan.plan_args(plan))
     return dxs
@@ -157,12 +171,13 @@ class _PixelKL(torch.autograd.Function):
 def fused_pixel_kl(xs, xt, out_hw, tau):
     """Sum over the B*H*W pixels of the per-pixel channel-softmax
     KL(teacher || student) at ``out_hw``: a 0-d fp32 loss; the 'pixel'
-    transform divides it by B*H*W. xs, xt: (B, C, h, w) NCHW in float32
-    or bfloat16; only ``xs`` gets a gradient."""
-    if xs.ndim != 4 or xs.shape != xt.shape:
-        raise ValueError(f'fused_pixel_kl takes two (B, C, h, w) maps of one '
-                         f'shape, got {tuple(xs.shape)} and '
-                         f'{tuple(xt.shape)}')
+    transform divides it by B*H*W. xs: (B, C, h, w) and xt: (B, C, h_t,
+    w_t) NCHW in float32 or bfloat16, each upsampled to ``out_hw`` from its
+    own size; only ``xs`` gets a gradient."""
+    if xs.ndim != 4 or xt.ndim != 4 or xs.shape[:2] != xt.shape[:2]:
+        raise ValueError(f'fused_pixel_kl takes a (B, C, h, w) student map '
+                         f'and a (B, C, h_t, w_t) teacher map, got '
+                         f'{tuple(xs.shape)} and {tuple(xt.shape)}')
     H, W = (int(s) for s in out_hw)
     if H < 1 or W < 1 or not tau > 0:
         raise ValueError(f'bad output size {out_hw} or tau {tau}')

@@ -29,6 +29,13 @@ channels), double-buffered, each thread ``slots`` elements a unit.
 Where a window is larger than ``slots`` x 256 elements (upsampling ratios
 near 1 and downsampling) the plan names ``oh`` 0, the loss's gather
 variant.
+
+Two sizes. A student and a teacher of different sizes (K3/K4, K7/K8: the
+PSP student at stride 8 against the B3 teacher at stride 4) are each
+upsampled at their own ratio; both tiles stage one geometry, so such a
+pair takes the gather variants, forward and backward
+(:func:`gather_forward_plan`, :func:`gather_plan`), which the sources also
+insist on.
 """
 
 import functools
@@ -83,6 +90,16 @@ def plan(B, C, h, w, H, W, sms, rect_maps, src_maps, resident):
                                      src_maps, resident)))
 
 
+def gather_plan(B, C, h, w):
+    """The backward's gather variant for (B, C, h, w) sources: tile 0, no
+    rectangle and no bytes, one thread per source element."""
+    return dict(zip(PLAN_KEYS, _gather(B, C, h, w)))
+
+
+def _gather(B, C, h, w):
+    return 0, 0, 0, 0, 1, C, B * C * -(-h * w // GATHER_THREADS)
+
+
 @functools.lru_cache(maxsize=128)
 def _plan(B, C, h, w, H, W, sms, rect_maps, src_maps, resident):
     for tile in TILE_EDGES:
@@ -90,7 +107,7 @@ def _plan(B, C, h, w, H, W, sms, rect_maps, src_maps, resident):
         if shared <= TILE_BUDGET:
             break
     else:
-        return 0, 0, 0, 0, 1, C, B * C * -(-h * w // GATHER_THREADS)
+        return _gather(B, C, h, w)
     tiles = B * -(-h // tile) * -(-w // tile)
     slots = sms * min(SM_SHARED // (shared + 1024), resident)
     best = None
@@ -144,9 +161,14 @@ def forward_plan(h, w, H, W, units, rows, slots):
     oh = FWD_SEGS * rows
     wy, wx = fwd_reach(oh, h, H), fwd_reach(FWD_COLS, w, W)
     if wy * wx > slots * FWD_THREADS:
-        return dict(zip(FWD_KEYS, (0, 0, 0, 0, 0)))
+        return gather_forward_plan()
     return dict(zip(FWD_KEYS, (oh, wy, wx, fwd_shared_bytes(units, oh, wy, wx),
                                -(-H // oh) * -(-W // FWD_COLS))))
+
+
+def gather_forward_plan():
+    """The forward's gather variant: ``oh`` 0, no window and no bytes."""
+    return dict(zip(FWD_KEYS, (0, 0, 0, 0, 0)))
 
 
 def forward_plan_args(plan_):

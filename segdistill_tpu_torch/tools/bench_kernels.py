@@ -188,6 +188,10 @@ def ln_step_times(gen):
     print(f'LN step sums (launches x ms): K10 {totals["K10"]:.4f} ms, bound '
           f'{totals["bound"]:.4f}, max(bound, floor) {totals["floor"]:.4f}',
           flush=True)
+    # the widest norm, C = 1536, K10 and K11 in both dtypes
+    for name, rows, c, launches, _, _ in kernel_cases.LN_WIDE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            ln_times(name, rows, c, launches, dtype, gen, backward=True)
 
 
 def queued_ms(fn, iters=5):
@@ -490,12 +494,15 @@ def _exp_floor_ms(shape, out_hw, per_value):
         / kernel_cases.PEAK_EXP2 * 1e3
 
 
-def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
+def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps,
+             teacher_hw=None):
     """Forward and backward device time of ``fused(xs, xt)`` on N(0, 1)
-    maps, and a backward call's host-clocked time; beside the bounds, the
-    floor of the forward's two exponentials per value."""
+    maps (the teacher's of ``teacher_hw``, by default the student's size),
+    and a backward call's host-clocked time; beside the bounds, the floor
+    of the forward's two exponentials per value."""
     xs = torch.randn(shape, device='cuda', generator=gen).to(dtype)
-    xt = torch.randn(shape, device='cuda', generator=gen).to(dtype)
+    xt = torch.randn(tuple(shape[:2]) + tuple(teacher_hw or shape[2:]),
+                     device='cuda', generator=gen).to(dtype)
     with torch.no_grad():
         fwd = device_ms(lambda: fused(xs, xt), calls=3)
     k = xs.clone().requires_grad_()
@@ -506,11 +513,14 @@ def kl_times(tag, name, shape, out_hw, fused, dtype, gen, pixel_maps):
         torch.autograd.grad(loss, k, gbar, retain_graph=True)
     bwd = device_ms(backward, calls=3)
     call = cuda_ms(backward)
-    fb, bb = kernel_cases.kl_bounds(shape, out_hw, dtype, pixel_maps)
-    print(f'{tag} {name:18s} {shape}->{out_hw} {str(dtype)[6:]:8s} fwd '
-          f'device {fwd:.4f} ms | bwd device {bwd:.4f} ms, call {call:.4f} '
-          f'| bounds {fb[0]:.4f} {bb[0]:.4f} ({bb[1]}) | fwd exp floor '
-          f'{_exp_floor_ms(shape, out_hw, 2):.4f}', flush=True)
+    fb, bb = kernel_cases.kl_bounds(shape, out_hw, dtype, pixel_maps,
+                                    teacher_hw)
+    teacher = f' teacher {tuple(teacher_hw)}' if teacher_hw else ''
+    print(f'{tag} {name:18s} {shape}{teacher}->{out_hw} '
+          f'{str(dtype)[6:]:8s} fwd device {fwd:.4f} ms | bwd device '
+          f'{bwd:.4f} ms, call {call:.4f} | bounds {fb[0]:.4f} {bb[0]:.4f} '
+          f'({bb[1]}) | fwd exp floor {_exp_floor_ms(shape, out_hw, 2):.4f}',
+          flush=True)
 
 
 def resize_sum_times(name, shapes, out_hw, dtype, gen):
@@ -575,7 +585,28 @@ def main(argv=None):
                 kl_times('K3/K4', name, shape, out_hw,
                          lambda a, t: gk.fused_group_kl_shuffled(
                              a, t, perm, out_hw, g, 2.0), dtype, gen, 0)
+        # a teacher of another size (the gather variants), each beside the
+        # same-size pair of the student's shape at the same output
+        for name, shape, thw, out_hw, g, shuffle in \
+                kernel_cases.GROUP_KL_TWO_SIZE_CASES:
+            perm = torch.randperm(shape[1], device='cuda', generator=gen) \
+                if shuffle else None
+            for dtype in (torch.bfloat16, torch.float32):
+                for teacher, tag in ((thw, name), (None, 'same size')):
+                    kl_times('K3/K4', tag, shape, out_hw,
+                             lambda a, t: gk.fused_group_kl_shuffled(
+                                 a, t, perm, out_hw, g, 2.0)
+                             if shuffle else gk.fused_group_kl(
+                                 a, t, out_hw, g, 2.0),
+                             dtype, gen, 0, teacher)
     if 'pkl' in only:
+        for name, shape, thw, out_hw in kernel_cases.PIXEL_KL_TWO_SIZE_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                for teacher, tag in ((thw, name), (None, 'same size')):
+                    kl_times('K7/K8', tag, shape, out_hw,
+                             lambda a, t: pk.fused_pixel_kl(a, t, out_hw,
+                                                            1.0),
+                             dtype, gen, 2, teacher)
         for name, shape, out_hw, _, _ in PKL_CASES:
             for dtype in (torch.bfloat16, torch.float32):
                 kl_times('K7/K8', name, shape, out_hw,

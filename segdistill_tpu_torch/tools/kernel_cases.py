@@ -62,12 +62,18 @@ LN_SERVING_CASES = [
     ('B0 b1 stage3', 1024, 160, 6, (8, 5, 1, 64)),
     ('B0 b1 stage3 sr', 256, 160, 2, (8, 5, 1, 64)),
     ('B0 b1 stage4', 256, 256, 6, (16, 4, 1, 64))]
+# The widest norm: Swin-T's last PatchMerging norm, over 4 x 384 channels,
+# at batch 2 and 512x512 (its stage grid 16 x 16): (name, rows, C, launches
+# a swin_CGD step, the plan in bf16 and in fp32)
+LN_WIDE_CASES = [('Swin merge3 b2', 512, 1536, 1, (32, 6, 1, 64),
+                  (32, 12, 1, 64))]
 # (name, rows, C) of every K10/K11 check on the card: the step's shapes
 # (the first, B0 stage 1, is the kernels line's), the serving path's, a row
-# count no block divides, and fewer rows than one block holds
+# count no block divides, fewer rows than one block holds, and C = 1536
 LN_CASES = [(name, rows, c) for name, rows, c, _, _ in
             LN_STEP_CASES + LN_SERVING_CASES] + [
-    ('odd rows', 1001, 160), ('few rows', 10, 32)]
+    ('odd rows', 1001, 160), ('few rows', 10, 32)] + [
+    (name, rows, c) for name, rows, c, _, _, _ in LN_WIDE_CASES]
 
 # (name, logits' shape, labels' size, share of labels ignored, the edge of
 # the source tile K6 must plan there: 0 is the gather variant). Each of
@@ -110,6 +116,31 @@ GROUP_KL_CASES = [
     ('ratio 30, odd', (2, 19, 10, 9), (300, 270), 10, False, 4),
     ('ratio 40 (gather)', (1, 19, 8, 8), (320, 320), 10, True, 0),
     ('ratio ~50, odd (gather)', (2, 7, 6, 5), (300, 250), 3, True, 0)]
+
+# A student and a teacher of different sizes: (name, the student's maps'
+# shape, the teacher's (h, w), output size, group size, channels permuted).
+# The PSP student's logits at stride 8 (64 x 64 at a 512 crop) against the
+# B3 teacher's at stride 4 (128 x 128), batch 2 as the psp configs train,
+# with CGD's group of 5 (shuffled and not) and CD's group of 1; a pad group
+# (C 19, g 10); odd sizes with the teacher smaller on one axis; a teacher
+# smaller than the student. Both kernels take their gather variants there
+# (tile_plan.gather_forward_plan, gather_plan).
+GROUP_KL_TWO_SIZE_CASES = [
+    ('PSP CGD g5 perm', (2, 150, 64, 64), (128, 128), (512, 512), 5, True),
+    ('PSP CGD g5 identity', (2, 150, 64, 64), (128, 128), (512, 512), 5,
+     False),
+    ('PSP CD g1', (2, 150, 64, 64), (128, 128), (512, 512), 1, False),
+    ('C19 g10 pad, two sizes', (2, 19, 16, 16), (32, 32), (128, 128), 10,
+     True),
+    ('odd, two sizes', (1, 7, 9, 11), (13, 5), (37, 41), 3, True),
+    ('teacher smaller', (2, 19, 32, 32), (16, 16), (128, 128), 10, True)]
+# (name, the student's maps' shape, the teacher's (h, w), output size) of
+# K7/K8 with two sizes: the PSP PD pair, and the odd and smaller-teacher
+# shapes above
+PIXEL_KL_TWO_SIZE_CASES = [
+    ('PSP PD', (2, 150, 64, 64), (128, 128), (512, 512)),
+    ('odd, two sizes', (2, 19, 9, 11), (13, 5), (37, 41)),
+    ('teacher smaller', (2, 19, 32, 32), (16, 16), (128, 128))]
 
 # The forwards' stress cases, in the layouts above: logits of N(0, 30²), so
 # that K3's group maxima and K5's chunk rescale shift far from 0 (K4 and
@@ -206,17 +237,20 @@ def ln_bounds(rows, c, dtype):
             bound(3 * size * rows * c + 3 * 4 * c, 17 * rows * c))
 
 
-def kl_bounds(shape, out_hw, dtype, pixel_maps):
-    """(forward's, backward's) bound of a two-map KL on (B, C, h, w) maps
-    upsampled to (H, W) in ``dtype``: both maps read (the backward: and dxs
-    written), and ``pixel_maps`` fp32 maps of (B, H, W) written by the
-    forward and read by the backward (K7/K8: the two log-sum-exps; K3/K4:
-    none); 23 (32) operations per upsampled value."""
+def kl_bounds(shape, out_hw, dtype, pixel_maps, teacher_hw=None):
+    """(forward's, backward's) bound of a two-map KL on (B, C, h, w)
+    student maps and (B, C, h_t, w_t) teacher maps (``teacher_hw``; the
+    student's by default) upsampled to (H, W) in ``dtype``: both maps read
+    (the backward: and dxs written), and ``pixel_maps`` fp32 maps of (B, H,
+    W) written by the forward and read by the backward (K7/K8: the two
+    log-sum-exps; K3/K4: none); 23 (32) operations per upsampled value."""
     b, c, h, w = shape
+    ht, wt = teacher_hw or (h, w)
     src = _size(dtype) * b * c * h * w
+    src_t = _size(dtype) * b * c * ht * wt
     px = b * out_hw[0] * out_hw[1]
-    return (bound(2 * src + 4 * pixel_maps * px, 23 * c * px),
-            bound(3 * src + 4 * pixel_maps * px, 32 * c * px))
+    return (bound(src + src_t + 4 * pixel_maps * px, 23 * c * px),
+            bound(2 * src + src_t + 4 * pixel_maps * px, 32 * c * px))
 
 
 def seg_ce_bounds(shape, out_hw, dtype):

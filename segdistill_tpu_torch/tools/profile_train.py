@@ -4,7 +4,7 @@ student, frozen MiT-B3 teacher), bf16 backbones, batch 8 at 512x512,
 random weights from seed 0, checkpoint paths cleared:
 
     python -m segdistill_tpu_torch.tools.profile_train [--steps 5]
-        [--config configs/exp_tab5/segformer_PD.py]
+        [--config configs/exp_tab5/segformer_PD.py] [--batch 8]
         [--cfg-options model.cfg_s.backbone.fused_attention=train ...]
         [--ab model.cfg_s.backbone.fused_attention=False --pairs 5]
 
@@ -62,8 +62,9 @@ FAMILIES = [
     ('K2 sra_attn', r'sra_fwd_'),
     ('K10/K11 layer_norm', r'ln_(fwd|bwd|sum_partials)'),
     ('GEMM', r'gemm|xmma|cutlass|sm90_|ampere_|matmul|nvjet'),
+    ('batch norm', r'bn_fw|bn_bw|batch_norm|BatchNorm|welford'),
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),
-    ('layer/batch norm', r'layer_norm|batch_norm|LayerNorm|BatchNorm|welford'),
+    ('layer norm', r'layer_norm|LayerNorm'),
     ('softmax', r'softmax'),
     ('upsample', r'upsample'),
     ('optimizer', r'multi_tensor|adam|Adam'),
@@ -215,7 +216,7 @@ def ab_steps(arms, img, gt, steps, pairs):
             peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
     for tag, values in ms.items():
         print(f'  {tag}: median {np.median(values):.3f} ms/step, '
-              f'{BATCH * 1e3 / np.median(values):.2f} images/s, peak '
+              f'{len(img) * 1e3 / np.median(values):.2f} images/s, peak '
               f'memory {peak[tag] / 2**30:.2f} GiB; rounds '
               + ' '.join(f'{v:.3f}' for v in values))
 
@@ -236,6 +237,9 @@ def main():
                         metavar='KEY=VALUE')
     parser.add_argument('--ab', metavar='KEY=VALUE')
     parser.add_argument('--pairs', type=int, default=5)
+    parser.add_argument('--batch', type=int, default=BATCH,
+                        help='images a step (the psp and swin configs '
+                             'train 2)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_train needs a CUDA device')
@@ -248,13 +252,13 @@ def main():
                                  cfg_options=options)
     state, train_step = prepare_training(model)
     gen = torch.Generator(device='cuda').manual_seed(0)
-    img = torch.randn(BATCH, 3, 512, 512, device='cuda', generator=gen)
-    gt = torch.randint(0, 150, (BATCH, 512, 512), device='cuda',
+    img = torch.randn(args.batch, 3, 512, 512, device='cuda', generator=gen)
+    gt = torch.randint(0, 150, (args.batch, 512, 512), device='cuda',
                        generator=gen)
     for _ in range(3):
         train_step(state, img, gt)
     torch.cuda.synchronize()
-    print(f'== 1. phases of a step, batch {BATCH}, bf16 backbones '
+    print(f'== 1. phases of a step, batch {args.batch}, bf16 backbones '
           f'(CUDA events, mean of {args.steps} steps)')
     phase_times(model, state.optimizer, img, gt, args.steps)
     print(f'== 2. torch.profiler over {args.steps} train steps')

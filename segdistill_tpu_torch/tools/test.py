@@ -34,19 +34,6 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def student_config(cfg):
-    """``cfg`` with the student's config as its model where the model is a
-    distillation module (SDModule): evaluation is the student's, and a
-    training checkpoint holds the student alone."""
-    if cfg.model.get('type') != 'SDModule':
-        return cfg
-    cfg = cfg.copy()
-    student = dict(cfg.model['cfg_s'])
-    student.setdefault('test_cfg', cfg.model.get('test_cfg'))
-    cfg.model = student
-    return cfg
-
-
 def main(argv=None):
     """Evaluate as the arguments say; -> the metrics dict."""
     args = parse_args(argv)
@@ -65,8 +52,7 @@ def main(argv=None):
             checkpoint).startswith('iter_')):
         meta = load_meta(checkpoint)
         checkpoint = checkpoint_file(checkpoint)
-    model = init_segmentor(student_config(cfg), checkpoint,
-                           device=args.device)
+    model = init_segmentor(cfg, checkpoint, device=args.device)
     dataset = build_dataset(cfg.data['test'], dict(test_mode=True))
 
     # CLASSES and PALETTE from the checkpoint's meta, else the dataset's

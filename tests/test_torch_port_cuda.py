@@ -721,7 +721,7 @@ def test_layer_norm_kernels_refuse(cuda):
     w, b = torch.ones(32, device=cuda), torch.zeros(32, device=cuda)
     with pytest.raises(ValueError, match='multiple of 8'):
         fused_layer_norm(torch.zeros(4, 12, device=cuda), w[:12], b[:12])
-    with pytest.raises(ValueError, match='up to 1024'):
+    with pytest.raises(ValueError, match='up to 1536'):
         fused_layer_norm(torch.zeros(2, 2048, device=cuda),
                          torch.ones(2048, device=cuda),
                          torch.zeros(2048, device=cuda))

@@ -149,7 +149,7 @@ def test_mit_norms_are_fused_and_stage_outputs_match_jax():
     (lambda: (torch.zeros(4, 12), torch.ones(12), torch.zeros(12)),
      'multiple of 8'),
     (lambda: (torch.zeros(4, 2048), torch.ones(2048), torch.zeros(2048)),
-     'up to 1024'),
+     'up to 1536'),
     (lambda: (torch.zeros(4, 32, dtype=torch.float16), torch.ones(32),
               torch.zeros(32)), 'float32 or bfloat16'),
     (lambda: (torch.zeros(4, 32), torch.ones(32).bfloat16(),

@@ -8,7 +8,7 @@ owns one row (``rows_in_flight`` 1), or walks rows grid-stride with the
 next row's loads issued before the current row is finished (2). Here:
 
 - every plan, at every shape of the train step and the serving path, at
-  ``kernel_cases.LN_CASES`` and at every width 8..1024 in both dtypes,
+  ``kernel_cases.LN_CASES`` and at every width 8..1536 in both dtypes,
   covers every (row, vector) once, within the source's register budget and
   grid limits, with no idle lane at C = 160 and 320;
 - a numpy model of the walk, with the kernel's order of sums (a lane's
@@ -114,7 +114,7 @@ def test_plan_covers_each_case_once(rows, C, dtype):
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('rows', [1, 7, 2048, 131072])
 def test_plan_covers_every_width(rows, dtype):
-    for C in range(8, 1025, 8):
+    for C in range(8, ln.MAX_C + 1, 8):
         check_plan(rows, C, CODES[dtype])
 
 
@@ -310,7 +310,7 @@ def test_every_instance_is_planned_at_some_width(dtype):
     """The instance list holds nothing the rules never take."""
     code = CODES[dtype]
     taken = set()
-    for C in range(8, 1025, 8):
+    for C in range(8, ln.MAX_C + 1, 8):
         for rows in (1, 2048, 2 ** 20):
             taken.add(tuple(ln_plan.forward_plan(rows, C, code, SMS)[:3]))
     assert taken == set(ln_plan.INSTANCES[code])

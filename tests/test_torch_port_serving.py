@@ -180,7 +180,7 @@ def test_metrics_match_jax(kw):
 def test_init_segmentor_loads_reference_checkpoint(models, tmp_path):
     """A reference-layout checkpoint (wrapped in 'state_dict', DDP
     'module.' prefixes, the unused conv_seg classifier of the reference
-    BaseDecodeHead) loads strictly into the port."""
+    BaseDecodeHead) fills every tensor of the port."""
     _, _, port = models
     sd = {f'module.{k}': v for k, v in port.state_dict().items()}
     sd['module.decode_head.conv_seg.weight'] = torch.zeros(19, 128, 1, 1)

@@ -91,3 +91,60 @@ def random_jax_variables(jax_model, seed=0):
 
 def nhwc_to_nchw(a):
     return np.asarray(a, np.float32).transpose(0, 3, 1, 2)
+
+
+CE_LOSS = dict(type='CrossEntropyLoss', use_sigmoid=False, loss_weight=1.0)
+
+
+def psp_cfg(depth=50, dropout_ratio=0.1, test_cfg=None, **backbone):
+    """A narrow ResNetV1c-d8 + PSPHead (the Tab5 PSP student's layout at
+    stem 16, base 8, head 16 channels): logits at stride 8."""
+    expansion = 4 if depth >= 50 else 1
+    return dict(
+        type='EncoderDecoder',
+        backbone=dict(type='ResNetV1c', depth=depth, stem_channels=16,
+                      base_channels=8, num_stages=4,
+                      out_indices=(0, 1, 2, 3), dilations=(1, 1, 2, 4),
+                      strides=(1, 2, 1, 1), norm_cfg=dict(NORM),
+                      norm_eval=False, style='pytorch',
+                      contract_dilation=True, **backbone),
+        decode_head=dict(type='PSPHead', in_channels=64 * expansion,
+                         in_index=3, channels=16, pool_scales=(1, 2, 3, 6),
+                         dropout_ratio=dropout_ratio,
+                         num_classes=NUM_CLASSES, norm_cfg=dict(NORM),
+                         align_corners=False, loss_decode=dict(CE_LOSS)),
+        test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
+
+
+SWIN_DIMS = (24, 48, 96, 192)
+
+
+def swin_cfg(dropout_ratio=0.1, drop_path_rate=0.0, test_cfg=None,
+             **backbone):
+    """A narrow Swin (embed 24, depths (2, 2, 2, 2), window 7) + UPerHead
+    of 16 channels: logits at stride 4."""
+    backbone = dict(dict(type='SwinTransformer', embed_dim=SWIN_DIMS[0],
+                         depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24),
+                         window_size=7, mlp_ratio=4.0, qkv_bias=True,
+                         drop_rate=0.0, attn_drop_rate=0.0,
+                         drop_path_rate=drop_path_rate, ape=False,
+                         patch_norm=True, out_indices=(0, 1, 2, 3)),
+                    **backbone)
+    return dict(
+        type='EncoderDecoder',
+        backbone=backbone,
+        decode_head=dict(type='UPerHead', in_channels=list(SWIN_DIMS),
+                         in_index=[0, 1, 2, 3], pool_scales=(1, 2, 3, 6),
+                         channels=16, dropout_ratio=dropout_ratio,
+                         num_classes=NUM_CLASSES, norm_cfg=dict(NORM),
+                         align_corners=False, loss_decode=dict(CE_LOSS)),
+        test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
+
+
+def leaves(tree, prefix=''):
+    """(path, numpy array) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if hasattr(v, 'items'):
+            yield from leaves(v, f'{prefix}{k}/')
+        else:
+            yield f'{prefix}{k}', np.asarray(v)
