@@ -56,8 +56,23 @@ and 256x256 against the CPU. The KL phases (5, 7) also hold K3/K4 and
 K7/K8 with a teacher of another size than the student (the PSP student's
 logits at stride 8 against the B3 teacher's at stride 4), which take the
 gather variants, and the LayerNorm phase K10/K11 at C = 1536, Swin-T's last
-PatchMerging norm. The launch count of each kernel is read over each main
-path (9, 10, 12, 14, 15-18).
+PatchMerging norm. Then the ``configs/extra`` models at full width and
+depth (random weights from seed 0): (22-24) PSANet-R50 (PSAHead + FCN
+auxiliary head) and PointRend-R50/FPN (FPNHead + PointHead, a cascade) on
+ADE20K, and PSPNet-R50 with the FCN auxiliary head on Cityscapes (19
+classes), each through ``prepare_training``'s SGD step with a bf16
+backbone at the config's batch of 2 (512x512; Cityscapes 512x1024), 2 + 10
+steps, K5/K6 launched twice a step (PointRend: once); (25-27) the same
+models served through ``inference_segmentor``: four 512x512 requests in
+whole mode (PointRend with its subdivision refinement), two 1024x2048
+requests in slide mode (769x769 windows at stride 513, eight a request),
+the fp32 GPU logits against the CPU; and (28-30) one fp32 train step of
+each at batch 1 and 256x256 against the CPU step in float64 (PointRend's
+training points drawn once and given to both). The seg-CE phase (6) also
+holds K5/K6 at those paths' shapes (C = 19 at (2, 19, 64, 128) ->
+512x1024; C = 150 at (2, 150, 64, 64) and (2, 150, 128, 128) -> 512x512)
+and prints their device times beside their bounds. The launch count of
+each kernel is read over each main path (9, 10, 12, 14, 15-18, 22-27).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -110,6 +125,23 @@ NO_DROP = {'model.cfg_s.decode_head.dropout_ratio': 0.0,
            'model.cfg_t.decode_head.dropout_ratio': 0.0,
            'model.cfg_t.backbone.drop_path_rate': 0.0}
 NO_DROP_PATH_S = {'model.cfg_s.backbone.drop_path_rate': 0.0}
+# the configs/extra models: (config, tag, classes, the train crop, K5/K6
+# launches a train step, the serving requests' sizes)
+EXTRA = ROOT / 'configs' / 'extra'
+PSANET, POINTREND, PSP_CITY = (EXTRA / 'psanet_r50_ade.py',
+                               EXTRA / 'pointrend_r50_ade.py',
+                               EXTRA / 'pspnet_r50_cityscapes_slide.py')
+EXTRA_PATHS = [
+    (PSANET, 'PSANet-R50', 150, (512, 512), 2, [(512, 512)] * 4),
+    (POINTREND, 'PointRend-R50/FPN', 150, (512, 512), 1, [(512, 512)] * 4),
+    (PSP_CITY, 'PSPNet-R50 Cityscapes', 19, (512, 1024), 2,
+     [(1024, 2048)] * 2)]
+EXTRA_BATCH = 2  # the configs' samples_per_gpu
+EXTRA_NO_DROP = {PSANET: {'model.decode_head.dropout_ratio': 0.0,
+                          'model.auxiliary_head.dropout_ratio': 0.0},
+                 POINTREND: {},  # both heads have dropout -1
+                 PSP_CITY: {'model.decode_head.dropout_ratio': 0.0,
+                            'model.auxiliary_head.dropout_ratio': 0.0}}
 # the command-line phase: dataset size, iterations, and where it saves and
 # evaluates
 CLI_TRAIN_IMAGES, CLI_VAL_IMAGES = 32, 8
@@ -160,6 +192,13 @@ SRA_BIAS_MAX = 0.05
 #   convolution algorithms through 8 blocks; relative to max |logit|.
 #   Measured ~1.2e-6 on an H100; a TF32 or bf16 leak gives ~1e-3.
 MODEL_TOL_REL = 1e-5
+# PointRend's refined logits, GPU vs CPU: the subdivision writes refined
+#   logits at the 8196 most uncertain positions of each step; where two
+#   positions' uncertainties lie within the fp32 difference of the two runs
+#   at the k-th, each run refines another one (a lerped logit against a
+#   refined one). The first stage's logits keep MODEL_TOL_REL; of the
+#   refined map's values at most this share may lie outside it.
+REFINED_SWAP_SHARE = 1e-3
 # bf16 backbone vs fp32: bf16 keeps 8 significant bits, rounded at every
 #   linear, conv and residual add; relative L2 error of the logits.
 BF16_TOL_REL_L2 = 5e-2
@@ -797,7 +836,46 @@ def phase_seg_ce():
                 f'max_abs_err {err:.3e} (tol used {used:.3f})  fwd '
                 f'{ms[0]:.4f} ms plain {ms[1]:.4f} ms  bwd {bms[0]:.4f} ms '
                 f'plain {bms[1]:.4f} ms  {plan}')
+    _ce_path_times(sc, gen)
     return fwd, bwd
+
+
+def _ce_path_times(sc, gen):
+    """K5 and K6 at the configs/extra train paths' shapes, bf16 (checked
+    above as cases of SEG_CE_CASES): device time (calls queued behind a
+    held stream) beside the plain version's and the bound."""
+    from segdistill_tpu_torch.utils.timing import device_ms
+    log('K5/K6 at the configs/extra train paths\' shapes, bf16, device time '
+        '(10 calls queued behind a held stream)')
+    for path, case, per_step in _cases().SEG_CE_PATH_CASES:
+        _, shape, out_hw, ignored, _ = next(
+            c for c in _cases().SEG_CE_CASES if c[0] == case)
+        classes = shape[1]
+        labels = torch.randint(0, classes, (shape[0],) + out_hw,
+                               device=DEVICE, generator=gen)
+        labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
+               < ignored] = 255
+        z = torch.randn(shape, device=DEVICE, generator=gen).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            k5 = device_ms(lambda: sc.fused_seg_ce(z, labels, out_hw,
+                                                   classes))
+            p5 = device_ms(lambda: sc.seg_ce_plain(z, labels, out_hw,
+                                                   classes))
+        k = z.clone().requires_grad_()
+        ce, _ = sc.fused_seg_ce(k, labels, out_hw, classes)
+        p = z.clone().requires_grad_()
+        plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, classes)
+        k6 = device_ms(lambda: torch.autograd.grad(ce, k, retain_graph=True))
+        p6 = device_ms(lambda: torch.autograd.grad(plain_ce, p,
+                                                   retain_graph=True))
+        del plain_ce
+        (b5, by5), (b6, by6) = _cases().seg_ce_bounds(shape, out_hw,
+                                                      torch.bfloat16)
+        log(f'{path:32s} {shape} -> {out_hw} x{per_step} a step: K5 '
+            f'{k5:.4f} ms (plain {p5:.4f}, bound {b5:.4f} by {by5}, '
+            f'{k5 / b5:.2f}x); K6 {k6:.4f} ms (plain {p6:.4f}, bound '
+            f'{b6:.4f} by {by6}, {k6 / b6:.2f}x)')
 
 
 LN_CALLS = 10  # launches per timing: the kernels take microseconds
@@ -1417,6 +1495,197 @@ def phase_train_vs_cpu(config, options, tag, batch=2, hw=512,
         raise AssertionError('the GPU train step differs from the CPU one')
 
 
+def _extra_batch(batch, classes, hw, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    img = torch.randn(batch, 3, *hw, device=DEVICE, generator=gen)
+    gt = torch.randint(0, classes, (batch,) + tuple(hw), device=DEVICE,
+                       generator=gen)
+    return img, gt
+
+
+def phase_train_extra(path_kernels, config, tag, classes, hw, per_step):
+    """A configs/extra model's own train step (its SGD and poly LR) with a
+    bf16 backbone at the config's batch of 2: -> the launch counts of
+    ``path_kernels`` over the timed steps, which must be ``per_step`` a
+    step each."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    log(f'== train: {tag} ({config.name}), bf16 backbone, batch '
+        f'{EXTRA_BATCH} at {hw[0]}x{hw[1]}, {classes} classes, random weights '
+        f'(seed 0)')
+    t0 = time.perf_counter()
+    model = init_segmentor_state(
+        str(config), seed=0, device=DEVICE,
+        cfg_options={'model.backbone.dtype': 'bfloat16'})
+    state, train_step = prepare_training(model)
+    if type(state.optimizer) is not torch.optim.SGD:
+        raise AssertionError(f'{tag}: built {type(state.optimizer).__name__}'
+                             f', the config asks for SGD')
+    img, gt = _extra_batch(EXTRA_BATCH, classes, hw, seed=5)
+    log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
+    first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
+    torch.cuda.synchronize()
+    log('step 1: ' + ', '.join(f'{k} {float(v):.6g}'
+                               for k, v in sorted(first.items())))
+
+    # the training path: every launch count starts at 0 here
+    for k in path_kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logs = [train_step(state, img, gt) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in path_kernels}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'step {state.step}: ' + ', '.join(
+        f'{k} {float(v):.6g}' for k, v in sorted(logs[-1].items())))
+    log(f'train step {seconds / TRAIN_STEPS * 1e3:.2f} ms, '
+        f'{EXTRA_BATCH * TRAIN_STEPS / seconds:.2f} images/s over '
+        f'{TRAIN_STEPS} steps; peak memory allocated {peak / 2**30:.2f} GiB')
+    log(f'launches during the {tag} training path: {launches}')
+    for name, n in launches.items():
+        if n != per_step * TRAIN_STEPS:
+            raise AssertionError(f'{tag}: {name} launched {n} times in '
+                                 f'{TRAIN_STEPS} steps, not {per_step} a '
+                                 f'step')
+    values = [float(v) for lv in [first] + logs for v in lv.values()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f'a loss of the {tag} train step is not finite')
+    ce = float(first.get('decode.loss_seg', first.get('decode_0.loss_seg')))
+    if not abs(ce - math.log(classes)) <= CE_INIT_TOL:
+        raise AssertionError(f'{tag}: the decode CE at step 1 is {ce}, not '
+                             f'near ln {classes}')
+    return launches
+
+
+def phase_serving_extra(config, tag, classes, request_hw):
+    """A configs/extra model served through ``init_segmentor`` and
+    ``inference_segmentor`` at full width and depth in its test mode, on
+    seeded requests; the fp32 logits of one 512x512 input (PointRend: its
+    first stage's and its refined map) or one 769x769 slide window
+    against the same model on the CPU."""
+    from segdistill_tpu_torch.apis import init_segmentor, inference_segmentor
+    model = init_segmentor(str(config), device=DEVICE, seed=0)
+    mode = model.test_cfg.get('mode', 'whole')
+    log(f'== serving: {tag} ({config.name}) through init_segmentor, '
+        f'{classes} classes, random weights (seed 0), {len(request_hw)} '
+        f'requests of {request_hw[0][0]}x{request_hw[0][1]}, {mode} mode'
+        + (f' ({model.test_cfg["crop_size"]} windows at stride '
+           f'{model.test_cfg["stride"]})' if mode == 'slide' else ''))
+    rng = np.random.RandomState(8)
+    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in request_hw]
+    with torch.no_grad():  # warm up: cuDNN heuristics, allocator
+        inference_segmentor(model, imgs[0])
+    torch.cuda.synchronize()
+    lat = []
+    for img in imgs:
+        t0 = time.perf_counter()
+        pred = inference_segmentor(model, img)[0]
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if pred.shape != img.shape[:2] or pred.min() < 0 \
+                or pred.max() >= classes:
+            raise AssertionError(f'{tag}: bad prediction {pred.shape}')
+    log(f'{tag}: per-request latency ms ' + ', '.join(f'{t:.2f}'
+                                                    for t in lat))
+    side = 769 if mode == 'slide' else 512
+    x = torch.from_numpy(np.random.RandomState(9).randn(
+        1, 3, side, side).astype(np.float32)).to(DEVICE)
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        pairs = [('logits', model.encode_decode(x).cpu(),
+                  cpu_model.encode_decode(x.cpu()))]
+        if type(model).__name__ == 'CascadeEncoderDecoder':
+            pairs.insert(0, (
+                'first-stage logits',
+                model.decode_head[0](model.extract_feat(x)).float().cpu(),
+                cpu_model.decode_head[0](cpu_model.extract_feat(x.cpu()))))
+    for what, gpu, cpu in pairs:
+        err = (gpu - cpu).abs()
+        scale = cpu.abs().max().item()
+        off = (err > MODEL_TOL_REL * scale).float().mean().item()
+        refined = what == 'logits' and len(pairs) == 2
+        log(f'{tag} fp32 {what} GPU vs CPU at {side}x{side}: max abs err '
+            f'{err.max().item():.3e}, max |logit| {scale:.3e}, relative '
+            f'{err.max().item() / scale:.3e} (limit {MODEL_TOL_REL}), share '
+            f'of values beyond it {off:.2e}'
+            + (f' (limit {REFINED_SWAP_SHARE})' if refined else ''))
+        if not torch.isfinite(gpu).all() or (
+                off > REFINED_SWAP_SHARE if refined else off > 0):
+            raise AssertionError(f'{tag}: GPU {what} differ from the CPU '
+                                 f'run')
+
+
+def phase_extra_vs_cpu(config, tag, classes):
+    """One fp32 train step of a configs/extra model on the card against the
+    same step on the CPU, batch 1 at 256x256, dropout 0: the loss terms
+    against the fp32 CPU step, the gradients against the CPU step in
+    float64 (TRAIN_GRAD_TOL_REL_L2's note). PointRend's training points are
+    drawn once and given to both."""
+    from segdistill_tpu_torch.apis import init_segmentor_state
+    from segdistill_tpu_torch.models.segmentors import parse_losses
+    hw = (TAB5_VS_CPU_HW, TAB5_VS_CPU_HW)
+    log(f'== train step, fp32 GPU (kernels) vs CPU (plain versions): {tag}, '
+        f'batch {TAB5_VS_CPU_BATCH} at {hw[0]}x{hw[1]}, dropout 0')
+    model = init_segmentor_state(str(config), seed=0, device=DEVICE,
+                                 cfg_options=EXTRA_NO_DROP[config])
+    cpu_model = copy.deepcopy(model).cpu()
+    img, gt = _extra_batch(TAB5_VS_CPU_BATCH, classes, hw, seed=6)
+    points = None
+    if type(model).__name__ == 'CascadeEncoderDecoder':
+        points = torch.rand(TAB5_VS_CPU_BATCH,
+                            model.decode_head[1].num_points, 2,
+                            generator=torch.Generator().manual_seed(7))
+
+    def step(m, x, y, pts):
+        m.zero_grad(set_to_none=True)
+        losses, _ = m.forward_train(x, y, generator=None, points=pts)
+        total, log_vars = parse_losses(losses)
+        total.backward()
+        return ({k: float(v.detach()) for k, v in log_vars.items()},
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+
+    gpu_losses, gpu_grads = step(model, img, gt, None if points is None
+                                 else points.to(DEVICE))
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = step(cpu_model, img.cpu(), gt.cpu(), points)
+    log(f'CPU step {time.perf_counter() - t0:.1f} s')
+    worst = 0.0
+    for k, want in sorted(cpu_losses.items()):
+        err = abs(gpu_losses[k] - want)
+        if '.acc_' in k:  # an argmax near-tie may flip: one pixel (point)
+            n = TAB5_VS_CPU_BATCH * (hw[0] * hw[1] if 'seg' in k
+                                     else len(points[0]))
+            ok = err <= 100.0 / n * 1.001
+        else:
+            ok = err <= TRAIN_LOSS_TOL_REL * abs(want) + TRAIN_LOSS_TOL_ABS
+            worst = max(worst, err / (TRAIN_LOSS_TOL_REL * abs(want)
+                                      + TRAIN_LOSS_TOL_ABS))
+        log(f'  {k}: GPU {gpu_losses[k]:.9g} CPU {want:.9g} abs err '
+            f'{err:.3e}')
+        if not ok:
+            raise AssertionError(f'{tag}: {k} differs from the CPU step')
+    t0 = time.perf_counter()
+    model64 = copy.deepcopy(cpu_model).double()
+    model64.backbone.dtype = torch.float64
+    with _float64_kept():
+        _, f64_grads = step(model64, img.cpu().double(), gt.cpu(),
+                            None if points is None else points.double())
+    gpu64 = _grad_rel_l2(gpu_grads, f64_grads)
+    log(f'CPU float64 step {time.perf_counter() - t0:.1f} s; fp32 gradients '
+        f'against it: GPU {gpu64:.3e}, CPU '
+        f'{_grad_rel_l2(cpu_grads, f64_grads):.3e}; GPU against the CPU fp32 '
+        f'step {_grad_rel_l2(gpu_grads, cpu_grads):.3e}')
+    log(f'loss terms: {worst:.3f} of the limit used at most; gradients: '
+        f'relative L2 err {gpu64:.3e} against the CPU step in float64 over '
+        f'{len(f64_grads)} tensors (limit {TRAIN_GRAD_TOL_REL_L2})')
+    if not gpu64 <= TRAIN_GRAD_TOL_REL_L2:
+        raise AssertionError(f'{tag}: the GPU train step differs from the '
+                             f'CPU one')
+
+
 def _write_dataset(root):
     """A seeded ADE-like dataset of .npy files under ``root``: uint8 BGR
     images of a few sizes around 512x683, label maps of 0..150 (0 is
@@ -1772,6 +2041,17 @@ def main():
                        no_drop=(NO_DROP,), **tab5_vs_cpu)
     phase_train_vs_cpu(SWIN_CGD, {}, 'swin_CGD', pair='Swin-T <- B3',
                        **tab5_vs_cpu)
+    # the configs/extra models: their own SGD steps (K5/K6 on the decode and
+    # auxiliary heads, on PointRend's FPNHead), serving (no hand-written
+    # kernel on those paths: ResNet has BN, the heads no K1), fp32 steps
+    # against the CPU
+    for config, tag, classes, hw, per_step, _ in EXTRA_PATHS:
+        paths.append(phase_train_extra([k5, k6], config, tag, classes, hw,
+                                       per_step))
+    for config, tag, classes, _, _, request_hw in EXTRA_PATHS:
+        phase_serving_extra(config, tag, classes, request_hw)
+    for config, tag, classes, *_ in EXTRA_PATHS:
+        phase_extra_vs_cpu(config, tag, classes)
     _check_ln_tickets('after the train steps')
     _check_fwd_tickets('after the train steps')
     for path in paths:
@@ -1809,7 +2089,8 @@ def main():
             entries[-1]['floor_ms'] = k10_floor
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line', 'PSP serving',
-                  'Swin serving', 'psp_CGD', 'swin_CGD'), paths))))
+                  'Swin serving', 'psp_CGD', 'swin_CGD')
+                 + tuple(tag for _, tag, *_ in EXTRA_PATHS), paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,27 +1,33 @@
 """JAX variables -> this package's state dict, for the MiT, ResNet and
-Swin backbones and the SegFormer, PSP and UPer heads.
+Swin backbones, the FPN neck and the SegFormer, PSP, UPer, FCN, PSA, FPN
+and point heads.
 
 The inverse of ``segdistill_tpu/convert/torch_loader.py``'s rules: conv
 kernels HWIO -> OIHW, Dense kernels (I, O) -> (O, I), norm ``scale`` ->
 ``weight``, ``batch_stats`` ``mean``/``var`` -> ``running_mean``/
 ``running_var``; Flax list names ``block1_0`` -> ``block1.0``,
 ``layer1_0`` -> ``layer1.0``, ``layers_0_blocks_1`` ->
-``layers.0.blocks.1``, ``lateral_convs_0`` -> ``lateral_convs.0``; the
+``layers.0.blocks.1``, ``lateral_convs_0`` -> ``lateral_convs.0`` (also
+``fpn_convs``, ``convs``, ``fcs``, ``attention[_p]``,
+``decode_heads_1`` -> ``decode_head.1``, ``auxiliary_head_0``); the
 NormLayer nesting ``bn1.bn`` -> ``bn1`` (a ConvModule's ``bn.bn`` ->
 ``bn``); the reference's Sequential slots: the deep stem
 ``stem_conv{1,2,3}``/``stem_bn{1,2,3}`` -> ``stem.{0,3,6}``/``stem.{1,4,7}``,
 a shortcut's ``downsample.conv``/``downsample.bn`` -> ``downsample.0``/
 ``.1`` (``.1``/``.2`` behind the average pool of ``avg_down``, where the
 target ``keys`` say so), a pyramid branch ``psp_modules.pool_0`` ->
-``psp_modules.0.1``; the head's Dense params ``linear_c4`` ->
-``linear_c4.proj``, UPer's ``psp_bottleneck`` -> ``bottleneck``, Swin's
-``patch_embed_proj`` -> ``patch_embed.proj``. Swin's bias tables keep their
+``psp_modules.0.1``, an FPNHead conv ``scale_heads_1_1`` ->
+``scale_heads.1.2`` (behind the upsample slots); the point head's 1x1
+convs (``fcs.*``) and ``fc_seg`` -> Conv1d weights (O, I, 1); the head's
+Dense params ``linear_c4`` -> ``linear_c4.proj``, UPer's
+``psp_bottleneck`` -> ``bottleneck``, Swin's ``patch_embed_proj`` ->
+``patch_embed.proj``. Swin's bias tables keep their
 name, and each gets the ``relative_position_index`` buffer the reference
 ``.pth`` carries. Takes the ``{'params', 'batch_stats'}`` tree as numpy
 arrays (or anything ``np.asarray`` reads), or an SDModule's ``{'student',
 'teacher'}`` pair of such trees, whose student params may hold the
-``distill_adapters`` (kernel (c_s, c_t) -> weight (c_t, c_s)); imports no
-JAX.
+``distill_adapters`` (kernel (c_s, c_t) -> weight (c_t, c_s)); float64
+arrays stay float64, everything else becomes float32; imports no JAX.
 """
 
 import math
@@ -39,7 +45,13 @@ _MODULE_RULES = [
     (re.compile(r'\blayers_(\d+)_blocks_(\d+)\b'), r'layers.\1.blocks.\2'),
     (re.compile(r'\blayers_(\d+)_downsample\b'), r'layers.\1.downsample'),
     (re.compile(r'\bpatch_embed_(proj|norm)\b'), r'patch_embed.\1'),
-    (re.compile(r'\b(lateral_convs|fpn_convs)_(\d+)\b'), r'\1.\2'),
+    (re.compile(r'\b(lateral_convs|fpn_convs|convs|fcs)_(\d+)\b'),
+     r'\1.\2'),
+    (re.compile(r'\battention(_p)?_(\d)\b'), r'attention\1.\2'),
+    (re.compile(r'\bscale_heads_(\d+)_(\d+)\b'),
+     lambda m: f'scale_heads.{m.group(1)}.{2 * int(m.group(2))}'),
+    (re.compile(r'\bdecode_heads_(\d+)\b'), r'decode_head.\1'),
+    (re.compile(r'\bauxiliary_head_(\d+)\b'), r'auxiliary_head.\1'),
     (re.compile(r'\bpsp_modules\.pool_(\d+)\b'), r'psp_modules.\1.1'),
     (re.compile(r'\bpsp_bottleneck\b'), 'bottleneck'),
     (re.compile(r'\blinear_c(\d)$'), r'linear_c\1.proj'),
@@ -50,6 +62,8 @@ _MODULE_RULES = [
     (re.compile(r'\b(bn\d?)\.bn$'), r'\1'),
 ]
 _STATS = {'mean': 'running_mean', 'var': 'running_var'}
+# the point head's MLP: 1x1 convs in JAX, Conv1d in the reference
+_CONV1D = re.compile(r'\bfcs\.\d+\.conv$')
 
 
 def _flatten(tree, prefix=()):
@@ -133,8 +147,12 @@ def _segmentor_state(variables):
                 leaf = _STATS[leaf]
                 out[f'{module}.num_batches_tracked'] = torch.tensor(0)
             elif leaf == 'kernel':
-                if arr.ndim == 4:
+                if arr.ndim == 4 and _CONV1D.search(module):
+                    arr = arr[0].transpose(2, 1, 0)  # (1, 1, I, O)
+                elif arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)
+                elif arr.ndim == 3:  # a 1-D conv: (k, I, O) -> (O, I, k)
+                    arr = arr.transpose(2, 1, 0)
                 elif arr.ndim == 2:
                     arr = arr.T
                 else:
@@ -148,6 +166,7 @@ def _segmentor_state(variables):
                     _relative_position_index(arr.shape[0])
             elif leaf != 'bias':
                 raise KeyError(f'unknown parameter {"/".join(path)}/{leaf}')
-            out[f'{module}.{leaf}'] = torch.from_numpy(
-                np.ascontiguousarray(arr, dtype=np.float32))
+            out[f'{module}.{leaf}'] = torch.from_numpy(np.ascontiguousarray(
+                arr, dtype=np.float64 if arr.dtype == np.float64
+                else np.float32))
     return out

@@ -1,16 +1,26 @@
-"""AdamW with mmcv's paramwise multipliers (counterpart of
+"""The optimizers with mmcv's paramwise multipliers (counterpart of
 ``segdistill_tpu/engine/optimizer.py``; reference: mmcv's
-DefaultOptimizerConstructor as ``optimizer = dict(type='AdamW', ...,
+DefaultOptimizerConstructor as ``optimizer = dict(type=..., ...,
 paramwise_cfg=dict(custom_keys=...))`` drives it, e.g.
-``local_configs/exp_tab5/segformer_CGD.py:60-64``).
+``local_configs/exp_tab5/segformer_CGD.py:60-64`` and the SGD of
+``_base_/schedules/schedule_*k.py``).
 
 ``custom_keys`` are sorted reverse-alphabetically and the first that is a
 substring of a parameter's dotted state-dict name gives its
 ``(lr_mult, decay_mult)``. Each distinct pair is one param group with
 weight decay ``wd * decay_mult``; :func:`set_lr` gives each group
-``lr * lr_mult``. Torch's decoupled step ``p -= lr_g * (adam + wd_g * p)``
-is then the JAX package's optax chain (adam, + wd*decay_mult*p,
-* lr_mult, * -lr).
+``lr * lr_mult``.
+
+AdamW: torch's decoupled step ``p -= lr_g * (adam + wd_g * p)`` is the JAX
+package's optax chain (adam, + wd*decay_mult*p, * lr_mult, * -lr).
+
+SGD and Adam are ``torch.optim.SGD`` and ``torch.optim.Adam``, as mmcv
+builds them for the reference: the weight decay is added to the gradient
+*before* the momentum (SGD) or the moments (Adam). The JAX package adds it
+after them (``optax.trace`` or ``scale_by_adam``, then ``+ wd * p``), a
+decay that never enters the momentum buffer: at momentum 0.9 it is ~10x
+weaker in steady state. The port follows the reference; without weight
+decay the two are the same update.
 """
 
 import torch
@@ -32,13 +42,14 @@ def paramwise_labels(names, custom_keys):
 
 
 def build_optimizer(optimizer_cfg, model):
-    """-> ``torch.optim.AdamW`` over ``model``'s parameters that require
-    grad, one param group per distinct (lr_mult, decay_mult)."""
+    """-> ``torch.optim.AdamW``, ``SGD`` or ``Adam`` over ``model``'s
+    parameters that require grad, one param group per distinct (lr_mult,
+    decay_mult)."""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop('type')
-    if opt_type != 'AdamW':
-        raise NotImplementedError(f'optimizer {opt_type}: only AdamW is '
-                                  f'ported')
+    if opt_type not in ('AdamW', 'SGD', 'Adam'):
+        raise NotImplementedError(f'optimizer {opt_type}: AdamW, SGD and '
+                                  f'Adam are ported')
     base_lr = cfg.pop('lr')
     weight_decay = cfg.pop('weight_decay', 0.0)
     custom_keys = dict((cfg.pop('paramwise_cfg', None) or {})
@@ -48,12 +59,18 @@ def build_optimizer(optimizer_cfg, model):
     for name, (lr_mult, decay_mult) in paramwise_labels(
             params, custom_keys).items():
         groups.setdefault((lr_mult, decay_mult), []).append(params[name])
-    return torch.optim.AdamW(
-        [dict(params=ps, lr=base_lr * lm, lr_mult=lm,
-              weight_decay=weight_decay * dm)
-         for (lm, dm), ps in groups.items()],
-        lr=base_lr, betas=tuple(cfg.pop('betas', (0.9, 0.999))),
-        eps=cfg.pop('eps', 1e-8), weight_decay=weight_decay)
+    param_groups = [dict(params=ps, lr=base_lr * lm, lr_mult=lm,
+                         weight_decay=weight_decay * dm)
+                    for (lm, dm), ps in groups.items()]
+    if opt_type == 'SGD':
+        return torch.optim.SGD(param_groups, lr=base_lr,
+                               momentum=cfg.pop('momentum', 0.0),
+                               nesterov=cfg.pop('nesterov', False),
+                               weight_decay=weight_decay)
+    adam = torch.optim.AdamW if opt_type == 'AdamW' else torch.optim.Adam
+    return adam(param_groups, lr=base_lr,
+                betas=tuple(cfg.pop('betas', (0.9, 0.999))),
+                eps=cfg.pop('eps', 1e-8), weight_decay=weight_decay)
 
 
 def set_lr(optimizer, lr):

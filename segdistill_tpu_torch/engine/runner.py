@@ -59,16 +59,19 @@ def gradient_angle(losses, params):
 
 
 def build_train_step(model, optimizer, lr_schedule=None):
-    """-> fn(state, img, gt, perm=None) -> log_vars (0-d tensors on the
-    model's device, and 'lr' as a float), updating ``state`` in place.
+    """-> fn(state, img, gt, perm=None, points=None) -> log_vars (0-d
+    tensors on the model's device, and 'lr' as a float), updating
+    ``state`` in place.
 
     ``model``: an SDModule (student + frozen teacher) or a bare
-    EncoderDecoder. ``perm`` overrides the channel shuffle's draw."""
+    EncoderDecoder (or a cascade). ``perm`` overrides the channel
+    shuffle's draw, ``points`` a point head's draw of its training
+    points."""
     is_distill = hasattr(model, 'teacher')
     log_grad = bool(getattr(model, 'log_grad', False))
     params = [p for group in optimizer.param_groups for p in group['params']]
 
-    def train_step(state, img, gt, perm=None):
+    def train_step(state, img, gt, perm=None, points=None):
         step = state.step + 1
         generator = torch.Generator(device=img.device)
         generator.manual_seed(step_seed(state.seed, step))
@@ -80,7 +83,8 @@ def build_train_step(model, optimizer, lr_schedule=None):
             losses = model.forward_train(img, gt, step, generator=generator,
                                          perm=perm)
         else:
-            losses, _ = model.forward_train(img, gt, generator=generator)
+            losses, _ = model.forward_train(img, gt, generator=generator,
+                                            points=points)
         total, log_vars = parse_losses(losses)
         if log_grad:
             log_vars['deg'] = gradient_angle(losses, params)

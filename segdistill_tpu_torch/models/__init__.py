@@ -1,6 +1,8 @@
-from .builder import (BACKBONES, HEADS, LOSSES, SEGMENTORS, build_backbone,
-                      build_head, build_loss, build_segmentor)
-from . import backbones, decode_heads, losses, segmentors  # noqa: F401
+from .builder import (BACKBONES, HEADS, LOSSES, NECKS, SEGMENTORS,
+                      build_backbone, build_head, build_loss, build_neck,
+                      build_segmentor)
+from . import backbones, decode_heads, losses, necks, segmentors  # noqa: F401
 
-__all__ = ['BACKBONES', 'HEADS', 'LOSSES', 'SEGMENTORS', 'build_backbone',
-           'build_head', 'build_loss', 'build_segmentor']
+__all__ = ['BACKBONES', 'HEADS', 'LOSSES', 'NECKS', 'SEGMENTORS',
+           'build_backbone', 'build_head', 'build_loss', 'build_neck',
+           'build_segmentor']

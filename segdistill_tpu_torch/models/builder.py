@@ -5,6 +5,7 @@ from ..registry import Registry, build_from_cfg
 
 BACKBONES = Registry('backbone')
 HEADS = Registry('head')
+NECKS = Registry('neck')
 SEGMENTORS = Registry('segmentor')
 LOSSES = Registry('loss')
 
@@ -17,6 +18,10 @@ def build(cfg, registry, default_args=None):
 
 def build_backbone(cfg):
     return build(cfg, BACKBONES)
+
+
+def build_neck(cfg):
+    return build(cfg, NECKS)
 
 
 def build_head(cfg):

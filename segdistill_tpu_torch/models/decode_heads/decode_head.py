@@ -8,16 +8,18 @@ under the classifier's name (``decode_head.conv_seg``, or SegFormerHead's
 
 Loss semantics are the reference's: logits resized to the label size, CE
 per pixel with 0 at ignored pixels, averaged over all pixels; ``acc_seg``
-in percent over all pixels. Softmax CE without class weights or a sampler,
-at ``align_corners=False``, goes through :func:`fused_seg_ce` (kernels
-K5/K6 on CUDA), which never materialises the label-size logits; every
-other loss config takes the plain resize -> loss -> accuracy path.
+in percent over all pixels. Softmax CE without class weights or a pixel
+sampler, at ``align_corners=False``, goes through :func:`fused_seg_ce`
+(kernels K5/K6 on CUDA), which never materialises the label-size logits;
+every other loss config takes the plain resize -> loss -> accuracy path,
+where a pixel sampler (OHEM) weighs the pixels (ref :222-226).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.seg import build_pixel_sampler
 from ...ops import resize
 from ...ops.seg_ce import fused_seg_ce
 from ..builder import build_loss
@@ -45,9 +47,6 @@ class BaseDecodeHead(nn.Module):
                  loss_decode=None, decoder_params=None, ignore_index=255,
                  sampler=None, align_corners=False):
         super().__init__()
-        if sampler is not None:
-            raise NotImplementedError('pixel samplers (OHEM) are not ported '
-                                      'yet')
         self.in_channels = in_channels
         self.channels = channels
         self.num_classes = num_classes
@@ -60,6 +59,8 @@ class BaseDecodeHead(nn.Module):
         self.decoder_params = decoder_params
         self.ignore_index = ignore_index
         self.align_corners = align_corners
+        self.sampler = None if sampler is None else build_pixel_sampler(
+            dict(sampler), context=self)
         # the reference's nn.Dropout2d: drops whole channels in training
         self.dropout = Dropout(dropout_ratio, channels=True) \
             if dropout_ratio > 0 else None
@@ -101,7 +102,8 @@ class BaseDecodeHead(nn.Module):
         return (loss_cfg.get('type') == 'CrossEntropyLoss'
                 and not loss_cfg.get('use_sigmoid', False)
                 and loss_cfg.get('class_weight') is None
-                and seg_weight is None and not self.align_corners)
+                and seg_weight is None and self.sampler is None
+                and not self.align_corners)
 
     def losses(self, seg_logit, seg_label, seg_weight=None):
         """(logits (B, C, h, w), labels (B, H, W) or (B, 1, H, W)) ->
@@ -119,6 +121,8 @@ class BaseDecodeHead(nn.Module):
                     'acc_seg': correct * (100.0 / total)}
         seg_logit = resize(seg_logit.float(), size=seg_label.shape[1:],
                            mode='bilinear', align_corners=self.align_corners)
+        if self.sampler is not None and seg_weight is None:
+            seg_weight = self.sampler.sample(seg_logit, seg_label)
         loss_fn = build_loss(loss_cfg)
         return {'loss_seg': loss_fn(seg_logit, seg_label, weight=seg_weight,
                                     ignore_index=self.ignore_index),

@@ -23,3 +23,15 @@ def accuracy(pred, target, topk=1, thresh=None):
     res = [correct[:, :k].sum().to(torch.float32) * (100.0 / target.numel())
            for k in topk]
     return res[0] if single else res
+
+
+class Accuracy:
+    """:func:`accuracy` with its ``topk`` and ``thresh`` bound (ref
+    :38-50)."""
+
+    def __init__(self, topk=(1,), thresh=None):
+        self.topk = topk
+        self.thresh = thresh
+
+    def __call__(self, pred, target):
+        return accuracy(pred, target, self.topk, self.thresh)

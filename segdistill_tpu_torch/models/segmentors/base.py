@@ -1,13 +1,10 @@
 """Segmentor base (counterpart of ``segdistill_tpu/models/segmentors/base.py``;
-reference ``mmseg/models/segmentors/base.py``): loss parsing and the loss-key
-prefix. Feature taps are in ``models/utils/taps.py``."""
+reference ``mmseg/models/segmentors/base.py``): loss parsing. Feature taps
+are in ``models/utils/taps.py``, ``add_prefix`` in ``core/utils/misc.py``."""
 
 from torch import nn
 
-
-def add_prefix(inputs, prefix):
-    """{'loss_seg': ...} -> {'<prefix>.loss_seg': ...}."""
-    return {f'{prefix}.{k}': v for k, v in inputs.items()}
+from ...core.utils import add_prefix  # noqa: F401 (the segmentors' import)
 
 
 def parse_losses(losses):

@@ -2,13 +2,19 @@
 ``segdistill_tpu/models/segmentors/encoder_decoder.py``; reference
 ``mmseg/models/segmentors/encoder_decoder.py``).
 
-Images and logits are NCHW. ``forward_train`` returns the head's losses
-under the 'decode.' prefix and the requested feature taps; BN running
-statistics update in place, as torch does. ``slide_inference`` keeps the
-reference's overlap-window count-matrix averaging (ref :169-212).
+Images and logits are NCHW. ``extract_feat`` runs the backbone and, where
+the config has one, the neck. ``forward_train`` returns the head's losses
+under the 'decode.' prefix, an auxiliary head's under 'aux.' (a list of
+them under 'aux_{i}.'; they run in training only), and the requested
+feature taps; BN running statistics update in place, as torch does.
+``slide_inference`` keeps the reference's overlap-window count-matrix
+averaging (ref :169-212).
 """
 
+import contextlib
+
 import torch
+from torch import nn
 
 from ...ops import resize
 from .. import builder
@@ -24,10 +30,6 @@ class EncoderDecoder(BaseSegmentor):
                  train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
         del train_cfg  # no train-time options in the ported heads
-        if neck is not None or auxiliary_head is not None:
-            raise NotImplementedError(
-                'necks and auxiliary heads are not ported yet; the ported '
-                'slice is the SegFormer serving path')
         if pretrained is not None:
             raise NotImplementedError(
                 'loading pretrained backbone weights is a training-time step '
@@ -35,35 +37,73 @@ class EncoderDecoder(BaseSegmentor):
                 'init_segmentor instead')
         self.test_cfg = test_cfg or {}
         self.backbone = builder.build_backbone(backbone)
+        self.neck = builder.build_neck(neck) if neck is not None else None
+        self._init_decode_head(decode_head)
+        if isinstance(auxiliary_head, (list, tuple)):
+            self.auxiliary_head = nn.ModuleList(
+                builder.build_head(c) for c in auxiliary_head)
+        elif auxiliary_head is not None:
+            self.auxiliary_head = builder.build_head(auxiliary_head)
+        else:
+            self.auxiliary_head = None
+
+    def _init_decode_head(self, decode_head):
         self.decode_head = builder.build_head(decode_head)
         self.align_corners = self.decode_head.align_corners
         self.num_classes = self.decode_head.num_classes
 
+    def _aux_heads(self):
+        """-> [(loss prefix, head)] of the auxiliary heads (ref :102-126)."""
+        aux = self.auxiliary_head
+        if aux is None:
+            return []
+        if isinstance(aux, nn.ModuleList):
+            return [(f'aux_{i}', h) for i, h in enumerate(aux)]
+        return [('aux', aux)]
+
     @torch.no_grad()
     def init_weights(self, generator):
         """Random initialisation from one ``torch.Generator``."""
-        self.backbone.init_weights(generator)
-        self.decode_head.init_weights(generator)
+        for part in (self.backbone, self.neck, self.decode_head,
+                     self.auxiliary_head):
+            for m in (part if isinstance(part, nn.ModuleList) else [part]):
+                if m is not None:
+                    m.init_weights(generator)
 
     def extract_feat(self, img, generator=None):
-        return self.backbone(img, generator)
+        x = self.backbone(img, generator)
+        return x if self.neck is None else self.neck(x)
 
     def forward(self, img, generator=None):
         """Head logits at the head's resolution, (B, classes, h, w).
         Dropout in training mode draws from ``generator``."""
         return self.decode_head(self.extract_feat(img, generator), generator)
 
+    def _decode_train(self, x, gt_semantic_seg, generator, points):
+        """The decode head's losses under 'decode.' (a cascade: each
+        stage's)."""
+        del points  # a cascade's point head draws them
+        logits = self.decode_head(x, generator)
+        return add_prefix(self.decode_head.losses(logits, gt_semantic_seg),
+                          'decode')
+
     def forward_train(self, img, gt_semantic_seg, capture=(),
-                      generator=None):
-        """-> ({'decode.loss_seg', 'decode.acc_seg'}, {tap name: tensor}
-        for the taps named in ``capture``) (ref :136-166)."""
-        if capture:
-            with capture_taps(self, capture) as feats:
-                logits = self(img, generator)
-        else:
-            feats, logits = {}, self(img, generator)
-        losses = self.decode_head.losses(logits, gt_semantic_seg)
-        return add_prefix(losses, 'decode'), feats
+                      generator=None, points=None):
+        """-> (the decode head's and the auxiliary heads' losses:
+        'decode.loss_seg', 'decode.acc_seg', 'aux.loss_seg', ...; {tap
+        name: tensor} for the taps named in ``capture``) (ref :136-166).
+        ``points`` (a cascade with a point head) overrides the point head's
+        draw of its training points."""
+        with capture_taps(self, capture) if capture \
+                else contextlib.nullcontext({}) as feats:
+            x = self.extract_feat(img, generator)
+            losses = self._decode_train(x, gt_semantic_seg, generator,
+                                        points)
+            for prefix, head in self._aux_heads():
+                losses.update(add_prefix(
+                    head.losses(head(x, generator), gt_semantic_seg),
+                    prefix))
+        return losses, feats
 
     def forward_feats(self, img, capture=None):
         """The taps named in ``capture`` (all if None) of one forward, the

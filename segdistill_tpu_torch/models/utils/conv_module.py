@@ -7,8 +7,10 @@ under the name :func:`build_norm_layer` gives it (``bn``, ``gn``, ``ln``),
 so the reference ``.pth`` layout (``...conv.weight``, ``...bn.running_mean``)
 and the paramwise ``norm`` rules hold. ``bias='auto'`` drops the conv bias
 where a norm follows. ``act_cfg``: unset is ReLU, ``None`` no activation,
-as mmcv has it (ReLU is the one activation the ported heads use). The conv
-computes in its input's dtype (float32 parameters cast to it, as flax
+as mmcv has it (ReLU is the one activation the ported heads use).
+``conv_cfg=dict(type='Conv1d')`` makes the conv an ``nn.Conv1d`` over (B,
+C, L) (PointHead's point MLP, which has no norm). The conv computes in its
+input's dtype (float32 parameters cast to it, as flax
 layers with ``dtype`` do); the norm keeps float32 statistics and returns
 the input's dtype.
 """
@@ -37,6 +39,14 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class ConvModule(nn.Module):
     """conv -> norm -> act (ref: mmcv ConvModule)."""
 
@@ -44,15 +54,23 @@ class ConvModule(nn.Module):
                  padding=0, dilation=1, groups=1, bias='auto', conv_cfg=None,
                  norm_cfg=None, act_cfg='default'):
         super().__init__()
-        if conv_cfg is not None and conv_cfg.get('type', 'Conv2d') \
-                not in ('Conv', 'Conv2d'):
-            raise NotImplementedError(f'conv type {conv_cfg["type"]} is not '
-                                      f'ported')
+        conv_type = (conv_cfg or {}).get('type', 'Conv2d')
+        if conv_type not in ('Conv', 'Conv2d', 'Conv1d'):
+            raise NotImplementedError(f'conv type {conv_type} is not ported')
         self.with_norm = norm_cfg is not None
         use_bias = (not self.with_norm) if bias == 'auto' else bool(bias)
-        self.conv = Conv2d(in_channels, out_channels, to_2tuple(kernel_size),
-                           to_2tuple(stride), to_2tuple(padding),
-                           to_2tuple(dilation), groups, bias=use_bias)
+        if conv_type == 'Conv1d':
+            if self.with_norm:
+                raise NotImplementedError('a norm after a Conv1d is not '
+                                          'ported')
+            self.conv = Conv1d(in_channels, out_channels, kernel_size,
+                               stride, padding, dilation, groups,
+                               bias=use_bias)
+        else:
+            self.conv = Conv2d(in_channels, out_channels,
+                               to_2tuple(kernel_size), to_2tuple(stride),
+                               to_2tuple(padding), to_2tuple(dilation),
+                               groups, bias=use_bias)
         self.norm_name = None
         if self.with_norm:
             self.norm_name, norm = build_norm_layer(norm_cfg, out_channels)
@@ -72,7 +90,7 @@ class ConvModule(nn.Module):
         """mmcv's: a He-normal conv (fan_out, ReLU gain), zero bias, unit
         norm; drawn from ``generator``."""
         w = self.conv.weight
-        fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+        fan_out = w[0, 0].numel() * w.shape[0]
         w.normal_(0, math.sqrt(2.0 / fan_out), generator=generator)
         if self.conv.bias is not None:
             nn.init.zeros_(self.conv.bias)

@@ -4,11 +4,14 @@ Counterpart of ``segdistill_tpu/ops/resize.py::resize`` (which rebuilds
 ``F.interpolate`` from interpolation matrices for the TPU). Layout is NCHW,
 or ``(B, H, W)`` for maps without channels. Bilinear and nearest, no
 antialiasing, with the ``align_corners`` contract of ``F.interpolate``.
+:class:`Upsample` is the module form (counterpart of
+``segdistill_tpu/ops/wrappers.py::Upsample``).
 """
 
 import math
 
 import torch.nn.functional as F
+from torch import nn
 
 
 def out_size(hw, size=None, scale_factor=None):
@@ -45,3 +48,20 @@ def resize(x, size=None, scale_factor=None, mode='bilinear',
     else:
         raise ValueError(f'unsupported resize mode: {mode}')
     return out.squeeze(1) if squeeze else out
+
+
+class Upsample(nn.Module):
+    """:func:`resize` as a parameter-free module (the reference's
+    ``mmseg.ops.Upsample``, a slot of FPNHead's scale heads)."""
+
+    def __init__(self, size=None, scale_factor=None, mode='nearest',
+                 align_corners=False):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        return resize(x, self.size, self.scale_factor, self.mode,
+                      self.align_corners)

@@ -78,6 +78,7 @@ LN_CASES = [(name, rows, c) for name, rows, c, _, _ in
 # (name, logits' shape, labels' size, share of labels ignored, the edge of
 # the source tile K6 must plan there: 0 is the gather variant). Each of
 # K6's variants at least twice, once with tiles cut by the map's edge.
+# 'train-vs-CPU batch' is also PointRend's FPNHead at its batch of 2.
 SEG_CE_CASES = [
     ('head CE bench', (8, 150, 128, 128), (512, 512), 0.05, 16),
     ('train-vs-CPU batch', (2, 150, 128, 128), (512, 512), 0.05, 16),
@@ -91,7 +92,18 @@ SEG_CE_CASES = [
     ('ratio 12.5', (1, 19, 24, 24), (300, 300), 0.05, 4),
     ('ratio ~11, odd', (2, 19, 18, 22), (217, 231), 0.05, 4),
     ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0.05, 0),
-    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0.05, 0)]
+    ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0.05, 0),
+    ('Cityscapes b2', (2, 19, 64, 128), (512, 1024), 0.05, 8),
+    ('PSANet b2', (2, 150, 64, 64), (512, 512), 0.05, 8)]
+# The configs/extra train paths' head CEs, bf16 at the configs' batch of 2
+# (name, the SEG_CE_CASES entry, K5 and K6 launches a step): the
+# Cityscapes PSPNet's decode and FCN auxiliary heads at 19 classes, stride
+# 8 of a 512 x 1024 crop; PSANet's decode and auxiliary heads at stride 8
+# of 512 x 512; PointRend's FPNHead at stride 4 (the point head's CE takes
+# no kernel).
+SEG_CE_PATH_CASES = [('Cityscapes PSPNet decode + aux', 'Cityscapes b2', 2),
+                     ('PSANet decode + aux', 'PSANet b2', 2),
+                     ('PointRend FPNHead', 'train-vs-CPU batch', 1)]
 
 # (name, maps' shape, output size, group size, channels permuted, the edge
 # of the source tile K4 must plan there: 0 is the gather variant). K4 keeps

@@ -1,15 +1,20 @@
-"""Where one distillation train step spends its time on a CUDA device: by
-default the CGD step of ``configs/exp_tab5/segformer_CGD.py`` (MiT-B0
-student, frozen MiT-B3 teacher), bf16 backbones, batch 8 at 512x512,
-random weights from seed 0, checkpoint paths cleared:
+"""Where one train step spends its time on a CUDA device: by default the
+CGD step of ``configs/exp_tab5/segformer_CGD.py`` (MiT-B0 student, frozen
+MiT-B3 teacher), bf16 backbones, batch 8 at 512x512, random weights from
+seed 0, checkpoint paths cleared; or a segmentor's own step (a config
+whose model is not an SDModule, e.g. ``configs/extra/*.py``: bf16
+backbone, its optimizer):
 
     python -m segdistill_tpu_torch.tools.profile_train [--steps 5]
         [--config configs/exp_tab5/segformer_PD.py] [--batch 8]
+        [--hw 512 1024]
         [--cfg-options model.cfg_s.backbone.fused_attention=train ...]
         [--ab model.cfg_s.backbone.fused_attention=False --pairs 5]
 
 1. The step's phases by CUDA events, ms per step: student forward with
-   the head CE, teacher forward, distillation loss, backward, AdamW.
+   the head CE, teacher forward, distillation loss, backward, AdamW (a
+   segmentor's own step: forward with the heads' losses, backward, the
+   optimizer).
 2. ``torch.profiler`` over ``--steps`` steps: wall and device-busy ms per
    step (the kernels' times summed, and the union of their intervals),
    kernels per step, copy kernels per step (the casts of the fp32
@@ -38,6 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..apis import init_segmentor_state, prepare_training
+from ..config import Config
 from ..engine import step_seed
 from ..models.segmentors import parse_losses
 
@@ -48,6 +54,8 @@ OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
            'model.cfg_s.pretrained': None,
            'model.cfg_s.backbone.dtype': 'bfloat16',
            'model.cfg_t.backbone.dtype': 'bfloat16'}
+# a segmentor trained on its own (configs/extra): its backbone in bf16
+OWN_OPTIONS = {'model.backbone.dtype': 'bfloat16'}
 BATCH = 8
 # kernel families, first match wins (device kernel names; K4, K6 and K8
 # are the tile kernel tile_bwd with the losses gkl_tile, ce_tile, pkl_tile;
@@ -67,7 +75,10 @@ FAMILIES = [
     ('layer norm', r'layer_norm|LayerNorm'),
     ('softmax', r'softmax'),
     ('upsample', r'upsample'),
-    ('optimizer', r'multi_tensor|adam|Adam'),
+    ('optimizer', r'multi_tensor|adam|Adam|sgd'),
+    ('pooling', r'pool'),
+    ('point sampling', r'grid_sampler'),
+    ('sort and top-k', r'sort|topk|radix'),
     ('reduction', r'reduce'),
     ('elementwise and copies', r'elementwise|vectorized|unrolled|copy|fill|'
                                r'cat|index|gather|scatter'),
@@ -85,6 +96,8 @@ def phase_times(model, optimizer, img, gt, steps):
     """Mean ms per step between CUDA events recorded at the phase edges
     (device time from the first kernel of a phase to its last, idle gaps
     included)."""
+    if not hasattr(model, 'teacher'):
+        return _own_phase_times(model, optimizer, img, gt, steps)
     names = ['student forward + head CE', 'teacher forward',
              'distillation loss', 'backward', 'AdamW']
     rows = []
@@ -110,6 +123,32 @@ def phase_times(model, optimizer, img, gt, steps):
         optimizer.step()
         ev[5].record()
         rows.append(ev)
+    _print_phases(names, rows)
+
+
+def _own_phase_times(model, optimizer, img, gt, steps):
+    """The phases of a segmentor's own step: forward with its heads'
+    losses, backward, the optimizer."""
+    names = ['forward + heads\' losses', 'backward', 'optimizer']
+    rows = []
+    for step in range(1, steps + 1):
+        gen = torch.Generator(device=img.device).manual_seed(
+            step_seed(0, step))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses, _ = model.forward_train(img, gt, generator=gen)
+        total, _ = parse_losses(losses)
+        ev[1].record()
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        rows.append(ev)
+    _print_phases(names, rows)
+
+
+def _print_phases(names, rows):
     torch.cuda.synchronize()
     ms = np.array([[a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
                    for ev in rows]).mean(axis=0)
@@ -238,28 +277,34 @@ def main():
     parser.add_argument('--ab', metavar='KEY=VALUE')
     parser.add_argument('--pairs', type=int, default=5)
     parser.add_argument('--batch', type=int, default=BATCH,
-                        help='images a step (the psp and swin configs '
-                             'train 2)')
+                        help='images a step (the psp, swin and extra '
+                             'configs train 2)')
+    parser.add_argument('--hw', type=int, nargs=2, default=(512, 512),
+                        help='the crop (the Cityscapes config: 512 1024)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_train needs a CUDA device')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    options = dict(OPTIONS, **dict(map(_option, args.cfg_options)))
+    own = Config.fromfile(args.config).model['type'] != 'SDModule'
+    options = dict(OWN_OPTIONS if own else OPTIONS,
+                   **dict(map(_option, args.cfg_options)))
     print(f'{args.config} {options}')
     model = init_segmentor_state(args.config, seed=0, device='cuda',
                                  cfg_options=options)
     state, train_step = prepare_training(model)
     gen = torch.Generator(device='cuda').manual_seed(0)
-    img = torch.randn(args.batch, 3, 512, 512, device='cuda', generator=gen)
-    gt = torch.randint(0, 150, (args.batch, 512, 512), device='cuda',
+    classes = getattr(model, 'student', model).num_classes
+    img = torch.randn(args.batch, 3, *args.hw, device='cuda', generator=gen)
+    gt = torch.randint(0, classes, (args.batch, *args.hw), device='cuda',
                        generator=gen)
     for _ in range(3):
         train_step(state, img, gt)
     torch.cuda.synchronize()
-    print(f'== 1. phases of a step, batch {args.batch}, bf16 backbones '
-          f'(CUDA events, mean of {args.steps} steps)')
+    print(f'== 1. phases of a step, batch {args.batch} at '
+          f'{args.hw[0]}x{args.hw[1]}, bf16 backbones (CUDA events, mean of '
+          f'{args.steps} steps)')
     phase_times(model, state.optimizer, img, gt, args.steps)
     print(f'== 2. torch.profiler over {args.steps} train steps')
     profile_steps(state, train_step, img, gt, args.steps)

@@ -7,12 +7,14 @@ tensor shows up as a mismatch; the port gets them through
 ``state_dict_from_jax``.
 """
 
+import contextlib
 import copy
 from collections.abc import Mapping
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 NUM_CLASSES = 19
 EMBED_DIM = 64
@@ -148,3 +150,91 @@ def leaves(tree, prefix=''):
             yield from leaves(v, f'{prefix}{k}/')
         else:
             yield f'{prefix}{k}', np.asarray(v)
+
+
+# The configs/extra models, narrow: a ResNetV1c of stem 16 and base 8
+# (stage widths 32, 64, 128, 256), d8 (PSANet, PSPNet) or d32 with the FPN
+# neck (PointRend), 19 classes, dropout 0 (JAX's PRNG cannot be matched).
+def resnet_v1c(d8=True):
+    return dict(type='ResNetV1c', depth=50, stem_channels=16, base_channels=8,
+                num_stages=4, out_indices=(0, 1, 2, 3),
+                dilations=(1, 1, 2, 4) if d8 else (1, 1, 1, 1),
+                strides=(1, 2, 1, 1) if d8 else (1, 2, 2, 2),
+                norm_cfg=dict(NORM), norm_eval=False, style='pytorch',
+                contract_dilation=True)
+
+
+def fcn_aux():
+    """The configs' FCN auxiliary head on stage 3, loss weight 0.4."""
+    return dict(type='FCNHead', in_channels=128, in_index=2, channels=8,
+                num_convs=1, concat_input=False, dropout_ratio=0.0,
+                num_classes=NUM_CLASSES, norm_cfg=dict(NORM),
+                align_corners=False,
+                loss_decode=dict(CE_LOSS, loss_weight=0.4))
+
+
+def psanet_cfg(mask_size=(5, 5), test_cfg=None):
+    """PSANet (``configs/extra/psanet_r50_ade.py``), narrow: a 5 x 5 window
+    on the shrunk stride-8 map, so positions see part of the map."""
+    return dict(
+        type='EncoderDecoder', backbone=resnet_v1c(),
+        decode_head=dict(type='PSAHead', in_channels=256, in_index=3,
+                         channels=16, mask_size=mask_size,
+                         psa_type='bi-direction', compact=False,
+                         shrink_factor=2, normalization_factor=1.0,
+                         psa_softmax=True, dropout_ratio=0.0,
+                         num_classes=NUM_CLASSES, norm_cfg=dict(NORM),
+                         align_corners=False, loss_decode=dict(CE_LOSS)),
+        auxiliary_head=fcn_aux(),
+        test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
+
+
+POINT_HEAD = dict(type='PointHead', in_channels=[16], in_index=[0],
+                  channels=16, num_fcs=3, coarse_pred_each_layer=True,
+                  dropout_ratio=-1, num_classes=NUM_CLASSES,
+                  align_corners=False, loss_decode=dict(CE_LOSS),
+                  num_points=48, oversample_ratio=3,
+                  importance_sample_ratio=0.75, subdivision_steps=2,
+                  subdivision_num_points=100, scale_factor=2)
+
+
+def pointrend_cfg(test_cfg=None):
+    """PointRend (``configs/extra/pointrend_r50_ade.py``), narrow: FPN of
+    16 channels, FPNHead of 8, PointHead of 16 with 48 training points and
+    100 refined points a subdivision step."""
+    return dict(
+        type='CascadeEncoderDecoder', num_stages=2,
+        backbone=resnet_v1c(d8=False),
+        neck=dict(type='FPN', in_channels=[32, 64, 128, 256],
+                  out_channels=16, num_outs=4),
+        decode_head=[
+            dict(type='FPNHead', in_channels=[16, 16, 16, 16],
+                 in_index=[0, 1, 2, 3], feature_strides=[4, 8, 16, 32],
+                 channels=8, dropout_ratio=-1, num_classes=NUM_CLASSES,
+                 norm_cfg=dict(NORM), align_corners=False,
+                 loss_decode=dict(CE_LOSS)),
+            dict(POINT_HEAD)],
+        test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
+
+
+def psp_city_cfg(test_cfg=None):
+    """PSPNet with the FCN auxiliary head
+    (``configs/extra/pspnet_r50_cityscapes_slide.py``), narrow."""
+    cfg = psp_cfg(50, dropout_ratio=0.0, test_cfg=test_cfg)
+    cfg['auxiliary_head'] = fcn_aux()
+    return cfg
+
+
+@contextlib.contextmanager
+def float64_kept():
+    """Within the block, ``Tensor.float()`` leaves a float64 tensor as it
+    is, so that a port model moved to float64 (``.double()``, its
+    backbone's ``dtype`` float64) computes in float64 throughout: its norms,
+    losses and plain kernel versions upcast with ``.float()``."""
+    upcast = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t if t.dtype == torch.float64 \
+        else upcast(t, *a, **k)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = upcast
