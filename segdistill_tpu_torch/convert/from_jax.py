@@ -1,6 +1,6 @@
-"""JAX variables -> this package's state dict, for the MiT, ResNet and
-Swin backbones, the FPN neck and the SegFormer, PSP, UPer, FCN, PSA, FPN
-and point heads.
+"""JAX variables -> this package's state dict, for the MiT, ResNet, Swin,
+HRNet and MobileNetV2/V3 backbones, the FPN neck and the SegFormer, PSP,
+UPer, FCN, PSA, FPN, point, ASPP, separable ASPP, LRASPP and OCR heads.
 
 The inverse of ``segdistill_tpu/convert/torch_loader.py``'s rules: conv
 kernels HWIO -> OIHW, Dense kernels (I, O) -> (O, I), norm ``scale`` ->
@@ -21,7 +21,20 @@ target ``keys`` say so), a pyramid branch ``psp_modules.pool_0`` ->
 convs (``fcs.*``) and ``fc_seg`` -> Conv1d weights (O, I, 1); the head's
 Dense params ``linear_c4`` -> ``linear_c4.proj``, UPer's
 ``psp_bottleneck`` -> ``bottleneck``, Swin's ``patch_embed_proj`` ->
-``patch_embed.proj``. Swin's bias tables keep their
+``patch_embed.proj``; ASPP's ``image_pool_conv`` -> ``image_pool.1`` and
+``aspp_{i}`` -> ``aspp_modules.{i}``, DeepLabV3+'s ``sep_conv{1,2}`` ->
+``sep_bottleneck.{0,1}``, LRASPP's bare ``convs_{i}`` -> ``convs.conv{i}``
+and ``conv_ups_{i}`` -> ``conv_ups.conv_up{i}``, OCR's
+``object_attention`` -> ``object_context_block`` and ``conv_bn`` -> its
+``bottleneck``, a SelfAttentionBlock's ``key_project_{i}`` ->
+``key_project[.{i}]`` (a bare conv without its ``.conv`` where it has no
+norm), an MNv2 block's ``expand_conv``/``depthwise_conv``/``linear_conv``
+-> ``conv.{0,1,2}`` (``conv.{0,1}`` without the expansion), HRNet's
+``transition{s}_{i}[_{k}]`` -> ``transition{s}.{i}[.{k}]``,
+``stage{s}_m{m}_b{b}.block_{k}`` -> ``stage{s}.{m}.branches.{b}.{k}`` and
+``stage{s}_m{m}_fuse.fuse_{i}_{j}[_{k}]`` ->
+``stage{s}.{m}.fuse_layers.{i}.{j}[.{k}]`` (a conv/BN pair at slots 0/1);
+a PReLU's ``weight`` keeps its name. Swin's bias tables keep their
 name, and each gets the ``relative_position_index`` buffer the reference
 ``.pth`` carries. Takes the ``{'params', 'batch_stats'}`` tree as numpy
 arrays (or anything ``np.asarray`` reads), or an SDModule's ``{'student',
@@ -39,7 +52,31 @@ import torch
 
 _STEM = {'conv1': 'stem.0', 'bn1': 'stem.1', 'conv2': 'stem.3',
          'bn2': 'stem.4', 'conv3': 'stem.6', 'bn3': 'stem.7'}
+# the names of this slice's heads and backbones: ASPP's image pool and
+# branches, DeepLabV3+'s separable bottleneck, LRASPP's named Sequential
+# slots (``convs_0`` a bare conv, FCNHead's a ConvModule), OCR's object
+# attention block, HRNet's transitions (``transition1_1_0``: a branch's
+# chain step), branches and fuse slots, each conv/BN pair a Sequential
 _MODULE_RULES = [
+    (re.compile(r'\bimage_pool_conv\b'), 'image_pool.1'),
+    (re.compile(r'\baspp_(\d+)\b'), r'aspp_modules.\1'),
+    (re.compile(r'\bsep_conv([12])\b'),
+     lambda m: f'sep_bottleneck.{int(m.group(1)) - 1}'),
+    (re.compile(r'\bconvs_(\d+)$'), r'convs.conv\1'),
+    (re.compile(r'\bconv_ups_(\d+)\b'), r'conv_ups.conv_up\1'),
+    (re.compile(r'\bconv_bn\b'), 'object_context_block.bottleneck'),
+    (re.compile(r'\bobject_attention\b'), 'object_context_block'),
+    (re.compile(r'\btransition(\d)_(\d+)(?:_(\d+))?\.(conv|bn\.bn)$'),
+     lambda m: f'transition{m.group(1)}.{m.group(2)}.'
+               + (f'{m.group(3)}.' if m.group(3) else '')
+               + ('0' if m.group(4) == 'conv' else '1')),
+    (re.compile(r'\bstage(\d)_m(\d+)_b(\d+)\.block_(\d+)\b'),
+     r'stage\1.\2.branches.\3.\4'),
+    (re.compile(r'\bstage(\d)_m(\d+)_fuse\.fuse_(\d+)_(\d+)(?:_(\d+))?'
+                r'\.(conv|bn\.bn)$'),
+     lambda m: f'stage{m.group(1)}.{m.group(2)}.fuse_layers.{m.group(3)}.'
+               f'{m.group(4)}.' + (f'{m.group(5)}.' if m.group(5) else '')
+               + ('0' if m.group(6) == 'conv' else '1')),
     (re.compile(r'\bblock(\d+)_(\d+)\b'), r'block\1.\2'),
     (re.compile(r'\blayer(\d+)_(\d+)\b'), r'layer\1.\2'),
     (re.compile(r'\blayers_(\d+)_blocks_(\d+)\b'), r'layers.\1.blocks.\2'),
@@ -74,8 +111,34 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def _module_name(path):
-    name = '.'.join(path)
+# names whose reference form depends on their siblings: an MNv2
+# InvertedResidual's Sequential slots (no expansion conv at expand ratio 1:
+# the depthwise conv moves to slot 0), and a SelfAttentionBlock projection
+# (a Sequential only where it has several convs; a bare conv where it has
+# no norm, so the ConvModule's ``conv`` goes)
+_MNV2_SLOT = re.compile(r'\b(layer\d+_\d+)\.(expand_conv|depthwise_conv|'
+                        r'linear_conv)\b')
+_PROJECT = re.compile(r'\b((key|query|value|out)_project)_(\d+)(\.conv)?\b')
+
+
+def _in_context(name, names):
+    def mnv2(m):
+        prefix = name[:m.start()] + m.group(1)
+        slot = ('expand_conv', 'depthwise_conv', 'linear_conv').index(
+            m.group(2)) - (f'{prefix}.expand_conv' not in names)
+        return f'{m.group(1)}.conv.{slot}'
+
+    def project(m):
+        prefix = name[:m.start()] + m.group(1)
+        many = f'{prefix}_1' in names
+        bare = f'{prefix}_{m.group(3)}.bn' not in names
+        return m.group(1) + (f'.{m.group(3)}' if many else '') + \
+            ('' if bare else m.group(4) or '')
+    return _PROJECT.sub(project, _MNV2_SLOT.sub(mnv2, name))
+
+
+def _module_name(path, names=()):
+    name = _in_context('.'.join(path), names)
     for pat, repl in _MODULE_RULES:
         name = pat.sub(repl, name)
     return name
@@ -137,10 +200,14 @@ def _state_dict(variables):
 
 def _segmentor_state(variables):
     out = {}
+    names = {'.'.join(path[:i + 1])
+             for col in ('params', 'batch_stats')
+             for path, _ in _flatten(variables.get(col, {}))
+             for i in range(len(path))}
     for col in ('params', 'batch_stats'):
         for (*path, leaf), value in _flatten(variables.get(col, {})):
             arr = np.asarray(value)
-            module = _module_name(path)
+            module = _module_name(path, names)
             if col == 'batch_stats':
                 if leaf not in _STATS:
                     raise KeyError(f'unknown batch_stats leaf {path}/{leaf}')
@@ -164,7 +231,7 @@ def _segmentor_state(variables):
             elif leaf == 'relative_position_bias_table':
                 out[f'{module}.relative_position_index'] = \
                     _relative_position_index(arr.shape[0])
-            elif leaf != 'bias':
+            elif leaf not in ('bias', 'weight'):  # PReLU's slopes: weight
                 raise KeyError(f'unknown parameter {"/".join(path)}/{leaf}')
             out[f'{module}.{leaf}'] = torch.from_numpy(np.ascontiguousarray(
                 arr, dtype=np.float64 if arr.dtype == np.float64

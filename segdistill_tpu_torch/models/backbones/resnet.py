@@ -20,15 +20,14 @@ Every residual block's output is a tap under its module name
 (``backbone.layer4.2``), as the JAX package sows it.
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..builder import BACKBONES
 from ..utils import build_norm_layer, tap
-from ..utils.conv_module import Conv2d
+from ..utils.conv_module import Conv2d, init_conv_norm
+from ..utils.norm import NormEvalModule
 from .mix_transformer import _torch_dtype
 
 
@@ -101,7 +100,7 @@ def _downsample(inplanes, features, stride, avg_down, norm_cfg):
 
 
 @BACKBONES.register_module()
-class ResNet(nn.Module):
+class ResNet(NormEvalModule):
     """Returns the stage maps of ``out_indices`` (NCHW)."""
 
     arch_settings = {
@@ -173,29 +172,12 @@ class ResNet(nn.Module):
             self.res_layers.append(name)
             planes *= 2
 
-    def train(self, mode=True):
-        super().train(mode)
-        if mode and self.norm_eval:
-            for m in self.modules():
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    m.eval()
-        return self
-
     @torch.no_grad()
     def init_weights(self, generator):
         """He-normal convs (fan_out, ReLU gain) and unit BN, as the
         reference initialises without a checkpoint; with
         ``zero_init_residual`` each block's last BN weight is 0."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_out = (m.kernel_size[0] * m.kernel_size[1]
-                           * m.out_channels // m.groups)
-                m.weight.normal_(0, math.sqrt(2.0 / fan_out),
-                                 generator=generator)
-            elif isinstance(m, (nn.modules.batchnorm._BatchNorm,
-                                nn.GroupNorm)):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        init_conv_norm(self, generator)
         if self.zero_init_residual:
             for m in self.modules():
                 if isinstance(m, (BasicBlock, Bottleneck)):

@@ -47,7 +47,9 @@ class BaseDecodeHead(nn.Module):
                  loss_decode=None, decoder_params=None, ignore_index=255,
                  sampler=None, align_corners=False):
         super().__init__()
-        self.in_channels = in_channels
+        # resize_concat: the maps are concatenated (ref :108-138)
+        self.in_channels = sum(in_channels) \
+            if input_transform == 'resize_concat' else in_channels
         self.channels = channels
         self.num_classes = num_classes
         self.norm_cfg = norm_cfg

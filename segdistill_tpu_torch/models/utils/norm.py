@@ -77,6 +77,21 @@ class LayerNorm2d(nn.LayerNorm):
         return y.permute(0, 3, 1, 2).to(x.dtype)
 
 
+class NormEvalModule(nn.Module):
+    """A backbone whose ``norm_eval`` keeps every BN in eval mode while the
+    rest trains (the reference backbones' ``train`` override)."""
+
+    norm_eval = False
+
+    def train(self, mode=True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
+
+
 def build_norm_layer(norm_cfg, num_features):
     """-> (name, layer), as mmcv's ``build_norm_layer``: the name ('bn',
     'gn', 'ln') is the attribute the layer sits under in the reference."""

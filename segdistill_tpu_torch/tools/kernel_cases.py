@@ -94,16 +94,28 @@ SEG_CE_CASES = [
     ('ratio 32 (gather)', (1, 19, 8, 8), (256, 256), 0.05, 0),
     ('ratio 30, odd (gather)', (2, 19, 10, 9), (300, 270), 0.05, 0),
     ('Cityscapes b2', (2, 19, 64, 128), (512, 1024), 0.05, 8),
-    ('PSANet b2', (2, 150, 64, 64), (512, 512), 0.05, 8)]
-# The configs/extra train paths' head CEs, bf16 at the configs' batch of 2
-# (name, the SEG_CE_CASES entry, K5 and K6 launches a step): the
+    ('PSANet b2', (2, 150, 64, 64), (512, 512), 0.05, 8),
+    ('Cityscapes b2 ratio 4', (2, 19, 128, 256), (512, 1024), 0.05, 16),
+    ('Cityscapes b2 ratio 2', (2, 19, 256, 512), (512, 1024), 0.05, 16)]
+# The train paths' head CEs on the SGD recipes, bf16 at the configs' batch
+# of 2 (name, the SEG_CE_CASES entry, K5 and K6 launches a step at it): the
 # Cityscapes PSPNet's decode and FCN auxiliary heads at 19 classes, stride
 # 8 of a 512 x 1024 crop; PSANet's decode and auxiliary heads at stride 8
 # of 512 x 512; PointRend's FPNHead at stride 4 (the point head's CE takes
-# no kernel).
-SEG_CE_PATH_CASES = [('Cityscapes PSPNet decode + aux', 'Cityscapes b2', 2),
-                     ('PSANet decode + aux', 'PSANet b2', 2),
-                     ('PointRend FPNHead', 'train-vs-CPU batch', 1)]
+# no kernel); the Cityscapes recipes of ``recipes.py``: OCRNet-HR18's FCN
+# and OCR heads, FCN-HR18's and the DeepLabV3+ heads (ResNet and
+# MobileNetV2) at stride 4, their FCN auxiliary heads, DeepLabV3's and
+# OCRNet-R50's two heads at stride 8, and LRASPP's at stride 2.
+SEG_CE_PATH_CASES = [
+    ('Cityscapes PSPNet decode + aux', 'Cityscapes b2', 2),
+    ('PSANet decode + aux', 'PSANet b2', 2),
+    ('PointRend FPNHead', 'train-vs-CPU batch', 1),
+    ('OCRNet-HR18 FCN + OCR', 'Cityscapes b2 ratio 4', 2),
+    ('FCN-HR18', 'Cityscapes b2 ratio 4', 1),
+    ('DeepLabV3+ sep-ASPP (R50, MNv2)', 'Cityscapes b2 ratio 4', 1),
+    ('DeepLabV3+ FCN aux (R50, MNv2)', 'Cityscapes b2', 1),
+    ('DeepLabV3-R50, OCRNet-R50 (2 heads)', 'Cityscapes b2', 2),
+    ('LRASPP-MobileNetV3', 'Cityscapes b2 ratio 2', 1)]
 
 # (name, maps' shape, output size, group size, channels permuted, the edge
 # of the source tile K4 must plan there: 0 is the gather variant). K4 keeps

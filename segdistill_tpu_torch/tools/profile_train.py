@@ -6,7 +6,8 @@ whose model is not an SDModule, e.g. ``configs/extra/*.py``: bf16
 backbone, its optimizer):
 
     python -m segdistill_tpu_torch.tools.profile_train [--steps 5]
-        [--config configs/exp_tab5/segformer_PD.py] [--batch 8]
+        [--config configs/exp_tab5/segformer_PD.py | --recipe ocrnet_hr18]
+        [--batch 8]
         [--hw 512 1024]
         [--cfg-options model.cfg_s.backbone.fused_attention=train ...]
         [--ab model.cfg_s.backbone.fused_attention=False --pairs 5]
@@ -27,6 +28,8 @@ backbone, its optimizer):
    the order A B B A: ms per step of each round on the host clock, and
    each arm's median and peak memory.
 
+``--recipe`` names a Cityscapes recipe of ``recipes.py`` (a model fragment
+composed with the Cityscapes bases in memory) in place of ``--config``.
 ``--cfg-options`` values are Python literals (``None``, ``False``, 1.5) or
 else strings. The first line is the card's name and power limit.
 """
@@ -46,6 +49,7 @@ from ..apis import init_segmentor_state, prepare_training
 from ..config import Config
 from ..engine import step_seed
 from ..models.segmentors import parse_losses
+from ..recipes import RECIPES, cityscapes_recipe
 
 CONFIG = Path(__file__).resolve().parents[2] / 'configs' / 'exp_tab5' / \
     'segformer_CGD.py'
@@ -74,6 +78,7 @@ FAMILIES = [
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),
     ('layer norm', r'layer_norm|LayerNorm'),
     ('softmax', r'softmax'),
+    ('upsample backward', r'upsample\w*backward'),
     ('upsample', r'upsample'),
     ('optimizer', r'multi_tensor|adam|Adam|sgd'),
     ('pooling', r'pool'),
@@ -272,6 +277,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--config', default=str(CONFIG))
+    parser.add_argument('--recipe', choices=sorted(RECIPES),
+                        help='a Cityscapes recipe of recipes.py, in place '
+                             'of --config')
     parser.add_argument('--cfg-options', nargs='*', default=[],
                         metavar='KEY=VALUE')
     parser.add_argument('--ab', metavar='KEY=VALUE')
@@ -287,11 +295,13 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    own = Config.fromfile(args.config).model['type'] != 'SDModule'
+    config = cityscapes_recipe(args.recipe) if args.recipe \
+        else Config.fromfile(args.config)
+    own = config.model['type'] != 'SDModule'
     options = dict(OWN_OPTIONS if own else OPTIONS,
                    **dict(map(_option, args.cfg_options)))
-    print(f'{args.config} {options}')
-    model = init_segmentor_state(args.config, seed=0, device='cuda',
+    print(f'{args.recipe or args.config} {options}')
+    model = init_segmentor_state(config, seed=0, device='cuda',
                                  cfg_options=options)
     state, train_step = prepare_training(model)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -310,7 +320,7 @@ def main():
     profile_steps(state, train_step, img, gt, args.steps)
     if args.ab:
         key, value = _option(args.ab)
-        other = init_segmentor_state(args.config, seed=0, device='cuda',
+        other = init_segmentor_state(config, seed=0, device='cuda',
                                      cfg_options=dict(options, **{key: value}))
         other.load_state_dict(model.state_dict())
         other_state, other_step = prepare_training(other)
