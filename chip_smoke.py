@@ -83,9 +83,29 @@ against the CPU (the step's gradients against the CPU in float64). The
 seg-CE phase (6) also holds K5/K6 at those paths' shapes (C = 19 at (2,
 19, h, w) -> 512x1024 at ratios 2, 4 and 8; C = 150 at (2, 150, 64, 64)
 and (2, 150, 128, 128) -> 512x512) and prints their device times beside
-their bounds; the kernels line adds K5 and K6 at ratios 2 and 4. The
-launch count of each kernel is read over each main path (9, 10, 12, 14,
-15-18, 22-27, 31-37).
+their bounds; the kernels line adds K5 and K6 at ratios 2 and 4. Then
+this slice: (48, 49) the multi-teacher CGD steps of ``recipes.py``
+(``SDModuleMT``: B0 student, B2 and B3 teachers, bf16 backbones, batch 8 at
+512x512, 2 + 10 steps), aligned (one CGD entry a teacher) and the random
+ensemble (one teacher a step), each step's launches held to the forwards
+it ran (K1 3 / 2, K3/K4 2 / 1, K10 172 / 83 or 119 by the teacher the step
+drew, K11 30, K5/K6 1); (50, 51) an fp32 step of each at batch 2 and
+256x256 against the CPU, the permutation and the teacher injected;
+(52-57) the SGD steps of the Fast-SCNN, CGNet and PSPNet-ResNeSt-101-d8
+Cityscapes recipes (batch 2 at 512x1024) and of the three UNet recipes on
+HRF (batch 4 at 256x256; K5/K6 at 2 classes, ratios 1 and 2, the
+launches counted at each geometry), 2 + 3 steps each with its K5/K6
+launches a step; (58-63) the Cityscapes three served at 1024x2048 in
+whole mode, FCN-UNet's HRF recipe a 2336x3504 request and the other two
+fragments' DRIVE recipes a 584x565 one in slide mode, the windows counted
+against the slide grid; (64-69) every head's fp32 eval logits and one
+train step of each at batch 1 against the CPU (the gradients against the
+CPU in float64); (70) ResNeXt-50 32x4d, which no recipe uses, as a
+backbone alone against the CPU at three seeds. The seg-CE phase (6) also
+holds K5/K6 at the UNet shapes ((4, 2, 256, 256) and (4, 2, 128, 128) ->
+256x256), which the kernels line adds with the UNet steps' launches at
+each. The launch count of each kernel is read over each
+main path (9, 10, 12, 14, 15-18, 22-27, 31-37, 48, 49, 52-57).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -169,6 +189,58 @@ ZOO_VS_CPU_HW = (256, 512)
 # whose train steps launch them there and nowhere else)
 ZOO_CE_GEOMETRIES = [('Cityscapes b2 ratio 2', ('lraspp_m-v3-d8',)),
                      ('Cityscapes b2 ratio 4', ('ocrnet_hr18', 'fcn_hr18'))]
+# the multi-teacher CGD steps of recipes.py (B0 <- B2 + B3, bf16 backbones,
+# batch 8 at 512x512): aligned (one CGD entry a teacher) and the random
+# ensemble (one teacher a step); their fp32 steps against the CPU at batch
+# 2 and 256x256
+MT_PATHS = [('mt_cgd_aligned', 'MT aligned'), ('mt_cgd_random', 'MT random')]
+MT_VS_CPU_BATCH, MT_VS_CPU_HW = 2, 256
+# K10 launches in one forward of a MiT: two LayerNorms a block, the
+# spatial-reduction norm of each block of a stage at sr_ratio > 1, and a
+# patch embedding's and a stage's norm a stage (B0 (2, 2, 2, 2) blocks: 30;
+# B2 (3, 4, 6, 3): 53; B3 (3, 4, 18, 3): 89)
+MIT_LN = {'b0': 30, 'b2': 53, 'b3': 89}
+# this slice's recipes of recipes.py: (recipe, tag, classes, train crop,
+# batch, K5/K6 launches a train step). Fast-SCNN's heads take the sigmoid
+# CE and CGNet's the class-weighted CE: neither reaches K5/K6. Each 2 + 3
+# steps, bf16 backbone.
+ZOO2_PATHS = [
+    ('fast_scnn', 'Fast-SCNN', 19, (512, 1024), 2, 0),
+    ('cgnet', 'CGNet', 19, (512, 1024), 2, 0),
+    ('pspnet_s101-d8', 'PSPNet-ResNeSt-101-d8', 19, (512, 1024), 2, 2),
+    ('fcn_unet_s5-d16', 'FCN-UNet-S5-D16 (HRF)', 2, (256, 256), 4, 2),
+    ('pspnet_unet_s5-d16', 'PSPNet-UNet-S5-D16 (HRF)', 2, (256, 256), 4, 2),
+    ('deeplabv3_unet_s5-d16', 'DeepLabV3-UNet-S5-D16 (HRF)', 2, (256, 256),
+     4, 2)]
+ZOO2_STEPS = 3
+ZOO2_VS_CPU_HW = {19: (256, 512), 2: (256, 256)}
+# UNet requests: an HRF image (2336x3504) to the FCN recipe on HRF (256x256
+# windows at stride 170), a DRIVE image (584x565) to the other two
+# fragments' DRIVE recipes (64x64 windows at stride 42)
+HRF_REQUEST_HW, DRIVE_REQUEST_HW = (2336, 3504), (584, 565)
+# K5/K6 at the UNet recipes' geometries, 2 classes: the decode head at
+# stride 1 and the FCN auxiliary head at stride 2 of the 256x256 crop, one
+# launch of each a step
+UNET_CE_GEOMETRIES = ['HRF b4 ratio 1', 'HRF b4 ratio 2']
+# a train path's K5/K6 launches by geometry: tag -> kernel name ->
+# {(B, C, h, w, H, W): launches} (ops/seg_ce.py's LAUNCHES_BY_SHAPE)
+CE_SHAPE_LAUNCHES = {}
+# ResNeXt, which no recipe uses: the 50-layer 32x4d backbone alone, fp32,
+# train mode, batch 2
+RESNEXT = dict(type='ResNeXt', depth=50, groups=32, base_width=4,
+               num_stages=4, out_indices=(0, 1, 2, 3),
+               norm_cfg=dict(type='SyncBN', requires_grad=True),
+               norm_eval=False, style='pytorch')
+RESNEXT_HW = (256, 512)
+# ResNeXt's seeds. An fp32 evaluation of this step lies ~1e-3 from float64
+#   on either device, most of it in the stem conv's weight gradient (a sum
+#   over every input pixel), and one draw can land far nearer: at seed 1 an
+#   H100 read 1.33e-3 against the CPU fp32 run's 7.0e-5, at seeds 0 and 2
+#   1.07e-3 / 1.29e-3 against 9.2e-4 / 1.38e-3. So the floor of the fp32
+#   limit is the largest CPU reading over the seeds, not each seed's own.
+RESNEXT_SEEDS = (0, 1, 2)
+# the card's float64 gradients against the CPU's (8e-15 read on an H100)
+RESNEXT_F64_TOL_REL_L2 = 1e-10
 # the command-line phase: dataset size, iterations, and where it saves and
 # evaluates
 CLI_TRAIN_IMAGES, CLI_VAL_IMAGES = 32, 8
@@ -1444,11 +1516,11 @@ def phase_train(path_kernels, config, options, tag, batch=TRAIN_BATCH,
     return launches, logs[-1]
 
 
-def _loss_and_grads(model, img, gt, perm):
+def _loss_and_grads(model, img, gt, perm, **kw):
     from segdistill_tpu_torch.models.segmentors import parse_losses
     model.zero_grad(set_to_none=True)
     total, log_vars = parse_losses(model.forward_train(img, gt, 1000,
-                                                       perm=perm))
+                                                       perm=perm, **kw))
     total.backward()
     return ({k: float(v.detach()) for k, v in log_vars.items()},
             {n: p.grad.detach().cpu() for n, p in
@@ -1554,28 +1626,32 @@ def _config(config):
 
 def _ce_weights(model):
     """{'<prefix>.loss_seg': the head's loss weight} of every head whose
-    loss is the softmax CE (a point head's is not)."""
+    loss is the softmax CE without class weights (a point head's is not,
+    nor Fast-SCNN's sigmoid CE or CGNet's class-weighted CE)."""
     heads = model.decode_head
     named = [(f'decode_{i}', h) for i, h in enumerate(heads)] \
         if isinstance(heads, torch.nn.ModuleList) else [('decode', heads)]
     named += model._aux_heads()
     return {f'{prefix}.loss_seg': head._loss_cfg().get('loss_weight', 1.0)
             for prefix, head in named
-            if type(head).__name__ != 'PointHead'}
+            if type(head).__name__ != 'PointHead'
+            and not head._loss_cfg().get('use_sigmoid', False)
+            and head._loss_cfg().get('class_weight') is None}
 
 
 def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
-                      steps=TRAIN_STEPS):
+                      steps=TRAIN_STEPS, batch=EXTRA_BATCH):
     """A segmentor's own train step (its config's SGD and poly LR) with a
-    bf16 backbone at the config's batch of 2: -> the launch counts of
-    ``path_kernels`` over the ``steps`` timed steps, which must be
-    ``per_step`` a step each. ``config``: a config file, or a composed
-    :class:`Config`."""
+    bf16 backbone at the config's batch (2; the HRF recipes 4): -> the
+    launch counts of ``path_kernels`` over the ``steps`` timed steps,
+    which must be ``per_step`` a step each. ``config``: a config file, or
+    a composed :class:`Config`."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
+    from segdistill_tpu_torch.ops import seg_ce
     source = config.name if isinstance(config, Path) else 'recipes.py'
     log(f'== train: {tag} ({source}), bf16 backbone, batch '
-        f'{EXTRA_BATCH} at {hw[0]}x{hw[1]}, {classes} classes, random weights '
+        f'{batch} at {hw[0]}x{hw[1]}, {classes} classes, random weights '
         f'(seed 0)')
     t0 = time.perf_counter()
     model = init_segmentor_state(
@@ -1585,7 +1661,7 @@ def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
     if type(state.optimizer) is not torch.optim.SGD:
         raise AssertionError(f'{tag}: built {type(state.optimizer).__name__}'
                              f', the config asks for SGD')
-    img, gt = _extra_batch(EXTRA_BATCH, classes, hw, seed=5)
+    img, gt = _extra_batch(batch, classes, hw, seed=5)
     log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
     first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
     torch.cuda.synchronize()
@@ -1595,17 +1671,21 @@ def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
     # the training path: every launch count starts at 0 here
     for k in path_kernels:
         k.launches = 0
+    for by_shape in seg_ce.LAUNCHES_BY_SHAPE.values():
+        by_shape.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logs = [train_step(state, img, gt) for _ in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k.name: k.launches for k in path_kernels}
+    CE_SHAPE_LAUNCHES[tag] = {name: dict(by_shape) for name, by_shape
+                              in seg_ce.LAUNCHES_BY_SHAPE.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f'step {state.step}: ' + ', '.join(
         f'{k} {float(v):.6g}' for k, v in sorted(logs[-1].items())))
     log(f'train step {seconds / steps * 1e3:.2f} ms, '
-        f'{EXTRA_BATCH * steps / seconds:.2f} images/s over '
+        f'{batch * steps / seconds:.2f} images/s over '
         f'{steps} steps; peak memory allocated {peak / 2**30:.2f} GiB')
     log(f'launches during the {tag} training path: {launches}')
     for name, n in launches.items():
@@ -2047,6 +2127,289 @@ def _pd_loss_check(last):
         raise AssertionError(f'the PD loss is {value}')
 
 
+def phase_train_mt(kernels, name, tag):
+    """A multi-teacher CGD step of ``recipes.py`` (B0 student, B2 and B3
+    teachers, bf16 backbones, batch 8 at 512x512) through
+    ``prepare_training``'s step, 2 + 10 steps: -> the launch counts of
+    ``kernels`` (K1, K3, K4, K5, K6, K10, K11) over the timed steps, each
+    step's counts held to its forwards: aligned, three SegFormer heads (K1),
+    two CGD entries (K3/K4) and the LayerNorms of all three MiTs (K10);
+    the random ensemble, the student's and the drawn teacher's
+    (``draw_teacher_index`` of the step's seed, which each step's K10 count
+    must show); the student's head CE (K5/K6) and its backward's
+    LayerNorms (K11) either way."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine import step_seed
+    from segdistill_tpu_torch.models.segmentors import draw_teacher_index
+    from segdistill_tpu_torch.recipes import (MT_TEACHERS, mt_bf16_options,
+                                              mt_recipe)
+    k1, k3, k4, k5, k6, k10, k11 = kernels
+    log(f'== train: {tag} ({name}, recipes.py), B0 student <- '
+        f'{" + ".join(v.upper() for v in MT_TEACHERS)} teachers, bf16 '
+        f'backbones, batch {TRAIN_BATCH} at 512x512, random weights (seed 0)')
+    t0 = time.perf_counter()
+    config = mt_recipe(name)
+    model = init_segmentor_state(config, seed=0, device=DEVICE,
+                                 cfg_options=mt_bf16_options(config))
+    state, train_step = prepare_training(model)
+    img, gt = _train_batch(TRAIN_BATCH, seed=5)
+    log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
+    first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
+    torch.cuda.synchronize()
+    log('step 1: ' + ', '.join(f'{k} {float(v):.6g}'
+                               for k, v in sorted(first.items())))
+    aligned = not model.random_ensemble
+    teacher_ln = [MIT_LN[v] for v in MT_TEACHERS]
+
+    # the training path: every launch count starts at 0 here
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logs, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        before = [k.launches for k in kernels]
+        step = state.step + 1
+        logs.append(train_step(state, img, gt))
+        drawn = None if aligned else draw_teacher_index(
+            step_seed(state.seed, step), len(MT_TEACHERS))
+        per_step.append((drawn, {k.name: k.launches - b
+                                 for k, b in zip(kernels, before)}))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'step {state.step}: ' + ', '.join(
+        f'{k} {float(v):.6g}' for k, v in sorted(logs[-1].items())))
+    log(f'train step {seconds / TRAIN_STEPS * 1e3:.2f} ms, '
+        f'{TRAIN_BATCH * TRAIN_STEPS / seconds:.2f} images/s over '
+        f'{TRAIN_STEPS} steps; peak memory allocated {peak / 2**30:.2f} GiB')
+    log(f'launches during the {tag} training path: {launches}')
+    log(f'{tag}: per step, the teacher drawn and K10\'s launches: '
+        + ', '.join(f'{"both" if d is None else MT_TEACHERS[d]} '
+                    f'{got[k10.name]}' for d, got in per_step))
+    for i, (drawn, got) in enumerate(per_step):
+        n = len(MT_TEACHERS) if aligned else 1
+        want = {k1.name: 1 + n, k3.name: n, k4.name: n, k5.name: 1,
+                k6.name: 1, k11.name: MIT_LN['b0'],
+                k10.name: MIT_LN['b0'] + (sum(teacher_ln) if aligned
+                                          else teacher_ln[drawn])}
+        if got != want:
+            raise AssertionError(f'{tag} step {i + 1}: launches {got}, the '
+                                 f'forwards it ran give {want}')
+    keys = [k for k in logs[-1] if k.startswith('loss_')]
+    want_keys = ['loss_random'] if not aligned else [
+        f'loss_decode_head.linear_pred<->decode_head.linear_pred{i}_{i}'
+        for i in range(len(MT_TEACHERS))]
+    if sorted(keys) != sorted(want_keys):
+        raise AssertionError(f'{tag}: distillation keys {keys}')
+    values = [float(v) for lv in [first] + logs for v in lv.values()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f'a loss of the {tag} train step is not finite')
+    ce = float(first['decode.loss_seg'])
+    if not abs(ce - CE_INIT) <= CE_INIT_TOL:
+        raise AssertionError(f'decode.loss_seg at step 1 is {ce}, not near '
+                             f'ln {NUM_CLASSES} = {CE_INIT:.4f}')
+    return launches
+
+
+def phase_mt_vs_cpu(name, tag):
+    """One fp32 multi-teacher step on the card against the same step on
+    the CPU, batch 2 at 256x256, the student's dropout and drop-path 0,
+    step 1000 with one seeded channel permutation and (random ensemble)
+    teacher 1, the B3, injected on both sides: the loss terms and the
+    student's gradients (TRAIN_GRAD_TOL_REL_L2)."""
+    from segdistill_tpu_torch.apis import init_segmentor_state
+    from segdistill_tpu_torch.recipes import mt_recipe
+    log(f'== train step, fp32 GPU (kernels) vs CPU (plain versions): {tag}, '
+        f'batch {MT_VS_CPU_BATCH} at {MT_VS_CPU_HW}x{MT_VS_CPU_HW}, step '
+        f'1000, the permutation and the teacher injected')
+    model = init_segmentor_state(mt_recipe(name), seed=0, device=DEVICE,
+                                 cfg_options={k: v for k, v in dict(
+                                     NO_DROP, **NO_DROP_PATH_S).items()
+                                     if 'cfg_s' in k})
+    cpu_model = copy.deepcopy(model).cpu()
+    img, gt = _train_batch(MT_VS_CPU_BATCH, seed=6, hw=MT_VS_CPU_HW)
+    perm = torch.randperm(NUM_CLASSES,
+                          generator=torch.Generator().manual_seed(7))
+    kw = {} if not model.random_ensemble else dict(teacher_index=1)
+    gpu_losses, gpu_grads = _loss_and_grads(model, img, gt, perm.to(DEVICE),
+                                            **kw)
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = _loss_and_grads(cpu_model, img.cpu(), gt.cpu(),
+                                            perm, **kw)
+    log(f'CPU step {time.perf_counter() - t0:.1f} s')
+    worst = 0.0
+    for k, want in sorted(cpu_losses.items()):
+        err = abs(gpu_losses[k] - want)
+        worst = max(worst, err / (TRAIN_LOSS_TOL_REL * abs(want)
+                                  + TRAIN_LOSS_TOL_ABS))
+        log(f'  {k}: GPU {gpu_losses[k]:.9g} CPU {want:.9g} abs err '
+            f'{err:.3e}')
+    grad_rel = _grad_rel_l2(gpu_grads, cpu_grads)
+    log(f'loss terms: {worst:.3f} of the limit used at most; student '
+        f'gradients: relative L2 err {grad_rel:.3e} over {len(cpu_grads)} '
+        f'tensors (limit {TRAIN_GRAD_TOL_REL_L2})')
+    if not (worst <= 1.0 and grad_rel <= TRAIN_GRAD_TOL_REL_L2):
+        raise AssertionError(f'{tag}: the GPU train step differs from the '
+                             f'CPU one')
+
+
+def _check_unet_ce_geometries(kernels):
+    """Each UNet train path launched each of K5 and K6 once a step at each
+    of UNET_CE_GEOMETRIES (the decode head at ratio 1, the auxiliary head
+    at ratio 2) and at no other geometry."""
+    want = {}
+    for case in UNET_CE_GEOMETRIES:
+        _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                      if c[0] == case)
+        want[tuple(shape) + tuple(out_hw)] = ZOO2_STEPS
+    for _, tag, classes, *_ in ZOO2_PATHS:
+        if classes != 2:
+            continue
+        for k in kernels:
+            got = CE_SHAPE_LAUNCHES[tag][k.name]
+            log(f'{tag}: {k.name} launches by (B, C, h, w, H, W): {got}')
+            if got != want:
+                raise AssertionError(f'{tag}: {k.name} launched {got}, not '
+                                     f'{want}')
+
+
+def phase_serving_slide(config, tag, request_hw):
+    """A UNet recipe served through ``init_segmentor`` and
+    ``inference_segmentor`` in slide mode, fp32: a DRIVE-sized warmup
+    request, then one request of ``request_hw``; the windows it ran (calls
+    of the model's ``encode_decode``) must be the slide grid of the image
+    the pipeline gave the model."""
+    from segdistill_tpu_torch.apis import init_segmentor, inference_segmentor
+    model = init_segmentor(config, device=DEVICE, seed=0)
+    crop, stride = model.test_cfg['crop_size'], model.test_cfg['stride']
+    log(f'== serving: {tag} (recipes.py) through init_segmentor, 2 classes, '
+        f'random weights (seed 0), one {request_hw[0]}x{request_hw[1]} '
+        f'request, slide mode ({crop} windows at stride {stride})')
+    seen = []
+    encode, slide = model.encode_decode, model.slide_inference
+
+    def counted(img):
+        seen[-1][1] += 1
+        return encode(img)
+
+    def recorded(img, *args, **kw):
+        seen.append([tuple(img.shape[2:]), 0])
+        return slide(img, *args, **kw)
+    model.encode_decode, model.slide_inference = counted, recorded
+    rng = np.random.RandomState(8)
+    warm = rng.randint(0, 256, DRIVE_REQUEST_HW + (3,)).astype(np.uint8)
+    img = rng.randint(0, 256, tuple(request_hw) + (3,)).astype(np.uint8)
+    with torch.no_grad():
+        inference_segmentor(model, warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = inference_segmentor(model, img)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    (h, w), windows = seen[-1]
+    grid = ((max(h - crop[0] + stride[0] - 1, 0) // stride[0] + 1)
+            * (max(w - crop[1] + stride[1] - 1, 0) // stride[1] + 1))
+    log(f'{tag}: {ms:.2f} ms for a {request_hw[0]}x{request_hw[1]} request, '
+        f'served at {h}x{w}: {windows} windows (the slide grid: {grid})')
+    if windows != grid or pred.shape != img.shape[:2] or pred.min() < 0 \
+            or pred.max() >= 2:
+        raise AssertionError(f'{tag}: {windows} windows for a grid of '
+                             f'{grid}, prediction {pred.shape}')
+
+
+def phase_resnext_vs_cpu():
+    """ResNeXt-50 32x4d, which no recipe uses, as a backbone alone in train
+    mode at batch 2, at each of RESNEXT_SEEDS (weights, input and map
+    weighting drawn from it): its four fp32 maps on the card against the
+    same model on the CPU (within MODEL_TOL_REL of each map's largest
+    value); the card's float64 gradients of a seeded weighting of the maps
+    against the CPU's in float64 (RESNEXT_F64_TOL_REL_L2: the wiring on
+    the card, free of fp32 rounding); and the card's fp32 gradients
+    against the CPU's float64 ones, within TRAIN_GRAD_TOL_REL_L2 or
+    FP32_FLOOR_FACTOR times the CPU fp32 run's own distance from float64,
+    the largest over the seeds (RESNEXT_SEEDS' note)."""
+    from segdistill_tpu_torch.models import build_backbone
+    log(f'== ResNeXt-50 32x4d backbone alone, train mode, batch 2 at '
+        f'{RESNEXT_HW[0]}x{RESNEXT_HW[1]}, GPU vs CPU, seeds '
+        f'{RESNEXT_SEEDS}')
+    readings = [_resnext_vs_cpu(build_backbone(dict(RESNEXT)), seed)
+                for seed in RESNEXT_SEEDS]
+    floor = max(cpu64 for _, cpu64 in readings)
+    limit = max(TRAIN_GRAD_TOL_REL_L2, FP32_FLOOR_FACTOR * floor)
+    for seed, (rel, cpu64) in zip(RESNEXT_SEEDS, readings):
+        log(f'ResNeXt seed {seed} fp32 gradients against the CPU in '
+            f'float64: relative L2 err {rel:.3e} (the CPU fp32 run\'s '
+            f'{cpu64:.3e}; limit {limit:.3e}, from the largest CPU '
+            f'reading {floor:.3e})')
+        if not rel <= limit:
+            raise AssertionError(f'ResNeXt seed {seed} gradients differ from '
+                                 f'the CPU run')
+
+
+def _worst_tensor(got, want):
+    """-> (name, its own relative L2 err) of the tensor that adds the most
+    to ``got``'s squared distance from ``want``."""
+    name = max(want, key=lambda n: float((got[n].double() - want[n].double())
+                                         .square().sum()))
+    return name, _grad_rel_l2({name: got[name]}, {name: want[name]})
+
+
+def _resnext_vs_cpu(net, seed):
+    """One seed of :func:`phase_resnext_vs_cpu`: checks the maps and the
+    card's float64 gradients, -> (the card's fp32 gradients' and the CPU
+    fp32 run's relative L2 distances from the CPU's float64 ones)."""
+    net.init_weights(torch.Generator().manual_seed(seed))
+    cpu = copy.deepcopy(net).train()
+    net = net.to(DEVICE).train()
+    gen = torch.Generator().manual_seed(6 + 100 * seed)
+    x = torch.randn(2, 3, *RESNEXT_HW, generator=gen)
+
+    def run(model, inp):
+        model.zero_grad(set_to_none=True)
+        outs = model(inp)
+        weights = [torch.randn(o.shape, generator=torch.Generator()
+                               .manual_seed(9 + i + 100 * seed)).to(o)
+                   for i, o in enumerate(outs)]
+        sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+        return ([o.detach().cpu() for o in outs],
+                {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()})
+    gpu_outs, gpu_grads = run(net, x.to(DEVICE))
+    cpu_outs, cpu_grads = run(cpu, x)
+    model64 = copy.deepcopy(cpu).double()
+    model64.dtype = torch.float64
+    with _float64_kept():
+        _, f64_grads = run(model64, x.double())
+        gpu64 = copy.deepcopy(model64).to(DEVICE)
+        _, gpu64_grads = run(gpu64, x.double().to(DEVICE))
+    for i, (g, c) in enumerate(zip(gpu_outs, cpu_outs)):
+        err = (g - c).abs().max().item()
+        scale = c.abs().max().item()
+        log(f'ResNeXt seed {seed} map {i} {tuple(g.shape)}: max abs err '
+            f'{err:.3e}, max |value| {scale:.3e}, relative '
+            f'{err / scale:.3e} (limit {MODEL_TOL_REL})')
+        if not (torch.isfinite(g).all() and err <= MODEL_TOL_REL * scale):
+            raise AssertionError(f'ResNeXt seed {seed} map {i} differs from '
+                                 f'the CPU run')
+    rel64 = _grad_rel_l2(gpu64_grads, f64_grads)
+    log(f'ResNeXt seed {seed} float64 gradients, card against CPU: '
+        f'relative L2 err {rel64:.3e} over {len(f64_grads)} tensors (limit '
+        f'{RESNEXT_F64_TOL_REL_L2})')
+    if not rel64 <= RESNEXT_F64_TOL_REL_L2:
+        raise AssertionError(f'ResNeXt seed {seed} float64 gradients differ '
+                             f'from the CPU run')
+    rel, cpu64 = (_grad_rel_l2(gpu_grads, f64_grads),
+                  _grad_rel_l2(cpu_grads, f64_grads))
+    for who, grads in (('card', gpu_grads), ('CPU', cpu_grads)):
+        name, own = _worst_tensor(grads, f64_grads)
+        log(f'ResNeXt seed {seed} fp32 on the {who}: most of the distance '
+            f'from float64 in {name} (its own relative L2 err {own:.3e})')
+    return rel, cpu64
+
+
 # Operation counts behind ``bound_ms`` (fp32, outside the tensor cores,
 # unless said): a bilinear tap 7 (4 multiplies, 3 adds); one softmax term
 # 3 (scale or subtract, exp, add); so an upsampled value inside a two-map KL
@@ -2173,7 +2536,9 @@ def main():
     # this slice's Cityscapes recipes: SGD steps (K5/K6 at ratios 2, 4 and
     # 8 of the 512x1024 crop), 1024x2048 whole-mode serving, and the three
     # headline models' fp32 logits and step against the CPU
-    from segdistill_tpu_torch.recipes import cityscapes_recipe
+    from segdistill_tpu_torch import recipes
+    from segdistill_tpu_torch.recipes import (cityscapes_recipe,
+                                              drive_recipe, hrf_recipe)
     zoo_launches = {}
     for recipe, tag, per_step, steps, _, _ in ZOO_PATHS:
         zoo_launches[recipe] = phase_train_extra(
@@ -2189,6 +2554,39 @@ def main():
                                hw=ZOO_VS_CPU_HW, logits=True,
                                acc_share=CORRECT_TOL_SHARE,
                                fp32_floor=FP32_FLOOR_FACTOR)
+    # this slice: the multi-teacher CGD steps (K1, K3/K4, K5/K6, K10/K11
+    # counted a step against the forwards each ran) and their fp32 steps
+    # against the CPU; the last A10 recipes' SGD steps (K5/K6 on the
+    # ResNeSt PSPNet's two heads and at 2 classes on the UNet heads, at
+    # ratios 1 and 2; Fast-SCNN and CGNet take no kernel), their serving
+    # (Cityscapes whole mode at 1024x2048; UNet slide windows on an HRF
+    # and a DRIVE image), every head's fp32 logits and the step against
+    # the CPU, and ResNeXt as a backbone alone
+    mt_kernels = [k1, k3, k4, k5, k6, k10, k11]
+    for name, tag in MT_PATHS:
+        paths.append(phase_train_mt(mt_kernels, name, tag))
+    for name, tag in MT_PATHS:
+        phase_mt_vs_cpu(name, tag)
+    for name, tag, classes, hw, batch, per_step in ZOO2_PATHS:
+        paths.append(phase_train_extra(
+            [k5, k6], recipes.recipe(name), tag, classes, hw, per_step,
+            ZOO2_STEPS, batch))
+    _check_unet_ce_geometries([k5, k6])
+    for name, tag, classes, *_ in ZOO2_PATHS:
+        if classes == ZOO_CLASSES:
+            phase_serving_extra(cityscapes_recipe(name), tag, classes,
+                                [ZOO_REQUEST_HW], vs_cpu=False)
+    phase_serving_slide(hrf_recipe('fcn_unet_s5-d16'), ZOO2_PATHS[3][1],
+                        HRF_REQUEST_HW)
+    for name, tag, *_ in ZOO2_PATHS[4:]:
+        phase_serving_slide(drive_recipe(f'{name}_drive'),
+                            tag.replace('HRF', 'DRIVE'), DRIVE_REQUEST_HW)
+    for name, tag, classes, *_ in ZOO2_PATHS:
+        phase_extra_vs_cpu(recipes.recipe(name), tag, classes,
+                           hw=ZOO2_VS_CPU_HW[classes], logits=True,
+                           acc_share=CORRECT_TOL_SHARE,
+                           fp32_floor=FP32_FLOOR_FACTOR)
+    phase_resnext_vs_cpu()
     _check_ln_tickets('after the train steps')
     _check_fwd_tickets('after the train steps')
     for path in paths:
@@ -2242,11 +2640,33 @@ def main():
                 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                 'bound_ms': bound[0], 'bound_by': bound[1],
                 'library_ms': None})
+    # K5/K6 at the UNet recipes' two geometries (2 classes, ratios 1 and 2;
+    # bf16, device time), with the launches the UNet steps made at each
+    unet = [tag for _, tag, classes, *_ in ZOO2_PATHS if classes == 2]
+    for case in UNET_CE_GEOMETRIES:
+        _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                      if c[0] == case)
+        geometry = tuple(shape) + tuple(out_hw)
+        times = ce_device[case]
+        for i, (k, bound) in enumerate(zip((k5, k6), _cases().seg_ce_bounds(
+                shape, out_hw, torch.bfloat16))):
+            entries.append({
+                'name': f'{k.name} {shape} -> {out_hw[0]}x{out_hw[1]}',
+                'route': 'cuda', 'source': str(k.source.relative_to(ROOT)),
+                'replaces': k.replaces,
+                'launches': sum(CE_SHAPE_LAUNCHES[t][k.name].get(geometry, 0)
+                                for t in unet),
+                'max_abs_err': results[k.name][(case, torch.float32)][0],
+                'ms': times[2 * i], 'plain_ms': times[2 * i + 1],
+                'bound_ms': bound[0], 'bound_by': bound[1],
+                'library_ms': None})
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line', 'PSP serving',
                   'Swin serving', 'psp_CGD', 'swin_CGD')
                  + tuple(tag for _, tag, *_ in EXTRA_PATHS)
-                 + tuple(tag for _, tag, *_ in ZOO_PATHS), paths))))
+                 + tuple(tag for _, tag, *_ in ZOO_PATHS)
+                 + tuple(tag for _, tag in MT_PATHS)
+                 + tuple(tag for _, tag, *_ in ZOO2_PATHS), paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

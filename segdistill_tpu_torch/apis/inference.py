@@ -76,9 +76,10 @@ def load_backbone_checkpoint(model, path):
 
 def student_config(cfg):
     """``cfg`` with the student's config as its model where the model is a
-    distillation module (SDModule): serving and evaluation are the
-    student's, and a training checkpoint holds the student alone."""
-    if cfg.model.get('type') != 'SDModule':
+    distillation module (SDModule, SDModuleMT): serving and evaluation
+    are the student's, and a training checkpoint holds the student
+    alone."""
+    if cfg.model.get('type') not in ('SDModule', 'SDModuleMT'):
         return cfg
     cfg = cfg.copy()
     student = dict(cfg.model['cfg_s'])

@@ -51,13 +51,25 @@ def _require_file(path, what):
 
 def _load_pretrained(model):
     """The config's checkpoints: t_pretrain (reference layout, lenient, ref
-    SD_structure.py:36), s_pretrain (strict), and a student backbone-only
+    SD_structure.py:36; an SDModuleMT's is a list, one file or None a
+    teacher), s_pretrain (strict), and a student backbone-only
     ``pretrained`` (lenient, only where no s_pretrain is set)."""
     student = getattr(model, 'student', model)
     backbone_ckpt = getattr(model, 'student_pretrained', None)
-    if getattr(model, 't_pretrain', None):
-        _require_file(model.t_pretrain, 'the teacher checkpoint t_pretrain')
-        load_checkpoint(model.teacher, model.t_pretrain, strict=False)
+    t_pretrain = getattr(model, 't_pretrain', None)
+    if hasattr(model, 'teachers'):
+        paths = list(t_pretrain or [None] * len(model.teachers))
+        if len(paths) != len(model.teachers):
+            raise ValueError(f't_pretrain names {len(paths)} checkpoints for '
+                             f'{len(model.teachers)} teachers')
+        for i, (teacher, path) in enumerate(zip(model.teachers, paths)):
+            if path:
+                _require_file(path, f'the checkpoint t_pretrain[{i}] of '
+                              f'teacher {i}')
+                load_checkpoint(teacher, path, strict=False)
+    elif t_pretrain:
+        _require_file(t_pretrain, 'the teacher checkpoint t_pretrain')
+        load_checkpoint(model.teacher, t_pretrain, strict=False)
     if getattr(model, 's_pretrain', None):
         _require_file(model.s_pretrain, 'the student checkpoint s_pretrain')
         load_checkpoint(student, model.s_pretrain, strict=True)
@@ -80,7 +92,7 @@ def init_segmentor_state(config, seed=0, device='cuda', cfg_options=None):
         config.merge_from_dict(cfg_options)
     model_cfg = dict(config.model)
     pretrained = model_cfg.pop('pretrained', None)
-    if model_cfg.get('type') == 'SDModule':
+    if model_cfg.get('type') in ('SDModule', 'SDModuleMT'):
         pretrained = None  # the student's is under cfg_s
     elif pretrained:
         _require_file(pretrained, 'the backbone checkpoint pretrained')
@@ -98,8 +110,10 @@ def _max_iters(cfg):
 
 
 def prepare_training(model, cfg=None, seed=0):
-    """-> (state, train_step): AdamW and the LR schedule from the config
-    (``model.cfg`` by default), the state at step 0."""
+    """-> (state, train_step): the optimizer and the LR schedule from the
+    config (``model.cfg`` by default), the state at step 0. The optimizer
+    takes the parameters that require grad: a distillation module's
+    student and adapters, never a frozen teacher."""
     cfg = cfg or model.cfg
     schedule = build_lr_schedule(cfg.get('lr_config'), cfg.optimizer['lr'],
                                  _max_iters(cfg))

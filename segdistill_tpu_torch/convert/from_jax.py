@@ -1,6 +1,7 @@
-"""JAX variables -> this package's state dict, for the MiT, ResNet, Swin,
-HRNet and MobileNetV2/V3 backbones, the FPN neck and the SegFormer, PSP,
-UPer, FCN, PSA, FPN, point, ASPP, separable ASPP, LRASPP and OCR heads.
+"""JAX variables -> this package's state dict, for the MiT, ResNet
+(ResNeXt, ResNeSt), Swin, HRNet, MobileNetV2/V3, Fast-SCNN, CGNet and UNet
+backbones, the FPN neck and the SegFormer, PSP, UPer, FCN, separable FCN,
+PSA, FPN, point, ASPP, separable ASPP, LRASPP and OCR heads.
 
 The inverse of ``segdistill_tpu/convert/torch_loader.py``'s rules: conv
 kernels HWIO -> OIHW, Dense kernels (I, O) -> (O, I), norm ``scale`` ->
@@ -37,8 +38,9 @@ norm), an MNv2 block's ``expand_conv``/``depthwise_conv``/``linear_conv``
 a PReLU's ``weight`` keeps its name. Swin's bias tables keep their
 name, and each gets the ``relative_position_index`` buffer the reference
 ``.pth`` carries. Takes the ``{'params', 'batch_stats'}`` tree as numpy
-arrays (or anything ``np.asarray`` reads), or an SDModule's ``{'student',
-'teacher'}`` pair of such trees, whose student params may hold the
+arrays (or anything ``np.asarray`` reads), an SDModule's ``{'student',
+'teacher'}`` pair of such trees or an SDModuleMT's ``{'student',
+'teachers': [...]}``, whose student params may hold the
 ``distill_adapters`` (kernel (c_s, c_t) -> weight (c_t, c_s)); float64
 arrays stay float64, everything else becomes float32; imports no JAX.
 """
@@ -58,6 +60,38 @@ _STEM = {'conv1': 'stem.0', 'bn1': 'stem.1', 'conv2': 'stem.3',
 # attention block, HRNet's transitions (``transition1_1_0``: a branch's
 # chain step), branches and fuse slots, each conv/BN pair a Sequential
 _MODULE_RULES = [
+    # UNet: an encoder stage's conv block sits behind its max pool (slot 1;
+    # slot 0 without the pool, which ``keys`` settle), a decoder's under
+    # ``conv_block``, its InterpConv's 1x1 ConvModule at
+    # ``upsample.interp_upsample.1`` (a plain ``upsample`` ConvModule where
+    # the stage neither strided nor pooled: ``keys`` again)
+    (re.compile(r'\bencoder_(\d+)\.convs_(\d+)\b'),
+     lambda m: f'encoder.{m.group(1)}.{int(m.group(1) != "0")}.convs.'
+               f'{m.group(2)}'),
+    (re.compile(r'\bdecoder_(\d+)\.convs_(\d+)\b'),
+     r'decoder.\1.conv_block.convs.\2'),
+    (re.compile(r'\bup_conv_(\d+)\b'),
+     r'decoder.\1.upsample.interp_upsample.1'),
+    # CGNet: the stem's ConvModules, the norm-PReLU Sequentials (BN at 0,
+    # PReLU at 1), the level blocks, the global context's Linear slots
+    (re.compile(r'\bstem_(\d)\b'), r'stem.\1'),
+    (re.compile(r'\bnorm_prelu_(\d)_bn\.bn$'), r'norm_prelu_\1.0'),
+    (re.compile(r'\bnorm_prelu_(\d)_act$'), r'norm_prelu_\1.1'),
+    (re.compile(r'\blevel(\d)_(\d+)\b'), r'level\1.\2'),
+    (re.compile(r'\bf_glo\.fc([12])$'),
+     lambda m: f'f_glo.fc.{2 * int(m.group(1)) - 2}'),
+    # Fast-SCNN: the children of its three sub-modules
+    (re.compile(r'\bld_conv\b'), 'learning_to_downsample.conv'),
+    (re.compile(r'\bld_dsconv(\d)\b'),
+     r'learning_to_downsample.dsconv\1'),
+    (re.compile(r'\bbottleneck(\d)_(\d+)\b'),
+     r'global_feature_extractor.bottleneck\1.\2'),
+    (re.compile(r'\bppm\.pool_(\d+)\b'),
+     r'global_feature_extractor.ppm.\1.1'),
+    (re.compile(r'\bgfe_out\b'), 'global_feature_extractor.out'),
+    (re.compile(r'\bffm_dwconv\b'), 'feature_fusion.dwconv'),
+    (re.compile(r'\bffm_conv_(lower|higher)\b'),
+     r'feature_fusion.conv_\1_res'),
     (re.compile(r'\bimage_pool_conv\b'), 'image_pool.1'),
     (re.compile(r'\baspp_(\d+)\b'), r'aspp_modules.\1'),
     (re.compile(r'\bsep_conv([12])\b'),
@@ -116,8 +150,8 @@ def _flatten(tree, prefix=()):
 # the depthwise conv moves to slot 0), and a SelfAttentionBlock projection
 # (a Sequential only where it has several convs; a bare conv where it has
 # no norm, so the ConvModule's ``conv`` goes)
-_MNV2_SLOT = re.compile(r'\b(layer\d+_\d+)\.(expand_conv|depthwise_conv|'
-                        r'linear_conv)\b')
+_MNV2_SLOT = re.compile(r'\b(layer\d+_\d+|bottleneck\d_\d+)\.(expand_conv|'
+                        r'depthwise_conv|linear_conv)\b')
 _PROJECT = re.compile(r'\b((key|query|value|out)_project)_(\d+)(\.conv)?\b')
 
 
@@ -174,12 +208,38 @@ def _avg_down(out, keys):
 
 def state_dict_from_jax(variables, keys=None):
     """-> {reference-layout key: tensor} for ``load_state_dict``: an
-    EncoderDecoder's keys, or an SDModule's ``student.*``, ``teacher.*``
-    and ``distill_adapters.*``. ``keys`` (the target's state-dict keys)
-    settles the one name the variables leave open: a ``ResNetV1d``
-    shortcut's slots behind its average pool."""
+    EncoderDecoder's keys, an SDModule's ``student.*``, ``teacher.*``
+    and ``distill_adapters.*``, or an SDModuleMT's ``student.*``,
+    ``teachers.{i}.*`` and ``distill_adapters.*``. ``keys`` (the target's
+    state-dict keys) settles the names the variables leave open: a
+    ``ResNetV1d`` shortcut's slots behind its average pool, and a UNet
+    stage's conv block without a pool in front (``encoder.{i}.0``) or
+    decoder upsample without the InterpConv (``decoder.{i}.upsample``)."""
     out = _state_dict(variables)
-    return out if keys is None else _avg_down(out, set(keys))
+    if keys is None:
+        return out
+    keys = set(keys)
+    return _unet_slots(_avg_down(out, keys), keys)
+
+
+# a UNet name as the rules give it -> its form where the stage has no max
+# pool, or the decoder no InterpConv
+_UNET_ALTERNATES = [(re.compile(r'\b(encoder\.\d+)\.1\.'), r'\1.0.'),
+                    (re.compile(r'\bupsample\.interp_upsample\.1\.'),
+                     'upsample.')]
+
+
+def _unet_slots(out, keys):
+    moved = {}
+    for k, v in out.items():
+        if k not in keys:
+            for pat, repl in _UNET_ALTERNATES:
+                alt = pat.sub(repl, k)
+                if alt in keys:
+                    k = alt
+                    break
+        moved[k] = v
+    return moved
 
 
 def _state_dict(variables):
@@ -190,8 +250,13 @@ def _state_dict(variables):
         student['params'] = params
         out = {f'student.{k}': v
                for k, v in _segmentor_state(student).items()}
-        out.update({f'teacher.{k}': v for k, v in
-                    _segmentor_state(variables['teacher']).items()})
+        if 'teachers' in variables:  # an SDModuleMT
+            for i, teacher in enumerate(variables['teachers']):
+                out.update({f'teachers.{i}.{k}': v for k, v in
+                            _segmentor_state(teacher).items()})
+        else:
+            out.update({f'teacher.{k}': v for k, v in
+                        _segmentor_state(variables['teacher']).items()})
         out.update({f'distill_adapters.{k}': v for k, v in _segmentor_state(
             {'params': adapters}).items()})
         return out

@@ -59,19 +59,22 @@ def gradient_angle(losses, params):
 
 
 def build_train_step(model, optimizer, lr_schedule=None):
-    """-> fn(state, img, gt, perm=None, points=None) -> log_vars (0-d
-    tensors on the model's device, and 'lr' as a float), updating
-    ``state`` in place.
+    """-> fn(state, img, gt, perm=None, points=None, teacher_index=None) ->
+    log_vars (0-d tensors on the model's device, and 'lr' as a float),
+    updating ``state`` in place.
 
-    ``model``: an SDModule (student + frozen teacher) or a bare
-    EncoderDecoder (or a cascade). ``perm`` overrides the channel
-    shuffle's draw, ``points`` a point head's draw of its training
-    points."""
-    is_distill = hasattr(model, 'teacher')
+    ``model``: an SDModule (student + frozen teacher), an SDModuleMT
+    (student + frozen teachers) or a bare EncoderDecoder (or a cascade).
+    ``perm`` overrides the channel shuffle's draw, ``points`` a point
+    head's draw of its training points, ``teacher_index`` a random
+    ensemble's draw of the step's teacher."""
+    multi = hasattr(model, 'teachers')
+    is_distill = multi or hasattr(model, 'teacher')
     log_grad = bool(getattr(model, 'log_grad', False))
     params = [p for group in optimizer.param_groups for p in group['params']]
 
-    def train_step(state, img, gt, perm=None, points=None):
+    def train_step(state, img, gt, perm=None, points=None,
+                   teacher_index=None):
         step = state.step + 1
         generator = torch.Generator(device=img.device)
         generator.manual_seed(step_seed(state.seed, step))
@@ -80,8 +83,9 @@ def build_train_step(model, optimizer, lr_schedule=None):
         if lr is not None:
             set_lr(optimizer, lr)
         if is_distill:
+            kw = dict(teacher_index=teacher_index) if multi else {}
             losses = model.forward_train(img, gt, step, generator=generator,
-                                         perm=perm)
+                                         perm=perm, **kw)
         else:
             losses, _ = model.forward_train(img, gt, generator=generator,
                                             points=points)

@@ -11,9 +11,13 @@ The d8 variants set per-stage ``strides`` and ``dilations``; with
 ``contract_dilation`` the first block of a dilated stage takes half the
 dilation. ``norm_eval`` keeps every BN in eval mode while training;
 ``zero_init_residual`` zeroes each block's last BN weight at
-initialisation. Frozen stages, multi-grid dilations and ResNeXt's grouped
-convs are not ported (no Tab5 config sets them). BN and SyncBN are one
-BN here (one device). ``dtype`` is the compute type, as in the port's MiT:
+initialisation. With ``groups`` above 1 (ResNeXt, ``resnext.py``) a
+bottleneck's 3x3 conv is grouped: ``groups`` groups, width ``planes *
+width_per_group // base_channels * groups`` (the floor taken before the
+product, ref resnext.py:27-31); at one group the width is ``planes`` (the
+reference's Bottleneck). A BasicBlock depth refuses groups. Frozen
+stages and multi-grid dilations are not ported (no config sets them). BN
+and SyncBN are one BN here (one device). ``dtype`` is the compute type, as in the port's MiT:
 parameters stay float32 and each conv casts them to its input's dtype.
 
 Every residual block's output is a tap under its module name
@@ -63,15 +67,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, dilation=1,
-                 first_dilation=1, downsample=None, norm_cfg=None):
+                 first_dilation=1, downsample=None, norm_cfg=None, groups=1,
+                 width_per_group=4, base_channels=64):
         super().__init__()
         del dilation  # the 3x3 conv takes first_dilation, as in JAX
-        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = _norm(norm_cfg, planes)
-        self.conv2 = Conv2d(planes, planes, 3, stride, first_dilation,
-                            first_dilation, bias=False)
-        self.bn2 = _norm(norm_cfg, planes)
-        self.conv3 = Conv2d(planes, planes * self.expansion, 1, bias=False)
+        width = planes if groups == 1 \
+            else planes * width_per_group // base_channels * groups
+        self.conv1 = Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = _norm(norm_cfg, width)
+        self.conv2 = Conv2d(width, width, 3, stride, first_dilation,
+                            first_dilation, groups=groups, bias=False)
+        self.bn2 = _norm(norm_cfg, width)
+        self.conv3 = Conv2d(width, planes * self.expansion, 1, bias=False)
         self.bn3 = _norm(norm_cfg, planes * self.expansion)
         self.downsample = downsample
 
@@ -119,7 +126,7 @@ class ResNet(NormEvalModule):
                  contract_dilation=False, with_cp=False,
                  zero_init_residual=True, dcn=None,
                  stage_with_dcn=(False, False, False, False),
-                 pretrained=None, dtype=None):
+                 pretrained=None, dtype=None, groups=1, width_per_group=4):
         super().__init__()
         del with_cp, stage_with_dcn, pretrained  # no effect on the result
         if style != 'pytorch':
@@ -130,6 +137,14 @@ class ResNet(NormEvalModule):
         if depth not in self.arch_settings:
             raise KeyError(f'invalid depth {depth} for resnet')
         block, stage_blocks = self.arch_settings[depth]
+        if block is Bottleneck:
+            grouped = dict(groups=groups, width_per_group=width_per_group,
+                           base_channels=base_channels)
+        elif groups != 1:
+            raise NotImplementedError(
+                f'groups={groups} needs a Bottleneck depth (50, 101, 152)')
+        else:
+            grouped = {}
         stage_blocks = stage_blocks[:num_stages]
         self.out_indices = tuple(out_indices)
         self.deep_stem = deep_stem
@@ -165,7 +180,7 @@ class ResNet(NormEvalModule):
                     ds = _downsample(inplanes, features, blk_stride,
                                      avg_down, norm_cfg)
                 blocks.append(block(inplanes, planes, blk_stride, dilation,
-                                    first, ds, norm_cfg))
+                                    first, ds, norm_cfg, **grouped))
                 inplanes = features
             name = f'layer{s + 1}'
             self.add_module(name, nn.Sequential(*blocks))
@@ -180,7 +195,7 @@ class ResNet(NormEvalModule):
         init_conv_norm(self, generator)
         if self.zero_init_residual:
             for m in self.modules():
-                if isinstance(m, (BasicBlock, Bottleneck)):
+                if hasattr(m, 'last_norm'):
                     nn.init.zeros_(m.last_norm().weight)
 
     def forward(self, x, generator=None):

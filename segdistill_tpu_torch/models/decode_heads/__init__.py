@@ -9,9 +9,10 @@ from .psa_head import PSAHead
 from .psp_head import PPM, PSPHead
 from .segformer_head import SegFormerHead
 from .sep_aspp_head import DepthwiseSeparableASPPHead
+from .sep_fcn_head import DepthwiseSeparableFCNHead
 from .uper_head import UPerHead
 
 __all__ = ['ASPPHead', 'BaseCascadeDecodeHead', 'BaseDecodeHead',
-           'DepthwiseSeparableASPPHead', 'FCNHead', 'FPNHead', 'LRASPPHead',
-           'OCRHead', 'PointHead', 'PPM', 'PSAHead', 'PSPHead',
+           'DepthwiseSeparableASPPHead', 'DepthwiseSeparableFCNHead',
+           'FCNHead', 'FPNHead', 'LRASPPHead', 'OCRHead', 'PointHead', 'PPM', 'PSAHead', 'PSPHead',
            'SegFormerHead', 'UPerHead']

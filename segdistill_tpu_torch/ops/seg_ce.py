@@ -31,6 +31,7 @@ autograd gradient; on a CUDA tensor the forward launches K5 and the
 backward K6, or they raise. ``correct`` has no gradient.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -54,6 +55,10 @@ BWD_KERNEL = CudaKernel(
     argtypes=[_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
               _I, _I, _I, _I, _I, _P],
     replaces='segdistill_tpu/ops/pallas/seg_ce.py:293')
+# the launches of each kernel by geometry (B, C, h, w, H, W), raised beside
+# the kernel's own count where it launches
+LAUNCHES_BY_SHAPE = {FWD_KERNEL.name: collections.Counter(),
+                     BWD_KERNEL.name: collections.Counter()}
 
 # K6 on the tile of csrc/common.cuh (ce_tile in csrc/seg_ce.cu): two
 # per-output maps (the label and the log-sum-exp), one map read, compiled
@@ -131,6 +136,7 @@ def _launch_fwd(z, labels, num_classes, ignore_index):
                           *tile_plan.forward_plan_args(plan), m.data_ptr(),
                           se.data_ptr(), part.data_ptr(), ticket_ptr,
                           ce.data_ptr(), correct.data_ptr())
+    LAUNCHES_BY_SHAPE[FWD_KERNEL.name][(B, C, h, w, H, W)] += 1
     return ce, correct, m, se
 
 
@@ -144,6 +150,7 @@ def _launch_bwd(z, labels, num_classes, ignore_index, m, se, gbar):
                       H, W, num_classes, ignore_index, dtype_code,
                       m.data_ptr(), se.data_ptr(), gbar.data_ptr(),
                       dz.data_ptr(), *tile_plan.plan_args(plan))
+    LAUNCHES_BY_SHAPE[BWD_KERNEL.name][(B, C, h, w, H, W)] += 1
     return dz
 
 

@@ -96,7 +96,9 @@ SEG_CE_CASES = [
     ('Cityscapes b2', (2, 19, 64, 128), (512, 1024), 0.05, 8),
     ('PSANet b2', (2, 150, 64, 64), (512, 512), 0.05, 8),
     ('Cityscapes b2 ratio 4', (2, 19, 128, 256), (512, 1024), 0.05, 16),
-    ('Cityscapes b2 ratio 2', (2, 19, 256, 512), (512, 1024), 0.05, 16)]
+    ('Cityscapes b2 ratio 2', (2, 19, 256, 512), (512, 1024), 0.05, 16),
+    ('HRF b4 ratio 1', (4, 2, 256, 256), (256, 256), 0.05, 16),
+    ('HRF b4 ratio 2', (4, 2, 128, 128), (256, 256), 0.05, 16)]
 # The train paths' head CEs on the SGD recipes, bf16 at the configs' batch
 # of 2 (name, the SEG_CE_CASES entry, K5 and K6 launches a step at it): the
 # Cityscapes PSPNet's decode and FCN auxiliary heads at 19 classes, stride
@@ -105,7 +107,10 @@ SEG_CE_CASES = [
 # no kernel); the Cityscapes recipes of ``recipes.py``: OCRNet-HR18's FCN
 # and OCR heads, FCN-HR18's and the DeepLabV3+ heads (ResNet and
 # MobileNetV2) at stride 4, their FCN auxiliary heads, DeepLabV3's and
-# OCRNet-R50's two heads at stride 8, and LRASPP's at stride 2.
+# OCRNet-R50's two heads at stride 8, and LRASPP's at stride 2; the HRF
+# recipes' UNet heads at 2 classes on 256 x 256 crops at batch 4, the
+# decode head at stride 1 and the FCN auxiliary head at stride 2 (the
+# ResNeSt-101 PSPNet's two heads are the Cityscapes PSPNet's shape).
 SEG_CE_PATH_CASES = [
     ('Cityscapes PSPNet decode + aux', 'Cityscapes b2', 2),
     ('PSANet decode + aux', 'PSANet b2', 2),
@@ -115,7 +120,9 @@ SEG_CE_PATH_CASES = [
     ('DeepLabV3+ sep-ASPP (R50, MNv2)', 'Cityscapes b2 ratio 4', 1),
     ('DeepLabV3+ FCN aux (R50, MNv2)', 'Cityscapes b2', 1),
     ('DeepLabV3-R50, OCRNet-R50 (2 heads)', 'Cityscapes b2', 2),
-    ('LRASPP-MobileNetV3', 'Cityscapes b2 ratio 2', 1)]
+    ('LRASPP-MobileNetV3', 'Cityscapes b2 ratio 2', 1),
+    ('UNet decode (FCN, PSP, ASPP; HRF)', 'HRF b4 ratio 1', 1),
+    ('UNet FCN aux (HRF)', 'HRF b4 ratio 2', 1)]
 
 # (name, maps' shape, output size, group size, channels permuted, the edge
 # of the source tile K4 must plan there: 0 is the gather variant). K4 keeps

@@ -28,8 +28,16 @@ backbone, its optimizer):
    the order A B B A: ms per step of each round on the host clock, and
    each arm's median and peak memory.
 
-``--recipe`` names a Cityscapes recipe of ``recipes.py`` (a model fragment
-composed with the Cityscapes bases in memory) in place of ``--config``.
+``--recipe`` names a recipe of ``recipes.py`` in place of ``--config``: a
+model fragment composed with the Cityscapes, HRF or DRIVE bases in memory
+(e.g. ``ocrnet_hr18``, ``pspnet_s101-d8 --batch 2 --hw 512 1024``,
+``fcn_unet_s5-d16 --batch 4 --hw 256 256``), or a multi-teacher CGD step
+(``mt_cgd_aligned``, ``mt_cgd_random``: B0 <- B2 + B3 at batch 8, 512x512).
+A multi-teacher model (SDModuleMT, from a recipe or a config file) gets bf16
+backbones for the student and every teacher and its checkpoints cleared;
+its phases are those of the CGD step, the teachers' forwards in one phase
+(the random ensemble's: the one teacher each step draws), timed inside
+its own ``forward_train``.
 ``--cfg-options`` values are Python literals (``None``, ``False``, 1.5) or
 else strings. The first line is the card's name and power limit.
 """
@@ -49,15 +57,16 @@ from ..apis import init_segmentor_state, prepare_training
 from ..config import Config
 from ..engine import step_seed
 from ..models.segmentors import parse_losses
-from ..recipes import RECIPES, cityscapes_recipe
+from ..recipes import ALL_RECIPES, mt_bf16_options, recipe
 
 CONFIG = Path(__file__).resolve().parents[2] / 'configs' / 'exp_tab5' / \
     'segformer_CGD.py'
-# the configs' checkpoints are not in the repository; bf16 backbones
-OPTIONS = {'model.t_pretrain': None, 'model.s_pretrain': None,
-           'model.cfg_s.pretrained': None,
-           'model.cfg_s.backbone.dtype': 'bfloat16',
-           'model.cfg_t.backbone.dtype': 'bfloat16'}
+# the configs' checkpoints are not in the repository
+CLEARED = {'model.t_pretrain': None, 'model.s_pretrain': None,
+           'model.cfg_s.pretrained': None}
+# ... and bf16 backbones (an SDModuleMT's: recipes.mt_bf16_options)
+OPTIONS = dict(CLEARED, **{'model.cfg_s.backbone.dtype': 'bfloat16',
+                           'model.cfg_t.backbone.dtype': 'bfloat16'})
 # a segmentor trained on its own (configs/extra): its backbone in bf16
 OWN_OPTIONS = {'model.backbone.dtype': 'bfloat16'}
 BATCH = 8
@@ -100,34 +109,62 @@ def family(name):
 def phase_times(model, optimizer, img, gt, steps):
     """Mean ms per step between CUDA events recorded at the phase edges
     (device time from the first kernel of a phase to its last, idle gaps
-    included)."""
-    if not hasattr(model, 'teacher'):
+    included). A distiller's step is its own ``forward_train``: the edges
+    inside it are recorded where the first teacher's forward starts (a
+    wrapper of each teacher's ``forward_feats``; an SDModuleMT's random
+    ensemble runs the one teacher it draws) and where the distillation
+    loss starts (a wrapper of each ``DistillationLoss`` the model holds),
+    and the wrappers are removed afterwards."""
+    if not hasattr(model, 'distillation_loss'):
         return _own_phase_times(model, optimizer, img, gt, steps)
     names = ['student forward + head CE', 'teacher forward',
              'distillation loss', 'backward', 'AdamW']
+    marks = {}
+
+    def mark(edge):
+        if edge not in marks:
+            marks[edge] = torch.cuda.Event(enable_timing=True)
+            marks[edge].record()
+
+    def marked(edge, fn):
+        def run(*args, **kwargs):
+            mark(edge)
+            return fn(*args, **kwargs)
+        return run
+    teachers = list(getattr(model, 'teachers', [])) or [model.teacher]
+    if len(teachers) > 1:
+        names[1] = 'teachers\' forwards'
+    loss, per_teacher = model.distillation_loss, \
+        list(getattr(model, 'per_teacher_losses', []))
+    for teacher in teachers:
+        teacher.forward_feats = marked('teacher', teacher.forward_feats)
+    model.distillation_loss = marked('loss', loss)
+    if per_teacher:
+        model.per_teacher_losses[:] = [marked('loss', x) for x in per_teacher]
     rows = []
-    for step in range(1, steps + 1):
-        gen = torch.Generator(device=img.device).manual_seed(
-            step_seed(0, step))
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        ev[0].record()
-        losses, s_feats = model.student.forward_train(
-            img, gt, capture=model.student_layers, generator=gen)
-        ev[1].record()
-        with torch.no_grad():
-            t_feats = model.teacher.forward_feats(img, model.teacher_layers)
-        ev[2].record()
-        losses.update(model.distillation_loss(
-            s_feats, t_feats, gt, step, generator=gen,
-            adapters=model.distill_adapters))
-        total, _ = parse_losses(losses)
-        ev[3].record()
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        ev[4].record()
-        optimizer.step()
-        ev[5].record()
-        rows.append(ev)
+    try:
+        for step in range(1, steps + 1):
+            gen = torch.Generator(device=img.device).manual_seed(
+                step_seed(0, step))
+            marks.clear()
+            mark('start')
+            losses = model.forward_train(img, gt, step, generator=gen)
+            total, _ = parse_losses(losses)
+            mark('parsed')
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            mark('backward')
+            optimizer.step()
+            mark('optimizer')
+            rows.append([marks[k] for k in ('start', 'teacher', 'loss',
+                                            'parsed', 'backward',
+                                            'optimizer')])
+    finally:
+        for teacher in teachers:
+            del teacher.forward_feats
+        model.distillation_loss = loss
+        if per_teacher:
+            model.per_teacher_losses[:] = per_teacher
     _print_phases(names, rows)
 
 
@@ -277,9 +314,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--config', default=str(CONFIG))
-    parser.add_argument('--recipe', choices=sorted(RECIPES),
-                        help='a Cityscapes recipe of recipes.py, in place '
-                             'of --config')
+    parser.add_argument('--recipe', choices=ALL_RECIPES,
+                        help='a recipe of recipes.py, in place of --config')
     parser.add_argument('--cfg-options', nargs='*', default=[],
                         metavar='KEY=VALUE')
     parser.add_argument('--ab', metavar='KEY=VALUE')
@@ -295,11 +331,13 @@ def main():
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    config = cityscapes_recipe(args.recipe) if args.recipe \
+    config = recipe(args.recipe) if args.recipe \
         else Config.fromfile(args.config)
-    own = config.model['type'] != 'SDModule'
-    options = dict(OWN_OPTIONS if own else OPTIONS,
-                   **dict(map(_option, args.cfg_options)))
+    kind = config.model['type']
+    base = dict(CLEARED, **mt_bf16_options(config)) \
+        if kind == 'SDModuleMT' else OPTIONS if kind == 'SDModule' \
+        else OWN_OPTIONS
+    options = dict(base, **dict(map(_option, args.cfg_options)))
     print(f'{args.recipe or args.config} {options}')
     model = init_segmentor_state(config, seed=0, device='cuda',
                                  cfg_options=options)

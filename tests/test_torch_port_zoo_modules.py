@@ -7,8 +7,8 @@ its ``dw_*`` / ``pw_*`` overrides, SELayer, the two inverted residuals
 (V3's stride-2 TF-SAME pad on even and odd sizes), the self-attention
 block in four forms, and LRASPPHead with its coarsest map under 49 on a
 side (the clamped pool window) and at least 49 (the true 49 x 49 window).
-Then the seven Cityscapes recipes of ``segdistill_tpu_torch.recipes`` at
-full width: the schedule and data they compose, and the port's state
+Then the Cityscapes recipes of ``segdistill_tpu_torch.recipes`` at full
+width: the schedule and data they compose, and the port's state
 dict, which the JAX loader places onto the JAX model's variables with
 nothing missing or left over. Last, HRNet's fuse upsample against the
 reference's (scale factor, then a resize to the target's size).
@@ -349,6 +349,10 @@ RECIPE_MODELS = {
     'ocrnet_r50-d8': ('CascadeEncoderDecoder', ('FCNHead', 'OCRHead'),
                       'ResNet'),
     'lraspp_m-v3-d8': ('EncoderDecoder', ('LRASPPHead',), 'MobileNetV3'),
+    'fast_scnn': ('EncoderDecoder', ('DepthwiseSeparableFCNHead',),
+                  'FastSCNN'),
+    'cgnet': ('EncoderDecoder', ('FCNHead',), 'CGNet'),
+    'pspnet_s101-d8': ('EncoderDecoder', ('PSPHead',), 'ResNeSt'),
 }
 
 
@@ -362,12 +366,14 @@ def test_recipe_builds_with_the_reference_layout(name):
     JAX loader takes every tensor of the port's state dict onto the JAX
     model's variables (``jax.eval_shape``: nothing is computed) and leaves
     none of them missing. FCN-HR18 is OCRNet-HR18's first stage: its
-    layout is that one's, tensor for tensor."""
+    layout is that one's, tensor for tensor. Fast-SCNN's two auxiliary
+    heads (a list) are the tensors that loader has no rule for (ROADMAP,
+    known faults on the reference side)."""
     cfg = cityscapes_recipe(name)
     assert cfg.optimizer == dict(type='SGD', lr=0.01, momentum=0.9,
                                  weight_decay=0.0005)
     assert cfg.lr_config['policy'] == 'poly'
-    assert cfg.runner['max_iters'] == (80000 if 'm-v2' in name else 40000)
+    assert cfg.runner['max_iters'] == int(RECIPES[name][1][:-1]) * 1000
     assert cfg.data['samples_per_gpu'] == 2
     assert cfg.crop_size == (512, 1024)
     assert cfg.data['test']['pipeline'][1]['img_scale'] == (2048, 1024)
@@ -395,9 +401,13 @@ def test_recipe_builds_with_the_reference_layout(name):
                                  shapes[c]) for c in ('params',
                                                       'batch_stats')}
     _, matched, missing, unexpected = translate_state_dict(state, variables)
-    assert unexpected == [] and missing == []
+    lost = sorted(k for k in state if k.startswith('auxiliary_head.')
+                  and name == 'fast_scnn'
+                  and not k.endswith('num_batches_tracked'))
+    assert sorted(unexpected) == lost and len(missing) == len(lost)
     assert len(matched) == sum(1 for k in state
-                               if not k.endswith('num_batches_tracked'))
+                               if not k.endswith('num_batches_tracked')) \
+        - len(lost)
 
 
 @pytest.mark.parametrize('size,agree', [((16, 32), True), ((15, 25), False)])
