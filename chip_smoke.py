@@ -104,8 +104,21 @@ CPU in float64); (70) ResNeXt-50 32x4d, which no recipe uses, as a
 backbone alone against the CPU at three seeds. The seg-CE phase (6) also
 holds K5/K6 at the UNet shapes ((4, 2, 256, 256) and (4, 2, 128, 128) ->
 256x256), which the kernels line adds with the UNet steps' launches at
-each. The launch count of each kernel is read over each
-main path (9, 10, 12, 14, 15-18, 22-27, 31-37, 48, 49, 52-57).
+each. Then the attention heads' Cityscapes recipes of ``recipes.py``
+(ResNetV1c-50-d8 with the NL, GC, DNL, CC, ANN, APC, DM, DA, EMA or Enc
+head and the FCN auxiliary head, each fragment as it stands): (71-80)
+their SGD steps, bf16 backbone, batch 2 at 512x1024, 2 + 3 steps, K5/K6
+launched at (2, 19, 64, 128) -> 512x1024 alone, 4 a step for DANet's
+three CEs and the auxiliary head's, 2 for the others (EMANet's bases
+move and stay float32, its frozen ``ema_mid_conv`` stays bitwise); (81-90)
+one fp32 1024x2048 whole-mode request each, with its peak memory; (91-100)
+every head's fp32 eval logits against the CPU at 256x512 (DANet's three,
+EncNet's se logits), with the zero-initialised attention branches drawn
+from a seed so that the comparison sees them, and for DANet, EMANet,
+EncNet and CCNet one fp32 train step against the CPU in float64. The
+kernels line adds K5/K6 at that geometry with the launches those ten
+steps made there. The launch count of each kernel is read over each main
+path (9, 10, 12, 14, 15-18, 22-27, 31-37, 48, 49, 52-57, 71-80).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -222,6 +235,27 @@ HRF_REQUEST_HW, DRIVE_REQUEST_HW = (2336, 3504), (584, 565)
 # stride 1 and the FCN auxiliary head at stride 2 of the 256x256 crop, one
 # launch of each a step
 UNET_CE_GEOMETRIES = ['HRF b4 ratio 1', 'HRF b4 ratio 2']
+# the attention-head recipes of recipes.py (ResNetV1c-50-d8, an attention
+# head and the FCN auxiliary head, Cityscapes, each fragment as it stands):
+# (recipe, tag, K5/K6 launches a train step, whether an fp32 train step is
+# held to the CPU). K5/K6 run at ATTN_CE_GEOMETRY alone: the decode head's
+# CE (DANet's three: pam_cam, pam, cam) and the auxiliary head's. Each
+# 2 + ATTN_STEPS SGD steps, bf16 backbone, batch 2 at 512x1024; one fp32
+# 1024x2048 whole-mode request; every head's fp32 logits against the CPU
+# at ZOO_VS_CPU_HW.
+ATTN_PATHS = [
+    ('nonlocal_r50-d8', 'NLNet-R50-d8', 2, False),
+    ('gcnet_r50-d8', 'GCNet-R50-d8', 2, False),
+    ('dnl_r50-d8', 'DNLNet-R50-d8', 2, False),
+    ('ccnet_r50-d8', 'CCNet-R50-d8', 2, True),
+    ('ann_r50-d8', 'ANN-R50-d8', 2, False),
+    ('apcnet_r50-d8', 'APCNet-R50-d8', 2, False),
+    ('dmnet_r50-d8', 'DMNet-R50-d8', 2, False),
+    ('danet_r50-d8', 'DANet-R50-d8', 4, True),
+    ('emanet_r50-d8', 'EMANet-R50-d8', 2, True),
+    ('encnet_r50-d8', 'EncNet-R50-d8', 2, True)]
+ATTN_STEPS = 3
+ATTN_CE_GEOMETRY = 'Cityscapes b2'
 # a train path's K5/K6 launches by geometry: tag -> kernel name ->
 # {(B, C, h, w, H, W): launches} (ops/seg_ce.py's LAUNCHES_BY_SHAPE)
 CE_SHAPE_LAUNCHES = {}
@@ -1632,20 +1666,24 @@ def _ce_weights(model):
     named = [(f'decode_{i}', h) for i, h in enumerate(heads)] \
         if isinstance(heads, torch.nn.ModuleList) else [('decode', heads)]
     named += model._aux_heads()
-    return {f'{prefix}.loss_seg': head._loss_cfg().get('loss_weight', 1.0)
+    # DANet's three CEs sit under 'pam_cam.', 'pam.' and 'cam.'
+    return {f'{p}.loss_seg': head._loss_cfg().get('loss_weight', 1.0)
             for prefix, head in named
+            for p in [f'{prefix}.{b}' for b in getattr(head, 'BRANCHES', ())]
+            or [prefix]
             if type(head).__name__ != 'PointHead'
             and not head._loss_cfg().get('use_sigmoid', False)
             and head._loss_cfg().get('class_weight') is None}
 
 
 def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
-                      steps=TRAIN_STEPS, batch=EXTRA_BATCH):
+                      steps=TRAIN_STEPS, batch=EXTRA_BATCH, watch=None):
     """A segmentor's own train step (its config's SGD and poly LR) with a
     bf16 backbone at the config's batch (2; the HRF recipes 4): -> the
     launch counts of ``path_kernels`` over the ``steps`` timed steps,
     which must be ``per_step`` a step each. ``config``: a config file, or
-    a composed :class:`Config`."""
+    a composed :class:`Config`. ``watch(model)``, called before the first
+    step, returns a check that runs after the last."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
     from segdistill_tpu_torch.ops import seg_ce
@@ -1663,6 +1701,7 @@ def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
                              f', the config asks for SGD')
     img, gt = _extra_batch(batch, classes, hw, seed=5)
     log(f'model and optimizer built in {time.perf_counter() - t0:.1f} s')
+    after = None if watch is None else watch(model)
     first = [train_step(state, img, gt) for _ in range(TRAIN_WARMUP)][0]
     torch.cuda.synchronize()
     log('step 1: ' + ', '.join(f'{k} {float(v):.6g}'
@@ -1700,6 +1739,8 @@ def phase_train_extra(path_kernels, config, tag, classes, hw, per_step,
         if not abs(ce - math.log(classes)) <= CE_INIT_TOL:
             raise AssertionError(f'{tag}: {key} / {weight} at step 1 is '
                                  f'{ce}, not near ln {classes}')
+    if after is not None:
+        after()
     return launches
 
 
@@ -1725,6 +1766,7 @@ def phase_serving_extra(config, tag, classes, request_hw, vs_cpu=True):
     with torch.no_grad():  # warm up: cuDNN heuristics, allocator
         inference_segmentor(model, imgs[0])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     lat = []
     for img in imgs:
         t0 = time.perf_counter()
@@ -1735,7 +1777,9 @@ def phase_serving_extra(config, tag, classes, request_hw, vs_cpu=True):
                 or pred.max() >= classes:
             raise AssertionError(f'{tag}: bad prediction {pred.shape}')
     log(f'{tag}: per-request latency ms ' + ', '.join(f'{t:.2f}'
-                                                    for t in lat))
+                                                    for t in lat)
+        + f'; peak memory allocated '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     if not vs_cpu:
         return
     side = 769 if mode == 'slide' else 512
@@ -1779,7 +1823,7 @@ def _without_dropout(model):
 
 def phase_extra_vs_cpu(config, tag, classes,
                        hw=(TAB5_VS_CPU_HW, TAB5_VS_CPU_HW), logits=False,
-                       acc_share=0.0, fp32_floor=None):
+                       acc_share=0.0, fp32_floor=None, prepare=None):
     """One fp32 train step of a segmentor (a config file or a composed
     :class:`Config`) on the card against the same step on the CPU, batch 1
     at ``hw``, dropout 0: the loss terms against the fp32 CPU step, the
@@ -1791,13 +1835,17 @@ def phase_extra_vs_cpu(config, tag, classes,
     the gradients' limit rises to that many times the CPU fp32 step's own
     distance from float64 where fp32 cannot meet it
     (FP32_FLOOR_FACTOR's note). PointRend's training points are drawn once
-    and given to both."""
+    and given to both. ``prepare(model)`` edits the model first. The
+    float64 model is a copy taken before the CPU step (a train-mode forward
+    moves EMANet's bases)."""
     from segdistill_tpu_torch.apis import init_segmentor_state
     from segdistill_tpu_torch.models.segmentors import parse_losses
     log(f'== train step, fp32 GPU (kernels) vs CPU (plain versions): {tag}, '
         f'batch {TAB5_VS_CPU_BATCH} at {hw[0]}x{hw[1]}, dropout 0')
     model = _without_dropout(init_segmentor_state(_config(config), seed=0,
                                                   device=DEVICE))
+    if prepare is not None:
+        prepare(model)
     cpu_model = copy.deepcopy(model).cpu()
     img, gt = _extra_batch(TAB5_VS_CPU_BATCH, classes, hw, seed=6)
     if logits:
@@ -1815,10 +1863,12 @@ def phase_extra_vs_cpu(config, tag, classes,
         total, log_vars = parse_losses(losses)
         total.backward()
         return ({k: float(v.detach()) for k, v in log_vars.items()},
-                {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+                {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                 if p.requires_grad})
 
     gpu_losses, gpu_grads = step(model, img, gt, None if points is None
                                  else points.to(DEVICE))
+    model64 = copy.deepcopy(cpu_model).double()
     t0 = time.perf_counter()
     cpu_losses, cpu_grads = step(cpu_model, img.cpu(), gt.cpu(), points)
     log(f'CPU step {time.perf_counter() - t0:.1f} s')
@@ -1838,7 +1888,6 @@ def phase_extra_vs_cpu(config, tag, classes,
         if not ok:
             raise AssertionError(f'{tag}: {k} differs from the CPU step')
     t0 = time.perf_counter()
-    model64 = copy.deepcopy(cpu_model).double()
     model64.backbone.dtype = torch.float64
     with _float64_kept():
         _, f64_grads = step(model64, img.cpu().double(), gt.cpu(),
@@ -1869,7 +1918,7 @@ def _heads_vs_cpu(model, cpu_model, img, tag):
             feats = m.extract_feat(x)
             heads = m._stages(feats, None) \
                 if isinstance(m.decode_head, torch.nn.ModuleList) \
-                else [m.decode_head(feats)]
+                else _head_outputs(m.decode_head(feats))
             outs.append([h.float().cpu() for h in heads] + [
                 h(feats).float().cpu() for _, h in m._aux_heads()])
         m.train()
@@ -1882,6 +1931,34 @@ def _heads_vs_cpu(model, cpu_model, img, tag):
         if not (torch.isfinite(gpu).all() and err <= MODEL_TOL_REL * scale):
             raise AssertionError(f'{tag}: head {i}\'s GPU logits differ from '
                                  f'the CPU run')
+
+
+def _head_outputs(out):
+    """A head's outputs as a list (DANet's three logits, EncNet's logits
+    and se logits)."""
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _wake_attention(model, seed=1):
+    """Draw the attention heads' zero-initialised residual parameters
+    (NL and DNL ``conv_out``'s norm weight, GC's last transform conv, CC's,
+    PAM's and CAM's ``gamma``, ANN's output projections: every parameter
+    of the decode head but a bias that is all zero) from ``seed``, so that
+    a comparison of logits or gradients sees the attention: a scale or
+    norm weight 0.5, a conv N(0, 1 / fan_in); logs their names."""
+    gen = torch.Generator().manual_seed(seed)
+    woken = []
+    with torch.no_grad():
+        for name, p in model.decode_head.named_parameters():
+            if name.endswith('bias') or p.any():
+                continue
+            if p.dim() <= 1:
+                p.fill_(0.5)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * p[0].numel() ** -0.5)
+            woken.append(name)
+    log(f'woken: {woken}')
 
 
 def _write_dataset(root):
@@ -2320,6 +2397,60 @@ def phase_serving_slide(config, tag, request_hw):
                              f'{grid}, prediction {pred.shape}')
 
 
+def _ema_watch(model):
+    """EMANet's train path: -> a check that its bases moved, stayed
+    float32 (the backbone computes in bf16) and finite, and that the frozen
+    ``ema_mid_conv`` is bitwise as built."""
+    head = model.decode_head
+    mid = {k: v.clone() for k, v in head.ema_mid_conv.state_dict().items()}
+    bases = head.ema_module.bases.clone()
+
+    def check():
+        now = head.ema_module.bases
+        moved = (now.double() - bases.double()).abs().max().item()
+        same = all(torch.equal(v, mid[k]) for k, v in
+                   head.ema_mid_conv.state_dict().items())
+        log(f'EMANet: bases ({now.dtype}) moved by {moved:.3e} at most over '
+            f'the steps; ema_mid_conv bitwise unchanged: {same}')
+        if not (moved > 0 and now.dtype == torch.float32 and same
+                and torch.isfinite(now).all()):
+            raise AssertionError('EMANet: the bases did not move, or the '
+                                 'frozen conv did')
+    return check
+
+
+def _check_attn_ce_geometry(kernels):
+    """Each attention train path launched K5 and K6 at ATTN_CE_GEOMETRY
+    alone, its per-step count a step."""
+    _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                  if c[0] == ATTN_CE_GEOMETRY)
+    geometry = tuple(shape) + tuple(out_hw)
+    for _, tag, per_step, _ in ATTN_PATHS:
+        want = {geometry: per_step * ATTN_STEPS}
+        for k in kernels:
+            got = CE_SHAPE_LAUNCHES[tag][k.name]
+            log(f'{tag}: {k.name} launches by (B, C, h, w, H, W): {got}')
+            if got != want:
+                raise AssertionError(f'{tag}: {k.name} launched {got}, not '
+                                     f'{want}')
+
+
+def phase_attn_logits_vs_cpu(name, tag):
+    """An attention recipe's fp32 eval logits of every head (DANet's three,
+    EncNet's se logits) on the card against the CPU's, batch 1 at
+    ZOO_VS_CPU_HW, the zero-initialised attention branches woken
+    (:func:`_wake_attention`)."""
+    from segdistill_tpu_torch.apis import init_segmentor_state
+    from segdistill_tpu_torch.recipes import recipe
+    log(f'== eval logits, fp32 GPU vs CPU: {tag} (recipes.py), batch 1 at '
+        f'{ZOO_VS_CPU_HW[0]}x{ZOO_VS_CPU_HW[1]}')
+    model = _without_dropout(init_segmentor_state(recipe(name), seed=0,
+                                                  device=DEVICE))
+    _wake_attention(model)
+    img, _ = _extra_batch(1, ZOO_CLASSES, ZOO_VS_CPU_HW, seed=6)
+    _heads_vs_cpu(model, copy.deepcopy(model).cpu(), img, tag)
+
+
 def phase_resnext_vs_cpu():
     """ResNeXt-50 32x4d, which no recipe uses, as a backbone alone in train
     mode at batch 2, at each of RESNEXT_SEEDS (weights, input and map
@@ -2586,6 +2717,31 @@ def main():
                            hw=ZOO2_VS_CPU_HW[classes], logits=True,
                            acc_share=CORRECT_TOL_SHARE,
                            fp32_floor=FP32_FLOOR_FACTOR)
+    # this slice: the attention-head recipes' SGD steps (K5/K6 at
+    # ATTN_CE_GEOMETRY alone, 4 a step for DANet's three CEs and the
+    # auxiliary head's, 2 for the others; EMANet's bases move and its
+    # frozen conv stays put), a 1024x2048 whole-mode request each, every
+    # head's fp32 logits against the CPU, and four fp32 steps against it
+    attn_tags = []
+    for name, tag, per_step, _ in ATTN_PATHS:
+        paths.append(phase_train_extra(
+            [k5, k6], recipes.recipe(name), tag, ZOO_CLASSES, ZOO_HW,
+            per_step, ATTN_STEPS,
+            watch=_ema_watch if name == 'emanet_r50-d8' else None))
+        attn_tags.append(tag)
+    _check_attn_ce_geometry([k5, k6])
+    for name, tag, *_ in ATTN_PATHS:
+        phase_serving_extra(recipes.recipe(name), tag, ZOO_CLASSES,
+                            [ZOO_REQUEST_HW], vs_cpu=False)
+    for name, tag, _, step in ATTN_PATHS:
+        if step:
+            phase_extra_vs_cpu(recipes.recipe(name), tag, ZOO_CLASSES,
+                               hw=ZOO_VS_CPU_HW, logits=True,
+                               acc_share=CORRECT_TOL_SHARE,
+                               fp32_floor=FP32_FLOOR_FACTOR,
+                               prepare=_wake_attention)
+        else:
+            phase_attn_logits_vs_cpu(name, tag)
     phase_resnext_vs_cpu()
     _check_ln_tickets('after the train steps')
     _check_fwd_tickets('after the train steps')
@@ -2660,13 +2816,33 @@ def main():
                 'ms': times[2 * i], 'plain_ms': times[2 * i + 1],
                 'bound_ms': bound[0], 'bound_by': bound[1],
                 'library_ms': None})
+    # K5/K6 at the attention recipes' geometry (bf16, device time), with
+    # the launches their train steps made there
+    _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                  if c[0] == ATTN_CE_GEOMETRY)
+    geometry = tuple(shape) + tuple(out_hw)
+    times = ce_device[ATTN_CE_GEOMETRY]
+    for i, (k, bound) in enumerate(zip((k5, k6), _cases().seg_ce_bounds(
+            shape, out_hw, torch.bfloat16))):
+        entries.append({
+            'name': f'{k.name} {shape} -> {out_hw[0]}x{out_hw[1]}',
+            'route': 'cuda', 'source': str(k.source.relative_to(ROOT)),
+            'replaces': k.replaces,
+            'launches': sum(CE_SHAPE_LAUNCHES[t][k.name].get(geometry, 0)
+                            for t in attn_tags),
+            'max_abs_err': results[k.name][(ATTN_CE_GEOMETRY,
+                                            torch.float32)][0],
+            'ms': times[2 * i], 'plain_ms': times[2 * i + 1],
+            'bound_ms': bound[0], 'bound_by': bound[1],
+            'library_ms': None})
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line', 'PSP serving',
                   'Swin serving', 'psp_CGD', 'swin_CGD')
                  + tuple(tag for _, tag, *_ in EXTRA_PATHS)
                  + tuple(tag for _, tag, *_ in ZOO_PATHS)
                  + tuple(tag for _, tag in MT_PATHS)
-                 + tuple(tag for _, tag, *_ in ZOO2_PATHS), paths))))
+                 + tuple(tag for _, tag, *_ in ZOO2_PATHS)
+                 + tuple(attn_tags), paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

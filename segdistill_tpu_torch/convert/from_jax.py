@@ -1,7 +1,8 @@
 """JAX variables -> this package's state dict, for the MiT, ResNet
 (ResNeXt, ResNeSt), Swin, HRNet, MobileNetV2/V3, Fast-SCNN, CGNet and UNet
 backbones, the FPN neck and the SegFormer, PSP, UPer, FCN, separable FCN,
-PSA, FPN, point, ASPP, separable ASPP, LRASPP and OCR heads.
+PSA, FPN, point, ASPP, separable ASPP, LRASPP and OCR heads, and the
+attention heads NL, GC, DNL, CC, ANN, APC, DM, DA, EMA and Enc.
 
 The inverse of ``segdistill_tpu/convert/torch_loader.py``'s rules: conv
 kernels HWIO -> OIHW, Dense kernels (I, O) -> (O, I), norm ``scale`` ->
@@ -35,7 +36,17 @@ norm), an MNv2 block's ``expand_conv``/``depthwise_conv``/``linear_conv``
 ``stage{s}_m{m}_b{b}.block_{k}`` -> ``stage{s}.{m}.branches.{b}.{k}`` and
 ``stage{s}_m{m}_fuse.fuse_{i}_{j}[_{k}]`` ->
 ``stage{s}.{m}.fuse_layers.{i}.{j}[.{k}]`` (a conv/BN pair at slots 0/1);
-a PReLU's ``weight`` keeps its name. Swin's bias tables keep their
+a PReLU's ``weight`` keeps its name. The attention heads: ANN's
+``{fusion,context}.stages_{i}.attn`` -> ``.stages.{i}``, ``acm_{i}`` /
+``dcm_{i}`` -> ``acm_modules.{i}`` / ``dcm_modules.{i}`` (a DCM's
+``norm.bn`` -> ``norm``), EncNet's ``enc_module.encoding`` /
+``encoding_bn.bn`` / ``fc`` -> ``enc_module.encoding.{0,1}`` /
+``enc_module.fc.0``, GCNet's ``channel_{add,mul}_conv_{k}`` ->
+``channel_{add,mul}_conv.{k}`` (the LayerNorm's affine reshaped to
+(planes, 1, 1)); a Scale's and Encoding's ``scale``, CCNet's ``gamma`` and
+``codewords`` keep their names; EMANet's ``batch_stats`` leaf
+``ema_module_bases`` -> the ``ema_module.bases`` buffer. Swin's bias
+tables keep their
 name, and each gets the ``relative_position_index`` buffer the reference
 ``.pth`` carries. Takes the ``{'params', 'batch_stats'}`` tree as numpy
 arrays (or anything ``np.asarray`` reads), an SDModule's ``{'student',
@@ -60,6 +71,21 @@ _STEM = {'conv1': 'stem.0', 'bn1': 'stem.1', 'conv2': 'stem.3',
 # attention block, HRNet's transitions (``transition1_1_0``: a branch's
 # chain step), branches and fuse slots, each conv/BN pair a Sequential
 _MODULE_RULES = [
+    # the attention heads: ANN's attention stages (the JAX package nests
+    # the block under ``attn``), APC's and DM's module lists (a DCM's
+    # standalone norm), EncNet's Encoding / BatchNorm1d / gate Sequentials,
+    # GCNet's context transforms (conv, LayerNorm, ReLU, conv)
+    (re.compile(r'\b(fusion|context)\.stages_(\d+)\.attn\b'),
+     r'\1.stages.\2'),
+    (re.compile(r'\bacm_(\d+)\b'), r'acm_modules.\1'),
+    (re.compile(r'\bdcm_(\d+)\.norm\.bn$'), r'dcm_modules.\1.norm'),
+    (re.compile(r'\bdcm_(\d+)\b'), r'dcm_modules.\1'),
+    (re.compile(r'\benc_module\.encoding$'), 'enc_module.encoding.0'),
+    (re.compile(r'\benc_module\.encoding_bn\.bn$'),
+     'enc_module.encoding.1'),
+    (re.compile(r'\benc_module\.fc$'), 'enc_module.fc.0'),
+    (re.compile(r'\bchannel_(add|mul)_conv_(\d)$'),
+     r'channel_\1_conv.\2'),
     # UNet: an encoder stage's conv block sits behind its max pool (slot 1;
     # slot 0 without the pool, which ``keys`` settle), a decoder's under
     # ``conv_block``, its InterpConv's 1x1 ConvModule at
@@ -133,6 +159,15 @@ _MODULE_RULES = [
     (re.compile(r'\b(bn\d?)\.bn$'), r'\1'),
 ]
 _STATS = {'mean': 'running_mean', 'var': 'running_var'}
+# buffers held in ``batch_stats`` beside the norms' statistics: EMANet's
+# bases (JAX leaf -> the name under the leaf's module)
+_BUFFERS = {'ema_module_bases': 'ema_module.bases'}
+# parameters kept under their own names: a Scale's (DANet's ``gamma``) and
+# Encoding's ``scale``, CCNet's bare ``gamma``, Encoding's ``codewords``
+_KEPT_SCALE = re.compile(r'(\.gamma|\bencoding\.0)$')
+_OWN_LEAVES = ('gamma', 'codewords')
+# GCNet's LayerNorm([planes, 1, 1]) holds (planes, 1, 1) affine tensors
+_CONTEXT_LN = re.compile(r'\bchannel_(add|mul)_conv\.1$')
 # the point head's MLP: 1x1 convs in JAX, Conv1d in the reference
 _CONV1D = re.compile(r'\bfcs\.\d+\.conv$')
 
@@ -273,6 +308,9 @@ def _segmentor_state(variables):
         for (*path, leaf), value in _flatten(variables.get(col, {})):
             arr = np.asarray(value)
             module = _module_name(path, names)
+            if col == 'batch_stats' and leaf in _BUFFERS:
+                out[f'{module}.{_BUFFERS[leaf]}'] = _tensor(arr)
+                continue
             if col == 'batch_stats':
                 if leaf not in _STATS:
                     raise KeyError(f'unknown batch_stats leaf {path}/{leaf}')
@@ -291,14 +329,21 @@ def _segmentor_state(variables):
                     raise ValueError(f'{module}: unexpected kernel shape '
                                      f'{arr.shape}')
                 leaf = 'weight'
-            elif leaf == 'scale':
+            elif leaf == 'scale' and not _KEPT_SCALE.search(module):
                 leaf = 'weight'
             elif leaf == 'relative_position_bias_table':
                 out[f'{module}.relative_position_index'] = \
                     _relative_position_index(arr.shape[0])
-            elif leaf not in ('bias', 'weight'):  # PReLU's slopes: weight
+            elif leaf not in ('bias', 'weight', 'scale') + _OWN_LEAVES:
+                # PReLU's slopes: weight
                 raise KeyError(f'unknown parameter {"/".join(path)}/{leaf}')
-            out[f'{module}.{leaf}'] = torch.from_numpy(np.ascontiguousarray(
-                arr, dtype=np.float64 if arr.dtype == np.float64
-                else np.float32))
+            if _CONTEXT_LN.search(module):
+                arr = arr.reshape(-1, 1, 1)
+            out[f'{module}.{leaf}'] = _tensor(arr)
     return out
+
+
+def _tensor(arr):
+    """float64 stays float64, anything else becomes float32."""
+    return torch.from_numpy(np.ascontiguousarray(
+        arr, dtype=np.float64 if arr.dtype == np.float64 else np.float32))

@@ -22,7 +22,7 @@ from torch import nn
 from ..builder import BACKBONES
 from ..utils import ConvModule, build_norm_layer
 from ..utils.activation import PReLU
-from ..utils.conv_module import Conv2d, he_normal_, init_conv_norm
+from ..utils.conv_module import Conv2d, Linear, he_normal_, init_conv_norm
 from .mix_transformer import _torch_dtype
 
 PRELU0 = dict(type='PReLU', init=0.0)
@@ -34,13 +34,6 @@ def _inject(x, times):
     for _ in range(times):
         x = F.avg_pool2d(x, 3, 2, 1)
     return x
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` computing in its input's dtype."""
-
-    def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class GlobalContextExtractor(nn.Module):

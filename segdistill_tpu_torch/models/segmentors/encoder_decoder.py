@@ -76,8 +76,13 @@ class EncoderDecoder(BaseSegmentor):
 
     def forward(self, img, generator=None):
         """Head logits at the head's resolution, (B, classes, h, w).
-        Dropout in training mode draws from ``generator``."""
-        return self.decode_head(self.extract_feat(img, generator), generator)
+        Dropout in training mode draws from ``generator``. A head with
+        several outputs (DAHead, EncHead with its se logits) gives its
+        first, the primary logits, which every inference path takes (ref
+        da_head.py / enc_head.py ``forward_test``); training passes the
+        whole tuple to the head's losses (:meth:`_decode_train`)."""
+        out = self.decode_head(self.extract_feat(img, generator), generator)
+        return out[0] if isinstance(out, tuple) else out
 
     def _decode_train(self, x, gt_semantic_seg, generator, points):
         """The decode head's losses under 'decode.' (a cascade: each

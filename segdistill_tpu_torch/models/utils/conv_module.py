@@ -20,6 +20,7 @@ the input's dtype.
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .activation import build_activation
@@ -42,6 +43,17 @@ def he_normal_(conv, generator):
     w.normal_(0, math.sqrt(2.0 / fan_out), generator=generator)
     if conv.bias is not None:
         nn.init.zeros_(conv.bias)
+
+
+@torch.no_grad()
+def torch_default_(layer, generator):
+    """PyTorch's own initialisation of a conv or linear layer (weight and
+    bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))), drawn from ``generator``:
+    the reference's bare convs and linear layers, which mmseg leaves so."""
+    bound = layer.weight[0].numel() ** -0.5
+    layer.weight.uniform_(-bound, bound, generator=generator)
+    if layer.bias is not None:
+        layer.bias.uniform_(-bound, bound, generator=generator)
 
 
 @torch.no_grad()
@@ -71,6 +83,13 @@ class Conv1d(nn.Conv1d):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class ConvModule(nn.Module):

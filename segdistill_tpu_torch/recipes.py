@@ -18,7 +18,11 @@ and ``cgnet`` take the 80k schedule at batch 2 like the others, where
 mmseg's own recipes differ: ``fast_scnn_4x8_80k_lr0.12_cityscapes.py``
 trains batch 8 a GPU on 4 GPUs at lr 0.12 and weight decay 4e-5, and
 ``cgnet_512x1024_60k_cityscapes.py`` trains Adam at lr 0.001 for 60k
-iterations at batch 8.
+iterations at batch 8. The attention-head recipes
+(:data:`ATTENTION_FRAGMENTS`: NL, GC, DNL, CC, ANN, APC, DM, DA, EMA and
+Enc on ResNetV1c-50-d8, each with the FCN auxiliary head) are mmseg's
+``<fragment>_512x1024_40k_cityscapes.py`` (``emanet_r50-d8``: ``80k``, its
+only schedule) with the fragment as it stands.
 
 :data:`HRF_RECIPES` are mmseg's ``{fcn,pspnet,deeplabv3}_unet_s5-d16_
 256x256_40k_hrf.py``: the three UNet fragments (2 classes) on
@@ -77,6 +81,15 @@ RECIPES = {
     'cgnet': ('cgnet', '80k', None),
     'pspnet_s101-d8': ('pspnet_r50-d8', '80k', RESNEST_S101),
 }
+# the attention heads on ResNetV1c-50-d8, each fragment as it stands, on
+# mmseg's <fragment>_512x1024_40k_cityscapes.py schedule (EMANet's recipe
+# is 80k only)
+ATTENTION_FRAGMENTS = ('nonlocal_r50-d8', 'gcnet_r50-d8', 'dnl_r50-d8',
+                       'ccnet_r50-d8', 'ann_r50-d8', 'apcnet_r50-d8',
+                       'dmnet_r50-d8', 'danet_r50-d8', 'emanet_r50-d8',
+                       'encnet_r50-d8')
+RECIPES.update({f: (f, '80k' if f == 'emanet_r50-d8' else '40k', None)
+                for f in ATTENTION_FRAGMENTS})
 HRF_RECIPES = {f: (f, '40k', HRF_SLIDE) for f in UNET_FRAGMENTS}
 DRIVE_RECIPES = {f'{f}_drive': (f, '40k', DRIVE_SLIDE)
                  for f in UNET_FRAGMENTS}

@@ -86,7 +86,9 @@ FAMILIES = [
     ('batch norm', r'bn_fw|bn_bw|batch_norm|BatchNorm|welford'),
     ('convolution', r'conv|cudnn|implicit|winograd|dgrad|wgrad|fprop'),
     ('layer norm', r'layer_norm|LayerNorm'),
-    ('softmax', r'softmax'),
+    # softmax_warp_* (short rows) and cunn_SoftMax* (long rows: the
+    # attention heads' fp32 maps)
+    ('softmax', r'(?i)softmax'),
     ('upsample backward', r'upsample\w*backward'),
     ('upsample', r'upsample'),
     ('optimizer', r'multi_tensor|adam|Adam|sgd'),

@@ -353,6 +353,16 @@ RECIPE_MODELS = {
                   'FastSCNN'),
     'cgnet': ('EncoderDecoder', ('FCNHead',), 'CGNet'),
     'pspnet_s101-d8': ('EncoderDecoder', ('PSPHead',), 'ResNeSt'),
+    'nonlocal_r50-d8': ('EncoderDecoder', ('NLHead',), 'ResNet'),
+    'gcnet_r50-d8': ('EncoderDecoder', ('GCHead',), 'ResNet'),
+    'dnl_r50-d8': ('EncoderDecoder', ('DNLHead',), 'ResNet'),
+    'ccnet_r50-d8': ('EncoderDecoder', ('CCHead',), 'ResNet'),
+    'ann_r50-d8': ('EncoderDecoder', ('ANNHead',), 'ResNet'),
+    'apcnet_r50-d8': ('EncoderDecoder', ('APCHead',), 'ResNet'),
+    'dmnet_r50-d8': ('EncoderDecoder', ('DMHead',), 'ResNet'),
+    'danet_r50-d8': ('EncoderDecoder', ('DAHead',), 'ResNet'),
+    'emanet_r50-d8': ('EncoderDecoder', ('EMAHead',), 'ResNet'),
+    'encnet_r50-d8': ('EncoderDecoder', ('EncHead',), 'ResNet'),
 }
 
 

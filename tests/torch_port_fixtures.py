@@ -85,7 +85,8 @@ def random_jax_variables(jax_model, seed=0):
 
     def walk(tree, path):
         return {k: walk(v, path + (k,)) if isinstance(v, Mapping) else
-                _randomize_leaf(path + (k,), v.shape, rng).astype(np.float32)
+                np.asarray(_randomize_leaf(path + (k,), v.shape, rng),
+                           np.float32)
                 for k, v in tree.items()}
     return {col: walk(shapes[col], (col,))
             for col in ('params', 'batch_stats')}
