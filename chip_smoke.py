@@ -138,9 +138,25 @@ and an fp32 step at 2 images a rank held to the one-process fp32 step on
 the same 4 images within (11)'s limits (loss terms 1e-6 * |loss| +
 2.5e-5, gradients relative L2 1e-3); where the machine has two cards or
 more, (103) runs again under NCCL, a card a rank. Two processes on one
-card are not a multi-GPU figure. The launch count of each kernel is read
-over each main path (9, 10, 12, 14, 15-18, 22-27, 31-37, 48, 49, 52-57,
-71-80, and each rank's in 103, added together).
+card are not a multi-GPU figure. Then this slice, the loader backends and
+batched evaluation, right after (102): (104) ``tools.train`` on phase 14's
+dataset with ``data.loader_backend`` native (the C++ core, built with g++)
+and then device (the augmentation on the card), the ADE20K recipe in
+``data.aug_cfg``, 12 iterations each without evaluation: the median
+``time`` and ``data_time`` of iterations 3-12 beside the host loader's,
+finite losses, every batch handed to the step as CUDA tensors with no
+copy, and the launches exactly the in-memory CGD step's a step; (105)
+``DeviceAugPipeline.apply`` on the card against the same function on the
+CPU on the same draws, 8 canvases of (512, 2048) from phase 14's images:
+labels equal, images within 1e-4, one call under
+``torch.cuda.set_sync_debug_mode('error')``, ms a batch and peak memory;
+(106) ``single_device_test(batch_size=8)`` of phase 14's B0 student in
+fp32 against ``batch_size=1`` on 16 images of two shapes: at most 1e-4 of
+the pixels differ (argmax near-ties), images/s of each in two rounds after
+an untimed pass of each. The launch count
+of each kernel is read over each main path (9, 10, 12, 14, 15-18, 22-27,
+31-37, 48, 49, 52-57, 71-80, each rank's in 103, 104 and 106, added
+together).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -307,6 +323,24 @@ CLI_ITERS, CLI_INTERVAL = 12, 6
 CLI_IMAGE_HW = [(512, 683), (683, 512), (480, 640), (512, 512)]
 # a command line under torchrun's variables, in a process of its own
 CLI_MULTI_HOST_TIMEOUT = 300
+# (104) the native and device loader backends through tools.train on the
+#   command line's dataset, the ADE20K recipe of the config's pipeline
+#   (``tools/bench_loader.py``'s), no evaluation
+CLI_BACKENDS = ('native', 'device')
+# (105) DeviceAugPipeline.apply on the card against the CPU on the same
+#   draws: a batch of 8 canvases of (512, 2048) from the command line's
+#   images, the labels equal, the normalised images within the CPU test's
+#   limit (fp32 sums of the same taps in another order; 1e-5 read on the
+#   CPU against the JAX matmuls); timed over this many calls
+DEVICE_AUG_TOL = 1e-4
+DEVICE_AUG_CALLS = 20
+# (106) batched evaluation of the B0 student of phase 14's checkpoint in
+#   fp32 against the per-image path: images of two shapes, batch 8; the
+#   label maps may differ at argmax near-ties, another batch size summing
+#   in another order, at most this share of the pixels
+EVAL_IMAGES, EVAL_BATCH = 16, 8
+EVAL_HW = [(512, 683), (683, 512)]
+EVAL_DIFF_SHARE = 1e-4
 # two ranks, one process each: the timed CGD steps at 4 images a rank
 # (global batch 8, as the one-process step), the fp32 step at 2 a rank
 # against one process on the 4; the ranks' own time limit (a rank that
@@ -2559,6 +2593,232 @@ def phase_dist_eval(root):
                              'process')
 
 
+@contextlib.contextmanager
+def _no_copy_check():
+    """Wrap the runner's ``_to_device`` for the length of the block: ->
+    a list of, for each batch, whether it came as CUDA tensors and went to
+    the step with no copy (the same storage)."""
+    from segdistill_tpu_torch.engine import runner
+    original = runner.IterBasedRunner._to_device
+    seen = []
+
+    def checked(self, batch, device):
+        img, gt = original(self, batch, device)
+        src_img, src_gt = batch['img'], batch['gt_semantic_seg']
+        seen.append(torch.is_tensor(src_img) and src_img.is_cuda
+                    and img.data_ptr() == src_img.data_ptr()
+                    and gt.data_ptr() == src_gt.data_ptr())
+        return img, gt
+    runner.IterBasedRunner._to_device = checked
+    try:
+        yield seen
+    finally:
+        runner.IterBasedRunner._to_device = original
+
+
+def phase_cli_backends(path_kernels, root, host_train, per_step, card):
+    """(104) ``tools.train`` on phase 14's dataset with
+    ``data.loader_backend`` native and then device (the ADE20K recipe in
+    ``data.aug_cfg``), ``CLI_ITERS`` iterations each, no evaluation: the
+    median ``time`` and ``data_time`` of iterations 3 on beside the host
+    loader's (``host_train``, phase 14's log), finite losses, every batch
+    handed to the step as CUDA tensors with no copy, and each kernel's
+    launches exactly ``per_step`` (the in-memory CGD step's) a step. ->
+    the launch counts of both runs."""
+    from segdistill_tpu_torch.tools import bench_loader
+    from segdistill_tpu_torch.tools import train as train_cli
+    log(f'== loader backends through the command line: tools.train on '
+        f'{CGD_CONFIG.name} with data.loader_backend '
+        f'{" and ".join(CLI_BACKENDS)}, {CLI_ITERS} iterations each, no '
+        f'evaluation ({card})')
+    options = _cli_options(root / 'data')
+    host = [host_train[i] for i in range(3, CLI_ITERS + 1)
+            if i != CLI_INTERVAL + 1]
+    rows = {'host': tuple(float(np.median([ln[k] for ln in host])) * 1e3
+                          for k in ('time', 'data_time'))}
+    total = {k.name: 0 for k in path_kernels}
+    for backend in CLI_BACKENDS:
+        work = root / f'work_{backend}'
+        for k in path_kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with _no_copy_check() as seen:
+            train_cli.main(
+                [str(CGD_CONFIG), '--work-dir', str(work), '--seed', '0',
+                 '--no-validate', '--options', *options,
+                 f'data.loader_backend={backend}',
+                 f'data.aug_cfg={bench_loader.aug_cfg(backend)!r}',
+                 f'checkpoint_config.interval={CLI_ITERS}'])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in path_kernels}
+        train, _ = _json_log(work)
+        if sorted(train) != list(range(1, CLI_ITERS + 1)) or not all(
+                math.isfinite(ln['loss']) for ln in train.values()):
+            raise AssertionError(f'{backend}: logged {train}')
+        if len(seen) != CLI_ITERS or not all(seen):
+            raise AssertionError(f'{backend}: batches not handed to the step '
+                                 f'as CUDA tensors without a copy: {seen}')
+        steady = [train[i] for i in range(3, CLI_ITERS + 1)]
+        rows[backend] = tuple(
+            float(np.median([ln[k] for ln in steady])) * 1e3
+            for k in ('time', 'data_time'))
+        want = {name: n * CLI_ITERS for name, n in per_step.items()}
+        log(f'{backend}: {time.perf_counter() - t0:.1f} s in all; launches '
+            f'{launches} ({CLI_ITERS} steps; the in-memory step\'s a step: '
+            f'{per_step}); every batch a CUDA tensor handed over with no '
+            f'copy; losses ' + ', '.join(f'{i}: {train[i]["loss"]:.5f}'
+                                         for i in sorted(train)))
+        if launches != want:
+            raise AssertionError(f'{backend}: launches {launches}, expected '
+                                 f'{want}')
+        for name, n in launches.items():
+            total[name] += n
+    for backend, (step_ms, data_ms) in rows.items():
+        log(f'loader {backend}: step time {step_ms:.2f} ms, data_time '
+            f'{data_ms:.2f} ms (medians of iterations 3-{CLI_ITERS}), '
+            f'{TRAIN_BATCH / step_ms * 1e3:.2f} images/s ({card})')
+    return total
+
+
+def phase_device_aug(root, card):
+    """(105) ``DeviceAugPipeline.apply`` on the card against the same
+    function on the CPU, on the same draws, for a batch of
+    ``TRAIN_BATCH`` canvases of (512, 2048) made by ``PrepareCanvas`` from
+    the command line's images: labels equal, images within
+    ``DEVICE_AUG_TOL``; one call, its copy from pinned memory included
+    (the device loader's one packed buffer a batch), under
+    ``torch.cuda.set_sync_debug_mode('error')`` (no synchronising call
+    that the mode detects); ms a batch (CUDA events) and the peak
+    memory; the host ms to issue a call (no loader threads beside it)."""
+    from segdistill_tpu_torch.data import DeviceAugPipeline, PrepareCanvas
+    from segdistill_tpu_torch.datasets.builder import _layout, _views
+    from segdistill_tpu_torch.tools import bench_loader
+    from segdistill_tpu_torch.utils.image import imread
+    cfg = bench_loader.aug_cfg('device')
+    canvas = PrepareCanvas(img_scale=cfg.pop('img_scale'),
+                           canvas=cfg.pop('canvas'))
+    aug = DeviceAugPipeline(**cfg)
+    log(f'== DeviceAugPipeline.apply on the card against the CPU: batch '
+        f'{TRAIN_BATCH}, canvas {canvas.canvas}, crop {aug.crop_size} '
+        f'({card})')
+    samples = []
+    for i in range(TRAIN_BATCH):
+        ann = imread(str(root / 'data' / 'ann' / 'train' / f's{i:03d}.npy'),
+                     'unchanged')
+        ann = np.where(ann == 0, 255, ann - 1).astype(np.uint8)
+        samples.append(canvas(dict(img=imread(str(
+            root / 'data' / 'img' / 'train' / f's{i:03d}.npy')),
+            gt_semantic_seg=ann)))
+    host = [torch.from_numpy(np.stack([s[k] for s in samples]))
+            for k in ('img', 'gt_semantic_seg', 'valid_hw')]
+    draws = aug.draw(torch.Generator().manual_seed(0), TRAIN_BATCH)
+    want_img, want_gt = aug.apply(draws, *host)
+    keys = ('img', 'gt_semantic_seg', 'valid_hw')
+    layout, nbytes = _layout([(k, t.dtype, t.shape)
+                              for k, t in zip(keys, host)]
+                             + [(k, v.dtype, v.shape)
+                                for k, v in draws.items()])
+    packed = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    for k, v in _views(packed, layout).items():
+        v.copy_(draws[k] if k in draws else host[keys.index(k)])
+
+    def on_card():
+        parts = _views(packed.to(DEVICE, non_blocking=True), layout)
+        return aug.apply(parts, *[parts[k] for k in keys])
+    on_card()  # the mean and std reach the card once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        img, gt = on_card()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    err = (img.cpu() - want_img).abs().max().item()
+    same = torch.equal(gt.cpu(), want_gt)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(DEVICE_AUG_CALLS):
+        on_card()
+    host_ms = (time.perf_counter() - t0) * 1e3 / DEVICE_AUG_CALLS
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / DEVICE_AUG_CALLS
+    log(f'labels equal to the CPU\'s: {same}; images max abs err {err:.3e} '
+        f'(limit {DEVICE_AUG_TOL}); no synchronising call in a call that '
+        f'set_sync_debug_mode detects; {ms:.3f} ms a batch with its copy '
+        f'from pinned memory (CUDA '
+        f'events over {DEVICE_AUG_CALLS} calls), {host_ms:.3f} ms on the host '
+        f'clock to issue a call; peak {peak / 2**20:.1f} '
+        f'MiB above the inputs ({card})')
+    if not same or not err <= DEVICE_AUG_TOL:
+        raise AssertionError('DeviceAugPipeline.apply on the card differs '
+                             'from the CPU')
+
+
+def phase_batched_eval(path_kernels, root, card):
+    """(106) ``single_device_test(batch_size=EVAL_BATCH)`` against
+    ``batch_size=1`` of the B0 student of phase 14's last checkpoint in
+    fp32, on ``EVAL_IMAGES`` images of two shapes: label maps equal but at
+    most ``EVAL_DIFF_SHARE`` of the pixels (argmax near-ties), images/s of
+    each in two rounds after one untimed pass of each (the host pipeline
+    included; the order batched, per image, per image, batched), and the
+    kernels' launches over the timed batched runs. -> those launch
+    counts."""
+    from segdistill_tpu_torch.apis import init_segmentor, single_device_test
+    from segdistill_tpu_torch.datasets import build_dataset
+    from segdistill_tpu_torch.tools import bench_loader
+    log(f'== batched evaluation: single_device_test of the B0 student, fp32, '
+        f'batch_size {EVAL_BATCH} against 1, {EVAL_IMAGES} images of shapes '
+        f'{EVAL_HW} ({card})')
+    data = root / 'eval'
+    bench_loader.write_dataset(data, EVAL_IMAGES, seed=12, shapes=EVAL_HW,
+                               split='val')
+    options = dict(_cli_config_options(data),
+                   **{'model.cfg_s.backbone.dtype': 'float32'})
+    model = init_segmentor(
+        str(CGD_CONFIG),
+        str(root / 'work' / 'checkpoints' / f'iter_{CLI_ITERS}.pth'),
+        device=DEVICE, cfg_options=options)
+    dataset = build_dataset(model.cfg.data['test'], dict(test_mode=True))
+    launches = {k.name: 0 for k in path_kernels}
+    rates = {EVAL_BATCH: [], 1: []}
+    maps = {}
+    for batch_size in (EVAL_BATCH, 1):  # warm-up at each batch shape
+        single_device_test(model, dataset, batch_size=batch_size)
+    for order in ((EVAL_BATCH, 1), (1, EVAL_BATCH)):
+        for batch_size in order:
+            for k in path_kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps[batch_size] = single_device_test(model, dataset,
+                                                  batch_size=batch_size)
+            rates[batch_size].append(
+                len(dataset) / (time.perf_counter() - t0))
+            if batch_size == EVAL_BATCH:
+                for k in path_kernels:
+                    launches[k.name] += k.launches
+    pixels = sum(m.size for m in maps[1])
+    differ = sum(int((a != b).sum()) for a, b in zip(maps[EVAL_BATCH],
+                                                     maps[1]))
+    shapes = sorted({m.shape for m in maps[1]})
+    log(f'label maps of shapes {shapes}: {differ} of {pixels} pixels differ '
+        f'({differ / pixels:.2e}, limit {EVAL_DIFF_SHARE}); images/s '
+        f'batched ' + ' / '.join(f'{r:.2f}' for r in rates[EVAL_BATCH])
+        + ', per image ' + ' / '.join(f'{r:.2f}' for r in rates[1])
+        + f' (two rounds after a warm-up pass, the host pipeline included; '
+        f'{card}); launches '
+        f'over the batched runs {launches}')
+    _check_launched(launches, 'batched evaluation')
+    if len(shapes) != 2 or not differ <= EVAL_DIFF_SHARE * pixels:
+        raise AssertionError('batched evaluation differs from per-image')
+    return launches
+
+
 def _pd_loss_check(last):
     """The PD loss of a train step is finite and >= 0."""
     key = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'
@@ -2968,7 +3228,7 @@ def _bounds(names):
 
 
 def main():
-    phase_device()
+    card = phase_device()
     sys.path.insert(0, str(ROOT))
     from segdistill_tpu_torch.ops import (group_kl, layer_norm, pixel_kl,
                                           resize_sum, seg_ce, sra_attn)
@@ -2990,6 +3250,7 @@ def main():
     paths = [phase_serving([k1, k2, k10])]
     cgd_launches, _, cgd_ms = phase_train(cgd_kernels, CGD_CONFIG, {}, 'CGD')
     paths.append(cgd_launches)
+    cgd_per_step = {k: n // TRAIN_STEPS for k, n in cgd_launches.items()}
     phase_train_vs_cpu(CGD_CONFIG, {}, 'CGD')
     pd_launches, pd_last, _ = phase_train(
         [k1, k2, k5, k6, k7, k8, k9, k10, k11], PD_CONFIG, STUDENT_FA_TRAIN,
@@ -3004,6 +3265,12 @@ def main():
         # world size 1) and the evaluation sharded over two gloo ranks
         phase_cli_multi_host(Path(tmp), cli_train)
         phase_dist_eval(Path(tmp))
+        # this slice: the native and device loader backends on the command
+        # line, the device augmentation against the CPU, batched evaluation
+        paths.append(phase_cli_backends(cgd_kernels, Path(tmp), cli_train,
+                                        cgd_per_step, card))
+        phase_device_aug(Path(tmp), card)
+        paths.append(phase_batched_eval([k1, k10], Path(tmp), card))
     # the Tab5 PSP and Swin students: serving, the timed CGD steps (the PSP
     # student has no LayerNorm: K11 runs only on the Swin path), and fp32
     # steps against the CPU, where the PSP pair takes K3/K4 and K7/K8 at
@@ -3210,8 +3477,10 @@ def main():
             'bound_ms': bound[0], 'bound_by': bound[1],
             'library_ms': None})
     log('launches per path: ' + json.dumps(
-        dict(zip(('serving', 'CGD', 'PD', 'command line', 'PSP serving',
-                  'Swin serving', 'psp_CGD', 'swin_CGD')
+        dict(zip(('serving', 'CGD', 'PD', 'command line',
+                  'command line, native and device loaders',
+                  'batched evaluation', 'PSP serving', 'Swin serving',
+                  'psp_CGD', 'swin_CGD')
                  + tuple(tag for _, tag, *_ in EXTRA_PATHS)
                  + tuple(tag for _, tag, *_ in ZOO_PATHS)
                  + tuple(tag for _, tag in MT_PATHS)

@@ -1,7 +1,10 @@
 """Inference API (counterpart of ``segdistill_tpu/apis/inference.py``;
 reference ``mmseg/apis/inference.py:11-119``)."""
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 
@@ -12,12 +15,50 @@ from ..utils import image as imutil
 from .test import _as_lists, _predict_one
 
 
+def resize_bias_table(table, rows):
+    """A Swin ``relative_position_bias_table`` (S1^2, heads) -> (rows,
+    heads): each head's S1 x S1 grid resized bicubically to S2 x S2 (the
+    reference loader's cv2 ``INTER_CUBIC``, the same a = -0.75 kernel and
+    edges; float32 on the CPU)."""
+    s1, s2 = math.isqrt(table.shape[0]), math.isqrt(rows)
+    grid = table.detach().cpu().float().t().reshape(1, -1, s1, s1)
+    out = F.interpolate(grid, size=(s2, s2), mode='bicubic',
+                        align_corners=False)
+    return out.reshape(-1, rows).t().contiguous().to(table.dtype)
+
+
+def _fit_swin(state, own):
+    """Bring a file's Swin tensors to the model's shapes where only the
+    layout or the window differs: a bias table of another window size is
+    resized (:func:`resize_bias_table`) and its index buffer is the
+    model's own (it follows from the window), and an
+    ``absolute_pos_embed`` stored as the reference model holds it, (1, C,
+    H, W), becomes the (1, H * W, C) this port holds."""
+    out = dict(state)
+    for k, v in state.items():
+        want = own.get(k)
+        if want is None or tuple(v.shape) == tuple(want.shape):
+            continue
+        if k.endswith('relative_position_bias_table') and v.ndim == 2 \
+                and v.shape[1] == want.shape[1]:
+            out[k] = resize_bias_table(v, want.shape[0])
+        elif k.endswith('relative_position_index'):
+            out[k] = want
+        elif k.endswith('absolute_pos_embed') and v.ndim == 4 \
+                and want.ndim == 3 and v.shape[1] == want.shape[2] \
+                and v.shape[2] * v.shape[3] == want.shape[1]:
+            out[k] = v.flatten(2).transpose(1, 2).contiguous()
+    return out
+
+
 def load_checkpoint(model, path, strict=True):
     """Load a reference-layout ``.pth`` (a state dict, or a dict holding
     one under 'state_dict'), strictly by default. With ``strict=False``,
-    as the JAX package's loader is lenient, a key the model lacks or whose
-    shape differs is skipped and a key the file lacks keeps its value;
-    the counts are logged.
+    as the JAX package's loader is lenient, Swin's tensors are first
+    fitted to the model (:func:`_fit_swin`: a bias table of another window
+    size resized), then a key the model lacks or whose shape differs is
+    skipped and a key the file lacks keeps its value; the counts are
+    logged.
 
     The reference BaseDecodeHead always builds a ``conv_seg`` classifier,
     which SegFormerHead never runs; published SegFormer checkpoints carry
@@ -31,6 +72,7 @@ def load_checkpoint(model, path, strict=True):
     state = {k: v for k, v in state.items()
              if k in own or not k.startswith('decode_head.conv_seg.')}
     if not strict:
+        state = _fit_swin(state, own)
         take = {k: v for k, v in state.items()
                 if k in own and tuple(v.shape) == tuple(own[k].shape)}
         get_root_logger().info(
@@ -46,7 +88,8 @@ def load_backbone_checkpoint(model, path):
     """Load a backbone-only ``.pth`` (the config's ``pretrained``: an
     ImageNet MiT file, say) into the segmentor ``model``, leniently. Keys
     come with or without the ``backbone.`` prefix: where no key has it,
-    every key gets it. A key the model lacks, or whose shape differs, is
+    every key gets it. Swin's tensors are fitted to the model first
+    (:func:`_fit_swin`). A key the model lacks, or whose shape differs, is
     skipped; what was skipped and what the file did not fill are logged,
     nothing raises. -> (matched, missing, unexpected) key lists."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
@@ -58,6 +101,7 @@ def load_backbone_checkpoint(model, path):
     if not any(k.startswith('backbone.') for k in state):
         state = {'backbone.' + k: v for k, v in state.items()}
     own = model.state_dict()
+    state = _fit_swin(state, own)
     take = {k: v for k, v in state.items()
             if k in own and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(take, strict=False)

@@ -8,6 +8,15 @@ views -> argmax. Everything up to the argmax runs on the model's device
 resizes with cv2). Only the int64 label map comes back to the host, or,
 from :func:`fast_evaluate`, four class histograms per image.
 
+With ``batch_size`` above 1, :func:`single_device_test` buckets the
+samples (the JAX ``_batched_test``): single-view samples by (network input
+shape, valid crop, ``ori_shape``), and a bucket of at least
+``DEVICE_RESIZE_MIN_GROUP`` runs in chunks of ``batch_size`` through one
+forward each, the padding cropped, the logits resized to ``ori_shape``,
+the argmax taken on the device and only the int label maps copied back;
+one chunk is enqueued before the previous chunk's labels are read. The
+rest take the per-image path.
+
 Across processes rank r takes images r, r + world, ... (the JAX
 package's ``multi_device_test``), and :func:`fast_evaluate` sums the ranks'
 histograms with one all-reduce (the JAX package all-gathers them and
@@ -24,6 +33,10 @@ from ..core.evaluation import (confusion_histograms, metrics_from_histograms,
                                prepare_label)
 from ..ops import resize
 from ..parallel import get_dist_info
+
+# the smallest bucket that runs batched (the JAX package's default); a
+# smaller one takes the per-image path
+DEVICE_RESIZE_MIN_GROUP = 2
 
 
 def _as_lists(data):
@@ -78,13 +91,92 @@ def _eval_mode(model):
         model.train(was_training)
 
 
-def single_device_test(model, dataset):
+def single_device_test(model, dataset, batch_size=1):
     """-> one label map per sample of ``dataset``: a ``CustomDataset`` in
     test mode or any sequence of pipeline outputs ({'img': ...,
-    'img_metas': ...}) (ref test.py:35-101)."""
+    'img_metas': ...}) (ref test.py:35-101). With ``batch_size`` above 1
+    the samples are bucketed by shape and batched (:func:`_batched_test`);
+    the maps are the per-image ones but for argmax near-ties, which
+    another batch size may break the other way."""
     with _eval_mode(model):
-        return [_predict_one(model, *_as_lists(dataset[i]))
-                for i in range(len(dataset))]
+        if batch_size <= 1:
+            return [_predict_one(model, *_as_lists(dataset[i]))
+                    for i in range(len(dataset))]
+        return _batched_test(model, dataset, batch_size)
+
+
+def _bucket_key(imgs, metas):
+    """A single-view, unflipped sample's bucket: (network input shape,
+    valid crop, ori_shape); None for a test-time-augmented one."""
+    if len(imgs) != 1 or metas[0].get('flip', False):
+        return None
+    return (tuple(np.shape(imgs[0])), tuple(metas[0]['img_shape'][:2]),
+            tuple(metas[0]['ori_shape'][:2]))
+
+
+@torch.no_grad()
+def _labels_to_ori(model, batch, crop_hw, ori_hw):
+    """(B, 3, H, W) -> (B, ori_h, ori_w) int32 label maps, on the device:
+    logits, padding cropped, bilinear resize to ``ori_hw``, argmax."""
+    h, w = crop_hw
+    logits = model.inference_logits(batch)[:, :, :h, :w]
+    logits = resize(logits, size=ori_hw, mode='bilinear',
+                    align_corners=model.align_corners)
+    return logits.argmax(dim=1).to(torch.int32)
+
+
+def _batched_test(model, dataset, batch_size):
+    """Shape-bucketed evaluation (the JAX ``_batched_test``): every sample
+    is loaded first, then each bucket of at least
+    ``DEVICE_RESIZE_MIN_GROUP`` single-view samples runs in chunks of
+    ``batch_size``; the tail chunk is not padded to ``batch_size``.
+    Test-time-augmented samples and singleton buckets take the per-image
+    path (which also resizes on the device). A chunk's labels are copied
+    into pinned memory without blocking, and read after the next chunk
+    has been enqueued."""
+    device = next(model.parameters()).device
+    pin = device.type == 'cuda'
+    loaded = [_as_lists(dataset[i]) for i in range(len(dataset))]
+    buckets = {}
+    for i, (imgs, metas) in enumerate(loaded):
+        buckets.setdefault(_bucket_key(imgs, metas), []).append(i)
+    results = [None] * len(loaded)
+    pending = None  # (indices, host labels, event)
+
+    def drain():
+        chunk, labels, event = pending
+        if event is not None:
+            event.synchronize()
+        for j, i in enumerate(chunk):
+            results[i] = labels[j].numpy().astype(np.int64)
+
+    for key, indices in buckets.items():
+        if key is None or len(indices) < DEVICE_RESIZE_MIN_GROUP:
+            for i in indices:
+                results[i] = _predict_one(model, *loaded[i])
+            continue
+        _, crop_hw, ori_hw = key
+        for start in range(0, len(indices), batch_size):
+            chunk = indices[start:start + batch_size]
+            host = torch.from_numpy(np.stack(
+                [np.asarray(loaded[i][0][0], np.float32) for i in chunk]))
+            if pin:
+                host = host.pin_memory()
+            batch = host.to(device, non_blocking=True).permute(0, 3, 1, 2)
+            labels = _labels_to_ori(model, batch, crop_hw, ori_hw)
+            out = torch.empty(labels.shape, dtype=labels.dtype,
+                              pin_memory=pin)
+            out.copy_(labels, non_blocking=True)
+            event = None
+            if pin:
+                event = torch.cuda.Event()
+                event.record()
+            if pending is not None:
+                drain()
+            pending = (chunk, out, event)
+    if pending is not None:
+        drain()
+    return results
 
 
 def multi_device_test(model, dataset):

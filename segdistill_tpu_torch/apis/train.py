@@ -149,8 +149,11 @@ def train_segmentor(model, dataset, cfg=None, distributed=False,
     state (ref apis/train.py:32-138).
 
     ``dataset``: a dataset (or a list, the first is trained on) built by
-    ``build_dataset``: batches then come from the host loader
-    (``data.samples_per_gpu``, ``data.workers_per_gpu``), checkpoints go to
+    ``build_dataset``: batches then come from the loader of
+    ``data.loader_backend`` ('host' by default; 'native' or 'device' with
+    the recipe ``data.aug_cfg``, which augment the batch as a whole and
+    hand it over on the model's device) with ``data.samples_per_gpu`` and
+    ``data.workers_per_gpu``, checkpoints go to
     ``cfg.work_dir`` (``checkpoint_config``), ``cfg.resume_from`` resumes
     strictly (a missing or corrupt checkpoint raises), ``cfg.auto_resume``
     from the work dir if it holds a checkpoint, ``cfg.load_from`` warm-starts
@@ -201,7 +204,9 @@ def train_segmentor(model, dataset, cfg=None, distributed=False,
         train_set, cfg.data['samples_per_gpu'], cfg.data['workers_per_gpu'],
         shuffle=True, seed=state.seed, drop_last=True,
         loader_backend=cfg.data.get('loader_backend', 'host'),
-        start_batch=state.step, process_index=rank, process_count=world)
+        start_batch=state.step, process_index=rank, process_count=world,
+        aug_cfg=cfg.data.get('aug_cfg'),
+        device=next(state.model.parameters()).device)
 
     eval_hook = None
     if validate and cfg.get('evaluation'):

@@ -46,8 +46,8 @@ a PReLU's ``weight`` keeps its name. The attention heads: ANN's
 (planes, 1, 1)); a Scale's and Encoding's ``scale``, CCNet's ``gamma`` and
 ``codewords`` keep their names; EMANet's ``batch_stats`` leaf
 ``ema_module_bases`` -> the ``ema_module.bases`` buffer. Swin's bias
-tables keep their
-name, and each gets the ``relative_position_index`` buffer the reference
+tables and its ``absolute_pos_embed`` (1, L, C) keep their names, and
+each table gets the ``relative_position_index`` buffer the reference
 ``.pth`` carries. Takes the ``{'params', 'batch_stats'}`` tree as numpy
 arrays (or anything ``np.asarray`` reads), an SDModule's ``{'student',
 'teacher'}`` pair of such trees or an SDModuleMT's ``{'student',
@@ -165,7 +165,7 @@ _BUFFERS = {'ema_module_bases': 'ema_module.bases'}
 # parameters kept under their own names: a Scale's (DANet's ``gamma``) and
 # Encoding's ``scale``, CCNet's bare ``gamma``, Encoding's ``codewords``
 _KEPT_SCALE = re.compile(r'(\.gamma|\bencoding\.0)$')
-_OWN_LEAVES = ('gamma', 'codewords')
+_OWN_LEAVES = ('gamma', 'codewords', 'absolute_pos_embed')
 # GCNet's LayerNorm([planes, 1, 1]) holds (planes, 1, 1) affine tensors
 _CONTEXT_LN = re.compile(r'\bchannel_(add|mul)_conv\.1$')
 # the point head's MLP: 1x1 convs in JAX, Conv1d in the reference

@@ -155,6 +155,10 @@ class IterBasedRunner:
                         + '\n')
 
     def _to_device(self, batch, device):
+        """The batch's image (NHWC viewed as NCHW with ``channels_last``)
+        and labels on ``device``. Host arrays are copied; tensors already
+        there, as the native and device loaders hand them over, go through
+        with no copy."""
         img = torch.as_tensor(batch['img']).to(device, non_blocking=True)
         if self.channels_last:
             img = img.permute(0, 3, 1, 2)

@@ -9,14 +9,16 @@ NCHW. Module names follow the reference ``.pth``: the deep stem
 behind an average pool. 'pytorch' style: the stride sits on the 3x3 conv.
 The d8 variants set per-stage ``strides`` and ``dilations``; with
 ``contract_dilation`` the first block of a dilated stage takes half the
-dilation. ``norm_eval`` keeps every BN in eval mode while training;
-``zero_init_residual`` zeroes each block's last BN weight at
-initialisation. With ``groups`` above 1 (ResNeXt, ``resnext.py``) a
-bottleneck's 3x3 conv is grouped: ``groups`` groups, width ``planes *
+dilation; with ``multi_grid`` block i of the last stage takes the stage's
+dilation times ``multi_grid[i]`` as its first dilation (in place of
+``contract_dilation`` there, as in JAX). ``norm_eval`` keeps every BN in
+eval mode while training; ``zero_init_residual`` zeroes each block's last
+BN weight at initialisation. With ``groups`` above 1 (ResNeXt,
+``resnext.py``) a bottleneck's 3x3 conv is grouped: ``groups`` groups, width ``planes *
 width_per_group // base_channels * groups`` (the floor taken before the
 product, ref resnext.py:27-31); at one group the width is ``planes`` (the
 reference's Bottleneck). A BasicBlock depth refuses groups. Frozen
-stages and multi-grid dilations are not ported (no config sets them). BN
+stages are not ported (no config sets them). BN
 and SyncBN are one BN here (one device). ``dtype`` is the compute type, as in the port's MiT:
 parameters stay float32 and each conv casts them to its input's dtype.
 
@@ -126,7 +128,8 @@ class ResNet(NormEvalModule):
                  contract_dilation=False, with_cp=False,
                  zero_init_residual=True, dcn=None,
                  stage_with_dcn=(False, False, False, False),
-                 pretrained=None, dtype=None, groups=1, width_per_group=4):
+                 pretrained=None, dtype=None, groups=1, width_per_group=4,
+                 multi_grid=None):
         super().__init__()
         del with_cp, stage_with_dcn, pretrained  # no effect on the result
         if style != 'pytorch':
@@ -173,8 +176,12 @@ class ResNet(NormEvalModule):
             blocks = []
             for i in range(n):
                 blk_stride = stride if i == 0 else 1
-                first = dilation // 2 if i == 0 and dilation > 1 \
-                    and contract_dilation else dilation
+                if multi_grid is not None and s == len(stage_blocks) - 1:
+                    first = dilation * multi_grid[i]
+                elif i == 0 and dilation > 1 and contract_dilation:
+                    first = dilation // 2
+                else:
+                    first = dilation
                 ds = None
                 if i == 0 and (blk_stride != 1 or inplanes != features):
                     ds = _downsample(inplanes, features, blk_stride,

@@ -24,9 +24,13 @@ port's MiT: ``dtype`` is the compute type (float32 parameters cast to it),
 stochastic depth rises linearly to ``drop_path_rate`` over the blocks and,
 like dropout, draws from the ``generator`` passed to ``forward``. Each
 block's output is a tap under its module name
-(``backbone.layers.0.blocks.1``), as the JAX package sows it. The absolute
-position embedding (``ape``) and frozen stages are not ported (no Tab5
-config sets them).
+(``backbone.layers.0.blocks.1``), as the JAX package sows it.
+
+With ``ape`` the absolute position embedding ``absolute_pos_embed``, a
+float32 parameter of shape (1, (pretrain_img_size // patch_size)^2, C),
+the JAX package's layout, is resized bilinearly (align_corners=False) to
+the token grid and added after the patch norm, before the dropout.
+Frozen stages are not ported (no Tab5 config sets them).
 """
 
 import functools
@@ -241,14 +245,18 @@ class SwinTransformer(nn.Module):
                  dtype=None):
         super().__init__()
         # no effect on the result
-        del pretrain_img_size, use_checkpoint, pretrained, style
-        if ape or frozen_stages != -1:
-            raise NotImplementedError('the absolute position embedding and '
-                                      'frozen stages are not ported')
+        del use_checkpoint, pretrained, style
+        if frozen_stages != -1:
+            raise NotImplementedError('frozen stages are not ported')
         self.out_indices = tuple(out_indices)
         self.dtype = _torch_dtype(dtype)
         self.patch_embed = PatchEmbed(patch_size, in_chans, embed_dim,
                                       patch_norm)
+        self.absolute_pos_embed = None
+        if ape:
+            side = pretrain_img_size // patch_size
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, side * side, embed_dim))
         self.pos_drop = Dropout(drop_rate)
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
@@ -287,9 +295,24 @@ class SwinTransformer(nn.Module):
             elif isinstance(m, WindowAttention):
                 nn.init.trunc_normal_(m.relative_position_bias_table,
                                       std=0.02, generator=generator)
+        if self.absolute_pos_embed is not None:
+            nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02,
+                                  generator=generator)
+
+    def _pos_embed(self, H, W):
+        """The absolute position embedding on the (H, W) token grid ->
+        (1, H * W, C) float32."""
+        ape = self.absolute_pos_embed
+        side = math.isqrt(ape.shape[1])
+        grid = ape.reshape(1, side, side, -1).permute(0, 3, 1, 2)
+        grid = nn.functional.interpolate(grid, size=(H, W), mode='bilinear',
+                                         align_corners=False)
+        return grid.flatten(2).transpose(1, 2)
 
     def forward(self, x, generator=None):
         x, H, W = self.patch_embed(x.to(self.dtype))
+        if self.absolute_pos_embed is not None:
+            x = x + self._pos_embed(H, W).to(x.dtype)
         x = self.pos_drop(x, generator)
         outs = []
         for i, layer in enumerate(self.layers):

@@ -48,9 +48,15 @@ def _nearest_index(n_in, n_out):
 
 def imresize(img, size, interpolation='bilinear'):
     """size is (w, h) -- the mmcv convention. Keeps the input's dtype.
-    'nearest' picks OpenCV's source pixels exactly (label maps)."""
+    'nearest' picks OpenCV's source pixels exactly (label maps). A resize
+    to the image's own size is a copy (both interpolations are the
+    identity there, exactly)."""
     arr = np.asarray(img)
     out_w, out_h = size
+    if interpolation not in ('bilinear', 'nearest'):
+        raise ValueError(f'unsupported interpolation {interpolation!r}')
+    if (out_h, out_w) == arr.shape[:2]:
+        return arr.copy()
     if interpolation == 'nearest':
         rows = _nearest_index(arr.shape[0], out_h)
         cols = _nearest_index(arr.shape[1], out_w)
@@ -60,11 +66,8 @@ def imresize(img, size, interpolation='bilinear'):
         t = t[..., None]
     x = t.permute(2, 0, 1)[None]
     x = x.double() if arr.dtype == np.float64 else x.float()
-    if interpolation == 'bilinear':
-        y = F.interpolate(x, size=(out_h, out_w), mode='bilinear',
-                          align_corners=False, antialias=False)
-    else:
-        raise ValueError(f'unsupported interpolation {interpolation!r}')
+    y = F.interpolate(x, size=(out_h, out_w), mode='bilinear',
+                      align_corners=False, antialias=False)
     y = y[0].permute(1, 2, 0).numpy()
     if np.issubdtype(arr.dtype, np.integer):
         info = np.iinfo(arr.dtype)

@@ -34,7 +34,8 @@ from segdistill_tpu.datasets.pipelines.loading import \
     LoadImageFromFile as JaxLoadImageFromFile
 from segdistill_tpu_torch.core.evaluation import (confusion_histograms,
                                                   intersect_and_union)
-from segdistill_tpu_torch.datasets import (RepeatDataset, build_dataloader,
+from segdistill_tpu_torch.datasets import (DeviceAugDataLoader,
+                                           RepeatDataset, build_dataloader,
                                            build_dataset)
 from segdistill_tpu_torch.datasets import pipelines as tf
 from segdistill_tpu_torch.utils import image as imutil
@@ -253,8 +254,12 @@ def test_dataset_wrappers_and_build_dataset():
                              img_dir='img/val', ann_dir='ann/val',
                              pipeline=[]))
     assert len(ade.CLASSES) == 150 and ade.reduce_zero_label
-    with pytest.raises(NotImplementedError, match='host'):
-        build_dataloader(dataset, 2, 1, loader_backend='device')
+    loader = build_dataloader(dataset, 2, 1, loader_backend='device',
+                              device='cpu')
+    assert isinstance(loader, DeviceAugDataLoader)
+    assert len(loader.dataset) == len(dataset)
+    with pytest.raises(ValueError, match='loader_backend'):
+        build_dataloader(dataset, 2, 1, loader_backend='gpu')
     with pytest.raises(ValueError, match='no full batch'):
         iter(build_dataloader(build_dataset(
             _dataset_cfg('val', _train_pipeline())), 8, 1))

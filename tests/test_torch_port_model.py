@@ -21,6 +21,7 @@ from segdistill_tpu_torch.ops import resize_sum, sra_attn
 
 from torch_port_fixtures import (ATOL, RTOL, nhwc_to_nchw,
                                  random_jax_variables, segformer_cfg)
+from torch_port_zoo_models import run_jit
 
 SLIDE = dict(mode='slide', crop_size=(64, 64), stride=(48, 48))
 
@@ -91,8 +92,10 @@ def test_state_dict_has_reference_layout(jax_side):
 def test_backbone_stages(pair):
     jax_model, variables, port = pair
     x, xt = _img(1)
-    f_outs = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                                 method=jax_model.net.extract_feat)
+    # one jit: op-by-op dispatch would compile each op of the MiT alone
+    f_outs = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, method=jax_model.net.extract_feat),
+        variables, jnp.asarray(x))
     with torch.no_grad():
         t_outs = port.extract_feat(xt)
     for s, (f, t) in enumerate(zip(f_outs, t_outs)):
@@ -219,8 +222,9 @@ def test_gelu_knob(jax_side, gelu_approximate):
         segformer_cfg(gelu_approximate=gelu_approximate))
     port = _port(variables, gelu_approximate=gelu_approximate)
     x, xt = _img(9, hw=(32, 32), batch=1)
-    want = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                               with_aux=False)['decode']
+    want = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, with_aux=False)['decode'],
+        variables, jnp.asarray(x))
     with torch.no_grad():
         got = port(xt)
     np.testing.assert_allclose(got.numpy(), nhwc_to_nchw(want), rtol=RTOL,

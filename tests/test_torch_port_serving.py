@@ -81,7 +81,7 @@ def test_imresize_matches_cv2(dtype, interpolation):
     img = (np.random.RandomState(1).rand(37, 53, 3) * 255).astype(dtype)
     cv_interp = cv2.INTER_LINEAR if interpolation == 'bilinear' \
         else cv2.INTER_NEAREST
-    for size in ((80, 60), (20, 15), (53, 101)):
+    for size in ((80, 60), (20, 15), (53, 101), (53, 37)):
         want = cv2.resize(img, size, interpolation=cv_interp)
         got = imutil.imresize(img, size, interpolation=interpolation)
         assert got.shape == want.shape and got.dtype == want.dtype

@@ -9,6 +9,8 @@ ATOL`` (1e-4, 1e-5): the four stage maps, the head's logits, and the
 logits in training mode (BN on the batch's statistics, dropout 0), with
 the BN running statistics after it. The Swin input (112 x 96) leaves
 stage grids of 28 x 24 down to 4 x 3, all padded up to the window 7.
+Each JAX forward runs as one jit (``run_jit``: a few seconds to compile,
+where op-by-op dispatch compiles every op of the Swin on its own).
 """
 
 import copy
@@ -27,6 +29,7 @@ from segdistill_tpu_torch.models.utils import capture_taps
 
 from torch_port_fixtures import (ATOL, RTOL, leaves, nhwc_to_nchw, psp_cfg,
                                  random_jax_variables, swin_cfg)
+from torch_port_zoo_models import run_jit
 
 MODELS = {'psp50': (lambda **kw: psp_cfg(50, **kw), (64, 96)),
           'psp18': (lambda **kw: psp_cfg(18, **kw), (64, 80)),
@@ -51,8 +54,9 @@ def _img(seed, hw, batch=2):
 def test_stage_outputs(pair):
     _, jax_model, variables, port, hw = pair
     x, xt = _img(1, hw)
-    want = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                               method=jax_model.net.extract_feat)
+    want = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, method=jax_model.net.extract_feat),
+        variables, jnp.asarray(x))
     with torch.no_grad():
         got = port.extract_feat(xt)
     assert len(got) == len(want) == 4
@@ -64,8 +68,9 @@ def test_stage_outputs(pair):
 def test_logits(pair):
     name, jax_model, variables, port, hw = pair
     x, xt = _img(2, hw)
-    want = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                               with_aux=False)['decode']
+    want = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, with_aux=False)['decode'],
+        variables, jnp.asarray(x))
     with torch.no_grad(), capture_taps(port, ['decode_head.conv_seg']) as t:
         got = port(xt)
     stride = 8 if name.startswith('psp') else 4
@@ -88,16 +93,17 @@ def test_train_mode_logits_and_bn_statistics(pair):
     stand to flax's at n/(n-1) >= 1."""
     name, jax_model, variables, port, hw = pair
     x, xt = _img(4, hw)
-    out, state = jax_model.net.apply(
-        variables, jnp.asarray(x), train=True, with_aux=False,
-        mutable=['batch_stats', 'feats'])
+    out, state = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=True, with_aux=False, mutable=['batch_stats', 'feats']),
+        variables, jnp.asarray(x))
     with jax.enable_x64(True):
         jax64 = build_jax_segmentor(MODELS[name][0](dropout_ratio=0.0,
                                                     dtype='float64'))
         v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
-        out64, state64 = jax64.net.apply(
-            v64, jnp.asarray(x, jnp.float64), train=True, with_aux=False,
-            mutable=['batch_stats', 'feats'])
+        out64, state64 = run_jit(lambda v, i: jax64.net.apply(
+            v, i, train=True, with_aux=False,
+            mutable=['batch_stats', 'feats']),
+            v64, jnp.asarray(x, jnp.float64))
         truth = np.asarray(out64['decode'], np.float64).transpose(0, 3, 1, 2)
         stats64 = state_dict_from_jax({'batch_stats': jax.tree.map(
             lambda a: np.asarray(a, np.float64), state64['batch_stats'])})
@@ -199,8 +205,9 @@ def test_resnet_v1d_shortcut_slots():
     port.load_state_dict(state_dict_from_jax(variables, keys=keys),
                          strict=True)
     x, xt = _img(6, (64, 64))
-    want = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                               with_aux=False)['decode']
+    want = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, with_aux=False)['decode'],
+        variables, jnp.asarray(x))
     with torch.no_grad():
         got = port(xt)
     np.testing.assert_allclose(got.numpy(), nhwc_to_nchw(want), rtol=RTOL,
@@ -211,8 +218,9 @@ def test_block_taps_use_the_jax_names(pair):
     name, jax_model, variables, port, hw = pair
     x, xt = _img(7, hw)
     from segdistill_tpu.models.segmentors.base import flatten_feats
-    _, state = jax_model.net.apply(variables, jnp.asarray(x), train=False,
-                                   with_aux=False, mutable=['feats'])
+    _, state = run_jit(lambda v, i: jax_model.net.apply(
+        v, i, train=False, with_aux=False, mutable=['feats']),
+        variables, jnp.asarray(x))
     jax_taps = flatten_feats(jax.tree.map(np.asarray, state['feats']))
     block = 'backbone.layer4.1' if name.startswith('psp') \
         else 'backbone.layers.2.blocks.1'

@@ -278,10 +278,12 @@ def test_paramwise_labels_match_jax(family):
 
 
 def test_unported_options_are_refused():
-    """Options no Tab5 config sets raise rather than being ignored."""
+    """Options no Tab5 config sets raise rather than being ignored; Swin's
+    absolute position embedding is ported and builds."""
     from segdistill_tpu_torch.models import build_segmentor
     from torch_port_fixtures import swin_cfg
-    for cfg in (swin_cfg(ape=True), swin_cfg(frozen_stages=1),
-                psp_cfg(50, frozen_stages=1)):
+    for cfg in (swin_cfg(frozen_stages=1), psp_cfg(50, frozen_stages=1)):
         with pytest.raises(NotImplementedError, match='not ported'):
             build_segmentor(cfg)
+    ape = build_segmentor(swin_cfg(ape=True)).backbone.absolute_pos_embed
+    assert tuple(ape.shape) == (1, (224 // 4) ** 2, 24)
