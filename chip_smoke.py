@@ -153,10 +153,28 @@ labels equal, images within 1e-4, one call under
 (106) ``single_device_test(batch_size=8)`` of phase 14's B0 student in
 fp32 against ``batch_size=1`` on 16 images of two shapes: at most 1e-4 of
 the pixels differ (argmax near-ties), images/s of each in two rounds after
-an untimed pass of each. The launch count
+an untimed pass of each. Then this slice, the rest of the data layer,
+after the attention phases: (107) a seeded Pascal VOC 2012 + SBD tree
+(images as PNG bytes under VOC's ``.jpg`` names, palette label maps with
+255 outlines, SBD ``.mat`` files) completed by the port's ``voc_aug``
+converter run as a command, ``PascalVOCDataset`` reading the palette maps
+as the indices written and the converted maps as the ``.mat`` labels, the
+``aug.txt`` split and the recipe's ConcatDataset; (108) ``tools.train`` on
+the ``pspnet_r50-d8_voc12aug`` recipe of ``recipes.py`` (PSPNet-R50-d8, 21
+classes, bf16 backbone, batch 4 of 512x512 crops through the recipe's
+pipeline) for 6 iterations with a checkpoint and an evaluation: ms a step,
+``data_time``, peak memory, K5/K6 exactly twice an iteration at (4, 21,
+64, 64) -> 512x512; ``tools.test --eval mIoU --show-dir`` reproducing the
+evaluation and writing one painted PNG a val image at its size; a
+Cityscapes submission (``results2img``) read back equal; in-memory SGD
+steps of the recipe (2 + 3) and its fp32 step against the CPU; (109) the
+same for ``pspnet_r50-d8_pascal_context`` (60 classes, 480x480, K5/K6 at
+(4, 60, 60, 60) -> 480x480), two requests of ~520 px served in slide mode
+(480x480 windows at stride 320), and K5/K6's fp32 device times at both
+geometries; nothing of OpenCV or pillow is imported. The launch count
 of each kernel is read over each main path (9, 10, 12, 14, 15-18, 22-27,
-31-37, 48, 49, 52-57, 71-80, each rank's in 103, 104 and 106, added
-together).
+31-37, 48, 49, 52-57, 71-80, each rank's in 103, 104, 106, 108 and 109,
+added together).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -341,6 +359,24 @@ DEVICE_AUG_CALLS = 20
 EVAL_IMAGES, EVAL_BATCH = 16, 8
 EVAL_HW = [(512, 683), (683, 512)]
 EVAL_DIFF_SHARE = 1e-4
+# (107-109) Pascal VOC 2012 + SBD and Pascal Context: a VOC-like tree of
+#   VOC_TRAIN + VOC_VAL images with palette label maps and SBD_ONLY more
+#   with SBD labels alone (SBD also labels the VOC train images, as it
+#   labels most of VOC's), the VOC12-aug recipe's command line for
+#   VOC_ITERS iterations (bf16 backbone, the recipe's batch of 4 at
+#   512x512), in-memory steps of both recipes (PASCAL_STEPS after the
+#   warm-up), fp32 steps against the CPU at PASCAL_VS_CPU_HW, and two slide
+#   requests to the Context recipe
+VOC_TRAIN, VOC_VAL, SBD_ONLY = 6, 4, 6
+VOC_IMAGE_HW = [(375, 500), (500, 375), (333, 500), (500, 500)]
+VOC_ITERS = 6
+VOC_CLASSES, CONTEXT_CLASSES = 21, 60
+VOC_HW, CONTEXT_HW = (512, 512), (480, 480)
+PASCAL_BATCH, PASCAL_STEPS = 4, 3
+PASCAL_VS_CPU_HW = (256, 256)
+CONTEXT_REQUEST_HW = [(390, 520), (520, 700)]
+# the K5/K6 geometries of the two recipes (SEG_CE_CASES names)
+VOC_CE_GEOMETRY, CONTEXT_CE_GEOMETRY = 'VOC b4', 'Context b4'
 # two ranks, one process each: the timed CGD steps at 4 images a rank
 # (global batch 8, as the one-process step), the fp32 step at 2 a rank
 # against one process on the 4; the ranks' own time limit (a rank that
@@ -1056,41 +1092,47 @@ def phase_seg_ce():
     return fwd, bwd, _ce_path_times(sc, gen)
 
 
+def _ce_device_times(sc, case, dtype, gen):
+    """K5 and K6 at SEG_CE_CASES' ``case`` in ``dtype``, device time (calls
+    queued behind a held stream), beside the plain version's -> (K5 ms,
+    plain ms, K6 ms, plain ms)."""
+    from segdistill_tpu_torch.utils.timing import device_ms
+    _, shape, out_hw, ignored, _ = next(
+        c for c in _cases().SEG_CE_CASES if c[0] == case)
+    classes = shape[1]
+    labels = torch.randint(0, classes, (shape[0],) + out_hw, device=DEVICE,
+                           generator=gen)
+    labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
+           < ignored] = 255
+    z = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+    with torch.no_grad():
+        k5 = device_ms(lambda: sc.fused_seg_ce(z, labels, out_hw, classes))
+        p5 = device_ms(lambda: sc.seg_ce_plain(z, labels, out_hw, classes))
+    k = z.clone().requires_grad_()
+    ce, _ = sc.fused_seg_ce(k, labels, out_hw, classes)
+    p = z.clone().requires_grad_()
+    plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, classes)
+    k6 = device_ms(lambda: torch.autograd.grad(ce, k, retain_graph=True))
+    p6 = device_ms(lambda: torch.autograd.grad(plain_ce, p,
+                                               retain_graph=True))
+    return k5, p5, k6, p6
+
+
 def _ce_path_times(sc, gen):
     """K5 and K6 at the SGD train paths' shapes, bf16 (checked above as
-    cases of SEG_CE_CASES): device time (calls queued behind a held stream)
-    beside the plain version's and the bound. -> {case: (K5 ms, plain ms,
-    K6 ms, plain ms)}."""
-    from segdistill_tpu_torch.utils.timing import device_ms
+    cases of SEG_CE_CASES): device time (calls queued behind a held
+    stream) beside the plain version's and the bound. -> {case: (K5 ms,
+    plain ms, K6 ms, plain ms)}."""
     log('K5/K6 at the SGD train paths\' shapes, bf16, device time (10 '
         'calls queued behind a held stream)')
     times = {}
     for path, case, per_step in _cases().SEG_CE_PATH_CASES:
-        _, shape, out_hw, ignored, _ = next(
+        _, shape, out_hw, _, _ = next(
             c for c in _cases().SEG_CE_CASES if c[0] == case)
-        classes = shape[1]
-        labels = torch.randint(0, classes, (shape[0],) + out_hw,
-                               device=DEVICE, generator=gen)
-        labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
-               < ignored] = 255
-        z = torch.randn(shape, device=DEVICE, generator=gen).to(
-            torch.bfloat16)
-        with torch.no_grad():
-            k5 = device_ms(lambda: sc.fused_seg_ce(z, labels, out_hw,
-                                                   classes))
-            p5 = device_ms(lambda: sc.seg_ce_plain(z, labels, out_hw,
-                                                   classes))
-        k = z.clone().requires_grad_()
-        ce, _ = sc.fused_seg_ce(k, labels, out_hw, classes)
-        p = z.clone().requires_grad_()
-        plain_ce, _ = sc.seg_ce_plain(p, labels, out_hw, classes)
-        k6 = device_ms(lambda: torch.autograd.grad(ce, k, retain_graph=True))
-        p6 = device_ms(lambda: torch.autograd.grad(plain_ce, p,
-                                                   retain_graph=True))
-        del plain_ce
+        k5, p5, k6, p6 = times[case] = _ce_device_times(
+            sc, case, torch.bfloat16, gen)
         (b5, by5), (b6, by6) = _cases().seg_ce_bounds(shape, out_hw,
                                                       torch.bfloat16)
-        times[case] = (k5, p5, k6, p6)
         log(f'{path:32s} {shape} -> {out_hw} x{per_step} a step: K5 '
             f'{k5:.4f} ms (plain {p5:.4f}, bound {b5:.4f} by {by5}, '
             f'{k5 / b5:.2f}x); K6 {k6:.4f} ms (plain {p6:.4f}, bound '
@@ -2977,18 +3019,21 @@ def _check_unet_ce_geometries(kernels):
                                      f'{want}')
 
 
-def phase_serving_slide(config, tag, request_hw):
-    """A UNet recipe served through ``init_segmentor`` and
-    ``inference_segmentor`` in slide mode, fp32: a DRIVE-sized warmup
-    request, then one request of ``request_hw``; the windows it ran (calls
-    of the model's ``encode_decode``) must be the slide grid of the image
-    the pipeline gave the model."""
+def phase_serving_slide(config, tag, requests, classes=2,
+                        warm_hw=DRIVE_REQUEST_HW):
+    """A recipe served through ``init_segmentor`` and
+    ``inference_segmentor`` in slide mode, fp32: a ``warm_hw`` warmup
+    request, then one request of each size in ``requests``; the windows
+    each ran (calls of the model's ``encode_decode``) must be the slide
+    grid of the image the pipeline gave the model, the prediction the
+    request's size with labels below ``classes``."""
     from segdistill_tpu_torch.apis import init_segmentor, inference_segmentor
     model = init_segmentor(config, device=DEVICE, seed=0)
     crop, stride = model.test_cfg['crop_size'], model.test_cfg['stride']
-    log(f'== serving: {tag} (recipes.py) through init_segmentor, 2 classes, '
-        f'random weights (seed 0), one {request_hw[0]}x{request_hw[1]} '
-        f'request, slide mode ({crop} windows at stride {stride})')
+    log(f'== serving: {tag} (recipes.py) through init_segmentor, {classes} '
+        f'classes, random weights (seed 0), requests of '
+        f'{", ".join(f"{h}x{w}" for h, w in requests)}, slide mode ({crop} '
+        f'windows at stride {stride})')
     seen = []
     encode, slide = model.encode_decode, model.slide_inference
 
@@ -3001,24 +3046,26 @@ def phase_serving_slide(config, tag, request_hw):
         return slide(img, *args, **kw)
     model.encode_decode, model.slide_inference = counted, recorded
     rng = np.random.RandomState(8)
-    warm = rng.randint(0, 256, DRIVE_REQUEST_HW + (3,)).astype(np.uint8)
-    img = rng.randint(0, 256, tuple(request_hw) + (3,)).astype(np.uint8)
+    warm = rng.randint(0, 256, tuple(warm_hw) + (3,)).astype(np.uint8)
     with torch.no_grad():
         inference_segmentor(model, warm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pred = inference_segmentor(model, img)[0]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    (h, w), windows = seen[-1]
-    grid = ((max(h - crop[0] + stride[0] - 1, 0) // stride[0] + 1)
-            * (max(w - crop[1] + stride[1] - 1, 0) // stride[1] + 1))
-    log(f'{tag}: {ms:.2f} ms for a {request_hw[0]}x{request_hw[1]} request, '
-        f'served at {h}x{w}: {windows} windows (the slide grid: {grid})')
-    if windows != grid or pred.shape != img.shape[:2] or pred.min() < 0 \
-            or pred.max() >= 2:
-        raise AssertionError(f'{tag}: {windows} windows for a grid of '
-                             f'{grid}, prediction {pred.shape}')
+    for request_hw in requests:
+        img = rng.randint(0, 256, tuple(request_hw) + (3,)).astype(np.uint8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = inference_segmentor(model, img)[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        (h, w), windows = seen[-1]
+        grid = ((max(h - crop[0] + stride[0] - 1, 0) // stride[0] + 1)
+                * (max(w - crop[1] + stride[1] - 1, 0) // stride[1] + 1))
+        log(f'{tag}: {ms:.2f} ms for a {request_hw[0]}x{request_hw[1]} '
+            f'request, served at {h}x{w}: {windows} windows (the slide '
+            f'grid: {grid})')
+        if windows != grid or pred.shape != img.shape[:2] \
+                or pred.min() < 0 or pred.max() >= classes:
+            raise AssertionError(f'{tag}: {windows} windows for a grid of '
+                                 f'{grid}, prediction {pred.shape}')
 
 
 def _ema_watch(model):
@@ -3176,6 +3223,295 @@ def _resnext_vs_cpu(net, seed):
 # element forward, 17 backward. Each counts the algorithm once, not what a
 # kernel recomputes. Bytes: every input read once, every output written
 # once, in their own types.
+
+
+def _voc_palette():
+    """Pascal VOC's palette: its 21 class colours, 255 (the outlines) in
+    (224, 224, 192)."""
+    from segdistill_tpu_torch.core.evaluation import get_palette
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:VOC_CLASSES] = get_palette('voc')
+    palette[255] = (224, 224, 192)
+    return palette
+
+
+def _write_voc(root):
+    """A seeded VOC 2012 + SBD tree under ``root``: images as PNG bytes
+    under VOC's ``.jpg`` names, ``SegmentationClass`` palette PNGs (VOC's
+    palette, 255 outlines) of the train and val names, SBD ``.mat`` files
+    (``GTcls.Segmentation``) of the train names and SBD_ONLY more, the
+    train / val split files. -> (devkit, sbd root, {name: VOC labels},
+    {name: SBD labels}, train names, val names)."""
+    from scipy.io import savemat
+    from segdistill_tpu_torch.utils import image as imutil
+    rng = np.random.RandomState(12)
+    devkit, sbd = root / 'VOCdevkit', root / 'benchmark_RELEASE'
+    voc = devkit / 'VOC2012'
+    for d in ('JPEGImages', 'SegmentationClass', 'ImageSets/Segmentation'):
+        (voc / d).mkdir(parents=True)
+    (sbd / 'dataset' / 'cls').mkdir(parents=True)
+    names = [f'2008_{i:06d}' for i in range(VOC_TRAIN + VOC_VAL + SBD_ONLY)]
+    train, val = names[:VOC_TRAIN], names[VOC_TRAIN:VOC_TRAIN + VOC_VAL]
+    sbd_names = train + names[VOC_TRAIN + VOC_VAL:]
+    palette = _voc_palette()
+    voc_labels, sbd_labels = {}, {}
+    for i, name in enumerate(names):
+        h, w = VOC_IMAGE_HW[i % len(VOC_IMAGE_HW)]
+        blocks = rng.randint(0, VOC_CLASSES, (-(-h // 48), -(-w // 48)))
+        idx = np.kron(blocks, np.ones((48, 48), np.int64))[:h, :w]
+        img = (rng.randint(0, 256, (h, w, 3)) + idx[..., None] * [3, 5, 7]) \
+            % 256
+        imutil.imwrite(img.astype(np.uint8), str(voc / 'JPEGImages' /
+                                                 f'{name}.png'))
+        (voc / 'JPEGImages' / f'{name}.png').rename(
+            voc / 'JPEGImages' / f'{name}.jpg')
+        if name in train or name in val:
+            outlined = idx.astype(np.uint8)
+            outlined[np.diff(idx, axis=1, prepend=idx[:, :1]) != 0] = 255
+            imutil.imwrite(outlined, str(voc / 'SegmentationClass' /
+                                         f'{name}.png'), palette=palette)
+            voc_labels[name] = outlined
+        if name in sbd_names:
+            labels = np.roll(idx, 7, axis=0).astype(np.uint8)
+            savemat(str(sbd / 'dataset' / 'cls' / f'{name}.mat'),
+                    {'GTcls': {'Segmentation': labels}})
+            sbd_labels[name] = labels
+    sets = voc / 'ImageSets' / 'Segmentation'
+    (sets / 'train.txt').write_text('\n'.join(train) + '\n')
+    (sets / 'val.txt').write_text('\n'.join(val) + '\n')
+    (sbd / 'dataset' / 'train.txt').write_text('\n'.join(sbd_names) + '\n')
+    return devkit, sbd, voc_labels, sbd_labels, train, val
+
+
+def _pascal_data_cfg(cfg, split, data_root):
+    return dict(cfg.data[split], data_root=str(data_root))
+
+
+def phase_voc_convert(root):
+    """(107) The VOC-aug converter as a command on a seeded VOC 2012 + SBD
+    tree (PNG written and read by the port's codec, no OpenCV or pillow
+    needed); then ``PascalVOCDataset`` reads the palette label maps as the
+    indices written and the converted SBD maps as the ``.mat`` labels, the
+    ``aug.txt`` split is the SBD and VOC train names less val, and the
+    recipe's train set is the ConcatDataset of the two. -> (devkit, val
+    names)."""
+    import importlib.util
+    from segdistill_tpu_torch.datasets import ConcatDataset, build_dataset
+    from segdistill_tpu_torch.recipes import recipe
+    log(f'== Pascal VOC 2012 + SBD: the voc_aug converter and the datasets '
+        f'({VOC_TRAIN} train + {VOC_VAL} val VOC images, {SBD_ONLY} more '
+        f'SBD-only; images PNG under .jpg names, palette label maps)')
+    missing = {m: importlib.util.find_spec(m) is None for m in ('cv2', 'PIL')}
+    log(f'on this machine: import cv2 {"fails" if missing["cv2"] else "works"}'
+        f', import PIL {"fails" if missing["PIL"] else "works"}')
+    t0 = time.perf_counter()
+    devkit, sbd, voc_labels, sbd_labels, train, val = _write_voc(root)
+    log(f'tree written in {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m',
+         'segdistill_tpu_torch.tools.convert_datasets.voc_aug', str(devkit),
+         str(sbd)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f'voc_aug converter: rc {res.returncode} in '
+        f'{time.perf_counter() - t0:.1f} s: {res.stdout.strip()!r}')
+    if res.returncode != 0:
+        raise AssertionError(f'the voc_aug converter failed: {res.stderr}')
+    voc = devkit / 'VOC2012'
+    aug = (voc / 'ImageSets/Segmentation/aug.txt').read_text().split()
+    want = sorted(set(sbd_labels) | set(train))
+    if aug != want:
+        raise AssertionError(f'aug.txt lists {aug}, not {want}')
+    cfg = recipe('pspnet_r50-d8_voc12aug')
+    both = build_dataset(_pascal_data_cfg(cfg, 'train', voc))
+    if not isinstance(both, ConcatDataset) or [
+            len(d) for d in both.datasets] != [len(train), len(aug)]:
+        raise AssertionError(f'the VOC12-aug train set is {both!r}')
+    voc_part, aug_part = both.datasets
+    for part, names, labels in ((voc_part, train, voc_labels),
+                                (aug_part, aug, sbd_labels)):
+        maps = list(part.get_gt_seg_maps())
+        if len(maps) != len(names) or not all(
+                np.array_equal(m, labels[n]) for m, n in zip(maps, names)):
+            raise AssertionError(f'{part.ann_dir}: the label maps read are '
+                                 f'not the ones written')
+    val_set = build_dataset(_pascal_data_cfg(cfg, 'val', voc),
+                            dict(test_mode=True))
+    if not all(np.array_equal(m, voc_labels[n]) for m, n in
+               zip(val_set.get_gt_seg_maps(), val)):
+        raise AssertionError('the val palette maps read are not the '
+                             'indices written')
+    sample = voc_part.__getitem__(0, np.random.RandomState(0))
+    shapes = [tuple(sample[k].shape) for k in ('img', 'gt_semantic_seg')]
+    log(f'read back equal: {len(train)} + {len(val)} palette label maps (as '
+        f'indices), {len(aug)} converted SBD maps; the train set a '
+        f'ConcatDataset of {len(train)} + {len(aug)}; a training sample '
+        f'{shapes}')
+    return devkit, val
+
+
+def _voc_options(devkit):
+    """``--options`` of the VOC12-aug command line: the tree, a bf16
+    backbone, VOC_ITERS iterations with a checkpoint and an evaluation at
+    the end, a log line an iteration."""
+    voc = devkit / 'VOC2012'
+    return [f'data.{split}.data_root={voc}' for split in
+            ('train', 'val', 'test')] + [
+        'model.backbone.dtype=bfloat16', f'runner.max_iters={VOC_ITERS}',
+        f'checkpoint_config.interval={VOC_ITERS}',
+        f'evaluation.interval={VOC_ITERS}', 'log_config.interval=1',
+        'data.workers_per_gpu=4']
+
+
+def phase_voc_cli(path_kernels, root, devkit, val):
+    """(108) ``tools.train`` on the ``pspnet_r50-d8_voc12aug`` recipe
+    (written out as a config file) over the converted tree: the recipe's
+    pipeline (Resize, RandomCrop with cat_max_ratio, flip,
+    PhotoMetricDistortion, Pad) at 512x512, batch 4, 21 classes, VOC_ITERS
+    iterations with a checkpoint and an evaluation; then ``tools.test
+    --eval mIoU --show-dir`` on the work dir: the last evaluation's mIoU
+    again and one painted PNG an image at its size. -> the launch counts
+    of the training run."""
+    from segdistill_tpu_torch.engine import load_meta
+    from segdistill_tpu_torch.ops import seg_ce
+    from segdistill_tpu_torch.recipes import recipe
+    from segdistill_tpu_torch.tools import test as test_cli
+    from segdistill_tpu_torch.tools import train as train_cli
+    from segdistill_tpu_torch.utils import image as imutil
+    config = root / 'pspnet_r50-d8_512x512_20k_voc12aug.py'
+    recipe('pspnet_r50-d8_voc12aug').dump(str(config))
+    options = _voc_options(devkit)
+    work, show = root / 'voc_work', root / 'voc_painted'
+    log(f'== command line: tools.train on pspnet_r50-d8_voc12aug (recipes.py'
+        f', PSPNet-R50-d8, 21 classes, bf16 backbone, batch {PASCAL_BATCH} '
+        f'of 512x512 crops through the recipe\'s pipeline) for {VOC_ITERS} '
+        f'iterations, a checkpoint and an evaluation at {VOC_ITERS}; then '
+        f'tools.test --eval mIoU --show-dir')
+    for k in path_kernels:
+        k.launches = 0
+    for by_shape in seg_ce.LAUNCHES_BY_SHAPE.values():
+        by_shape.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_cli.main([str(config), '--work-dir', str(work), '--seed',
+                            '0', '--options', *options])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in path_kernels}
+    CE_SHAPE_LAUNCHES['VOC12-aug command line'] = {
+        name: dict(by_shape)
+        for name, by_shape in seg_ce.LAUNCHES_BY_SHAPE.items()}
+    peak = torch.cuda.max_memory_allocated()
+    train, val_log = _json_log(work)
+    if state.step != VOC_ITERS or sorted(train) != list(
+            range(1, VOC_ITERS + 1)) or sorted(val_log) != [VOC_ITERS]:
+        raise AssertionError(f'trained to {state.step}, logged '
+                             f'{sorted(train)}, evaluated at '
+                             f'{sorted(val_log)}')
+    if not all(math.isfinite(ln['loss']) for ln in train.values()):
+        raise AssertionError(f'a VOC12-aug loss is not finite: {train}')
+    meta = load_meta(str(work))
+    if meta['iter'] != VOC_ITERS or len(meta['CLASSES']) != VOC_CLASSES:
+        raise AssertionError(f'checkpoint meta {meta}')
+    steady = [train[i] for i in range(3, VOC_ITERS + 1)]
+    step_ms = float(np.median([ln['time'] for ln in steady])) * 1e3
+    data_ms = float(np.median([ln['data_time'] for ln in steady])) * 1e3
+    log(f'tools.train: {seconds:.1f} s in all; step time {step_ms:.2f} ms '
+        f'(median of iterations 3-{VOC_ITERS}), of it data_time '
+        f'{data_ms:.2f} ms; {PASCAL_BATCH / step_ms * 1e3:.2f} images/s; '
+        f'peak memory allocated {peak / 2**30:.2f} GiB; evaluation of '
+        f'{len(val)} images {val_log[VOC_ITERS]["seconds"]:.2f} s, mIoU '
+        f'{val_log[VOC_ITERS]["mIoU"]:.6f}')
+    log('losses: ' + ', '.join(f'{i}: {train[i]["loss"]:.5f}'
+                               for i in sorted(train)))
+    log(f'launches during the VOC12-aug command line: {launches} (by '
+        f'geometry: {CE_SHAPE_LAUNCHES["VOC12-aug command line"]})')
+    geometry = tuple(next(c for c in _cases().SEG_CE_CASES
+                          if c[0] == VOC_CE_GEOMETRY)[1]) + VOC_HW
+    for name, n in launches.items():
+        at = CE_SHAPE_LAUNCHES['VOC12-aug command line'][name].get(
+            geometry, 0)
+        if n != 2 * VOC_ITERS or at != n:
+            raise AssertionError(f'{name}: {n} launches ({at} at '
+                                 f'{geometry}) in {VOC_ITERS} iterations, '
+                                 f'not 2 an iteration (decode + aux)')
+    t0 = time.perf_counter()
+    metrics = test_cli.main([str(config), str(work), '--eval', 'mIoU',
+                             '--show-dir', str(show), '--options',
+                             *options])
+    diff = max(abs(metrics[k] - val_log[VOC_ITERS][k])
+               for k in ('mIoU', 'mAcc', 'aAcc'))
+    painted = sorted(p.name for p in show.iterdir())
+    log(f'tools.test --show-dir: {time.perf_counter() - t0:.1f} s, mIoU '
+        f'{metrics["mIoU"]:.9f} (the last evaluation logged '
+        f'{val_log[VOC_ITERS]["mIoU"]:.9f}; mIoU, mAcc and aAcc differ by at '
+        f'most {diff:.2e}, limit {MIOU_TOL}); painted: {painted}')
+    if not diff <= MIOU_TOL:
+        raise AssertionError('tools.test does not reproduce the last '
+                             'evaluation')
+    if painted != sorted(f'{n}.png' for n in val):
+        raise AssertionError(f'--show-dir wrote {painted}')
+    voc = devkit / 'VOC2012'
+    for name in val:
+        img = imutil.imread(str(voc / 'JPEGImages' / f'{name}.jpg'))
+        out = imutil.imread(str(show / f'{name}.png'))
+        if out.shape != img.shape:
+            raise AssertionError(f'{name}: painted {out.shape}, the image '
+                                 f'{img.shape}')
+    return launches
+
+
+def _check_results2img(root):
+    """A Cityscapes-style submission: train-id results of 1024x2048 written
+    by ``CityscapesDataset.results2img`` (the port's PNG encoder) read back
+    as their label ids."""
+    from segdistill_tpu_torch.datasets import CityscapesDataset
+    from segdistill_tpu_torch.utils import image as imutil
+    rng = np.random.RandomState(13)
+    city = root / 'cityscapes'
+    for d in ('img/frankfurt', 'ann/frankfurt'):
+        (city / d).mkdir(parents=True)
+    for i in range(2):
+        stem = f'frankfurt_{i:06d}_000019'
+        imutil.imwrite(rng.randint(0, 256, (64, 128, 3)).astype(np.uint8),
+                       str(city / 'img' / 'frankfurt' /
+                           f'{stem}_leftImg8bit.png'))
+        imutil.imwrite(rng.randint(0, 19, (64, 128)).astype(np.uint8),
+                       str(city / 'ann' / 'frankfurt' /
+                           f'{stem}_gtFine_labelTrainIds.png'))
+    data = CityscapesDataset(pipeline=[], data_root=str(city), img_dir='img',
+                             ann_dir='ann')
+    results = [rng.randint(0, 19, (1024, 2048)) for _ in range(2)]
+    t0 = time.perf_counter()
+    files, tmp_dir = data.format_results(results)
+    seconds = time.perf_counter() - t0
+    for path, result in zip(files, results):
+        got = imutil.imread(path, 'unchanged')
+        if not np.array_equal(got, data._convert_to_label_id(result)):
+            raise AssertionError(f'{path} does not read back as written')
+    names = [Path(f).name for f in files]
+    log(f'results2img: {len(files)} 1024x2048 submission PNGs written in '
+        f'{seconds:.2f} s and read back equal ({names})')
+    tmp_dir.cleanup()
+
+
+def phase_pascal_kernel_times():
+    """K5/K6 at the two Pascal geometries in fp32, device time, beside the
+    plain versions and the bounds (bf16: phase 6's path times). ->
+    {case: (K5 ms, plain ms, K6 ms, plain ms)}."""
+    from segdistill_tpu_torch.ops import seg_ce as sc
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    times = {}
+    for case in (VOC_CE_GEOMETRY, CONTEXT_CE_GEOMETRY):
+        _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                      if c[0] == case)
+        k5, p5, k6, p6 = times[case] = _ce_device_times(
+            sc, case, torch.float32, gen)
+        (b5, _), (b6, _) = _cases().seg_ce_bounds(shape, out_hw,
+                                                  torch.float32)
+        log(f'{case} {shape} -> {out_hw} fp32, device time: K5 {k5:.4f} ms '
+            f'(plain {p5:.4f}, bound {b5:.4f}, {k5 / b5:.2f}x); K6 '
+            f'{k6:.4f} ms (plain {p6:.4f}, bound {b6:.4f}, {k6 / b6:.2f}x)')
+    return times
 
 
 def _bound(*args):
@@ -3346,10 +3682,10 @@ def main():
             phase_serving_extra(cityscapes_recipe(name), tag, classes,
                                 [ZOO_REQUEST_HW], vs_cpu=False)
     phase_serving_slide(hrf_recipe('fcn_unet_s5-d16'), ZOO2_PATHS[3][1],
-                        HRF_REQUEST_HW)
+                        [HRF_REQUEST_HW])
     for name, tag, *_ in ZOO2_PATHS[4:]:
         phase_serving_slide(drive_recipe(f'{name}_drive'),
-                            tag.replace('HRF', 'DRIVE'), DRIVE_REQUEST_HW)
+                            tag.replace('HRF', 'DRIVE'), [DRIVE_REQUEST_HW])
     for name, tag, classes, *_ in ZOO2_PATHS:
         phase_extra_vs_cpu(recipes.recipe(name), tag, classes,
                            hw=ZOO2_VS_CPU_HW[classes], logits=True,
@@ -3381,6 +3717,38 @@ def main():
         else:
             phase_attn_logits_vs_cpu(name, tag)
     phase_resnext_vs_cpu()
+    # this slice: Pascal VOC 2012 + SBD and Pascal Context (107-109): the
+    # voc_aug converter and the datasets on PNG files, the VOC12-aug recipe
+    # on the command line (K5/K6 twice an iteration at 21 classes) with
+    # --show-dir, a Cityscapes submission written, in-memory steps of both
+    # recipes (K5/K6 at 21 and 60 classes), fp32 steps against the CPU, two
+    # Context requests in slide mode, K5/K6's fp32 device times there
+    voc_name, voc_tag = 'pspnet_r50-d8_voc12aug', 'PSPNet-R50-d8 VOC12-aug'
+    ctx_name, ctx_tag = ('pspnet_r50-d8_pascal_context',
+                         'PSPNet-R50-d8 Pascal Context')
+    with tempfile.TemporaryDirectory() as tmp:
+        devkit, voc_val = phase_voc_convert(Path(tmp))
+        paths.append(phase_voc_cli([k5, k6], Path(tmp), devkit, voc_val))
+        _check_results2img(Path(tmp))
+    for name, tag, classes, hw in ((voc_name, voc_tag, VOC_CLASSES, VOC_HW),
+                                   (ctx_name, ctx_tag, CONTEXT_CLASSES,
+                                    CONTEXT_HW)):
+        paths.append(phase_train_extra([k5, k6], recipes.recipe(name), tag,
+                                       classes, hw, 2, PASCAL_STEPS,
+                                       PASCAL_BATCH))
+    for name, tag, classes in ((voc_name, voc_tag, VOC_CLASSES),
+                               (ctx_name, ctx_tag, CONTEXT_CLASSES)):
+        phase_extra_vs_cpu(recipes.recipe(name), tag, classes,
+                           hw=PASCAL_VS_CPU_HW, logits=True,
+                           acc_share=CORRECT_TOL_SHARE,
+                           fp32_floor=FP32_FLOOR_FACTOR)
+    phase_serving_slide(recipes.recipe(ctx_name), ctx_tag,
+                        CONTEXT_REQUEST_HW, classes=CONTEXT_CLASSES,
+                        warm_hw=CONTEXT_REQUEST_HW[0])
+    pascal_fp32 = phase_pascal_kernel_times()
+    loaded = [m for m in ('cv2', 'PIL') if m in sys.modules]
+    if loaded:
+        raise AssertionError(f'the PNG data path imported {loaded}')
     # this slice: the CGD step at two ranks sharing the card (gloo), each
     # rank's launches counted in its own process and added here
     paths.append(phase_dist_train(cgd_kernels, cgd_ms))
@@ -3476,6 +3844,28 @@ def main():
             'ms': times[2 * i], 'plain_ms': times[2 * i + 1],
             'bound_ms': bound[0], 'bound_by': bound[1],
             'library_ms': None})
+    # K5/K6 at the Pascal recipes' geometries (bf16 device time, fp32
+    # beside it), with the launches their paths made there
+    for case, tags in ((VOC_CE_GEOMETRY, ('VOC12-aug command line',
+                                          voc_tag)),
+                       (CONTEXT_CE_GEOMETRY, (ctx_tag,))):
+        _, shape, out_hw, _, _ = next(c for c in _cases().SEG_CE_CASES
+                                      if c[0] == case)
+        geometry = tuple(shape) + tuple(out_hw)
+        times, fp32 = ce_device[case], pascal_fp32[case]
+        for i, (k, bound) in enumerate(zip((k5, k6), _cases().seg_ce_bounds(
+                shape, out_hw, torch.bfloat16))):
+            entries.append({
+                'name': f'{k.name} {shape} -> {out_hw[0]}x{out_hw[1]}',
+                'route': 'cuda', 'source': str(k.source.relative_to(ROOT)),
+                'replaces': k.replaces,
+                'launches': sum(CE_SHAPE_LAUNCHES[t][k.name].get(geometry, 0)
+                                for t in tags),
+                'max_abs_err': results[k.name][(case, torch.float32)][0],
+                'ms': times[2 * i], 'plain_ms': times[2 * i + 1],
+                'bound_ms': bound[0], 'bound_by': bound[1],
+                'library_ms': None, 'fp32_ms': fp32[2 * i],
+                'fp32_plain_ms': fp32[2 * i + 1]})
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line',
                   'command line, native and device loaders',
@@ -3485,7 +3875,9 @@ def main():
                  + tuple(tag for _, tag, *_ in ZOO_PATHS)
                  + tuple(tag for _, tag in MT_PATHS)
                  + tuple(tag for _, tag, *_ in ZOO2_PATHS)
-                 + tuple(attn_tags) + ('CGD, two ranks on one card',),
+                 + tuple(attn_tags)
+                 + ('VOC12-aug command line', voc_tag, ctx_tag)
+                 + ('CGD, two ranks on one card',),
                  paths))))
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {

@@ -187,3 +187,19 @@ def inference_segmentor(model, img):
     (ref inference.py:69-98)."""
     data = serving_pipeline(model.cfg)(dict(img=img))
     return [_predict_one(model, *_as_lists(data))]
+
+
+def show_result_pyplot(model, img, result, palette=None, fig_size=(15, 10),
+                       opacity=0.5, out_file=None):
+    """Paint ``result[0]`` over ``img`` (an array or a path) with
+    ``model.show_result``, and write it to ``out_file`` where given (PNG
+    with the port's encoder); -> the painted BGR image. No window is
+    drawn: ``fig_size`` is accepted for the reference's signature (ref
+    inference.py:101-119)."""
+    if isinstance(img, str):
+        img = imutil.imread(img)
+    drawn = model.show_result(img, result[0], palette=palette,
+                              opacity=opacity)
+    if out_file is not None:
+        imutil.imwrite(drawn, out_file)
+    return drawn

@@ -17,6 +17,11 @@ the argmax taken on the device and only the int label maps copied back;
 one chunk is enqueued before the previous chunk's labels are read. The
 rest take the per-image path.
 
+With ``out_dir``, :func:`single_device_test` also writes each image with
+its label map painted over it (``show_result``) as a PNG, as the
+reference's ``single_gpu_test`` does; the JAX package takes the argument
+and writes nothing.
+
 Across processes rank r takes images r, r + world, ... (the JAX
 package's ``multi_device_test``), and :func:`fast_evaluate` sums the ranks'
 histograms with one all-reduce (the JAX package all-gathers them and
@@ -24,6 +29,8 @@ sums): every rank returns the metrics of the whole dataset.
 """
 
 import contextlib
+import os
+import os.path as osp
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ from ..core.evaluation import (confusion_histograms, metrics_from_histograms,
                                prepare_label)
 from ..ops import resize
 from ..parallel import get_dist_info
+from ..utils import image as imutil
 
 # the smallest bucket that runs batched (the JAX package's default); a
 # smaller one takes the per-image path
@@ -91,18 +99,65 @@ def _eval_mode(model):
         model.train(was_training)
 
 
-def single_device_test(model, dataset, batch_size=1):
+def single_device_test(model, dataset, show=False, out_dir=None,
+                       batch_size=1):
     """-> one label map per sample of ``dataset``: a ``CustomDataset`` in
     test mode or any sequence of pipeline outputs ({'img': ...,
     'img_metas': ...}) (ref test.py:35-101). With ``batch_size`` above 1
     the samples are bucketed by shape and batched (:func:`_batched_test`);
     the maps are the per-image ones but for argmax near-ties, which
-    another batch size may break the other way."""
+    another batch size may break the other way. With ``out_dir`` every
+    image is painted with its map (:func:`paint_result`) and written to
+    ``<out_dir>/<image name>.png``. ``show`` is accepted for the
+    reference's signature; no window is drawn."""
+    palette = getattr(dataset, 'PALETTE', None)
     with _eval_mode(model):
-        if batch_size <= 1:
-            return [_predict_one(model, *_as_lists(dataset[i]))
-                    for i in range(len(dataset))]
-        return _batched_test(model, dataset, batch_size)
+        if batch_size > 1:
+            loaded = [_as_lists(dataset[i]) for i in range(len(dataset))]
+            results = _batched_test(model, loaded, batch_size)
+            if out_dir:
+                for i, (sample, result) in enumerate(zip(loaded, results)):
+                    paint_result(model, *sample, result, out_dir, i, palette)
+            return results
+        results = []
+        for i in range(len(dataset)):
+            sample = _as_lists(dataset[i])
+            results.append(_predict_one(model, *sample))
+            if out_dir:
+                paint_result(model, *sample, results[-1], out_dir, i,
+                             palette)
+        return results
+
+
+def _input_image(img, meta):
+    """The network input of a sample back as the uint8 BGR image it came
+    from: normalisation undone, padding cropped, resized to ``ori_shape``
+    (the reference's ``tensor2imgs`` and resize)."""
+    img = np.asarray(img, np.float32)
+    norm = meta.get('img_norm_cfg')
+    if norm is not None:
+        img = img * np.asarray(norm['std'], np.float32) \
+            + np.asarray(norm['mean'], np.float32)
+        if norm.get('to_rgb', False):
+            img = img[..., ::-1]
+    h, w = meta['img_shape'][:2]
+    img = np.clip(np.rint(img[:h, :w]), 0, 255).astype(np.uint8)
+    ori_h, ori_w = meta['ori_shape'][:2]
+    return imutil.imresize(img, (ori_w, ori_h))
+
+
+def paint_result(model, imgs, metas, result, out_dir, index=0,
+                 palette=None):
+    """Write the sample's first view with ``result`` painted over it
+    (``model.show_result``) to ``<out_dir>/<ori_filename's stem>.png``
+    (``<index>.png`` for a sample without a file name); -> the path."""
+    name = metas[0].get('ori_filename') or f'{index:06d}'
+    path = osp.join(out_dir, osp.splitext(name)[0] + '.png')
+    os.makedirs(osp.dirname(path) or '.', exist_ok=True)
+    painted = model.show_result(_input_image(imgs[0], metas[0]), result,
+                                palette=palette)
+    imutil.imwrite(painted, path)
+    return path
 
 
 def _bucket_key(imgs, metas):
@@ -125,9 +180,9 @@ def _labels_to_ori(model, batch, crop_hw, ori_hw):
     return logits.argmax(dim=1).to(torch.int32)
 
 
-def _batched_test(model, dataset, batch_size):
-    """Shape-bucketed evaluation (the JAX ``_batched_test``): every sample
-    is loaded first, then each bucket of at least
+def _batched_test(model, loaded, batch_size):
+    """Shape-bucketed evaluation (the JAX ``_batched_test``) of the loaded
+    samples ((views, metas) each): each bucket of at least
     ``DEVICE_RESIZE_MIN_GROUP`` single-view samples runs in chunks of
     ``batch_size``; the tail chunk is not padded to ``batch_size``.
     Test-time-augmented samples and singleton buckets take the per-image
@@ -136,7 +191,6 @@ def _batched_test(model, dataset, batch_size):
     has been enqueued."""
     device = next(model.parameters()).device
     pin = device.type == 'cuda'
-    loaded = [_as_lists(dataset[i]) for i in range(len(dataset))]
     buckets = {}
     for i, (imgs, metas) in enumerate(loaded):
         buckets.setdefault(_bucket_key(imgs, metas), []).append(i)

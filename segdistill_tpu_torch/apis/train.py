@@ -226,7 +226,9 @@ def train_segmentor(model, dataset, cfg=None, distributed=False,
         eval_hook=eval_hook, meta=_checkpoint_meta(cfg, train_set),
         logger=logger, channels_last=True,
         json_log=os.path.join(work_dir, f'{timestamp}.log.json')
-        if work_dir and timestamp else None)
+        if work_dir and timestamp else None,
+        tensorboard=any(h.get('type') == 'TensorboardLoggerHook'
+                        for h in cfg.get('log_config', {}).get('hooks', [])))
     return runner.run(loader)
 
 

@@ -96,6 +96,13 @@ def mean_iou(results, gt_seg_maps, num_classes, ignore_index,
                         'mIoU', nan_to_num, label_map, reduce_zero_label)
 
 
+def mean_dice(results, gt_seg_maps, num_classes, ignore_index,
+              nan_to_num=None, label_map=None, reduce_zero_label=False):
+    """(ref metrics.py:142-176)."""
+    return eval_metrics(results, gt_seg_maps, num_classes, ignore_index,
+                        'mDice', nan_to_num, label_map, reduce_zero_label)
+
+
 def prepare_label(label, label_map=None, reduce_zero_label=False,
                   ignore_index=255):
     """The ``label_map`` remap and ``reduce_zero_label`` shift of

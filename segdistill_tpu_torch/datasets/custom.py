@@ -126,13 +126,15 @@ class CustomDataset:
         return self.pipeline(results)
 
     def get_gt_seg_maps(self, efficient_test=False):
-        """(ref custom.py:306-326)."""
+        """The label maps of the dataset, decoded as pillow does (a palette
+        PNG gives its indices; ref custom.py:306-326)."""
         for img_info in self.img_infos:
             seg_map = osp.join(self.ann_dir, img_info['ann']['seg_map'])
             if efficient_test:
                 yield seg_map
             else:
-                gt = imutil.imread(seg_map, flag='unchanged')
+                gt = imutil.imread(seg_map, flag='unchanged',
+                                   backend='pillow')
                 if gt.ndim == 3:
                     gt = gt[:, :, 0]
                 yield gt

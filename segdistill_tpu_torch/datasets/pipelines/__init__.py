@@ -3,11 +3,14 @@ from .formatting import (Collect, DefaultFormatBundle, ImageToTensor,
                          ToTensor, Transpose)
 from .loading import LoadAnnotations, LoadImageFromFile
 from .test_time_aug import MultiScaleFlipAug
-from .transforms import (AlignedResize, Normalize, Pad,
-                         PhotoMetricDistortion, RandomCrop, RandomFlip,
-                         Resize)
+from .transforms import (CLAHE, AdjustGamma, AlignedResize, CenterCrop,
+                         MaillaryHack, Normalize, Pad, PhotoMetricDistortion,
+                         RandomCrop, RandomFlip, RandomRotate, Rerange,
+                         Resize, RGB2Gray, SegRescale)
 
 __all__ = ['Compose', 'Collect', 'DefaultFormatBundle', 'ImageToTensor',
            'ToTensor', 'Transpose', 'LoadAnnotations', 'LoadImageFromFile',
-           'MultiScaleFlipAug', 'AlignedResize', 'Normalize', 'Pad',
-           'PhotoMetricDistortion', 'RandomCrop', 'RandomFlip', 'Resize']
+           'MultiScaleFlipAug', 'AdjustGamma', 'AlignedResize', 'CLAHE',
+           'CenterCrop', 'MaillaryHack', 'Normalize', 'Pad',
+           'PhotoMetricDistortion', 'RandomCrop', 'RandomFlip',
+           'RandomRotate', 'Rerange', 'Resize', 'RGB2Gray', 'SegRescale']

@@ -13,8 +13,9 @@ from ..builder import PIPELINES
 @PIPELINES.register_module()
 class LoadImageFromFile:
     """Read ``img_info['filename']`` under ``img_prefix`` as an HWC BGR
-    uint8 image. The decode-backend arguments of the reference are accepted
-    and ignored: ``.npy`` files load with numpy, encoded files with OpenCV.
+    uint8 image. The decode-backend argument of the reference is accepted
+    and ignored: PNG files decode with the port's codec, ``.npy`` files
+    load with numpy, other encoded files (JPEG) decode with OpenCV.
     """
 
     def __init__(self, to_float32=False, color_type='color',
@@ -56,7 +57,10 @@ class LoadImageFromFile:
 class LoadAnnotations:
     """Load the label map, apply the ``label_map`` remap and
     ``reduce_zero_label`` (0 -> 255, the others shifted down by one;
-    ref :128-141)."""
+    ref :128-141). The map is decoded with ``imdecode_backend``, pillow by
+    default as in the reference: a palette PNG (Pascal VOC's
+    ``SegmentationClass``) gives its indices. The JAX package reads it
+    with OpenCV, which expands the palette, and keeps the blue channel."""
 
     def __init__(self, reduce_zero_label=False, imdecode_backend='pillow'):
         self.reduce_zero_label = reduce_zero_label
@@ -68,7 +72,8 @@ class LoadAnnotations:
                                 results['ann_info']['seg_map'])
         else:
             filename = results['ann_info']['seg_map']
-        gt = imutil.imread(filename, flag='unchanged')
+        gt = imutil.imread(filename, flag='unchanged',
+                           backend=self.imdecode_backend)
         if gt.ndim == 3:
             gt = gt[:, :, 0]
         gt = gt.astype(np.uint8)

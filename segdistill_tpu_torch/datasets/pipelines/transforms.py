@@ -1,17 +1,17 @@
 """Geometric and photometric transforms (counterpart of
 ``segdistill_tpu/datasets/pipelines/transforms.py``; reference
 ``mmseg/datasets/pipelines/transforms.py``): Resize with its four scale
-modes, AlignedResize, RandomFlip, Pad, Normalize, RandomCrop and
-PhotoMetricDistortion, everything the ADE20K configs name. Host numpy, no
-OpenCV (see ``utils/image.py`` for how close its resize and HSV conversion
-come to OpenCV's).
+modes, AlignedResize, RandomFlip, Pad, Normalize, Rerange, CLAHE,
+RandomCrop, CenterCrop, RandomRotate, RGB2Gray, AdjustGamma, MaillaryHack,
+SegRescale and PhotoMetricDistortion. Host numpy, no OpenCV (see
+``utils/image.py`` for how close its resize, rotation and HSV conversion
+come to OpenCV's; CLAHE is exact).
 
 Every random draw comes from the per-sample ``results['rng']`` (an
 ``np.random.RandomState`` that the loader injects) when present, else from
 numpy's global generator, in the JAX pipeline's order: the same seed gives
-the same scales, crops, flips and distortions in both packages.
-RandomRotate, CLAHE and the other transforms no shipped Segformer config
-uses are not ported yet."""
+the same scales, crops, flips, rotations and distortions in both
+packages."""
 
 import numpy as np
 
@@ -233,6 +233,43 @@ class Pad:
 
 
 @PIPELINES.register_module()
+class Rerange:
+    """Rescale the image's values linearly onto [min_value, max_value]
+    (ref transforms.py:632-676)."""
+
+    def __init__(self, min_value=0, max_value=255):
+        self.min_value = min_value
+        self.max_value = max_value
+
+    def __call__(self, results):
+        img = results['img'].astype(np.float32)
+        lo, hi = np.min(img), np.max(img)
+        assert hi > lo
+        img = (img - lo) / (hi - lo)
+        results['img'] = img * (self.max_value - self.min_value) \
+            + self.min_value
+        return results
+
+
+@PIPELINES.register_module()
+class CLAHE:
+    """Contrast-limited adaptive histogram equalisation of each channel
+    (``utils/image.py::clahe``; ref transforms.py:678-721)."""
+
+    def __init__(self, clip_limit=40.0, tile_grid_size=(8, 8)):
+        self.clip_limit = clip_limit
+        self.tile_grid_size = tuple(tile_grid_size)
+
+    def __call__(self, results):
+        img = results['img']
+        for i in range(img.shape[2]):
+            img[:, :, i] = imutil.clahe(img[:, :, i], self.clip_limit,
+                                        self.tile_grid_size)
+        results['img'] = img
+        return results
+
+
+@PIPELINES.register_module()
 class RandomCrop:
     """Random crop; with ``cat_max_ratio`` < 1 up to ten redraws until no
     class covers more than that share of the crop (ref
@@ -279,6 +316,133 @@ class RandomCrop:
 
     def __repr__(self):
         return f'{self.__class__.__name__}(crop_size={self.crop_size})'
+
+
+@PIPELINES.register_module()
+class CenterCrop:
+    """Crop ``crop_size`` (h, w) from the middle of the image and of the
+    label maps (ref transforms.py:795-852)."""
+
+    def __init__(self, crop_size):
+        self.crop_size = tuple(crop_size)
+
+    def __call__(self, results):
+        img = results['img']
+        y1 = max(img.shape[0] - self.crop_size[0], 0) // 2
+        x1 = max(img.shape[1] - self.crop_size[1], 0) // 2
+        bbox = (y1, y1 + self.crop_size[0], x1, x1 + self.crop_size[1])
+        results['img'] = RandomCrop.crop(img, bbox)
+        results['img_shape'] = results['img'].shape
+        for key in results.get('seg_fields', []):
+            results[key] = RandomCrop.crop(results[key], bbox)
+        return results
+
+
+@PIPELINES.register_module()
+class RandomRotate:
+    """Rotate the image (bilinear, ``pad_val``) and the label maps
+    (nearest, ``seg_pad_val``) by a degree drawn from ``degree`` with
+    probability ``prob`` (ref transforms.py:854-935). Both draws are made
+    on every call, as in the JAX package, so that the streams stay
+    aligned."""
+
+    def __init__(self, prob, degree, pad_val=0, seg_pad_val=255,
+                 center=None, auto_bound=False):
+        self.prob = prob
+        if isinstance(degree, (float, int)):
+            degree = (-degree, degree)
+        self.degree = degree
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+        self.center = center
+        self.auto_bound = auto_bound
+
+    def __call__(self, results):
+        rng = _rng(results)
+        rotate = rng.rand() < self.prob
+        degree = rng.uniform(min(*self.degree), max(*self.degree))
+        if rotate:
+            results['img'] = imutil.imrotate(
+                results['img'], angle=degree, border_value=self.pad_val,
+                center=self.center, auto_bound=self.auto_bound)
+            for key in results.get('seg_fields', []):
+                results[key] = imutil.imrotate(
+                    results[key], angle=degree,
+                    border_value=self.seg_pad_val, center=self.center,
+                    auto_bound=self.auto_bound, interpolation='nearest')
+        return results
+
+
+@PIPELINES.register_module()
+class RGB2Gray:
+    """A weighted sum of the channels, repeated to ``out_channels`` (the
+    input's count by default; ref transforms.py:937-990)."""
+
+    def __init__(self, out_channels=None, weights=(0.299, 0.587, 0.114)):
+        self.out_channels = out_channels
+        self.weights = weights
+
+    def __call__(self, results):
+        img = results['img']
+        weights = np.array(self.weights).reshape((1, 1, -1))
+        gray = (img * weights).sum(2, keepdims=True)
+        gray = gray.repeat(img.shape[2] if self.out_channels is None
+                           else self.out_channels, axis=2)
+        results['img'] = gray
+        results['img_shape'] = gray.shape
+        return results
+
+
+@PIPELINES.register_module()
+class AdjustGamma:
+    """A gamma lookup table on uint8 values (ref transforms.py:992-1026)."""
+
+    def __init__(self, gamma=1.0):
+        assert gamma > 0
+        self.gamma = gamma
+        inv_gamma = 1.0 / gamma
+        self.table = np.array([(i / 255.0) ** inv_gamma * 255
+                               for i in np.arange(256)]).astype('uint8')
+
+    def __call__(self, results):
+        results['img'] = self.table[np.asarray(results['img'], np.uint8)]
+        return results
+
+
+@PIPELINES.register_module()
+class MaillaryHack:
+    """Map Mapillary Vistas' 66 labels onto the 19 Cityscapes classes, the
+    rest to 255 (ref transforms.py:1028-1067)."""
+
+    def __init__(self):
+        self.map = [[13, 24, 41], [2, 15], [17], [6], [3], [45, 47], [48],
+                    [50], [30], [29], [27], [19], [20, 21, 22], [55], [61],
+                    [54], [58], [57], [52]]
+
+    def __call__(self, results):
+        gt_map = results['gt_semantic_seg']
+        out = np.full_like(gt_map, 255)
+        for index, map_list in enumerate(self.map):
+            for value in map_list:
+                out[gt_map == value] = index
+        results['gt_semantic_seg'] = out
+        return results
+
+
+@PIPELINES.register_module()
+class SegRescale:
+    """Rescale the label maps by ``scale_factor``, nearest (ref
+    transforms.py:1069-1097)."""
+
+    def __init__(self, scale_factor=1):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results):
+        for key in results.get('seg_fields', []):
+            if self.scale_factor != 1:
+                results[key] = imutil.imrescale(
+                    results[key], self.scale_factor, interpolation='nearest')
+        return results
 
 
 @PIPELINES.register_module()

@@ -20,12 +20,17 @@ are averaged over the ranks in ``parse_losses``.
 The runner logs at the log interval (with the time a step and its data
 took), saves a checkpoint when a step crosses the checkpoint interval and
 at the end, and calls the eval hook after every step (on every rank: the
-evaluation is sharded). Rank 0 alone writes the JSON log and the
-checkpoints. Steps per dispatch (a CUDA graph of the step here) are not
-ported yet.
+evaluation is sharded). Rank 0 alone writes the JSON log, the checkpoints
+and, with ``tensorboard`` (a ``TensorboardLoggerHook`` in the config's
+``log_config``), TensorBoard scalars under ``work_dir/tf_logs``: each log
+var as ``train/<key>`` and the step's time as ``train/iter_time`` at every
+log line, as the JAX runner writes them; where
+``torch.utils.tensorboard`` cannot be imported it warns and trains on.
+Steps per dispatch (a CUDA graph of the step here) are not ported yet.
 """
 
 import json
+import os
 import time
 
 import torch
@@ -134,7 +139,7 @@ class IterBasedRunner:
     def __init__(self, train_step, state, max_iters, log_interval=50,
                  work_dir=None, checkpoint_interval=4000, max_keep_ckpts=1,
                  eval_hook=None, meta=None, logger=None,
-                 channels_last=False, json_log=None):
+                 channels_last=False, json_log=None, tensorboard=False):
         self.train_step = train_step
         self.state = state
         self.max_iters = max_iters
@@ -147,6 +152,16 @@ class IterBasedRunner:
         self.logger = logger or get_root_logger()
         self.channels_last = channels_last
         self.json_log = json_log
+        self.tb_writer = None
+        if tensorboard and work_dir and is_main_process():
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                self.logger.warning('torch.utils.tensorboard unavailable; '
+                                    'continuing without TensorBoard logging')
+            else:
+                self.tb_writer = SummaryWriter(
+                    os.path.join(work_dir, 'tf_logs'))
 
     def _json(self, mode, step, values):
         if self.json_log and is_main_process():
@@ -196,6 +211,12 @@ class IterBasedRunner:
                     f'{values["time"]:.3f}, data_time: '
                     f'{values["data_time"]:.3f}, {msg}')
                 self._json('train', step, values)
+                if self.tb_writer is not None:
+                    for k, v in log_vars.items():
+                        self.tb_writer.add_scalar(f'train/{k}', values[k],
+                                                  step)
+                    self.tb_writer.add_scalar('train/iter_time',
+                                              values['time'], step)
                 last_t, t_data, since_log = time.perf_counter(), 0.0, 0
             if self.work_dir and (step // self.checkpoint_interval
                                   != prev // self.checkpoint_interval):
@@ -215,4 +236,6 @@ class IterBasedRunner:
             # the final checkpoint, unless the last step just wrote it
             save_checkpoint(self.work_dir, state,
                             max_keep=self.max_keep_ckpts, meta=self.meta)
+        if self.tb_writer is not None:
+            self.tb_writer.close()
         return state

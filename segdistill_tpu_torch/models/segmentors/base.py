@@ -1,7 +1,9 @@
 """Segmentor base (counterpart of ``segdistill_tpu/models/segmentors/base.py``;
-reference ``mmseg/models/segmentors/base.py``): loss parsing. Feature taps
-are in ``models/utils/taps.py``, ``add_prefix`` in ``core/utils/misc.py``."""
+reference ``mmseg/models/segmentors/base.py``): loss parsing and the
+painting of a result over its image. Feature taps are in
+``models/utils/taps.py``, ``add_prefix`` in ``core/utils/misc.py``."""
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -45,3 +47,19 @@ class BaseSegmentor(nn.Module):
 
     num_classes = None
     align_corners = False
+
+    def show_result(self, img, result, palette=None, classes=None,
+                    opacity=0.5):
+        """Paint the label map ``result`` over the HWC BGR image ``img``:
+        each class its ``palette`` colour (RGB; seeded colours by
+        default, one a class), blended at ``opacity`` -> uint8 BGR (ref
+        base.py:211-273, the JAX package's blend)."""
+        seg = np.asarray(result)
+        if palette is None:
+            n = int(seg.max()) + 1 if self.num_classes is None \
+                else self.num_classes
+            palette = np.random.RandomState(42).randint(0, 255, size=(n, 3))
+        color_seg = np.asarray(palette, dtype=np.uint8)[seg]
+        img = np.asarray(img).astype(np.float32)
+        out = img * (1 - opacity) + color_seg[..., ::-1] * opacity
+        return out.astype(np.uint8)

@@ -34,6 +34,17 @@ only schedule) with the fragment as it stands.
 fragments on ``datasets/drive.py`` (64x64 crops, requests at 584x565),
 served with 64x64 windows at stride 42.
 
+:data:`PASCAL_RECIPES` are PSPNet-R50-d8 (the fragment with the FCN
+auxiliary head) on Pascal data: ``pspnet_r50-d8_voc12aug`` is mmseg's
+``configs/pspnet/pspnet_r50-d8_512x512_20k_voc12aug.py`` (21 classes in
+both heads, ``datasets/pascal_voc12_aug.py``: VOC 2012 with the SBD labels,
+512x512 crops, batch 4; ``schedule_20k.py``), and
+``pspnet_r50-d8_pascal_context`` mmseg's
+``configs/pspnet/pspnet_r50-d8_480x480_40k_pascal_context.py`` (60 classes,
+``datasets/pascal_context.py``: 480x480 crops, batch 4; ``schedule_40k.py``
+with SGD at lr 0.004, momentum 0.9, weight decay 1e-4; served in slide
+mode, 480x480 windows at stride 320).
+
 :data:`MT_RECIPES` are multi-teacher CGD steps (:func:`mt_recipe`):
 ``configs/exp_tab5/segformer_CGD.py`` (MiT-B0 student, CGD with group size
 10, alpha 3 and tau 2 on ``decode_head.linear_pred``, AdamW, poly warmup)
@@ -65,6 +76,14 @@ HRF_SLIDE = dict(test_cfg=dict(mode='slide', crop_size=(256, 256),
                                stride=(170, 170)))
 DRIVE_SLIDE = dict(test_cfg=dict(mode='slide', crop_size=(64, 64),
                                  stride=(42, 42)))
+PSP_VOC12AUG = dict(decode_head=dict(num_classes=21),
+                    auxiliary_head=dict(num_classes=21))
+PSP_CONTEXT = dict(decode_head=dict(num_classes=60),
+                   auxiliary_head=dict(num_classes=60),
+                   test_cfg=dict(mode='slide', crop_size=(480, 480),
+                                 stride=(320, 320)))
+CONTEXT_SGD = dict(optimizer=dict(type='SGD', lr=0.004, momentum=0.9,
+                                  weight_decay=0.0001))
 UNET_FRAGMENTS = ('fcn_unet_s5-d16', 'pspnet_unet_s5-d16',
                   'deeplabv3_unet_s5-d16')
 
@@ -93,6 +112,14 @@ RECIPES.update({f: (f, '80k' if f == 'emanet_r50-d8' else '40k', None)
 HRF_RECIPES = {f: (f, '40k', HRF_SLIDE) for f in UNET_FRAGMENTS}
 DRIVE_RECIPES = {f'{f}_drive': (f, '40k', DRIVE_SLIDE)
                  for f in UNET_FRAGMENTS}
+# name -> (model fragment, dataset, schedule, model overrides, top-level
+# overrides)
+PASCAL_RECIPES = {
+    'pspnet_r50-d8_voc12aug': ('pspnet_r50-d8', 'pascal_voc12_aug', '20k',
+                               PSP_VOC12AUG, None),
+    'pspnet_r50-d8_pascal_context': ('pspnet_r50-d8', 'pascal_context',
+                                     '40k', PSP_CONTEXT, CONTEXT_SGD),
+}
 MT_CONFIG = ROOT / 'configs' / 'exp_tab5' / 'segformer_CGD.py'
 MT_TEACHERS = ('b2', 'b3')
 # name -> distillation entries (one a teacher: aligned; one: the random
@@ -103,18 +130,23 @@ MT_RECIPES = {
 }
 
 
-def _compose(bases, model):
+def _compose(bases, model, overrides=None):
+    """The config of ``bases`` with ``model`` and the top-level
+    ``overrides`` merged over them, as a config file's own keys are."""
     text = f'_base_ = {[str(b) for b in bases]!r}\n'
     if model is not None:
         text += f'model = {model!r}\n'
+    for key, value in (overrides or {}).items():
+        text += f'{key} = {value!r}\n'
     return Config.fromstring(text)
 
 
-def _fragment_recipe(fragment, dataset, schedule, model):
+def _fragment_recipe(fragment, dataset, schedule, model, overrides=None):
     return _compose([BASE / 'models' / f'{fragment}.py',
                      BASE / 'datasets' / f'{dataset}.py',
                      BASE / 'default_runtime.py',
-                     BASE / 'schedules' / f'schedule_{schedule}.py'], model)
+                     BASE / 'schedules' / f'schedule_{schedule}.py'], model,
+                    overrides)
 
 
 def cityscapes_recipe(name):
@@ -136,6 +168,12 @@ def drive_recipe(name):
     :data:`DRIVE_RECIPES`)."""
     fragment, schedule, model = DRIVE_RECIPES[name]
     return _fragment_recipe(fragment, 'drive', schedule, model)
+
+
+def pascal_recipe(name):
+    """-> the :class:`Config` of recipe ``name`` (a key of
+    :data:`PASCAL_RECIPES`)."""
+    return _fragment_recipe(*PASCAL_RECIPES[name])
 
 
 def mt_recipe(name):
@@ -161,7 +199,7 @@ def mt_bf16_options(config):
 
 
 ALL_RECIPES = (sorted(RECIPES) + sorted(HRF_RECIPES) + sorted(DRIVE_RECIPES)
-               + sorted(MT_RECIPES))
+               + sorted(PASCAL_RECIPES) + sorted(MT_RECIPES))
 
 
 def recipe(name):
@@ -172,6 +210,8 @@ def recipe(name):
         return hrf_recipe(name)
     if name in DRIVE_RECIPES:
         return drive_recipe(name)
+    if name in PASCAL_RECIPES:
+        return pascal_recipe(name)
     if name in MT_RECIPES:
         return mt_recipe(name)
     raise KeyError(f'unknown recipe {name!r}; known: {ALL_RECIPES}')

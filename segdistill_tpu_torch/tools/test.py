@@ -7,7 +7,8 @@ evaluates the config's model (the student of a distillation config) on
 ``data.test``. ``checkpoint`` is a reference-layout ``.pth`` file, or a
 training work dir, its ``checkpoints/`` dir or one ``iter_<n>.pth`` of it.
 It prints the metrics dict on the last line and runs on the GPU unless
-``--device cpu`` is given. With ``--multi-host`` under torchrun (as
+``--device cpu`` is given. ``--show-dir D`` also writes every image with
+its prediction painted over it to ``D/<image name>.png``. With ``--multi-host`` under torchrun (as
 ``tools.train``) each rank evaluates its share of the images and the
 ranks' class histograms are summed (``apis.fast_evaluate``); rank 0
 prints the metrics of the whole dataset.
@@ -33,6 +34,7 @@ def parse_args(argv=None):
     parser.add_argument('--eval', type=str, nargs='+', default=['mIoU'])
     parser.add_argument('--aug-test', action='store_true',
                         help='multi-scale and flip test-time augmentation')
+    parser.add_argument('--show-dir', help='dir to save painted results')
     parser.add_argument('--options', nargs='+', action=DictAction)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
@@ -45,6 +47,9 @@ def parse_args(argv=None):
 def main(argv=None):
     """Evaluate as the arguments say; -> the metrics dict."""
     args = parse_args(argv)
+    if args.multi_host and args.show_dir:
+        raise SystemExit('--show-dir paints in one process; run it without '
+                         '--multi-host')
     with multi_host(args):
         return _test(args)
 
@@ -85,7 +90,7 @@ def _test(args):
     if args.multi_host:
         metrics = fast_evaluate(model, dataset, metric=args.eval[0])
     else:
-        results = single_device_test(model, dataset)
+        results = single_device_test(model, dataset, out_dir=args.show_dir)
         metrics = dataset.evaluate(results, metric=args.eval[0],
                                    logger=logger)
     logger.info(f'Eval results: {metrics}')

@@ -1,6 +1,9 @@
 """Boundaries of the PyTorch port: it never imports JAX, Flax, OpenCV or
 anything of the JAX package (reading a config included: the configs'
-``segdistill_tpu.zoo`` import is served by the port's own copy); importing
+``segdistill_tpu.zoo`` import is served by the port's own copy), nor
+pillow, and OpenCV only to decode or encode a format other than PNG and
+``.npy`` (the data path on PNG files and the dataset converters need
+neither); importing
 its kernel modules needs no nvcc and builds nothing; the chip smoke script
 refuses to run without a GPU or without the repository. The command-line
 path has the same check in ``test_torch_port_cli.py``."""
@@ -118,6 +121,96 @@ def test_no_jax_import_in_sources():
                  'from segdistill_tpu_torch.config import Config',
                  '# from segdistill_tpu.zoo import x', 'import jaxtyping'):
         assert not FOREIGN_IMPORT.search(line), line
+
+
+PIL_IMPORT = re.compile(r'^\s*(import|from)\s+PIL(\.|\s|$)', re.M)
+CV2_IMPORT = re.compile(r'^\s*(import|from)\s+cv2(\.|\s|$)', re.M)
+
+
+def test_no_pil_import_and_cv2_only_for_other_formats():
+    """No module of the port, no converter and not the smoke script imports
+    pillow; OpenCV is imported only inside ``utils/image.py``'s file
+    functions, for formats other than PNG and ``.npy``."""
+    sources = list(PACKAGE.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    assert not [p for p in sources if PIL_IMPORT.search(p.read_text())]
+    with_cv2 = [str(p.relative_to(ROOT)) for p in sources
+                if CV2_IMPORT.search(p.read_text())]
+    assert with_cv2 == ['segdistill_tpu_torch/utils/image.py']
+    text = (PACKAGE / 'utils' / 'image.py').read_text()
+    assert not re.search(r'^(import|from)\s+cv2', text, re.M)
+
+
+def test_png_data_path_and_converters_import_no_cv2(tmp_path):
+    """On PNG files alone: the VOC-aug converter (SBD ``.mat`` -> PNG),
+    the other converters' modules, the VOC12-aug recipe's training pipeline
+    (palette and gray label maps, PhotoMetricDistortion, the new
+    transforms), the Pascal Context, COCO-Stuff and Mapillary datasets, the
+    Cityscapes writer and result painting run without JAX, OpenCV, pillow
+    or the JAX package loaded."""
+    res = _run(f'''
+import sys
+from pathlib import Path
+import numpy as np
+from scipy.io import savemat
+from segdistill_tpu_torch.datasets import build_dataset
+from segdistill_tpu_torch.datasets.pipelines import Compose
+from segdistill_tpu_torch.recipes import recipe
+from segdistill_tpu_torch.tools.convert_datasets import (  # noqa: F401
+    cityscapes, coco_stuff10k, medical, pascal_context, voc_aug)
+from segdistill_tpu_torch.utils import image as imutil
+root = Path({str(tmp_path)!r})
+voc = root / 'VOCdevkit' / 'VOC2012'
+sets = voc / 'ImageSets' / 'Segmentation'
+for d in (voc / 'JPEGImages', voc / 'SegmentationClass', sets,
+          root / 'sbd' / 'dataset' / 'cls'):
+    d.mkdir(parents=True)
+rng = np.random.RandomState(0)
+names = [f'n{{i}}' for i in range(4)]
+palette = rng.randint(0, 256, (21, 3))
+for n in names:
+    imutil.imwrite(rng.randint(0, 256, (40, 56, 3)).astype(np.uint8),
+                   str(voc / 'JPEGImages' / f'{{n}}.jpg.png'))
+    (voc / 'JPEGImages' / f'{{n}}.jpg.png').rename(
+        voc / 'JPEGImages' / f'{{n}}.jpg')
+    idx = rng.randint(0, 21, (40, 56)).astype(np.uint8)
+    imutil.imwrite(idx, str(voc / 'SegmentationClass' / f'{{n}}.png'),
+                   palette=palette)
+    savemat(str(root / 'sbd' / 'dataset' / 'cls' / f'{{n}}.mat'),
+            {{'GTcls': {{'Segmentation': idx}}}})
+(sets / 'train.txt').write_text('n0\\nn1\\n')
+(sets / 'val.txt').write_text('n2\\n')
+(root / 'sbd' / 'dataset' / 'train.txt').write_text('n3\\n')
+voc_aug.main([str(root / 'VOCdevkit'), str(root / 'sbd')])
+cfg = recipe('pspnet_r50-d8_voc12aug')
+train = dict(cfg.data['train'], data_root=str(voc))
+train['pipeline'] = [dict(t, crop_size=(32, 32)) if t['type'] in
+                     ('RandomCrop', 'Pad') and 'crop_size' in t else t
+                     for t in train['pipeline']]
+data = build_dataset(train)
+assert len(data) == 2 + 3, len(data)
+for i in range(len(data)):
+    sample = data.__getitem__(i, np.random.RandomState(i))
+    assert sample['img'].shape[-1] == 3
+pipe = Compose([dict(type='CLAHE'), dict(type='RandomRotate', prob=1.0,
+                                         degree=20),
+                dict(type='SegRescale', scale_factor=0.5)])
+out = pipe(dict(img=rng.randint(0, 256, (40, 56, 3)).astype(np.uint8),
+                gt_semantic_seg=idx, seg_fields=['gt_semantic_seg']))
+from segdistill_tpu_torch.datasets import (CityscapesDataset,  # noqa: F401
+    CocoStuffDataset, MapillaryDataset, PascalContextDataset)
+from segdistill_tpu_torch.models.segmentors.base import BaseSegmentor
+assert out['gt_semantic_seg'].shape == (20, 28)
+painted = BaseSegmentor().show_result(out['img'],
+                                      np.zeros(out['img'].shape[:2], int))
+imutil.imwrite(painted, str(root / 'painted.png'))
+assert imutil.imread(str(root / 'painted.png')).shape == painted.shape
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'cv2', 'PIL', 'segdistill_tpu')]
+assert not bad, bad
+print('clean')
+''')
+    assert res.returncode == 0, res.stderr
+    assert 'clean' in res.stdout
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):
