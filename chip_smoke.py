@@ -61,7 +61,7 @@ depth (random weights from seed 0): (22-24) PSANet-R50 (PSAHead + FCN
 auxiliary head) and PointRend-R50/FPN (FPNHead + PointHead, a cascade) on
 ADE20K, and PSPNet-R50 with the FCN auxiliary head on Cityscapes (19
 classes), each through ``prepare_training``'s SGD step with a bf16
-backbone at the config's batch of 2 (512x512; Cityscapes 512x1024), 2 + 10
+backbone at the config's batch of 2 (512x512; Cityscapes 512x1024), 2 + 5
 steps, K5/K6 launched twice a step (PointRend: once); (25-27) the same
 models served through ``inference_segmentor``: four 512x512 requests in
 whole mode (PointRend with its subdivision refinement), two 1024x2048
@@ -73,7 +73,7 @@ recipes of ``segdistill_tpu_torch/recipes.py`` (each model fragment of
 ``configs/_base_/models/`` with the Cityscapes data, runtime and schedule
 bases, composed in memory; random weights from seed 0): (31-37) the SGD
 train steps of OCRNet-HR18 (FCN at weight 0.4, then OCR), DeepLabV3+-R50-d8
-and LRASPP-MobileNetV3 (2 + 10 steps), FCN-HR18, OCRNet-R50-d8,
+and LRASPP-MobileNetV3 (2 + 5 steps), FCN-HR18, OCRNet-R50-d8,
 DeepLabV3-R50-d8 and DeepLabV3+ on MobileNetV2-d8 (2 + 3 steps), bf16
 backbones, batch 2 at 512x1024, each with its K5/K6 launches a step;
 (38-44) each served in whole mode at 1024x2048 in fp32 (two requests to
@@ -86,7 +86,7 @@ and (2, 150, 128, 128) -> 512x512) and prints their device times beside
 their bounds; the kernels line adds K5 and K6 at ratios 2 and 4. Then
 this slice: (48, 49) the multi-teacher CGD steps of ``recipes.py``
 (``SDModuleMT``: B0 student, B2 and B3 teachers, bf16 backbones, batch 8 at
-512x512, 2 + 10 steps), aligned (one CGD entry a teacher) and the random
+512x512, 2 + 5 steps), aligned (one CGD entry a teacher) and the random
 ensemble (one teacher a step), each step's launches held to the forwards
 it ran (K1 3 / 2, K3/K4 2 / 1, K10 172 / 83 or 119 by the teacher the step
 drew, K11 30, K5/K6 1); (50, 51) an fp32 step of each at batch 2 and
@@ -174,7 +174,45 @@ same for ``pspnet_r50-d8_pascal_context`` (60 classes, 480x480, K5/K6 at
 geometries; nothing of OpenCV or pillow is imported. The launch count
 of each kernel is read over each main path (9, 10, 12, 14, 15-18, 22-27,
 31-37, 48, 49, 52-57, 71-80, each rank's in 103, 104, 106, 108 and 109,
-added together).
+110-112, added together).
+
+Then this slice, the serving export, the tool twins and the convergence
+run. (110) While the kernels build (2), full-width Segformer-B0 (150
+classes, random weights from seed 0, fp32) is exported at 512x512 through
+``tools.export`` (labels and ``--logits`` as it stands, labels with
+``fused_attention=True``; K1, K10 and K2 as ``segdistill::`` custom
+operators, whose nodes the graphs must hold: 1, 30 and 8). A fresh
+process that imports torch and ``segdistill_tpu_torch.ops`` alone (and
+nothing of JAX, the JAX package or the rest of the port, checked there)
+loads the saved programs and runs 4 seeded requests through each; near the
+end the same requests go through eager ``encode_decode`` here, against
+which the programs' outputs are held: labels equal but at argmax
+near-ties, logits within 1e-5 of max |logit|, K1, K10 and K2 launched as
+often as eager's, request for request; then each labels program, loaded
+here as well, is timed against eager in 3 rounds of A B B A (ms a request,
+host clock, each the median of 10 after 3). (111) The tool twins:
+``get_flops`` on B0 at 512x512 (parameters; FLOPs against ``bench.py``'s
+8.4e9), ``benchmark`` (50 requests, whole mode), ``image_demo`` on a
+seeded image (its labels equal ``inference_segmentor``'s),
+``convert_checkpoint`` and ``publish_model`` on a reference-layout file of
+the B0 weights (read back bitwise under the SHA-256 name), and
+``profile_train --trace-dir`` (a Chrome trace with the card's kernels).
+(112) The miniature convergence run of ``docs/convergence.md``
+(``tools/convergence.py``: mit_b0 + SegFormerHead, 4 classes, 240
+iterations of batch 4 at 64x64 from ``tests/data/convergence/``, fp32,
+then +CGD against the trained baseline) through ``tools.train`` and
+``tools.test`` in this process, held to the doc's criteria, K5/K6 once an
+iteration at (4, 4, 16, 16) -> 64x64 and nowhere else, K3/K4 once a CGD
+iteration; K3-K6's fp32 device times at that shape (phases 5 and 6 check
+them there).
+
+The order differs from the numbering: the export traces while the kernels
+build; the timed phases of the later slices run first, and their fp32
+steps against the CPU, which time nothing, in one block after them; the
+checks in processes of their own that time nothing (the program loader
+of 110, the ``--multi-host`` command lines of 101, the sharded evaluation
+of 102) run one after another beside that block. Every phase that times
+something runs alone.
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -185,6 +223,8 @@ function); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import ast
+import atexit
+import collections
 import contextlib
 import copy
 import hashlib
@@ -192,10 +232,12 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -219,7 +261,7 @@ STUDENT_FA_TRAIN = {'model.cfg_s.backbone.fused_attention': 'train'}
 BF16_BACKBONES = {'model.cfg_s.backbone.dtype': 'bfloat16',
                   'model.cfg_t.backbone.dtype': 'bfloat16'}
 NUM_CLASSES = 150
-TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 10
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
 # the psp and swin configs' own batch (samples_per_gpu 2); their fp32
 # GPU-vs-CPU step at batch 1 and 256x256, full width and depth
 TAB5_BATCH = 2
@@ -248,9 +290,9 @@ EXTRA_BATCH = 2  # the configs' samples_per_gpu
 # timed train steps, 1024x2048 requests, whether the fp32 step and logits
 # are held to the CPU). The three headline models take the full run.
 ZOO_PATHS = [
-    ('ocrnet_hr18', 'OCRNet-HR18', 2, 10, 2, True),
-    ('deeplabv3plus_r50-d8', 'DeepLabV3+-R50-d8', 2, 10, 2, True),
-    ('lraspp_m-v3-d8', 'LRASPP-MobileNetV3', 1, 10, 2, True),
+    ('ocrnet_hr18', 'OCRNet-HR18', 2, 5, 2, True),
+    ('deeplabv3plus_r50-d8', 'DeepLabV3+-R50-d8', 2, 5, 2, True),
+    ('lraspp_m-v3-d8', 'LRASPP-MobileNetV3', 1, 5, 2, True),
     ('fcn_hr18', 'FCN-HR18', 1, 3, 1, False),
     ('ocrnet_r50-d8', 'OCRNet-R50-d8', 2, 3, 1, False),
     ('deeplabv3_r50-d8', 'DeepLabV3-R50-d8', 2, 3, 1, False),
@@ -519,7 +561,14 @@ def _cases():
     return kernel_cases
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's header (``== ``) with the seconds since the
+    script started."""
+    if msg.startswith('== '):
+        msg = f'== [{time.perf_counter() - T0:.1f} s] {msg[3:]}'
     print(msg, flush=True)
 
 
@@ -933,10 +982,11 @@ def phase_sra_train():
         'the device\'s, "call" the host-clocked time of one backward)')
     rng = np.random.RandomState(9)
     stages = ((1, 16384), (2, 4096), (5, 1024), (8, 256))  # (heads, N)
-    cases = [(f'B0 stage{s + 1} b{b}', b, h, n, 256, 32) for b in (8, 1)
+    cases = [(f'B0 stage{s + 1} b8', 8, h, n, 256, 32)
              for s, (h, n) in enumerate(stages)]
+    # batch 1 once: fewer heads, more splits of the query rows
+    cases.append(('B0 stage1 b1', 1, 1, 16384, 256, 32))
     cases.append(('ragged N, M', 2, 2, 1000, 100, 32))
-    cases.append(('b1-b5 stage1 d64', 2, 1, 16384, 256, 64))
     # the B3 teacher's stages, d = 64: two key chunks, dq through partials
     cases += [(f'B3 stage{s + 1} b2 d64', 2, h, n, 256, 64)
               for s, (h, n) in enumerate(stages)]
@@ -2604,24 +2654,31 @@ def dist_eval_rank(checkpoint, options, out_dir):
             json.dump(metrics, f)
 
 
-def phase_dist_eval(root):
-    """(c) The sharded ``fast_evaluate`` (two gloo ranks on the one card,
-    each 4 of the 8 images, the histograms summed) of phase_cli's last
-    checkpoint, against one process: equal, the histograms being
-    integers."""
+def _one_process_eval(root):
+    """``fast_evaluate`` of phase_cli's last checkpoint in this process:
+    what (c) holds the sharded evaluation to."""
     from segdistill_tpu_torch.apis import fast_evaluate, init_segmentor
     from segdistill_tpu_torch.datasets import build_dataset
+    ckpt = str(root / 'work' / 'checkpoints' / f'iter_{CLI_ITERS}.pth')
+    model = init_segmentor(str(CGD_CONFIG), ckpt, device=DEVICE,
+                           cfg_options=_cli_config_options(root / 'data'))
+    want = fast_evaluate(model, build_dataset(model.cfg.data['test'],
+                                              dict(test_mode=True)))
+    del model
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_dist_eval(root, want):
+    """(c) The sharded ``fast_evaluate`` (two gloo ranks on the one card,
+    each 4 of the 8 images, the histograms summed) of phase_cli's last
+    checkpoint, against one process (``want``, :func:`_one_process_eval`):
+    equal, the histograms being integers."""
     from segdistill_tpu_torch.parallel import launch
     log(f'== sharded evaluation: fast_evaluate at two gloo ranks on the '
         f'card against one process, {CLI_VAL_IMAGES} images')
     ckpt = str(root / 'work' / 'checkpoints' / f'iter_{CLI_ITERS}.pth')
     options = _cli_config_options(root / 'data')
-    model = init_segmentor(str(CGD_CONFIG), ckpt, device=DEVICE,
-                           cfg_options=options)
-    dataset = build_dataset(model.cfg.data['test'], dict(test_mode=True))
-    want = fast_evaluate(model, dataset)
-    del model
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         launch(DIST_EVAL_RANK, DIST_WORLD, [ckpt, options, tmp],
@@ -2873,7 +2930,7 @@ def _pd_loss_check(last):
 def phase_train_mt(kernels, name, tag):
     """A multi-teacher CGD step of ``recipes.py`` (B0 student, B2 and B3
     teachers, bf16 backbones, batch 8 at 512x512) through
-    ``prepare_training``'s step, 2 + 10 steps: -> the launch counts of
+    ``prepare_training``'s step, 2 + 5 steps: -> the launch counts of
     ``kernels`` (K1, K3, K4, K5, K6, K10, K11) over the timed steps, each
     step's counts held to its forwards: aligned, three SegFormer heads (K1),
     two CGD entries (K3/K4) and the LayerNorms of all three MiTs (K10);
@@ -3514,6 +3571,455 @@ def phase_pascal_kernel_times():
     return times
 
 
+# ---- this slice: the serving export, the tool twins, the convergence run
+
+# the export phase: full-width Segformer-B0 (CONFIG) exported at EXPORT_HW
+# while the kernels build (tracing launches nothing); the saved programs
+# loaded and run on EXPORT_REQUESTS seeded requests by a fresh process (it
+# times nothing: it runs beside the fp32 steps against the CPU); at the end
+# of the script the same requests through eager encode_decode here, held
+# to the programs' outputs; then each labels program, loaded here too,
+# against eager in EXPORT_ROUNDS rounds of A B B A, each side's ms a
+# request the median of EXPORT_TIMED host-clocked requests after
+# EXPORT_WARMUP
+EXPORT_HW = (512, 512)
+EXPORT_REQUESTS = 4
+EXPORT_WARMUP, EXPORT_TIMED, EXPORT_ROUNDS = 3, 10, 3
+EXPORT_FUSED = {'model.backbone.fused_attention': True}
+# (tag, config options, --logits): the labels program as the config
+# stands and with fused_attention=True, and the logits program
+EXPORT_PROGRAMS = [('plain', {}, False), ('plain', {}, True),
+                   ('fused_attention', EXPORT_FUSED, False)]
+# the loader process's time limit
+EXPORT_TIMEOUT = 300
+# bench.py:157 takes B0 as 8.4e9 FLOPs an image at 512x512; get_flops'
+# count is a finding to explain where it lies further from it than this
+BENCH_B0_FLOPS, FLOPS_FINDING_SHARE = 8.4e9, 0.10
+BENCHMARK_ITERS = 50
+DEMO_HW = (512, 683)
+# profile_train at a small size: its trace is what the phase checks
+PROFILE_ARGS = ['--steps', '2', '--batch', '2', '--hw', '256', '256']
+
+# The loader of the saved programs, run in a fresh interpreter: it imports
+# torch and the port's kernels (which register the operators) and nothing
+# else of the repository, loads each program and runs the requests through
+# it, counting each kernel's launches a request.
+EXPORT_LOADER = """
+import json
+import sys
+import time
+import numpy as np
+import torch
+import segdistill_tpu_torch.ops
+from segdistill_tpu_torch.ops import layer_norm, resize_sum, sra_attn
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kernels = (resize_sum.KERNEL, layer_norm.FWD_KERNEL, sra_attn.KERNEL)
+requests, paths = sys.argv[1], sys.argv[2:]
+imgs = torch.from_numpy(np.load(requests)).cuda()
+report = {}
+for path in paths:
+    t0 = time.perf_counter()
+    program = torch.export.load(path).module()
+    report[path] = dict(load_s=time.perf_counter() - t0)
+    outs, launches = [], []
+    with torch.no_grad():
+        for i in range(len(imgs)):
+            before = [k.launches for k in kernels]
+            outs.append(program(imgs[i:i + 1]))
+            launches.append({k.name: k.launches - b
+                             for k, b in zip(kernels, before)})
+    np.save(path + '.out.npy', torch.cat(outs).cpu().numpy())
+    report[path].update(launches=launches)
+port = sorted(m for m in sys.modules if m.startswith('segdistill_tpu'))
+others = [m for m in port if m != 'segdistill_tpu_torch'
+          and not m.startswith('segdistill_tpu_torch.ops')]
+foreign = [m for m in sys.modules
+           if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'segdistill_tpu')]
+assert not others and not foreign, (others, foreign)
+print(json.dumps(report))
+"""
+
+
+def _host_ms(fn, imgs, warmup=EXPORT_WARMUP, timed=EXPORT_TIMED):
+    """Median host-clocked ms of ``fn`` on one request, each ending in
+    ``torch.cuda.synchronize()``, after ``warmup`` requests."""
+    ms = []
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(imgs[i % len(imgs):i % len(imgs) + 1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms[warmup:]))
+
+
+def _graph_ops(program):
+    """{operator: calls} of the ``segdistill::`` operators in a program's
+    graph."""
+    code = program.graph_module.code
+    return {op: code.count(f'torch.ops.segdistill.{op}.')
+            for op in ('resize_sum', 'layer_norm', 'sra_attention')}
+
+
+def run_export_loader(root, programs):
+    """Load and run the saved ``programs`` in a fresh process that imports
+    torch and the port's ``ops`` alone (:data:`EXPORT_LOADER`); each
+    program's outputs are saved beside it. -> the process's report
+    ({path: load seconds, launches a request})."""
+    log(f'== export, loader: the {len(programs)} saved programs loaded and '
+        f'run on {EXPORT_REQUESTS} seeded requests in a fresh process that '
+        f'imports torch and segdistill_tpu_torch.ops alone')
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-c', EXPORT_LOADER, str(root / 'requests.npy'),
+         *programs], cwd=ROOT, capture_output=True, text=True,
+        timeout=EXPORT_TIMEOUT, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    if res.returncode != 0:
+        raise AssertionError(f'the program loader failed:\n{res.stdout}\n'
+                             f'{res.stderr[-6000:]}')
+    log(f'the loader process ran in {time.perf_counter() - t0:.1f} s with '
+        f'its start')
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def export_programs(root):
+    """Export full-width Segformer-B0 through ``tools.export``
+    (EXPORT_PROGRAMS) on the card into ``root``, beside the seeded
+    requests; nothing is launched (the kernels may still be building). ->
+    {path: (tag, options, --logits)}."""
+    from segdistill_tpu_torch.tools import export as export_cli
+    log(f'== export: Segformer-B0 (150 classes, random weights from seed 0, '
+        f'fp32) through tools.export at {EXPORT_HW[0]}x{EXPORT_HW[1]}: '
+        f'labels and --logits as it stands, labels with '
+        f'fused_attention=True (while the kernels build)')
+    np.save(root / 'requests.npy', np.random.RandomState(4).randn(
+        EXPORT_REQUESTS, 3, *EXPORT_HW).astype(np.float32))
+    programs = {}
+    for tag, options, logits in EXPORT_PROGRAMS:
+        path = root / f'b0_{tag}_{"logits" if logits else "labels"}.pt2'
+        argv = [str(CONFIG), '--output', str(path), '--shape',
+                *map(str, EXPORT_HW), '--graph', str(path) + '.txt']
+        argv += ['--logits'] if logits else []
+        argv += ['--options', *(f'{k}={v}' for k, v in options.items())] \
+            if options else []
+        t0 = time.perf_counter()
+        ops = _graph_ops(export_cli.main(argv))
+        want = {'resize_sum': 1, 'layer_norm': MIT_LN['b0'],
+                'sra_attention': 8 if options else 0}
+        log(f'{path.name}: exported in {time.perf_counter() - t0:.2f} s, '
+            f'{path.stat().st_size / 1e6:.1f} MB; segdistill:: nodes {ops}')
+        if ops != want:
+            raise AssertionError(f'{path.name}: the graph holds {ops}, not '
+                                 f'{want}')
+        programs[str(path)] = (tag, options, logits)
+    return programs
+
+
+def phase_export(root, programs, report, path_kernels):
+    """The export's requests: eager ``encode_decode`` of each exported
+    configuration here, against which the programs' outputs in the loader
+    process (``report``, :func:`run_export_loader`) are held (labels equal
+    but at near-ties, logits within MODEL_TOL_REL of max |logit|, each
+    kernel's launches equal request for request); then each labels
+    program, loaded here too, timed against eager in turns. -> the launch
+    counts of the eager requests and of the programs' (the export's main
+    paths)."""
+    from segdistill_tpu_torch.apis import init_segmentor
+    from segdistill_tpu_torch.tools.export import Serving
+    log(f'== export, requests: {EXPORT_REQUESTS} seeded requests through '
+        f'eager encode_decode here, against each loaded program\'s')
+    imgs = torch.from_numpy(np.load(root / 'requests.npy')).to(DEVICE)
+    eager = {}
+    for tag, options, _ in EXPORT_PROGRAMS:
+        if tag in eager:
+            continue
+        model = init_segmentor(str(CONFIG), device=DEVICE, seed=0,
+                               cfg_options=options or None)
+        # eager: every launch count starts at 0 here, request by request
+        outs, launches = [], []
+        with torch.no_grad():
+            model.encode_decode(imgs[:1])  # cuDNN heuristics, allocator
+            for k in path_kernels:
+                k.launches = 0
+            for i in range(EXPORT_REQUESTS):
+                before = [k.launches for k in path_kernels]
+                outs.append(model.encode_decode(imgs[i:i + 1]))
+                launches.append({k.name: k.launches - b
+                                 for k, b in zip(path_kernels, before)})
+            torch.cuda.synchronize()
+        total = {k.name: k.launches for k in path_kernels}
+        eager[tag] = (torch.cat(outs).cpu(), launches, model, total)
+        log(f'eager {tag}: launches a request {launches[0]}')
+    paths = [v[3] for v in eager.values()]
+    for path, (tag, _, logits) in programs.items():
+        want, want_launches, _, _ = eager[tag]
+        got = torch.from_numpy(np.load(path + '.out.npy'))
+        r = report[path]
+        scale = want.abs().max().item()
+        top2 = want.topk(2, dim=1).values
+        near = (top2[:, 0] - top2[:, 1]) <= MODEL_TOL_REL * scale
+        if logits:
+            err = (got - want).abs().max().item()
+            what = (f'logits max abs err {err:.3e}, max |logit| '
+                    f'{scale:.3e} (limit {MODEL_TOL_REL} of it)')
+            ok = err <= MODEL_TOL_REL * scale
+        else:
+            differ = got.long() != want.argmax(dim=1)
+            what = (f'labels: {int(differ.sum())} of {differ.numel()} '
+                    f'differ, {int((differ & ~near).sum())} of them not a '
+                    f'near-tie (top two within {MODEL_TOL_REL} of max '
+                    f'|logit|)')
+            ok = got.dtype == torch.int32 and not bool((differ & ~near).any())
+        same = r['launches'] == want_launches
+        log(f'{Path(path).name}: loaded in {r["load_s"]:.2f} s; {what}; '
+            f'launches a request {r["launches"][0]} (eager '
+            f'{want_launches[0]}, equal request for request: {same})')
+        if not ok or not same:
+            raise AssertionError(f'{Path(path).name}: the loaded program '
+                                 f'differs from eager encode_decode')
+        paths.append({name: sum(req[name] for req in r['launches'])
+                      for name in r['launches'][0]})
+    for tag, part in (('eager', paths[:len(eager)]),
+                      ('the loaded programs', paths[len(eager):])):
+        _check_launched({k.name: sum(p.get(k.name, 0) for p in part)
+                         for k in path_kernels}, f'export, {tag}')
+    # ms a request, the program against eager in one process, in turns
+    with torch.no_grad():
+        for path, (tag, _, logits) in programs.items():
+            if logits:
+                continue
+            arms = {'eager': Serving(eager[tag][2]),
+                    'program': torch.export.load(path).module()}
+            ms = {arm: [] for arm in arms}
+            for _ in range(EXPORT_ROUNDS):
+                for arm in ('eager', 'program', 'program', 'eager'):
+                    ms[arm].append(_host_ms(arms[arm], imgs))
+            eager_ms, program_ms = (float(np.median(ms[a])) for a in arms)
+            log(f'{Path(path).name}: {program_ms:.3f} ms a request against '
+                f'eager {eager_ms:.3f} ({program_ms / eager_ms:.3f}x; '
+                f'medians of {EXPORT_ROUNDS} rounds of A B B A, each the '
+                f'median of {EXPORT_TIMED} host-clocked requests after '
+                f'{EXPORT_WARMUP}: eager ' + ' '.join(
+                    f'{t:.3f}' for t in ms['eager']) + ', program '
+                + ' '.join(f'{t:.3f}' for t in ms['program']) + ')')
+    return paths
+
+
+def phase_tools(root, card):
+    """The tool twins on the card: ``get_flops`` and ``benchmark`` on
+    Segformer-B0 at 512x512, ``image_demo`` on a seeded image (its labels
+    against ``inference_segmentor``'s), ``convert_checkpoint`` and
+    ``publish_model`` on a reference-layout file of the B0 weights (read
+    back bitwise), ``profile_train --trace-dir`` (its Chrome trace holds
+    the card's kernels)."""
+    from segdistill_tpu_torch.apis import inference_segmentor, init_segmentor
+    from segdistill_tpu_torch.tools import (benchmark, convert_checkpoint,
+                                            get_flops, image_demo,
+                                            profile_train, publish_model)
+    from segdistill_tpu_torch.utils import image as imutil
+    log(f'== tools: get_flops, benchmark ({BENCHMARK_ITERS} requests at '
+        f'512x512, whole mode), image_demo, convert_checkpoint, '
+        f'publish_model and profile_train --trace-dir on Segformer-B0 '
+        f'({card})')
+    t0 = time.perf_counter()
+    params, flops, _ = get_flops.main([str(CONFIG), '--shape', '512'])
+    off = flops / BENCH_B0_FLOPS - 1
+    log(f'get_flops: {params} parameters, {flops} FLOPs ({flops / 2e9:.3f} '
+        f'G multiply-adds), {off:+.2%} from bench.py\'s 8.4e9 '
+        f'({time.perf_counter() - t0:.1f} s)'
+        + (' -- a FINDING: more than 10% apart' if abs(off) >
+           FLOPS_FINDING_SHARE else ''))
+    if not (params > 3e6 and flops > 1e9):
+        raise AssertionError('get_flops counted nothing')
+    t0 = time.perf_counter()
+    fps = benchmark.main([str(CONFIG), '--iters', str(BENCHMARK_ITERS),
+                          '--log-interval', '25'])
+    log(f'benchmark: {fps:.2f} images/s ({time.perf_counter() - t0:.1f} '
+        f's with the model\'s build)')
+    if not (math.isfinite(fps) and fps > 0):
+        raise AssertionError(f'benchmark: {fps} images/s')
+
+    img = np.random.RandomState(5).randint(0, 256, DEMO_HW + (3,)) \
+        .astype(np.uint8)
+    imutil.imwrite(img, str(root / 'demo.png'))
+    labels = image_demo.main([str(root / 'demo.png'), str(CONFIG),
+                              '--out-file', str(root / 'demo_out.png')])
+    model = init_segmentor(str(CONFIG), device=DEVICE, seed=0)
+    want = inference_segmentor(model, img)[0]
+    painted = imutil.imread(str(root / 'demo_out.png'))
+    log(f'image_demo: {DEMO_HW} -> labels {labels.shape}, painted '
+        f'{painted.shape}; labels equal inference_segmentor\'s: '
+        f'{np.array_equal(labels, want)}')
+    if not np.array_equal(labels, want) or painted.shape != img.shape:
+        raise AssertionError('image_demo differs from inference_segmentor')
+
+    state = {f'module.{k}': v.cpu() for k, v in model.state_dict().items()}
+    state['module.decode_head.conv_seg.weight'] = torch.zeros(
+        NUM_CLASSES, 256, 1, 1)
+    torch.save({'state_dict': state}, root / 'reference.pth')
+    matched, missing, unexpected = convert_checkpoint.main(
+        [str(CONFIG), str(root / 'reference.pth'), str(root / 'b0.pth')])
+    final = publish_model.main([str(root / 'b0.pth'),
+                                str(root / 'release.pth')])
+    digest = hashlib.sha256((root / 'b0.pth').read_bytes()).hexdigest()
+    loaded = init_segmentor(str(CONFIG), final, device=DEVICE, seed=1)
+    same = all(torch.equal(v, loaded.state_dict()[k])
+               for k, v in model.state_dict().items())
+    log(f'convert_checkpoint: {len(matched)} matched, {len(missing)} '
+        f'missing, {len(unexpected)} unexpected; publish_model -> '
+        f'{Path(final).name}; read back bitwise: {same}')
+    if missing or unexpected or not same \
+            or not final.endswith(f'release-{digest[:8]}.pth'):
+        raise AssertionError('convert_checkpoint / publish_model')
+    del model, loaded
+
+    t0 = time.perf_counter()
+    profile_train.main(PROFILE_ARGS + ['--trace-dir', str(root / 'trace')])
+    trace = json.loads((root / 'trace' / 'train_step.json').read_text())
+    kernels = [e for e in trace['traceEvents'] if e.get('cat') == 'kernel']
+    own = sum(1 for e in kernels if 'segdistill' in e.get('name', ''))
+    log(f'profile_train --trace-dir: train_step.json, '
+        f'{len(trace["traceEvents"])} events, {len(kernels)} kernels, '
+        f'{own} of them hand-written ({time.perf_counter() - t0:.1f} s)')
+    if not kernels or not own:
+        raise AssertionError('the trace holds no kernel of the card')
+
+
+def _profiled_ms(fn, calls=20):
+    """Device milliseconds of one call of ``fn``: the durations of the
+    kernels it launches (torch.profiler, CUPTI), summed over ``calls``
+    calls after one untimed, divided by the calls: no host time and no gap
+    between kernels (at these sizes a launch's host time is many times a
+    kernel's, and the queued-stream timing scatters)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    if not events:
+        raise AssertionError('torch.profiler saw no kernel on the card')
+    return sum(e.device_time for e in events) / calls / 1e3
+
+
+def phase_convergence(path_kernels):
+    """The miniature convergence run of ``tools/convergence.py`` on the
+    card, in this process (the launches are counted around each run):
+    the baseline and the +CGD run held to docs/convergence.md's criteria,
+    ``tools.test`` to the last evaluation, K5/K6 (both runs) and K3/K4
+    (CGD) launched once a step each at the run's shape and nowhere else;
+    then those kernels' fp32 device times at that shape. -> ({run: launch
+    counts}, {kernel name: (ms, plain ms)})."""
+    from segdistill_tpu_torch.ops import group_kl as gk
+    from segdistill_tpu_torch.ops import seg_ce as sc
+    from segdistill_tpu_torch.tools import convergence
+    ce_case, gkl_case = _cases().CONVERGENCE_CE, _cases().CONVERGENCE_GKL
+    log(f'== convergence (docs/convergence.md): mit_b0 + SegFormerHead '
+        f'(embed 64, 4 classes), AdamW 3e-4, batch 4 of 64x64 crops from '
+        f'tests/data/convergence, {convergence.ITERS} iterations, '
+        f'evaluations at {convergence.ITERS // 2} and {convergence.ITERS}, '
+        f'fp32; then +CGD (group 2, alpha 3, tau 2) against the trained '
+        f'baseline; tools.train and tools.test in this process')
+    geometry = tuple(ce_case[1]) + tuple(ce_case[2])
+    counts, by_shape, seconds = {}, {}, {}
+
+    def counted(name, fn):
+        before = {n: collections.Counter(c)
+                  for n, c in sc.LAUNCHES_BY_SHAPE.items()}
+        for k in path_kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        counts[name] = {k.name: k.launches for k in path_kernels}
+        by_shape[name] = {n: dict(c - before[n])
+                          for n, c in sc.LAUNCHES_BY_SHAPE.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = convergence.run(tmp, DEVICE, on_run=counted)
+    convergence.report(out)
+    for name, tag in (('baseline', 'baseline'), ('cgd', 'CGD')):
+        step_ms = float(np.median(list(out[name]['step_s'].values()))) * 1e3
+        log(f'{tag}: {seconds[name]:.1f} s with its evaluations; step '
+            f'{step_ms:.2f} ms (median of the logged 20-iteration means); '
+            f'launches {counts[name]}; K5/K6 by (B, C, h, w, H, W) '
+            f'{by_shape[name]}')
+        convergence.check(out[name], tag)
+        want = {n: {geometry: convergence.ITERS} for n in by_shape[name]}
+        if by_shape[name] != want:
+            raise AssertionError(f'{tag}: K5/K6 launched {by_shape[name]}, '
+                                 f'not {want}')
+    if counts['cgd'][gk.FWD_KERNEL.name] != convergence.ITERS \
+            or counts['cgd'][gk.BWD_KERNEL.name] != convergence.ITERS:
+        raise AssertionError(f'CGD: K3/K4 launched {counts["cgd"]}')
+    last = out['cgd']['miou'][convergence.ITERS]
+    if not abs(out['test_miou'] - last) <= MIOU_TOL:
+        raise AssertionError(f'tools.test: mIoU {out["test_miou"]}, the '
+                             f'last evaluation {last}')
+    for name in counts:
+        _check_launched({k: n for k, n in counts[name].items()
+                         if name == 'cgd' or 'group_kl' not in k},
+                        f'convergence {name}')
+
+    return counts, _convergence_kernel_times()
+
+
+def _convergence_kernel_times():
+    """K3/K4 and K5/K6 at the convergence run's shape in fp32, device time
+    (:func:`_profiled_ms`), beside the plain versions and the bounds. ->
+    {kernel name: (ms, plain ms)}."""
+    from segdistill_tpu_torch.ops import group_kl as gk
+    from segdistill_tpu_torch.ops import seg_ce as sc
+    (_, shape, out_hw, ignored, _), gkl = (_cases().CONVERGENCE_CE,
+                                           _cases().CONVERGENCE_GKL)
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    classes, g, tau = shape[1], gkl[3], 2.0
+    labels = torch.randint(0, classes, (shape[0],) + out_hw, device=DEVICE,
+                           generator=gen)
+    labels[torch.rand(labels.shape, device=DEVICE, generator=gen)
+           < ignored] = 255
+    perm = torch.randperm(classes, device=DEVICE, generator=gen)
+    z, xt = (torch.randn(shape, device=DEVICE, generator=gen)
+             for _ in range(2))
+    fwd = {'seg_ce': (lambda a: sc.fused_seg_ce(a, labels, out_hw,
+                                                 classes)[0],
+                      lambda a: sc.seg_ce_plain(a, labels, out_hw,
+                                                classes)[0]),
+           'group_kl': (lambda a: gk.fused_group_kl_shuffled(
+                            a, xt, perm, out_hw, g, tau),
+                        lambda a: gk.group_kl_plain(a, xt, perm, out_hw, g,
+                                                    tau))}
+    times = {}
+    for mod, (fused, plain) in ((sc, fwd['seg_ce']), (gk, fwd['group_kl'])):
+        with torch.no_grad():
+            times[mod.FWD_KERNEL.name] = (_profiled_ms(lambda: fused(z)),
+                                          _profiled_ms(lambda: plain(z)))
+        a, b = z.clone().requires_grad_(), z.clone().requires_grad_()
+        lk, lp = fused(a), plain(b)
+        times[mod.BWD_KERNEL.name] = (
+            _profiled_ms(lambda: torch.autograd.grad(lk, a,
+                                                     retain_graph=True)),
+            _profiled_ms(lambda: torch.autograd.grad(lp, b,
+                                                     retain_graph=True)))
+    bounds = dict(zip((gk.FWD_KERNEL.name, gk.BWD_KERNEL.name),
+                      _cases().kl_bounds(shape, out_hw, torch.float32, 0)))
+    bounds.update(zip((sc.FWD_KERNEL.name, sc.BWD_KERNEL.name),
+                      _cases().seg_ce_bounds(shape, out_hw, torch.float32)))
+    log(f'{shape} -> {out_hw} fp32, device time (the kernels\' durations '
+        f'under torch.profiler, 20 calls): ' + '; '.join(
+            f'{name} {ms:.4f} ms (plain {plain:.4f}, bound '
+            f'{bounds[name][0]:.6f}, {ms / bounds[name][0]:.0f}x)'
+            for name, (ms, plain) in times.items()))
+    return times
+
+
 def _bound(*args):
     return _cases().bound(*args)
 
@@ -3563,6 +4069,17 @@ def _bounds(names):
     return out
 
 
+def _untimed_processes(export_dir, programs, cli_root, cli_train, want):
+    """The checks that run in processes of their own and time nothing, one
+    after another: the exported programs' loader (110), the command lines
+    under torchrun's variables (101) and the sharded evaluation (102). ->
+    the loader's report."""
+    report = run_export_loader(export_dir, programs)
+    phase_cli_multi_host(cli_root, cli_train)
+    phase_dist_eval(cli_root, want)
+    return report
+
+
 def main():
     card = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -3573,7 +4090,14 @@ def main():
         group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
         pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL,
         layer_norm.FWD_KERNEL, layer_norm.BWD_KERNEL]
-    phase_build(kernels)
+    # this slice: the serving export traces while the kernels build (it
+    # launches nothing)
+    export_dir = Path(tempfile.mkdtemp(prefix='export-'))
+    atexit.register(shutil.rmtree, export_dir, True)
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(phase_build, kernels)
+        programs = export_programs(export_dir)
+        build.result()
     results = {k1.name: phase_resize_sum(), k2.name: phase_sra_attn()}
     results[k3.name], results[k4.name] = phase_group_kl()
     results[k5.name], results[k6.name], ce_device = phase_seg_ce()
@@ -3594,23 +4118,22 @@ def main():
     _pd_loss_check(pd_last)
     paths.append(pd_launches)
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_launches, cli_train, _ = phase_cli(cgd_kernels, Path(tmp))
-        paths.append(cli_launches)
-        # this slice: the command lines under torchrun's variables (NCCL at
-        # world size 1) and the evaluation sharded over two gloo ranks
-        phase_cli_multi_host(Path(tmp), cli_train)
-        phase_dist_eval(Path(tmp))
-        # this slice: the native and device loader backends on the command
-        # line, the device augmentation against the CPU, batched evaluation
-        paths.append(phase_cli_backends(cgd_kernels, Path(tmp), cli_train,
-                                        cgd_per_step, card))
-        phase_device_aug(Path(tmp), card)
-        paths.append(phase_batched_eval([k1, k10], Path(tmp), card))
-    # the Tab5 PSP and Swin students: serving, the timed CGD steps (the PSP
-    # student has no LayerNorm: K11 runs only on the Swin path), and fp32
-    # steps against the CPU, where the PSP pair takes K3/K4 and K7/K8 at
-    # two sizes and Swin's last PatchMerging norm K10/K11 at C = 1536
+    # the command lines' dataset and work dirs, kept for the --multi-host
+    # command lines and the sharded evaluation
+    cli_root = Path(tempfile.mkdtemp(prefix='cli-'))
+    atexit.register(shutil.rmtree, cli_root, True)
+    cli_launches, cli_train, _ = phase_cli(cgd_kernels, cli_root)
+    paths.append(cli_launches)
+    # this slice: the native and device loader backends on the command
+    # line, the device augmentation against the CPU, batched evaluation
+    paths.append(phase_cli_backends(cgd_kernels, cli_root, cli_train,
+                                    cgd_per_step, card))
+    phase_device_aug(cli_root, card)
+    paths.append(phase_batched_eval([k1, k10], cli_root, card))
+    # The timed phases of the later slices come first; their fp32 steps
+    # against the CPU, which time nothing, follow in one block (below).
+    # The Tab5 PSP and Swin students: serving and the timed CGD steps (the
+    # PSP student has no LayerNorm: K11 runs only on the Swin path)
     paths.append(phase_serving_tab5(PSP_BASELINE, [], 'PSP'))
     paths.append(phase_serving_tab5(SWIN_BASELINE, [k10], 'Swin'))
     paths.append(phase_train([k1, k3, k4, k5, k6, k10], PSP_CGD, {},
@@ -3619,28 +4142,16 @@ def main():
     paths.append(phase_train([k1, k3, k4, k5, k6, k10, k11], SWIN_CGD, {},
                              'swin_CGD', TAB5_BATCH,
                              'Swin-T + UPerHead student <- B3 teacher')[0])
-    tab5_vs_cpu = dict(batch=TAB5_VS_CPU_BATCH, hw=TAB5_VS_CPU_HW)
-    tab5_vs_cpu = dict(tab5_vs_cpu, float64_grads=True)
-    phase_train_vs_cpu(PSP_CGD, {}, 'psp_CGD', pair='PSPNet-R50 <- B3',
-                       no_drop=(NO_DROP,), **tab5_vs_cpu)
-    phase_train_vs_cpu(PSP_PD, {}, 'psp_PD', pair='PSPNet-R50 <- B3',
-                       no_drop=(NO_DROP,), **tab5_vs_cpu)
-    phase_train_vs_cpu(SWIN_CGD, {}, 'swin_CGD', pair='Swin-T <- B3',
-                       **tab5_vs_cpu)
     # the configs/extra models: their own SGD steps (K5/K6 on the decode and
-    # auxiliary heads, on PointRend's FPNHead), serving (no hand-written
-    # kernel on those paths: ResNet has BN, the heads no K1), fp32 steps
-    # against the CPU
+    # auxiliary heads, on PointRend's FPNHead) and serving (no hand-written
+    # kernel on those paths: ResNet has BN, the heads no K1)
     for config, tag, classes, hw, per_step, _ in EXTRA_PATHS:
         paths.append(phase_train_extra([k5, k6], config, tag, classes, hw,
                                        per_step))
     for config, tag, classes, _, _, request_hw in EXTRA_PATHS:
         phase_serving_extra(config, tag, classes, request_hw)
-    for config, tag, classes, *_ in EXTRA_PATHS:
-        phase_extra_vs_cpu(config, tag, classes)
-    # this slice's Cityscapes recipes: SGD steps (K5/K6 at ratios 2, 4 and
-    # 8 of the 512x1024 crop), 1024x2048 whole-mode serving, and the three
-    # headline models' fp32 logits and step against the CPU
+    # the Cityscapes recipes: SGD steps (K5/K6 at ratios 2, 4 and 8 of the
+    # 512x1024 crop) and 1024x2048 whole-mode serving
     from segdistill_tpu_torch import recipes
     from segdistill_tpu_torch.recipes import (cityscapes_recipe,
                                               drive_recipe, hrf_recipe)
@@ -3653,25 +4164,15 @@ def main():
     for recipe, tag, _, _, requests, vs_cpu in ZOO_PATHS:
         phase_serving_extra(cityscapes_recipe(recipe), tag, ZOO_CLASSES,
                             [ZOO_REQUEST_HW] * requests, vs_cpu=False)
-    for recipe, tag, _, _, _, vs_cpu in ZOO_PATHS:
-        if vs_cpu:
-            phase_extra_vs_cpu(cityscapes_recipe(recipe), tag, ZOO_CLASSES,
-                               hw=ZOO_VS_CPU_HW, logits=True,
-                               acc_share=CORRECT_TOL_SHARE,
-                               fp32_floor=FP32_FLOOR_FACTOR)
-    # this slice: the multi-teacher CGD steps (K1, K3/K4, K5/K6, K10/K11
-    # counted a step against the forwards each ran) and their fp32 steps
-    # against the CPU; the last A10 recipes' SGD steps (K5/K6 on the
-    # ResNeSt PSPNet's two heads and at 2 classes on the UNet heads, at
-    # ratios 1 and 2; Fast-SCNN and CGNet take no kernel), their serving
-    # (Cityscapes whole mode at 1024x2048; UNet slide windows on an HRF
-    # and a DRIVE image), every head's fp32 logits and the step against
-    # the CPU, and ResNeXt as a backbone alone
+    # the multi-teacher CGD steps (K1, K3/K4, K5/K6, K10/K11 counted a step
+    # against the forwards each ran); the last A10 recipes' SGD steps
+    # (K5/K6 on the ResNeSt PSPNet's two heads and at 2 classes on the UNet
+    # heads, at ratios 1 and 2; Fast-SCNN and CGNet take no kernel) and
+    # their serving (Cityscapes whole mode at 1024x2048; UNet slide windows
+    # on an HRF and a DRIVE image)
     mt_kernels = [k1, k3, k4, k5, k6, k10, k11]
     for name, tag in MT_PATHS:
         paths.append(phase_train_mt(mt_kernels, name, tag))
-    for name, tag in MT_PATHS:
-        phase_mt_vs_cpu(name, tag)
     for name, tag, classes, hw, batch, per_step in ZOO2_PATHS:
         paths.append(phase_train_extra(
             [k5, k6], recipes.recipe(name), tag, classes, hw, per_step,
@@ -3686,16 +4187,10 @@ def main():
     for name, tag, *_ in ZOO2_PATHS[4:]:
         phase_serving_slide(drive_recipe(f'{name}_drive'),
                             tag.replace('HRF', 'DRIVE'), [DRIVE_REQUEST_HW])
-    for name, tag, classes, *_ in ZOO2_PATHS:
-        phase_extra_vs_cpu(recipes.recipe(name), tag, classes,
-                           hw=ZOO2_VS_CPU_HW[classes], logits=True,
-                           acc_share=CORRECT_TOL_SHARE,
-                           fp32_floor=FP32_FLOOR_FACTOR)
-    # this slice: the attention-head recipes' SGD steps (K5/K6 at
-    # ATTN_CE_GEOMETRY alone, 4 a step for DANet's three CEs and the
-    # auxiliary head's, 2 for the others; EMANet's bases move and its
-    # frozen conv stays put), a 1024x2048 whole-mode request each, every
-    # head's fp32 logits against the CPU, and four fp32 steps against it
+    # the attention-head recipes' SGD steps (K5/K6 at ATTN_CE_GEOMETRY
+    # alone, 4 a step for DANet's three CEs and the auxiliary head's, 2 for
+    # the others; EMANet's bases move and its frozen conv stays put) and a
+    # 1024x2048 whole-mode request each
     attn_tags = []
     for name, tag, per_step, _ in ATTN_PATHS:
         paths.append(phase_train_extra(
@@ -3707,16 +4202,53 @@ def main():
     for name, tag, *_ in ATTN_PATHS:
         phase_serving_extra(recipes.recipe(name), tag, ZOO_CLASSES,
                             [ZOO_REQUEST_HW], vs_cpu=False)
-    for name, tag, _, step in ATTN_PATHS:
-        if step:
-            phase_extra_vs_cpu(recipes.recipe(name), tag, ZOO_CLASSES,
-                               hw=ZOO_VS_CPU_HW, logits=True,
+    # The fp32 steps against the CPU (the Tab5 pairs, where the PSP pair
+    # takes K3/K4 and K7/K8 at two sizes and Swin's last PatchMerging norm
+    # K10/K11 at C = 1536; the configs/extra models; the Cityscapes, MT,
+    # A10 and attention recipes, every head's fp32 logits first where
+    # named; ResNeXt as a backbone alone). They time nothing, so the checks
+    # that run in processes of their own and time nothing either run beside
+    # them, one after another: the exported programs' loader (110), the
+    # command lines under torchrun's variables (101) and the sharded
+    # evaluation (102)
+    want = _one_process_eval(cli_root)
+    with ThreadPoolExecutor(1) as pool:
+        beside = pool.submit(_untimed_processes, export_dir, programs,
+                             cli_root, cli_train, want)
+        tab5_vs_cpu = dict(batch=TAB5_VS_CPU_BATCH, hw=TAB5_VS_CPU_HW,
+                           float64_grads=True)
+        phase_train_vs_cpu(PSP_CGD, {}, 'psp_CGD', pair='PSPNet-R50 <- B3',
+                           no_drop=(NO_DROP,), **tab5_vs_cpu)
+        phase_train_vs_cpu(PSP_PD, {}, 'psp_PD', pair='PSPNet-R50 <- B3',
+                           no_drop=(NO_DROP,), **tab5_vs_cpu)
+        phase_train_vs_cpu(SWIN_CGD, {}, 'swin_CGD', pair='Swin-T <- B3',
+                           **tab5_vs_cpu)
+        for config, tag, classes, *_ in EXTRA_PATHS:
+            phase_extra_vs_cpu(config, tag, classes)
+        for recipe, tag, _, _, _, vs_cpu in ZOO_PATHS:
+            if vs_cpu:
+                phase_extra_vs_cpu(cityscapes_recipe(recipe), tag,
+                                   ZOO_CLASSES, hw=ZOO_VS_CPU_HW, logits=True,
+                                   acc_share=CORRECT_TOL_SHARE,
+                                   fp32_floor=FP32_FLOOR_FACTOR)
+        for name, tag in MT_PATHS:
+            phase_mt_vs_cpu(name, tag)
+        for name, tag, classes, *_ in ZOO2_PATHS:
+            phase_extra_vs_cpu(recipes.recipe(name), tag, classes,
+                               hw=ZOO2_VS_CPU_HW[classes], logits=True,
                                acc_share=CORRECT_TOL_SHARE,
-                               fp32_floor=FP32_FLOOR_FACTOR,
-                               prepare=_wake_attention)
-        else:
-            phase_attn_logits_vs_cpu(name, tag)
-    phase_resnext_vs_cpu()
+                               fp32_floor=FP32_FLOOR_FACTOR)
+        for name, tag, _, step in ATTN_PATHS:
+            if step:
+                phase_extra_vs_cpu(recipes.recipe(name), tag, ZOO_CLASSES,
+                                   hw=ZOO_VS_CPU_HW, logits=True,
+                                   acc_share=CORRECT_TOL_SHARE,
+                                   fp32_floor=FP32_FLOOR_FACTOR,
+                                   prepare=_wake_attention)
+            else:
+                phase_attn_logits_vs_cpu(name, tag)
+        phase_resnext_vs_cpu()
+        export_report = beside.result()
     # this slice: Pascal VOC 2012 + SBD and Pascal Context (107-109): the
     # voc_aug converter and the datasets on PNG files, the VOC12-aug recipe
     # on the command line (K5/K6 twice an iteration at 21 classes) with
@@ -3749,8 +4281,19 @@ def main():
     loaded = [m for m in ('cv2', 'PIL') if m in sys.modules]
     if loaded:
         raise AssertionError(f'the PNG data path imported {loaded}')
-    # this slice: the CGD step at two ranks sharing the card (gloo), each
-    # rank's launches counted in its own process and added here
+    # this slice: the tool twins, the miniature convergence run (its JPEG
+    # images go through OpenCV: after the PNG check above) and the serving
+    # export's requests (K1, K10 and, with fused_attention, K2 as custom
+    # operators of the saved programs) against eager
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tools(Path(tmp), card)
+    conv_launches, conv_times = phase_convergence(
+        [k1, k3, k4, k5, k6, k10, k11])
+    paths.extend(phase_export(export_dir, programs, export_report,
+                              [k1, k2, k10]))
+    paths.extend(conv_launches.values())
+    # the CGD step at two ranks sharing the card (gloo), each rank's
+    # launches counted in its own process and added here
     paths.append(phase_dist_train(cgd_kernels, cgd_ms))
     _check_ln_tickets('after the train steps')
     _check_fwd_tickets('after the train steps')
@@ -3866,6 +4409,27 @@ def main():
                 'bound_ms': bound[0], 'bound_by': bound[1],
                 'library_ms': None, 'fp32_ms': fp32[2 * i],
                 'fp32_plain_ms': fp32[2 * i + 1]})
+    # K3/K4 and K5/K6 at the convergence run's shape (fp32, device time),
+    # with the launches its two runs made there (K3/K4: the CGD run)
+    for k, case, runs in ((k3, _cases().CONVERGENCE_GKL, ('cgd',)),
+                          (k4, _cases().CONVERGENCE_GKL, ('cgd',)),
+                          (k5, _cases().CONVERGENCE_CE, ('baseline', 'cgd')),
+                          (k6, _cases().CONVERGENCE_CE,
+                           ('baseline', 'cgd'))):
+        name, shape, out_hw = case[:3]
+        bounds = _cases().kl_bounds(shape, out_hw, torch.float32, 0) \
+            if k in (k3, k4) else _cases().seg_ce_bounds(shape, out_hw,
+                                                         torch.float32)
+        bound = bounds[0 if k in (k3, k5) else 1]
+        ms, plain_ms = conv_times[k.name]
+        entries.append({
+            'name': f'{k.name} {shape} -> {out_hw[0]}x{out_hw[1]} fp32',
+            'route': 'cuda', 'source': str(k.source.relative_to(ROOT)),
+            'replaces': k.replaces,
+            'launches': sum(conv_launches[r][k.name] for r in runs),
+            'max_abs_err': results[k.name][(name, torch.float32)][0],
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound[0],
+            'bound_by': bound[1], 'library_ms': None})
     log('launches per path: ' + json.dumps(
         dict(zip(('serving', 'CGD', 'PD', 'command line',
                   'command line, native and device loaders',
@@ -3877,6 +4441,11 @@ def main():
                  + tuple(tag for _, tag, *_ in ZOO2_PATHS)
                  + tuple(attn_tags)
                  + ('VOC12-aug command line', voc_tag, ctx_tag)
+                 + ('export, eager, plain', 'export, eager, fused')
+                 + tuple(f'export, loaded .pt2, {tag}, '
+                         f'{"logits" if logits else "labels"}'
+                         for tag, _, logits in EXPORT_PROGRAMS)
+                 + ('convergence baseline', 'convergence CGD')
                  + ('CGD, two ranks on one card',),
                  paths))))
     print(json.dumps({'kernels': entries}))

@@ -9,10 +9,21 @@ package: the config system, the registry and the configs' model recipes
 (``config.py``, ``registry.py``, ``zoo.py``) are its own copies.
 """
 
-from .config import Config, DictAction
-from .registry import Registry, build_from_cfg
+import importlib
 
 __version__ = '0.1.0'
+
+# imported at first use, so that ``import segdistill_tpu_torch.ops`` (all a
+# process needs to run an exported program) loads the kernels alone
+_LAZY = {'Config': 'config', 'DictAction': 'config', 'Registry': 'registry',
+         'build_from_cfg': 'registry'}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f'.{_LAZY[name]}', __name__),
+                       name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 __all__ = ['Config', 'DictAction', 'Registry', 'build_from_cfg',
            '__version__']

@@ -51,6 +51,34 @@ def _fit_swin(state, own):
     return out
 
 
+def _reference_state(model, path):
+    """The file's state dict (a state dict, or a dict holding one under
+    'state_dict') without DDP's ``module.`` prefixes, and without the
+    reference BaseDecodeHead's ``conv_seg`` classifier where the model has
+    none."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    state = ckpt.get('state_dict', ckpt)
+    state = {k[len('module.'):] if k.startswith('module.') else k: v
+             for k, v in state.items()}
+    own = model.state_dict()
+    return {k: v for k, v in state.items()
+            if k in own or not k.startswith('decode_head.conv_seg.')}
+
+
+def match_checkpoint(model, path):
+    """-> (matched, missing, unexpected) of a reference-layout ``.pth`` for
+    ``model``, as :func:`load_checkpoint` takes it with ``strict=False``:
+    ``matched`` the tensors the model takes (Swin's fitted,
+    :func:`_fit_swin`), by name; ``missing`` the model's keys the file does
+    not fill; ``unexpected`` the file's keys the model does not take."""
+    own = model.state_dict()
+    state = _fit_swin(_reference_state(model, path), own)
+    matched = {k: v for k, v in state.items()
+               if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    return (matched, [k for k in own if k not in matched],
+            [k for k in state if k not in matched])
+
+
 def load_checkpoint(model, path, strict=True):
     """Load a reference-layout ``.pth`` (a state dict, or a dict holding
     one under 'state_dict'), strictly by default. With ``strict=False``,
@@ -58,29 +86,20 @@ def load_checkpoint(model, path, strict=True):
     fitted to the model (:func:`_fit_swin`: a bias table of another window
     size resized), then a key the model lacks or whose shape differs is
     skipped and a key the file lacks keeps its value; the counts are
-    logged.
+    logged (:func:`match_checkpoint`).
 
     The reference BaseDecodeHead always builds a ``conv_seg`` classifier,
     which SegFormerHead never runs; published SegFormer checkpoints carry
     it and this port does not, so those keys are dropped first.
     """
-    ckpt = torch.load(path, map_location='cpu', weights_only=True)
-    state = ckpt.get('state_dict', ckpt)
-    state = {k[len('module.'):] if k.startswith('module.') else k: v
-             for k, v in state.items()}
-    own = model.state_dict()
-    state = {k: v for k, v in state.items()
-             if k in own or not k.startswith('decode_head.conv_seg.')}
-    if not strict:
-        state = _fit_swin(state, own)
-        take = {k: v for k, v in state.items()
-                if k in own and tuple(v.shape) == tuple(own[k].shape)}
-        get_root_logger().info(
-            f'loaded {path}: {len(take)} tensors matched, '
-            f'{len(own) - len(take)} missing, '
-            f'{len(state) - len(take)} unexpected')
-        state = take
-    model.load_state_dict(state, strict=strict)
+    if strict:
+        model.load_state_dict(_reference_state(model, path), strict=True)
+        return model
+    matched, missing, unexpected = match_checkpoint(model, path)
+    get_root_logger().info(
+        f'loaded {path}: {len(matched)} tensors matched, {len(missing)} '
+        f'missing, {len(unexpected)} unexpected')
+    model.load_state_dict(matched, strict=False)
     return model
 
 

@@ -7,6 +7,13 @@ under ``build/segdistill_tpu_torch/`` at the root of the checkout, named by
 a hash of its source and the shared headers, and loaded with ``ctypes``.
 Importing this module, or a module that declares a kernel, builds nothing
 and needs no ``nvcc``: the CPU tests import every module.
+
+The serving kernels (K1, K2's forward, K10) are also custom operators of
+``torch.library`` in the :data:`OP_NAMESPACE` namespace
+(:func:`custom_op`): the dispatcher picks the plain version for a CPU
+tensor and the launch for a CUDA one, and a fake implementation gives the
+output's shape, dtype and strides, so ``torch.export`` keeps each call as
+one node of the exported graph.
 """
 
 import contextlib
@@ -26,8 +33,12 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / \
     'segdistill_tpu_torch'
+# -split-compile=0: the device code optimised in parallel on every core,
+# which shortens the build of a source of many template instances (K1's
+# 16); each kernel gets the same registers
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
+              '-split-compile=0')
 
 # the kernels take float32 and bfloat16; code passed to the C interface
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +97,30 @@ def ticket(device, needed=True):
     except BaseException:
         TICKETS.pop(key, None)
         raise
+
+
+OP_NAMESPACE = 'segdistill'
+# the operators' registrations live as long as this object
+LIBRARY = torch.library.Library(OP_NAMESPACE, 'DEF')
+
+
+def custom_op(schema, plain, launch, fake):
+    """Define ``segdistill::<schema>``: ``plain`` its CPU kernel, ``launch``
+    its CUDA kernel, ``fake`` its implementation for tracing (shapes,
+    dtypes and strides only: no ``data_ptr``, no launch). No other device
+    and no autograd formula: the wrappers call the operator where no
+    input needs a gradient and the call is traced or on a CPU tensor.
+    Defined through ``torch.library.Library`` rather than
+    ``torch.library.custom_op``, whose Python autograd layer adds host
+    time to every call.
+    -> the operator's default overload."""
+    name = schema.split('(')[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, plain, 'CPU')
+    LIBRARY.impl(name, launch, 'CUDA')
+    torch.library.register_fake(f'{OP_NAMESPACE}::{name}', fake,
+                                lib=LIBRARY)
+    return getattr(getattr(torch.ops, OP_NAMESPACE), name).default
 
 
 def nvcc_path():

@@ -15,13 +15,21 @@ sums the group's partials, and the last of those the groups' sums, each in
 a fixed order (bitwise reproducible; no atomics on a gradient). The TPU kernel's gates (row tiles, ``C <= 64``) are not carried
 over: any row count, any ``C`` that is a multiple of 8 up to :data:`MAX_C`.
 
-:func:`fused_layer_norm` is a ``torch.autograd.Function`` on every device:
-on a CPU tensor the forward is :func:`layer_norm_plain` and the backward its
-autograd gradient; on a CUDA tensor the forward launches K10 and the
-backward K11, or they raise. The forward hands the backward what it checked
-(row stride, row count, dtype code), so the backward validates only the
-incoming gradient; a parameter that needs no gradient gets ``None`` and,
-where neither does, the kernel skips their sums.
+The forward is also the custom operator ``segdistill::layer_norm``
+(:data:`LAYER_NORM`): the dispatcher runs :func:`layer_norm_plain` on a CPU
+tensor and launches K10 (or raises) on a CUDA tensor, and ``torch.export``
+keeps the call as one node. :func:`fused_layer_norm` calls it where no input
+needs a gradient and the call is traced or on a CPU tensor; an eager call on
+a CUDA tensor launches K10 directly, since the dispatcher's host time
+showed in the train steps (a frozen teacher's calls). Where an input needs a
+gradient it is a ``torch.autograd.Function`` whose forward runs
+:func:`layer_norm_plain` on a CPU tensor and launches K10 on a CUDA tensor
+(no program holds a gradient), and whose backward is the plain version's
+autograd gradient on a CPU tensor and K11 on a CUDA tensor. The forward
+hands the backward what it checked (row stride, row count, dtype code), so
+the backward validates only the incoming gradient; a parameter that needs
+no gradient gets ``None`` and, where neither does, the kernel skips their
+sums.
 """
 
 import ctypes
@@ -29,7 +37,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from .cuda_kernel import DTYPE_CODES, CudaKernel, device_sm_count, sm_count
+from .cuda_kernel import (DTYPE_CODES, CudaKernel, custom_op, device_sm_count,
+                          sm_count)
 from .ln_plan import forward_plan
 
 _P = ctypes.c_void_p
@@ -172,6 +181,22 @@ def _launch_fwd(x, weight, bias, eps):
     return y, xrows, (stride, rows, C, code, x.shape)
 
 
+def _plain(x, weight, bias, eps):
+    return layer_norm_plain(x, weight, bias, eps).contiguous()
+
+
+def _launch(x, weight, bias, eps):
+    return _launch_fwd(x, weight, bias, eps)[0]
+
+
+def _fake(x, weight, bias, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+LAYER_NORM = custom_op('layer_norm(Tensor x, Tensor weight, Tensor bias, '
+                       'float eps) -> Tensor', _plain, _launch, _fake)
+
+
 # K11's scratch memory: for each (device index, stream, C, capacity) one
 # float32 tensor of ``capacity * 2 * C`` partials, the groups' sums and the
 # ticket counters behind them (:func:`workspace_floats`), zeroed when it is
@@ -310,15 +335,18 @@ def fused_layer_norm(x, weight, bias, eps=1e-6):
     whose leading axes do not fold (``x[:, 1:]``) by the forward's
     ``reshape``, and the backward reads that copy; such an incoming
     gradient is copied in the backward."""
-    if x.is_cuda:
-        if x.stride(-1) != 1:
-            x = x.contiguous()
-        if not (torch.is_grad_enabled() and (
-                x.requires_grad or weight.requires_grad
-                or bias.requires_grad)):
-            # nothing to differentiate (a frozen teacher, serving): the
-            # same launch without the autograd node
-            return _launch_fwd(x, weight, bias, float(eps))[0]
-    elif x.device.type != 'cpu':
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'fused_layer_norm: unsupported device {x.device}')
+    if x.is_cuda and x.stride(-1) != 1:
+        x = x.contiguous()
+    if not (torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad or bias.requires_grad)):
+        # nothing to differentiate (a frozen teacher, serving)
+        if x.is_cuda and not torch.compiler.is_compiling():
+            # eager on the card: the launch without the dispatcher (a CGD
+            # step's frozen teacher makes 89 of these calls)
+            return _launch_fwd(x, weight, bias, float(eps))[0]
+        # traced, or on a CPU tensor: the operator (one node of an
+        # exported program)
+        return LAYER_NORM(x, weight, bias, float(eps))
     return _LayerNorm.apply(x, weight, bias, float(eps))

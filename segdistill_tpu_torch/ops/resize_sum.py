@@ -12,11 +12,18 @@ head, batch 8, bf16; 201 MB at the B3 teacher's E = 768). It takes any
 ratio, integer or not; the TPU kernel's eligibility gate is not carried
 over.
 
-:func:`fused_resize_sum` is a ``torch.autograd.Function`` on every device:
-its forward runs :func:`resize_sum_plain` on a CPU tensor and launches the
-kernel (or raises) on a CUDA tensor; its backward is the adjoint of the
-plain version, torch's bilinear-upsample backward for each part, as the
-JAX kernel's VJP takes XLA's resize adjoint (``resize_sum.py:255-267``).
+The forward is also the custom operator ``segdistill::resize_sum``
+(:data:`RESIZE_SUM`): the dispatcher runs :func:`resize_sum_plain` on a CPU
+tensor and launches the kernel (or raises) on a CUDA tensor, and
+``torch.export`` keeps the call as one node. :func:`fused_resize_sum` calls
+it where no part needs a gradient and the call is traced or on a CPU
+tensor; an eager call on a CUDA tensor launches directly, as K10's do
+(``ops/layer_norm.py``). Where a part needs a gradient it is a
+``torch.autograd.Function`` whose forward runs the plain version on a CPU
+tensor and launches the kernel on a CUDA tensor, and whose backward is the
+adjoint of the plain version, torch's bilinear-upsample backward for each
+part, as the JAX kernel's VJP takes XLA's resize adjoint
+(``resize_sum.py:255-267``).
 """
 
 import ctypes
@@ -24,7 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernel import CudaKernel, check_cuda_inputs
+from .cuda_kernel import CudaKernel, check_cuda_inputs, custom_op
 
 MAX_PARTS = 8
 
@@ -69,25 +76,41 @@ def _check(parts, out_hw):
     return B, H, W, C
 
 
-def _launch(parts, B, H, W, C):
+def _launch(parts, out_h, out_w):
+    """The operator's CUDA implementation: K1 into a fresh (B, H, W, C)
+    tensor, after the checks that read the parts' dtype and addresses."""
     dtype_code = check_cuda_inputs('fused_resize_sum', parts)
-    if B > 65535 or H > 65535:
-        raise ValueError(f'fused_resize_sum: batch {B} and height {H} must '
-                         f'be <= 65535 (grid dims)')
+    B, C = parts[0].shape[0], parts[0].shape[3]
+    if B > 65535 or out_h > 65535:
+        raise ValueError(f'fused_resize_sum: batch {B} and height {out_h} '
+                         f'must be <= 65535 (grid dims)')
     vec = 16 // parts[0].element_size()
     if C % vec or any(p.data_ptr() % 16 for p in parts):
         raise ValueError(f'fused_resize_sum: the CUDA kernel moves 16-byte '
                          f'channel vectors, so C must be a multiple of {vec} '
                          f'and every part 16-byte aligned, got C={C}')
-    out = torch.empty((B, H, W, C), dtype=parts[0].dtype,
+    out = torch.empty((B, out_h, out_w, C), dtype=parts[0].dtype,
                       device=parts[0].device)
     n = len(parts)
     ptrs = (ctypes.c_void_p * n)(*[p.data_ptr() for p in parts])
     hs = (ctypes.c_int * n)(*[p.shape[1] for p in parts])
     ws = (ctypes.c_int * n)(*[p.shape[2] for p in parts])
-    KERNEL.launch(out.device, ptrs, hs, ws, n, out.data_ptr(), B, H, W, C,
-                  dtype_code, vec)
+    KERNEL.launch(out.device, ptrs, hs, ws, n, out.data_ptr(), B, out_h,
+                  out_w, C, dtype_code, vec)
     return out
+
+
+def _plain(parts, out_h, out_w):
+    return resize_sum_plain(parts, (out_h, out_w))
+
+
+def _fake(parts, out_h, out_w):
+    p = parts[0]
+    return p.new_empty((p.shape[0], out_h, out_w, p.shape[3]))
+
+
+RESIZE_SUM = custom_op('resize_sum(Tensor[] parts, int out_h, int out_w) '
+                       '-> Tensor', _plain, _launch, _fake)
 
 
 class _ResizeSum(torch.autograd.Function):
@@ -98,8 +121,7 @@ class _ResizeSum(torch.autograd.Function):
         ctx.parts = [(tuple(p.shape), p.dtype) for p in parts]
         if parts[0].device.type == 'cpu':
             return resize_sum_plain(parts, out_hw)
-        B, H, W, C = parts[0].shape[0], *out_hw, parts[0].shape[3]
-        return _launch(parts, B, H, W, C)
+        return _launch(parts, *out_hw)
 
     @staticmethod
     def backward(ctx, grad):
@@ -123,4 +145,13 @@ def fused_resize_sum(parts, out_hw):
     if parts[0].device.type not in ('cpu', 'cuda'):
         raise ValueError(f'fused_resize_sum: unsupported device '
                          f'{parts[0].device}')
+    if not (torch.is_grad_enabled() and any(p.requires_grad
+                                            for p in parts)):
+        # nothing to differentiate (serving, a frozen teacher)
+        if parts[0].is_cuda and not torch.compiler.is_compiling():
+            # eager on the card: the launch without the dispatcher
+            return _launch(parts, H, W)
+        # traced, or on a CPU tensor: the operator (one node of an
+        # exported program)
+        return RESIZE_SUM(list(parts), H, W)
     return _ResizeSum.apply((H, W), *parts)

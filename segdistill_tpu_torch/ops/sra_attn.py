@@ -24,18 +24,26 @@ kernel variant, tiles, key chunks, splits and shared memory a shape gets.
 The TPU gate (N % 128, M <= 2048) is not carried over: the kernels take
 d <= 128 with d % 8 == 0.
 
-On a CPU tensor :func:`fused_sra_attention` runs :func:`sra_attention_plain`
-and :func:`sra_attention_train` also its gradient (autograd for fp32,
-:func:`sra_attention_backward_plain` for bf16); on a CUDA tensor they
-launch the kernels or raise.
+K2's forward is also the custom operator ``segdistill::sra_attention``
+(:data:`SRA_ATTENTION`): the dispatcher runs :func:`sra_attention_plain` on
+a CPU tensor and launches K2 (or raises) on a CUDA tensor, and
+``torch.export`` keeps the call as one node; both give the output in
+(B, N, h, d) memory. :func:`fused_sra_attention` calls it where the call is
+traced or on a CPU tensor; an eager call on a CUDA tensor launches K2
+directly, as K10's do (``ops/layer_norm.py``). :func:`sra_attention_train` runs the plain
+version and its gradient on a CPU tensor (autograd for fp32,
+:func:`sra_attention_backward_plain` for bf16) and on a CUDA tensor K2
+keeping each row's log-sum-exp, then K9, or raises: that forward's extra
+outputs are training state, which no exported program holds.
 """
 
 import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .cuda_kernel import CudaKernel, check_cuda_inputs
+from .cuda_kernel import CudaKernel, check_cuda_inputs, custom_op
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -189,11 +197,11 @@ def _strides(*tensors):
 
 
 def _heads_last(shape, dtype, device):
-    """(B, h, n, d) view of (B, n, h, d) memory: merging the heads back
-    into (B, n, h*d) needs no copy."""
+    """A (B, h, n, d) tensor laid out as (B, n, h, d) memory: merging the
+    heads back into (B, n, h*d) needs no copy."""
     B, h, n, d = shape
-    return torch.empty((B, n, h, d), dtype=dtype,
-                       device=device).transpose(1, 2)
+    return torch.empty_strided(shape, (n * h * d, d, h * d, 1), dtype=dtype,
+                               device=device)
 
 
 def _ptr(t):
@@ -268,14 +276,42 @@ def fused_sra_attention(q, k, v, scale):
     only: the output carries no gradient on CUDA.
 
     q (B, h, N, d); k, v (B, h, M, d) -> (B, h, N, d) in q's dtype. Inputs
-    may be strided views whose last dim is contiguous. On CUDA the result
-    is a view of (B, N, h, d) memory, so merging the heads back into
-    (B, N, h*d) needs no copy.
+    may be strided views whose last dim is contiguous. The result lies in
+    (B, N, h, d) memory, so merging the heads back into (B, N, h*d) needs
+    no copy.
     """
     _check(q, k, v)
-    if q.device.type == 'cpu':
-        return sra_attention_plain(q, k, v, scale)
+    if q.is_cuda and not torch.compiler.is_compiling():
+        # eager on the card: the launch without the dispatcher
+        return _launch_fwd(q, k, v, scale)[0]
+    # traced, or on a CPU tensor: the operator (one node of an exported
+    # program)
+    return SRA_ATTENTION(q, k, v, float(scale))
+
+
+def _plain(q, k, v, scale):
+    out = _heads_last(q.shape, q.dtype, q.device)
+    return out.copy_(sra_attention_plain(q, k, v, scale))
+
+
+def _launch(q, k, v, scale):
     return _launch_fwd(q, k, v, scale)[0]
+
+
+def _fake(q, k, v, scale):
+    return _heads_last(q.shape, q.dtype, q.device)
+
+
+SRA_ATTENTION = custom_op('sra_attention(Tensor q, Tensor k, Tensor v, '
+                          'float scale) -> Tensor', _plain, _launch, _fake)
+
+
+@register_flop_formula(torch.ops.segdistill.sra_attention)
+def _flops(q_shape, k_shape, v_shape, *args, **kwargs):
+    """What ``FlopCounterMode`` counts for the two products the unfused
+    attention runs: q k^T and P v, 2 * B * h * N * M * d each."""
+    B, h, N, d = q_shape
+    return 4 * B * h * N * k_shape[2] * d
 
 
 class _SRATrain(torch.autograd.Function):

@@ -75,6 +75,14 @@ LN_CASES = [(name, rows, c) for name, rows, c, _, _ in
     ('odd rows', 1001, 160), ('few rows', 10, 32)] + [
     (name, rows, c) for name, rows, c, _, _, _ in LN_WIDE_CASES]
 
+# The miniature convergence run's SegFormer head (``tools/convergence.py``,
+# fp32): 4 classes at stride 4 of 64 x 64 crops, batch 4, its CE and (on
+# the CGD run) the group-KL over groups of 2, channels permuted; entries of
+# SEG_CE_CASES and GROUP_KL_CASES below.
+CONVERGENCE_CE = ('convergence C4', (4, 4, 16, 16), (64, 64), 0.05, 16)
+CONVERGENCE_GKL = ('convergence C4 g2', (4, 4, 16, 16), (64, 64), 2, True,
+                   16)
+
 # (name, logits' shape, labels' size, share of labels ignored, the edge of
 # the source tile K6 must plan there: 0 is the gather variant). Each of
 # K6's variants at least twice, once with tiles cut by the map's edge.
@@ -100,7 +108,8 @@ SEG_CE_CASES = [
     ('HRF b4 ratio 1', (4, 2, 256, 256), (256, 256), 0.05, 16),
     ('HRF b4 ratio 2', (4, 2, 128, 128), (256, 256), 0.05, 16),
     ('VOC b4', (4, 21, 64, 64), (512, 512), 0.05, 8),
-    ('Context b4', (4, 60, 60, 60), (480, 480), 0.05, 8)]
+    ('Context b4', (4, 60, 60, 60), (480, 480), 0.05, 8),
+    CONVERGENCE_CE]
 # The train paths' head CEs on the SGD recipes, bf16 at the configs' batch
 # of 2 (name, the SEG_CE_CASES entry, K5 and K6 launches a step at it): the
 # Cityscapes PSPNet's decode and FCN auxiliary heads at 19 classes, stride
@@ -153,7 +162,8 @@ GROUP_KL_CASES = [
     ('ratio 32', (1, 19, 8, 8), (256, 256), 10, True, 4),
     ('ratio 30, odd', (2, 19, 10, 9), (300, 270), 10, False, 4),
     ('ratio 40 (gather)', (1, 19, 8, 8), (320, 320), 10, True, 0),
-    ('ratio ~50, odd (gather)', (2, 7, 6, 5), (300, 250), 3, True, 0)]
+    ('ratio ~50, odd (gather)', (2, 7, 6, 5), (300, 250), 3, True, 0),
+    CONVERGENCE_GKL]
 
 # A student and a teacher of different sizes: (name, the student's maps'
 # shape, the teacher's (h, w), output size, group size, channels permuted).

@@ -11,6 +11,7 @@ backbone, its optimizer):
         [--hw 512 1024]
         [--cfg-options model.cfg_s.backbone.fused_attention=train ...]
         [--ab model.cfg_s.backbone.fused_attention=False --pairs 5]
+        [--trace-dir DIR]
 
 1. The step's phases by CUDA events, ms per step: student forward with
    the head CE, teacher forward, distillation loss, backward, AdamW (a
@@ -28,6 +29,14 @@ backbone, its optimizer):
    the order A B B A: ms per step of each round on the host clock, and
    each arm's median and peak memory.
 
+The profiled steps of 2. (and of 3.) are also written as a Chrome trace
+(``torch.profiler``'s ``export_chrome_trace``) to ``--trace-dir`` (by
+default ``segdistill_trace`` in the temporary directory):
+``train_step.json`` (``train_step_ab.json``); chrome://tracing or Perfetto
+read them. This is the trace half of the JAX package's
+``tools/profile_step.py``, whose ``--bench`` workload is this tool's
+default and whose ``--report`` tables are 2.
+
 ``--recipe`` names a recipe of ``recipes.py`` in place of ``--config``: a
 model fragment composed with the Cityscapes, HRF or DRIVE bases in memory
 (e.g. ``ocrnet_hr18``, ``pspnet_s101-d8 --batch 2 --hw 512 1024``,
@@ -44,8 +53,10 @@ else strings. The first line is the card's name and power limit.
 
 import argparse
 import ast
+import os
 import re
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -217,7 +228,9 @@ def _union_ms(events):
     return total / 1e3
 
 
-def profile_steps(state, train_step, img, gt, steps, top=20):
+def profile_steps(state, train_step, img, gt, steps, top=20, trace=None):
+    """Print the profile of ``steps`` steps; write them as a Chrome trace
+    to the file ``trace`` where given."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -225,6 +238,9 @@ def profile_steps(state, train_step, img, gt, steps, top=20):
             train_step(state, img, gt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    if trace is not None:
+        prof.export_chrome_trace(trace)
+        print(f'  trace written to {trace}')
     # kernels only: a GPU user annotation (Optimizer.step's range) spans
     # kernels that are counted on their own
     events = [e for e in prof.events()
@@ -312,7 +328,7 @@ def _option(text):
         return key, value
 
 
-def main():
+def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--steps', type=int, default=5)
     parser.add_argument('--config', default=str(CONFIG))
@@ -327,7 +343,10 @@ def main():
                              'configs train 2)')
     parser.add_argument('--hw', type=int, nargs=2, default=(512, 512),
                         help='the crop (the Cityscapes config: 512 1024)')
-    args = parser.parse_args()
+    parser.add_argument('--trace-dir', default=os.path.join(
+        tempfile.gettempdir(), 'segdistill_trace'),
+                        help="where the profiled steps' Chrome traces go")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train needs a CUDA device')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -357,7 +376,9 @@ def main():
           f'{args.steps} steps)')
     phase_times(model, state.optimizer, img, gt, args.steps)
     print(f'== 2. torch.profiler over {args.steps} train steps')
-    profile_steps(state, train_step, img, gt, args.steps)
+    os.makedirs(args.trace_dir, exist_ok=True)
+    profile_steps(state, train_step, img, gt, args.steps,
+                  trace=os.path.join(args.trace_dir, 'train_step.json'))
     if args.ab:
         key, value = _option(args.ab)
         other = init_segmentor_state(config, seed=0, device='cuda',
@@ -368,7 +389,9 @@ def main():
             other_step(other_state, img, gt)
         print(f'== 3. with {key}={value!r}: torch.profiler over '
               f'{args.steps} train steps')
-        profile_steps(other_state, other_step, img, gt, args.steps, top=8)
+        profile_steps(other_state, other_step, img, gt, args.steps, top=8,
+                      trace=os.path.join(args.trace_dir,
+                                         'train_step_ab.json'))
         print(f'   A/B, {args.pairs} rounds of A B B A, {args.steps} steps '
               f'each (host clock)')
         ab_steps({'as configured': (state, train_step),

@@ -974,3 +974,36 @@ def test_pd_train_step_cuda_matches_cpu(cuda):
     for k in lc:
         assert lg[k] == pytest.approx(lc[k], rel=1e-5, abs=1e-5), k
     assert ((gg - gc).norm() / gc.norm()).item() <= 1e-4
+
+
+@pytest.mark.parametrize('fused', [False, True], ids=['plain', 'fused'])
+def test_exported_program_on_the_card(cuda, fused, tmp_path):
+    """A MiT-b0 + SegFormerHead (19 classes) exported on the card through
+    ``tools.export``, saved and loaded, gives eager ``encode_decode``'s
+    labels, and runs K1, K10 (and, with ``fused_attention``, K2) as many
+    times as the eager forward."""
+    from segdistill_tpu_torch.models import build_segmentor
+    from segdistill_tpu_torch.tools.export import export_model
+    from segdistill_tpu_torch.zoo import segformer
+    cfg = segformer('b0', num_classes=19, embed_dim=64)
+    cfg['backbone']['fused_attention'] = fused
+    model = build_segmentor(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    img = torch.randn(1, 3, 128, 160, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+    kernels = (resize_sum.KERNEL, layer_norm.FWD_KERNEL, sra_attn.KERNEL)
+    runs = []
+    path = tmp_path / 'model.pt2'
+    torch.export.save(export_model(model, tuple(img.shape)), path)
+    loaded = torch.export.load(path).module()
+    for fn in (lambda x: model.encode_decode(x).argmax(dim=1), loaded):
+        before = [k.launches for k in kernels]
+        with torch.no_grad():
+            out = fn(img)
+        torch.cuda.synchronize()
+        runs.append((out.long(), [k.launches - b
+                                  for k, b in zip(kernels, before)]))
+    (want, eager), (got, program) = runs
+    assert torch.equal(got, want)
+    assert eager == program == [1, 30, 8 if fused else 0]

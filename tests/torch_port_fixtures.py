@@ -43,6 +43,15 @@ def segformer_cfg(fused_attention=False, gelu_approximate=True,
         test_cfg=copy.deepcopy(test_cfg) or dict(mode='whole'))
 
 
+def narrow_segformer_cfg(fused_attention=False):
+    """MiT-b0 + SegFormerHead with head embed 32 and 4 classes, dropout 0
+    (the export and tool tests' model)."""
+    cfg = segformer_cfg(fused_attention=fused_attention, dropout_ratio=0.0)
+    cfg['decode_head'].update(num_classes=4, channels=32,
+                              decoder_params=dict(embed_dim=32))
+    return cfg
+
+
 def pipeline_cfg(img_scale=(96, 64), img_ratios=None, flip=False):
     return [
         dict(type='LoadImageFromFile'),
