@@ -206,6 +206,34 @@ iteration at (4, 4, 16, 16) -> 64x64 and nowhere else, K3/K4 once a CGD
 iteration; K3-K6's fp32 device times at that shape (phases 5 and 6 check
 them there).
 
+Then this slice, steps per dispatch (``engine/cuda_graph.py``): (113,
+114) the CGD and PD steps of (10) and (12) with the optimizer in its
+capturable form, steps 998-1001 (CGD's shuffle draws its permutation at
+1000, a graph of its own) run eagerly twice and as a chunk of 4 replays
+of the step's CUDA graph twice, each from one snapshot (cuDNN
+deterministic): every parameter, buffer and optimizer tensor and the last
+step's log vars bitwise equal across all four, or the operations PyTorch
+names nondeterministic and the replays within (11)'s limits; a
+``torch.profiler`` trace of the eager steps (each kernel's CUDA function
+counted as often as its wrapper counted launches) and of the chunk (each
+at the eager count, no kernel the eager steps do not launch but the
+graph's copy and fill nodes); capture seconds, the graphs' pool, peak
+memory, and the eager step against the chunk in 3 rounds in turns (ms a
+step by host clock and CUDA events, device-busy ms from each trace's
+kernel union); with CGD, a graph of three K10 launches, whose
+programmatic edges (K10's dependent launch kept in a graph) the CUDA
+runtime counts, and a checkpoint saved and loaded between a single step
+and a chunk against the same steps straight on (bitwise, the learning
+rates float64 scalars on the card); (115) ``tools.train`` on phase 14's
+dataset with ``runner.steps_per_dispatch=4`` over 10 iterations,
+evaluations and checkpoints every 5: the JAX runner's cadence (logs at 4,
+8, 9, 10, evaluations and checkpoints at 8 and 10), the losses within the resume
+limit of phase 14's k = 1 run, ``tools.test`` reproducing the last
+evaluation; (116) psp_CGD, swin_CGD and the MT random ensemble (batch 2)
+under capture against eager (any error fails), and a configs/extra SGD
+model, whose optimizer must be refused. The kernels line says for each
+kernel how often a replay of each graph launched it.
+
 The order differs from the numbering: the export traces while the kernels
 build; the timed phases of the later slices run first, and their fp32
 steps against the CPU, which time nothing, in one block after them; the
@@ -232,6 +260,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3886,26 +3915,55 @@ def phase_tools(root, card):
         raise AssertionError('the trace holds no kernel of the card')
 
 
+# sessions of torch.profiler before a measurement takes the profiler as
+# having seen nothing: CUPTI has returned a trace with no device event at
+# all on the H100 (once, in a run whose other traces were whole)
+PROFILE_SESSIONS = 3
+
+
+def _device_events(fn, calls=1, prepare=None):
+    """-> the CUDA events (kernels, copies, fills) of ``calls`` calls of
+    ``fn`` under torch.profiler; a session whose trace holds no device
+    event at all is logged and made again, up to PROFILE_SESSIONS, each
+    after ``prepare()`` where given; [] where none saw one."""
+    from torch.profiler import ProfilerActivity, profile
+    for session in range(PROFILE_SESSIONS):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation]
+        if events:
+            return events
+        log(f'torch.profiler saw no kernel on the card (session '
+            f'{session + 1} of {PROFILE_SESSIONS})')
+    return []
+
+
 def _profiled_ms(fn, calls=20):
     """Device milliseconds of one call of ``fn``: the durations of the
     kernels it launches (torch.profiler, CUPTI), summed over ``calls``
     calls after one untimed, divided by the calls: no host time and no gap
     between kernels (at these sizes a launch's host time is many times a
-    kernel's, and the queued-stream timing scatters)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernel's, and the queued-stream timing scatters). Where the profiler
+    sees no kernel in any session, CUDA events around the calls queued
+    behind a held stream (``utils.timing.device_ms``, gaps included), and
+    the log says so."""
+    from segdistill_tpu_torch.utils.timing import device_ms
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
-    if not events:
-        raise AssertionError('torch.profiler saw no kernel on the card')
-    return sum(e.device_time for e in events) / calls / 1e3
+    events = _device_events(fn, calls)
+    if events:
+        return sum(e.device_time for e in events) / calls / 1e3
+    ms = device_ms(fn, calls=calls)
+    log(f'timed with CUDA events on a held stream instead: {ms:.4f} ms')
+    return ms
 
 
 def phase_convergence(path_kernels):
@@ -4020,6 +4078,564 @@ def _convergence_kernel_times():
     return times
 
 
+# this slice: steps per dispatch (113-115). The CGD and PD steps at full
+# width, captured in CUDA graphs and replayed in chunks of DISPATCH_K, against
+# the same steps run eagerly from the same snapshot
+DISPATCH_K = 4
+# the chunk's steps: 998-1001, so that CGD's channel shuffle draws its
+# permutation at 1000 (a graph of its own) among steps of the identity
+DISPATCH_START = 997
+DISPATCH_ROUNDS = 3
+# each kernel's CUDA function in a profiler trace, one a wrapper's launch
+# (K3 also launches gkl_finalize or the forward tile, K9 sra_bwd_reduce)
+KERNEL_TRACE = {
+    'resize_sum': r'resize_sum_kernel',
+    'sra_attn': r'sra_fwd_(mma|f32)',
+    'group_kl_fwd': r'gkl_max',
+    'group_kl_bwd': r'tile_bwd<.*gkl_tile|gkl_bwd<',
+    'seg_ce_fwd': r'fwd_tile<.*ce_fwd_tile|ce_fwd<',
+    'seg_ce_bwd': r'tile_bwd<.*ce_tile|ce_bwd<',
+    'pixel_kl_fwd': r'fwd_tile<.*pkl_fwd_tile|pkl_fwd<',
+    'pixel_kl_bwd': r'tile_bwd<.*pkl_tile|pkl_bwd<',
+    'sra_attn_bwd': r'sra_bwd_(mma|f32)',
+    'layer_norm_fwd': r'ln_fwd<',
+    'layer_norm_bwd': r'ln_bwd<',
+}
+# kernels a chunk may launch that the eager steps do not (phase_dispatch)
+DISPATCH_EXTRA = r'^(memcpy|memset)|FillFunctor|MulFunctor<float>'
+# the command line at k = 4 (115): iterations not a multiple of 4 (chunk
+# ends 4 and 8, then single steps 9 and 10), evaluation and checkpoint
+# intervals crossed at 8 and 10
+CLI_DISPATCH_ITERS, CLI_DISPATCH_INTERVAL = 10, 5
+
+
+def _train_tensors(state):
+    """{name: tensor} of what a train step changes: the model's parameters
+    and buffers, and each tensor of the optimizer's state."""
+    out = dict(state.model.state_dict(keep_vars=True))
+    params = [p for g in state.optimizer.param_groups for p in g['params']]
+    index = {id(p): i for i, p in enumerate(params)}
+    for p, st in state.optimizer.state.items():
+        for key, value in st.items():
+            if torch.is_tensor(value):
+                out[f'optimizer.{index[id(p)]}.{key}'] = value
+    return out
+
+
+def _snapshot(state):
+    return {k: v.detach().clone() for k, v in _train_tensors(state).items()}
+
+
+@torch.no_grad()
+def _restore(state, snap, step):
+    for name, t in _train_tensors(state).items():
+        t.copy_(snap[name])
+    state.step = step
+
+
+def _unequal(state, snap):
+    """The tensors of ``state`` that are not bitwise those of ``snap``."""
+    return [k for k, v in _train_tensors(state).items()
+            if not torch.equal(v, snap[k])]
+
+
+def _moved_rel_l2(state, start, want):
+    """Relative L2 distance between the change a run made from ``start``
+    and the change ``want`` holds, over the floating tensors that moved."""
+    num = den = 0.0
+    for name, t in _train_tensors(state).items():
+        if not t.is_floating_point():
+            continue
+        a = (t.detach().double() - start[name].double())
+        b = (want[name].double() - start[name].double())
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    return math.sqrt(num / den)
+
+
+def _traced(fn, prepare=None, names=(), want=None):
+    """-> the CUDA events of one call of ``fn`` under torch.profiler
+    (:func:`_device_events`, ``prepare()`` before each session). With
+    ``want``, a trace whose counts of the kernels ``names``
+    (:func:`_trace_counts`) are not ``want`` is logged and made again, up
+    to PROFILE_SESSIONS; the last is returned. CUPTI has lost a few dozen
+    of a replay's ~3000 records on the H100 (copies, fills and kernels of
+    every kind at once): a lost record lowers a count, and never adds a
+    kernel."""
+    for session in range(PROFILE_SESSIONS):
+        events = _device_events(fn, prepare=prepare)
+        if not events:
+            raise AssertionError(f'torch.profiler saw no kernel on the card '
+                                 f'in {PROFILE_SESSIONS} sessions')
+        counts = _trace_counts(events, names)
+        if want is None or counts == want:
+            break
+        log(f'trace {session + 1} of {PROFILE_SESSIONS}: {len(events)} '
+            f'device events, kernels {counts}, not {want}')
+    return events
+
+
+def _trace_counts(events, names):
+    return {n: sum(1 for e in events if re.search(KERNEL_TRACE[n], e.name))
+            for n in names}
+
+
+def _pool_bytes():
+    """Bytes the caching allocator holds in private pools: the CUDA
+    graphs' memory."""
+    return sum(s['total_size'] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get('segment_pool_id', (0, 0))) != (0, 0))
+
+
+def _nondeterministic_ops(fn):
+    """The operations that ``fn`` runs and that PyTorch names as having no
+    deterministic implementation on the card (the warnings of
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(' does not')[0] for w in caught
+                   if 'deterministic' in str(w.message)})
+
+
+def _programmatic_edges():
+    """K10's programmatic dependent launch inside a CUDA graph: a graph of
+    three K10 launches, the last two each right after a kernel, captured
+    as the train step's graphs are; -> (programmatic edges, all edges) of
+    the graph, from the CUDA runtime's ``cudaGraphGetEdges_v2`` (edge type
+    1: programmatic), and whether its replay equals the eager calls."""
+    import ctypes
+    from segdistill_tpu_torch.ops.layer_norm import fused_layer_norm
+    gen = torch.Generator(device=DEVICE).manual_seed(40)
+    x = torch.randn(8192, 320, device=DEVICE, dtype=torch.bfloat16,
+                    generator=gen)
+    w = torch.ones(320, device=DEVICE)
+    b = torch.zeros(320, device=DEVICE)
+
+    def body():
+        y = fused_layer_norm(x, w, b, 1e-6)
+        y = fused_layer_norm(y * 1.5, w, b, 1e-6)
+        return fused_layer_norm(y, w, b, 1e-6)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        got = body()
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    runtime = ctypes.CDLL('libcudart.so')
+    get_edges = runtime.cudaGraphGetEdges_v2
+    n = ctypes.c_size_t(0)
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    if get_edges(raw, None, None, None, ctypes.byref(n)):
+        raise AssertionError('cudaGraphGetEdges_v2 failed')
+    src = (ctypes.c_void_p * n.value)()
+    dst = (ctypes.c_void_p * n.value)()
+    data = (ctypes.c_ubyte * (8 * n.value))()  # cudaGraphEdgeData: 8 bytes
+    if get_edges(raw, src, dst, data, ctypes.byref(n)):
+        raise AssertionError('cudaGraphGetEdges_v2 failed')
+    types = [data[8 * i + 2] for i in range(n.value)]
+    return types.count(1), n.value, torch.equal(got, want)
+
+
+def phase_dispatch(path_kernels, config, options, tag):
+    """Steps per dispatch on the card (113, 114): the step of ``config``
+    (bf16 backbones, batch 8 at 512x512) with the optimizer made
+    capturable, run eagerly for DISPATCH_K steps from a snapshot (the multi
+    step's single step, as a replay computes it) and as a chunk of
+    DISPATCH_K replays from the same snapshot; two replays from it; a trace
+    of each (every kernel of ``path_kernels`` at its eager count, the
+    replay's kernels all of the eager step's); the k = 1 step (K1's atomic
+    backward) against the graph in turns; with CGD, a checkpoint saved and
+    loaded between two chunks, against the same chunks with no reload
+    (bitwise, the learning rates on the card). -> the launches of each
+    kernel in a replay's trace."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine import (load_checkpoint, make_capturable,
+                                             save_checkpoint)
+    from segdistill_tpu_torch.engine.cuda_graph import CAPTURE_WARMUP
+    from segdistill_tpu_torch.tools.profile_train import _union_ms
+    k = DISPATCH_K
+    log(f'== steps per dispatch: {tag} (B0 <- B3, bf16 backbones, batch '
+        f'{TRAIN_BATCH} at 512x512), steps {DISPATCH_START + 1}-'
+        f'{DISPATCH_START + k} as a chunk of {k} replays of the step\'s CUDA '
+        f'graph against the same step run eagerly, both from one snapshot')
+    model = init_segmentor_state(
+        str(config), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **BF16_BACKBONES, **options,
+                         **{'runner.steps_per_dispatch': k}))
+    state, multi = prepare_training(model)
+    single, eager_k1 = multi.step, multi.eager_step
+    make_capturable(state.optimizer, torch.device(DEVICE))
+    batches = [_train_batch(TRAIN_BATCH, seed=20 + i) for i in range(k)]
+    imgs = torch.stack([b[0] for b in batches])
+    gts = torch.stack([b[1] for b in batches])
+    state.step = DISPATCH_START - 1
+    single(state, imgs[-1], gts[-1])  # kernels loaded, moments made
+    torch.cuda.synchronize()
+    snap = _snapshot(state)
+    names = [kn.name for kn in path_kernels]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # eager, twice from the snapshot: the launches counted a step
+        ends, counted = [], []
+        for _ in range(2):
+            _restore(state, snap, DISPATCH_START)
+            torch.cuda.reset_peak_memory_stats()
+            for img, gt in zip(imgs, gts):
+                for kn in path_kernels:
+                    kn.launches = 0
+                eager_logs = single(state, img, gt)
+                counted.append({kn.name: kn.launches for kn in path_kernels})
+            torch.cuda.synchronize()
+            ends.append(_snapshot(state))
+        eager_peak = torch.cuda.max_memory_allocated()
+        eager_last = {n: float(v) for n, v in eager_logs.items()}
+        eager_twice = _unequal(state, ends[0])
+        # the chunk: a graph captured at each key's first step, k replays
+        _restore(state, snap, DISPATCH_START)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = multi(state, imgs, gts)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graph_peak = torch.cuda.max_memory_allocated()
+        pool = _pool_bytes()
+        graphed = multi.graphed
+        graph_end = _snapshot(state)
+        graph_last = {n: float(v) for n, v in got.items()}
+        if state.step != DISPATCH_START + k:
+            raise AssertionError(f'{tag}: the chunk ended at {state.step}')
+        vs_eager = _unequal(state, ends[0])
+        moved = _moved_rel_l2(state, snap, ends[0]) if vs_eager else 0.0
+        # two replays from one snapshot
+        _restore(state, snap, DISPATCH_START)
+        torch.cuda.reset_peak_memory_stats()
+        again = multi(state, imgs, gts)
+        torch.cuda.synchronize()
+        replay_peak = torch.cuda.max_memory_allocated()
+        replays_differ = _unequal(state, graph_end) + [
+            n for n, v in again.items() if float(v) != graph_last[n]]
+        nondeterministic = []
+        if eager_twice or vs_eager or replays_differ:
+            _restore(state, snap, DISPATCH_START)
+            nondeterministic = _nondeterministic_ops(
+                lambda: single(state, imgs[0], gts[0]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f'capture: {len(graphed.graphs)} graph(s), '
+        + ', '.join(f'{s:.2f}' for s in graphed.capture_seconds)
+        + f' s each with {CAPTURE_WARMUP} eager warm-up steps; the first '
+        f'chunk {first_s:.2f} s in all; graph pool {pool / 2**20:.1f} MiB')
+    log(f'peak memory allocated: eager {eager_peak / 2**30:.3f} GiB, the '
+        f'chunk with its captures {graph_peak / 2**30:.3f} GiB, a chunk of '
+        f'replays {replay_peak / 2**30:.3f} GiB')
+    log(f'last step: eager ' + ', '.join(
+        f'{n} {v:.9g}' for n, v in sorted(eager_last.items())))
+    log(f'last step: graph ' + ', '.join(
+        f'{n} {v:.9g}' for n, v in sorted(graph_last.items())))
+    # log vars against (11)'s limits: loss terms 1e-6 * |loss| + 2.5e-5,
+    # an accuracy (in percent) CORRECT_TOL_SHARE of the pixels
+    limits = [abs(graph_last[n] - want) / (
+        100 * CORRECT_TOL_SHARE if 'acc' in n
+        else TRAIN_LOSS_TOL_REL * abs(want) + TRAIN_LOSS_TOL_ABS)
+        for n, want in eager_last.items() if n != 'lr']
+    log(f'eager twice from the snapshot: '
+        f'{"bitwise equal" if not eager_twice else f"{len(eager_twice)} tensors differ"}; '
+        f'graph against eager: '
+        f'{"bitwise equal" if not vs_eager else f"{len(vs_eager)} tensors differ, e.g. {vs_eager[:4]}"}'
+        f' (the change from the snapshot within {moved:.3e} relative L2, '
+        f'log vars {max(limits):.3f} of the loss limit); two replays: '
+        f'{"bitwise equal" if not replays_differ else f"{len(replays_differ)} differ, e.g. {replays_differ[:4]}"}')
+    if nondeterministic:
+        log(f'operations without a deterministic implementation in the '
+            f'step: {nondeterministic}')
+    if vs_eager and not (max(limits) <= 1.0
+                         and moved <= TRAIN_GRAD_TOL_REL_L2):
+        raise AssertionError(f'{tag}: the replays differ from the eager '
+                             f'steps beyond the fp32 train-step limits')
+    if replays_differ and not nondeterministic:
+        raise AssertionError(f'{tag}: two replays from one snapshot differ '
+                             f'with no nondeterministic operation named')
+    if tag == 'CGD':
+        edges, n_edges, same = _programmatic_edges()
+        log(f'K10 in a graph (three launches, two right after a kernel): '
+            f'{edges} programmatic of {n_edges} edges; the replay equals '
+            f'the eager calls: {same}')
+        if not same:
+            raise AssertionError('a graph of K10 differs from its eager '
+                                 'calls')
+
+    # one trace of each, step 998 from the snapshot: the eager step (the
+    # wrappers count) and one replay of its graph
+    def restore():
+        _restore(state, snap, DISPATCH_START)
+    want = counted[0]
+    eager_events = _traced(lambda: single(state, imgs[0], gts[0]), restore,
+                           names, want)
+    graph_events = _traced(lambda: multi.graphed(state, imgs[:1], gts[:1]),
+                           restore, names, want)
+    in_eager = _trace_counts(eager_events, names)
+    in_graph = _trace_counts(graph_events, names)
+    if in_eager != want:
+        raise AssertionError(f'{tag}: the eager trace counts {in_eager}, '
+                             f'the wrappers {want}')
+    # what a replay launches beside the graph's own kernels: its copy and
+    # fill nodes (memcpy128, memset32, ...), the fills of the device
+    # scalars and of the generator's seed and offset before a replay, and
+    # alpha's product with the loss as two device scalars (a Python float
+    # eagerly); no plain version
+    new = sorted(n for n in {e.name for e in graph_events}
+                 - {e.name for e in eager_events}
+                 if not re.search(DISPATCH_EXTRA, n))
+    log(f'kernels of step {DISPATCH_START + 1}: eager trace {in_eager}, '
+        f'replay trace {in_graph}; {len(eager_events)} device events '
+        f'eager, {len(graph_events)} in the replay; kernels of the replay '
+        f'that the eager step does not launch: {new}')
+    if in_graph != want or new:
+        short = collections.Counter(e.name for e in eager_events)
+        short.subtract(e.name for e in graph_events)
+        log('fewer in the replay\'s trace: ' + str(
+            [(n[:90], c) for n, c in short.most_common(12) if c > 0]))
+        raise AssertionError(f'{tag}: the replay launches other kernels '
+                             f'than the eager step')
+    busy = {'eager': _union_ms(eager_events),
+            'graph': _union_ms(graph_events)}
+
+    # the k = 1 step (K1's atomic backward; the optimizer's capturable form)
+    # against the graph, in turns
+    times = {'eager': [], 'graph': []}
+    for r in range(DISPATCH_ROUNDS):
+        for arm in (('eager', 'graph') if r % 2 == 0 else ('graph', 'eager')):
+            _restore(state, snap, DISPATCH_START)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            if arm == 'eager':
+                for img, gt in zip(imgs, gts):
+                    eager_k1(state, img, gt)
+            else:
+                multi(state, imgs, gts)
+            end.record()
+            torch.cuda.synchronize()
+            times[arm].append(((time.perf_counter() - t0) / k * 1e3,
+                               start.elapsed_time(end) / k))
+    for arm, rows in times.items():
+        host = [h for h, _ in rows]
+        dev = [d for _, d in rows]
+        med = float(np.median(host))
+        log(f'{arm}: {", ".join(f"{h:.3f}" for h in host)} ms a step '
+            f'(host clock), {", ".join(f"{d:.3f}" for d in dev)} (CUDA '
+            f'events); device busy {busy[arm]:.3f} ms a step (the trace\'s '
+            f'kernel union), {busy[arm] / med:.1%} of the median')
+    if tag == 'CGD':
+        _dispatch_resume(state, multi, snap, imgs, gts, save_checkpoint,
+                         load_checkpoint)
+    return in_graph
+
+
+def _dispatch_resume(state, multi, snap, imgs, gts, save_checkpoint,
+                     load_checkpoint):
+    """A k > 1 run resumed: from the snapshot one single step (998), then
+    a chunk (999-1002), once straight on and once with a checkpoint saved
+    at 998 and loaded into the state in between (the loaded optimizer in
+    the plain form: float learning rates, which the chunk's graphs, captured
+    anew, must read from the card). Both end bitwise equal, with equal
+    learning rates, each a float64 scalar on the card."""
+    ends, lrs, values = [], [], []
+    for reload in (False, True):
+        _restore(state, snap, DISPATCH_START)
+        multi.step(state, imgs[0], gts[0])
+        if reload:
+            work = Path(tempfile.mkdtemp(prefix='dispatch-resume-'))
+            save_checkpoint(str(work), state)
+            load_checkpoint(str(work), state)
+            shutil.rmtree(work, ignore_errors=True)
+            loaded = [g['lr'] for g in state.optimizer.param_groups]
+        multi(state, imgs, gts)
+        torch.cuda.synchronize()
+        ends.append(_snapshot(state))
+        lrs.append([g['lr'] for g in state.optimizer.param_groups])
+        values.append([float(lr) for lr in lrs[-1]])
+    differ = _unequal(state, ends[0])
+    on_card = all(torch.is_tensor(lr) and lr.is_cuda
+                  and lr.dtype == torch.float64 for lr in lrs[1])
+    same_lr = values[0] == values[1]
+    log(f'resume between chunks (a checkpoint saved at '
+        f'{DISPATCH_START + 1} and loaded, the groups\' learning rates '
+        f'{[type(lr).__name__ for lr in loaded]} after the load): '
+        f'{len(multi.graphed.graphs)} graph(s) captured anew; against no '
+        f'reload: '
+        + ('bitwise equal' if not differ else
+           f'{len(differ)} tensors differ, e.g. {differ[:4]}')
+        + f'; '
+        f'learning rates {values[1]} on the card: {on_card}, equal to '
+        f'those straight on: {same_lr}')
+    if differ or not on_card or not same_lr:
+        raise AssertionError('a k > 1 run resumed from a checkpoint differs '
+                             'from the run straight on')
+
+
+def phase_dispatch_try(config, options, tag, refused_by=None,
+                       batch=TAB5_BATCH):
+    """(116) Another config under steps per dispatch: its step (bf16
+    backbones, ``batch`` at 512x512) with the optimizer made capturable,
+    steps 999-1000 as a chunk of 2 replays against the same steps run
+    eagerly from one snapshot (bitwise, or the largest distance of the
+    change); any error fails. With ``refused_by``, ``make_capturable``
+    must instead raise ``NotImplementedError`` naming it. -> what it did,
+    in a line."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine import make_capturable
+    log(f'== steps per dispatch, another config: {tag}, bf16 backbone(s), '
+        f'batch {batch} at 512x512, '
+        + (f'must be refused ({refused_by})' if refused_by else
+           'a chunk of 2 replays against eager'))
+    model = init_segmentor_state(config, seed=0, device=DEVICE,
+                                 cfg_options=dict(options, **{
+                                     'runner.steps_per_dispatch': 2}))
+    state, multi = prepare_training(model)
+    single = multi.step
+    if refused_by is not None:
+        try:
+            make_capturable(state.optimizer, torch.device(DEVICE))
+        except NotImplementedError as exc:
+            if refused_by not in str(exc):
+                raise AssertionError(f'{tag}: refused for another cause: '
+                                     f'{exc}') from exc
+            line = f'raises NotImplementedError: {exc}'
+            log(f'{tag}: {line}')
+            return line
+        raise AssertionError(f'{tag}: its optimizer was made capturable; '
+                             f'it must be refused ({refused_by})')
+    classes = model.num_classes
+    g = torch.Generator(device=DEVICE).manual_seed(30)
+    imgs = torch.randn(2, batch, 3, 512, 512, device=DEVICE, generator=g)
+    gts = torch.randint(0, classes, (2, batch, 512, 512), device=DEVICE,
+                        generator=g)
+    make_capturable(state.optimizer, torch.device(DEVICE))
+    state.step = 997
+    single(state, imgs[0], gts[0])
+    snap = _snapshot(state)
+    ends = []
+    for _ in range(2):
+        _restore(state, snap, 998)
+        for img, gt in zip(imgs, gts):
+            want = single(state, img, gt)
+        ends.append(_snapshot(state))
+    eager_twice = _moved_rel_l2(state, snap, ends[0])
+    _restore(state, snap, 998)
+    got = multi(state, imgs, gts)
+    torch.cuda.synchronize()
+    differ = _unequal(state, ends[0])
+    moved = _moved_rel_l2(state, snap, ends[0]) if differ else 0.0
+    same_logs = all(float(got[n]) == float(v) for n, v in want.items())
+    line = (f'runs in {len(multi.graphed.graphs)} graph(s), capture '
+            + ', '.join(f'{c:.2f}' for c in multi.graphed.capture_seconds)
+            + ' s; against eager: '
+            + ('bitwise equal' if not differ and same_logs else
+               f'{len(differ)} tensors differ, the change within '
+               f'{moved:.3e} relative L2 (eager twice: {eager_twice:.3e})'))
+    if differ or not same_logs:
+        _restore(state, snap, 998)
+        line += '; nondeterministic: ' + ', '.join(_nondeterministic_ops(
+            lambda: single(state, imgs[0], gts[0])))
+    log(f'{tag}: {line}')
+    # the limit of (11), or 4x the distance between two eager runs where
+    # the step adds with atomics (PERF.md section 2)
+    if (differ or not same_logs) and not moved <= max(
+            TRAIN_GRAD_TOL_REL_L2, 4 * eager_twice):
+        raise AssertionError(f'{tag}: the replays differ from eager')
+    return line
+
+
+def phase_cli_dispatch(root, host_train):
+    """(115) ``tools.train`` on phase 14's dataset and config with
+    ``runner.steps_per_dispatch`` = DISPATCH_K over CLI_DISPATCH_ITERS
+    iterations (the CGD step captured in CUDA graphs): the JAX runner's
+    cadence (chunk ends 4 and 8, single steps 9 and 10; evaluations and
+    checkpoints where a chunk crosses CLI_DISPATCH_INTERVAL), the logged
+    losses within the resume limit of phase 14's k = 1 run at the same
+    iterations, ``tools.test`` on its checkpoint reproducing its last
+    evaluation."""
+    from segdistill_tpu_torch.tools import test as test_cli
+    from segdistill_tpu_torch.tools import train as train_cli
+    k, iters, every = DISPATCH_K, CLI_DISPATCH_ITERS, CLI_DISPATCH_INTERVAL
+    log(f'== command line, steps per dispatch: tools.train on phase 14\'s '
+        f'dataset and config with --options runner.steps_per_dispatch={k}, '
+        f'{iters} iterations, checkpoint and evaluation every {every}; '
+        f'then tools.test')
+    opts = dict(_cli_config_options(root / 'data'), **{
+        'runner.steps_per_dispatch': k, 'runner.max_iters': iters,
+        'checkpoint_config.interval': every, 'evaluation.interval': every})
+    options = [f'{key}={value}' for key, value in opts.items()]
+    work = root / 'work_dispatch'
+    t0 = time.perf_counter()
+    state = train_cli.main([str(CGD_CONFIG), '--work-dir', str(work),
+                            '--seed', '0', '--options', *options])
+    torch.cuda.synchronize()
+    log(f'tools.train: {time.perf_counter() - t0:.1f} s in all')
+    train, val = _json_log(work)
+    (text_log,) = work.glob('*.log')
+    text = text_log.read_text()
+    ckpts = sorted(q.name for q in (work / 'checkpoints').iterdir())
+    want_ckpts = sorted([f'iter_{2 * k}.pth', f'iter_{iters}.pth',
+                         'meta.json'])
+    if state.step != iters or sorted(train) != [k, 2 * k, 2 * k + 1,
+                                                iters] \
+            or sorted(val) != [2 * k, iters] or ckpts != want_ckpts \
+            or f'Iter [{iters}/{iters}]' not in text \
+            or f'Eval at iter {2 * k}' not in text:
+        raise AssertionError(f'logged {sorted(train)}, evaluated '
+                             f'{sorted(val)}, checkpoints {ckpts}')
+    worst, worst_rel = 0.0, 0.0
+    for it, line in train.items():
+        for key in ('loss', 'decode.loss_seg',
+                    'loss_decode_head.linear_pred<->'
+                    'decode_head.linear_pred_other'):
+            a, b = host_train[it][key], line[key]
+            worst_rel = max(worst_rel, abs(a - b) / abs(a))
+            worst = max(worst, abs(a - b)
+                        / (RESUME_TOL_REL * abs(a) + RESUME_TOL_ABS))
+    log('logged at ' + ', '.join(
+        f'{it}: loss {line["loss"]:.6f} (k = 1: '
+        f'{host_train[it]["loss"]:.6f}), time {line["time"] * 1e3:.2f} ms, '
+        f'data_time {line["data_time"] * 1e3:.2f} ms'
+        for it, line in sorted(train.items())))
+    log(f'against the k = 1 run: at most {worst_rel:.3e} of a loss term, '
+        f'{worst:.4f} of the limit {RESUME_TOL_REL} * |loss| + '
+        f'{RESUME_TOL_ABS}')
+    if not worst <= 1.0:
+        raise AssertionError('the k = 4 run differs from the k = 1 run')
+    metrics = test_cli.main([str(CGD_CONFIG), str(work), '--eval', 'mIoU',
+                             '--options', *options])
+    diff = max(abs(metrics[key] - val[iters][key])
+               for key in ('mIoU', 'mAcc', 'aAcc'))
+    log(f'tools.test on the work dir: mIoU {metrics["mIoU"]:.9f}, the last '
+        f'evaluation {val[iters]["mIoU"]:.9f} (differ by at most '
+        f'{diff:.2e}, limit {MIOU_TOL})')
+    if not diff <= MIOU_TOL:
+        raise AssertionError('tools.test does not reproduce the k = 4 '
+                             'run\'s last evaluation')
+    return train
+
+
 def _bound(*args):
     return _cases().bound(*args)
 
@@ -4118,12 +4734,18 @@ def main():
     _pd_loss_check(pd_last)
     paths.append(pd_launches)
     phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    # this slice: steps per dispatch, the CGD and PD steps replayed from
+    # CUDA graphs against the same steps run eagerly (113, 114)
+    dispatch = {'CGD': phase_dispatch(cgd_kernels, CGD_CONFIG, {}, 'CGD'),
+                'PD': phase_dispatch([k1, k2, k5, k6, k7, k8, k9, k10, k11],
+                                     PD_CONFIG, STUDENT_FA_TRAIN, 'PD')}
     # the command lines' dataset and work dirs, kept for the --multi-host
     # command lines and the sharded evaluation
     cli_root = Path(tempfile.mkdtemp(prefix='cli-'))
     atexit.register(shutil.rmtree, cli_root, True)
     cli_launches, cli_train, _ = phase_cli(cgd_kernels, cli_root)
     paths.append(cli_launches)
+    phase_cli_dispatch(cli_root, cli_train)  # this slice: k = 4 (115)
     # this slice: the native and device loader backends on the command
     # line, the device augmentation against the CPU, batched evaluation
     paths.append(phase_cli_backends(cgd_kernels, cli_root, cli_train,
@@ -4142,6 +4764,17 @@ def main():
     paths.append(phase_train([k1, k3, k4, k5, k6, k10, k11], SWIN_CGD, {},
                              'swin_CGD', TAB5_BATCH,
                              'Swin-T + UPerHead student <- B3 teacher')[0])
+    # this slice: other configs under steps per dispatch (116)
+    from segdistill_tpu_torch.recipes import mt_bf16_options, mt_recipe
+    mt_random = mt_recipe('mt_cgd_random')
+    for config, options, tag in (
+            (str(PSP_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES), 'psp_CGD'),
+            (str(SWIN_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES),
+             'swin_CGD'),
+            (mt_random, mt_bf16_options(mt_random), 'MT random')):
+        phase_dispatch_try(config, options, tag)
+    phase_dispatch_try(str(PSP_CITY), {'model.backbone.dtype': 'bfloat16'},
+                       'PSPNet-R50 Cityscapes (SGD)', refused_by='SGD')
     # the configs/extra models: their own SGD steps (K5/K6 on the decode and
     # auxiliary heads, on PointRend's FPNHead) and serving (no hand-written
     # kernel on those paths: ResNet has BN, the heads no K1)
@@ -4330,6 +4963,12 @@ def main():
             'library_ms': case[3] if len(case) > 3 else None})
         if k is k10:  # the queued floor of an empty kernel on K10's grid
             entries[-1]['floor_ms'] = k10_floor
+        # this slice: launches a step in the CGD and PD graphs' replays
+        # (their profiler traces; the wrappers do not count a replay)
+        replayed = {tag: d[k.name] for tag, d in dispatch.items()
+                    if k.name in d}
+        entries[-1]['replay_launches_per_step'] = replayed
+        entries[-1]['replayed'] = any(n > 0 for n in replayed.values())
     # K5/K6 at this slice's new geometries (bf16, the train steps' shapes;
     # device time), launched there by the recipes that run no other one
     for case, recipes in ZOO_CE_GEOMETRIES:

@@ -22,8 +22,9 @@ from ..config import Config
 from ..core.evaluation import EvalHook
 from ..datasets import build_dataloader, build_dataset
 from ..engine import (IterBasedRunner, TrainState, build_lr_schedule,
-                      build_optimizer, build_train_step, load_weights,
-                      resume_latest)
+                      build_multi_train_step, build_optimizer,
+                      build_train_step, load_weights, resume_latest)
+from ..engine.runner import DDP_REFUSAL
 from ..models import build_segmentor
 from ..parallel import get_dist_info, wrap_model
 from ..utils import get_root_logger
@@ -114,18 +115,36 @@ def _max_iters(cfg):
     return cfg.runner['max_iters'] if 'runner' in cfg else cfg['total_iters']
 
 
+def _steps_per_dispatch(cfg):
+    """The config's ``runner.steps_per_dispatch``, 1 by default (as the JAX
+    package's ``apis/train.py`` reads it)."""
+    return int(cfg.runner.get('steps_per_dispatch', 1)) \
+        if 'runner' in cfg else 1
+
+
 def prepare_training(model, cfg=None, seed=0, distributed=False):
     """-> (state, train_step): the optimizer and the LR schedule from the
     config (``model.cfg`` by default), the state at step 0. The optimizer
-    takes the parameters that require grad: a distillation module's
+    covers the parameters that require grad: the
     student and adapters, never a frozen teacher. With ``distributed`` the
     step's forward runs through DDP (``parallel.wrap_model``; the process
-    group must exist)."""
+    group must exist).
+
+    With the config's ``runner.steps_per_dispatch`` k above 1 the step is
+    the k-step :func:`~..engine.build_multi_train_step` (a
+    :class:`~..engine.MultiTrainStep`, called on (k, B, ...) batches; its
+    ``step`` is the single step); ``distributed`` with k > 1 raises
+    ``NotImplementedError``."""
     cfg = cfg or model.cfg
+    k = _steps_per_dispatch(cfg)
+    if distributed and k > 1:
+        raise NotImplementedError(DDP_REFUSAL)
     schedule = build_lr_schedule(cfg.get('lr_config'), cfg.optimizer['lr'],
                                  _max_iters(cfg))
     optimizer = build_optimizer(cfg.optimizer, model)
     state = TrainState(model=model, optimizer=optimizer, seed=seed)
+    if k > 1:
+        return state, build_multi_train_step(model, optimizer, schedule, k)
     forward = wrap_model(model, cfg) if distributed else None
     return state, build_train_step(model, optimizer, schedule, forward)
 
@@ -170,6 +189,13 @@ def train_segmentor(model, dataset, cfg=None, distributed=False,
     global batch (``samples_per_gpu`` x world size) from its own stream,
     every rank evaluates its share of ``data.val``, and rank 0 alone
     writes the logs and checkpoints.
+
+    With the config's ``runner.steps_per_dispatch`` k > 1 the runner
+    takes full chunks of k steps through
+    :func:`~..engine.build_multi_train_step` (on the card, replays of a
+    CUDA graph of the step) and logs, saves and evaluates where a chunk
+    crosses an interval, as the JAX runner does; across processes k > 1
+    raises ``NotImplementedError``.
 
     Or an iterable of in-memory batches (NCHW images), without any of
     that."""

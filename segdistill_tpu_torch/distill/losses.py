@@ -53,7 +53,14 @@ def _ramp(mode, alpha_0, frac, exp_scale=1.0):
 
 
 class KLDLoss:
-    """Configurable KL distillation loss (ref losses.py:9-113)."""
+    """Configurable KL distillation loss (ref losses.py:9-113).
+
+    ``alpha_tensor``: while a CUDA graph of the train step is captured or
+    its step runs eagerly beside it (``engine/cuda_graph.py``), a float32
+    device scalar that takes the place of ``alpha_at(step)`` and is written
+    before each replay; otherwise None."""
+
+    alpha_tensor = None
 
     def __init__(self, alpha=1, tau=1, resize_config=None,
                  shuffle_config=None, transform_config=None,
@@ -117,7 +124,8 @@ class KLDLoss:
 
     def __call__(self, x_student, x_teacher, gt, step, generator=None,
                  perm=None):
-        alpha = self.alpha_at(step)
+        alpha = self.alpha_at(step) if self.alpha_tensor is None \
+            else self.alpha_tensor
         out_hw = self._fused_out_hw(x_student, gt)
         if out_hw is not None and \
                 self.transform_config['loss_type'] == 'pixel':

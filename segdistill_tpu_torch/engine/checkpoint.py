@@ -35,6 +35,7 @@ import re
 import torch
 
 from ..parallel import barrier, is_main_process
+from .optimizer import plain_state_dict
 
 META_NAME = 'meta.json'
 _ITER = re.compile(r'^iter_(\d+)\.pth$')
@@ -86,7 +87,7 @@ def _save(work_dir, state, max_keep, meta):
     payload = {
         'state_dict': _student(model).state_dict(),
         'adapters': adapters.state_dict() if adapters is not None else {},
-        'optimizer': state.optimizer.state_dict(),
+        'optimizer': plain_state_dict(state.optimizer),
         'step': step, 'seed': int(state.seed), 'meta': meta}
     path = osp.join(ckpt_dir, f'iter_{step}.pth')
     # write beside, then rename: a reader never sees half a file

@@ -74,6 +74,51 @@ def build_optimizer(optimizer_cfg, model):
 
 
 def set_lr(optimizer, lr):
-    """The step's learning rate, times each group's ``lr_mult``."""
+    """The step's learning rate, times each group's ``lr_mult``; a group
+    whose learning rate is a device scalar (a CUDA graph's optimizer,
+    :func:`make_capturable`) has it written in place."""
     for group in optimizer.param_groups:
-        group['lr'] = lr * group['lr_mult']
+        if torch.is_tensor(group['lr']):
+            group['lr'].fill_(lr * group['lr_mult'])
+        else:
+            group['lr'] = lr * group['lr_mult']
+
+
+def make_capturable(optimizer, device):
+    """Turn an Adam or AdamW optimizer into the form a CUDA graph can hold:
+    ``capturable=True`` (its step counters on the device), each group's
+    learning rate a float64 scalar on ``device`` that :func:`set_lr` writes
+    before each replay (a float, or a tensor elsewhere, as a loaded
+    state holds it, is moved there), and the step counters of a loaded
+    state moved to the device. Idempotent. SGD reads a tensor learning
+    rate back to the host in its step (``_foreach_add_(..., alpha=-lr)``),
+    which a capture cannot hold: it raises."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        raise NotImplementedError(
+            f'{type(optimizer).__name__} cannot run in a CUDA graph: its step '
+            f'reads the learning rate on the host; steps per dispatch take '
+            f'Adam or AdamW (ROADMAP A8c item 1: fused optimizers)')
+    for group in optimizer.param_groups:
+        group['capturable'] = True
+        group['lr'] = torch.as_tensor(group['lr'], dtype=torch.float64,
+                                      device=device)
+        for p in group['params']:
+            state = optimizer.state.get(p, {})
+            step = state.get('step')
+            if step is not None and (not torch.is_tensor(step)
+                                     or step.device != p.device):
+                state['step'] = torch.as_tensor(
+                    step, dtype=torch.float32).to(p.device)
+
+
+def plain_state_dict(optimizer):
+    """``optimizer.state_dict()`` with its groups in the plain form
+    whatever the optimizer's: float learning rates and, where the key is
+    there, ``capturable=False``. A checkpoint then loads into a run of
+    any steps per dispatch; :func:`make_capturable` turns it back."""
+    state = optimizer.state_dict()
+    for group in state['param_groups']:
+        group['lr'] = float(group['lr'])
+        if 'capturable' in group:
+            group['capturable'] = False
+    return state

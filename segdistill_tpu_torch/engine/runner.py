@@ -19,26 +19,40 @@ are averaged over the ranks in ``parse_losses``.
 
 The runner logs at the log interval (with the time a step and its data
 took), saves a checkpoint when a step crosses the checkpoint interval and
-at the end, and calls the eval hook after every step (on every rank: the
-evaluation is sharded). Rank 0 alone writes the JSON log, the checkpoints
-and, with ``tensorboard`` (a ``TensorboardLoggerHook`` in the config's
-``log_config``), TensorBoard scalars under ``work_dir/tf_logs``: each log
-var as ``train/<key>`` and the step's time as ``train/iter_time`` at every
-log line, as the JAX runner writes them; where
+at the end, and calls the eval hook after every step or chunk (on every
+rank: the evaluation is sharded). Rank 0 alone writes the JSON log, the
+checkpoints and, with ``tensorboard`` (a ``TensorboardLoggerHook`` in the
+config's ``log_config``), TensorBoard scalars under ``work_dir/tf_logs``:
+each log var as ``train/<key>`` and the step's time as ``train/iter_time``
+at every log line, as the JAX runner writes them; where
 ``torch.utils.tensorboard`` cannot be imported it warns and trains on.
-Steps per dispatch (a CUDA graph of the step here) are not ported yet.
+
+Steps per dispatch (``runner.steps_per_dispatch`` = k, the JAX package's
+``build_multi_train_step``): :func:`build_multi_train_step` runs k steps a
+call over a stacked (k, B, ...) batch and returns the last step's log
+vars; on CPU tensors the eager step k times, on the card replays of the
+step captured in a CUDA graph (``engine/cuda_graph.py``). The runner takes
+full chunks of k while they fit before ``max_iters`` and single steps
+after (also from a resume point within k of the end), each computed as a
+replay computes it (:meth:`MultiTrainStep.step`), draws k batches a
+chunk (the loader's stream is unchanged), and tests the log, checkpoint and
+eval intervals once a chunk, on crossings between its first and its last
+step; ``time`` and ``data_time`` are divided by the steps since the last
+log line.
 """
 
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..models.segmentors import parse_losses
-from ..parallel import is_main_process
+from ..ops.resize_sum import deterministic_adjoint
+from ..parallel import get_dist_info, is_main_process
 from ..utils import get_root_logger
-from .optimizer import set_lr
+from .optimizer import make_capturable, set_lr
 from .train_state import step_seed
 
 
@@ -73,6 +87,35 @@ def gradient_angle(losses, params):
     return torch.acos(torch.clamp(cos, -1.0, 1.0)) * 180.0 / 3.1416
 
 
+def build_step_losses(model, optimizer, forward_train=None):
+    """-> fn(img, gt, step, generator, perm=None, points=None,
+    teacher_index=None) -> (total loss, log vars): the forward of a train
+    step (a distiller's ``forward_train`` at ``step``, or a segmentor's),
+    with the model's ``log_grad`` angle as the log var ``deg``."""
+    if forward_train is None:
+        forward_train = model.forward_train
+    multi = hasattr(model, 'teachers')
+    is_distill = multi or hasattr(model, 'teacher')
+    log_grad = bool(getattr(model, 'log_grad', False))
+    params = [p for group in optimizer.param_groups for p in group['params']]
+
+    def step_losses(img, gt, step, generator, perm=None, points=None,
+                    teacher_index=None):
+        if is_distill:
+            kw = dict(teacher_index=teacher_index) if multi else {}
+            losses = forward_train(img, gt, step, generator=generator,
+                                   perm=perm, **kw)
+        else:
+            losses, _ = forward_train(img, gt, generator=generator,
+                                      points=points)
+        if log_grad:
+            # a log var, not a loss: parse_losses averages it over the ranks
+            losses = dict(losses, deg=gradient_angle(losses, params))
+        return parse_losses(losses)
+
+    return step_losses
+
+
 def build_train_step(model, optimizer, lr_schedule=None, forward_train=None):
     """-> fn(state, img, gt, perm=None, points=None, teacher_index=None) ->
     log_vars (0-d tensors on the model's device, and 'lr' as a float),
@@ -85,12 +128,7 @@ def build_train_step(model, optimizer, lr_schedule=None, forward_train=None):
     ensemble's draw of the step's teacher. ``forward_train`` takes the
     place of ``model.forward_train``: the DDP wrapper of
     ``parallel.wrap_model`` across processes."""
-    if forward_train is None:
-        forward_train = model.forward_train
-    multi = hasattr(model, 'teachers')
-    is_distill = multi or hasattr(model, 'teacher')
-    log_grad = bool(getattr(model, 'log_grad', False))
-    params = [p for group in optimizer.param_groups for p in group['params']]
+    step_losses = build_step_losses(model, optimizer, forward_train)
 
     def train_step(state, img, gt, perm=None, points=None,
                    teacher_index=None):
@@ -101,17 +139,9 @@ def build_train_step(model, optimizer, lr_schedule=None, forward_train=None):
         lr = None if lr_schedule is None else lr_schedule(state.step)
         if lr is not None:
             set_lr(optimizer, lr)
-        if is_distill:
-            kw = dict(teacher_index=teacher_index) if multi else {}
-            losses = forward_train(img, gt, step, generator=generator,
-                                   perm=perm, **kw)
-        else:
-            losses, _ = forward_train(img, gt, generator=generator,
-                                      points=points)
-        if log_grad:
-            # a log var, not a loss: parse_losses averages it over the ranks
-            losses = dict(losses, deg=gradient_angle(losses, params))
-        total, log_vars = parse_losses(losses)
+        total, log_vars = step_losses(img, gt, step, generator, perm=perm,
+                                      points=points,
+                                      teacher_index=teacher_index)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         optimizer.step()
@@ -124,6 +154,82 @@ def build_train_step(model, optimizer, lr_schedule=None, forward_train=None):
     return train_step
 
 
+class MultiTrainStep:
+    """k train steps a call (:func:`build_multi_train_step`).
+
+    :meth:`step`: the single step of the same run (the runner's steps
+    outside full chunks). ``graphed``: on the card, the
+    :class:`~.cuda_graph.GraphedTrainStep` made at the first call (its
+    graphs, capture times and pool)."""
+
+    def __init__(self, model, optimizer, lr_schedule, k, forward_train):
+        if get_dist_info()[1] > 1:
+            raise NotImplementedError(DDP_REFUSAL)
+        self.model, self.optimizer = model, optimizer
+        self.lr_schedule, self.forward_train = lr_schedule, forward_train
+        self.k = int(k)
+        self.eager_step = build_train_step(model, optimizer, lr_schedule,
+                                           forward_train)
+        self.graphed = None
+
+    def step(self, state, img, gt, **kwargs):
+        """One eager step of :func:`build_train_step`, computed as a replay
+        computes it: on a CUDA tensor with the optimizer made capturable
+        and K1's deterministic backward. A run's eager steps and its
+        replays then agree, whatever iteration it resumes at."""
+        if img.is_cuda:
+            make_capturable(self.optimizer, img.device)
+        with deterministic_adjoint():
+            return self.eager_step(state, img, gt, **kwargs)
+
+    def __call__(self, state, imgs, gts, perms=None):
+        """-> the log vars of the chunk's last step. ``imgs``, ``gts``:
+        (k, B, ...) on the model's device; ``perms`` (CPU tensors only):
+        the k steps' channel permutations, as the single step's ``perm``.
+        """
+        if imgs.shape[0] != self.k or gts.shape[0] != self.k:
+            raise ValueError(f'a chunk holds {self.k} batches, got '
+                             f'{imgs.shape[0]} images and {gts.shape[0]} '
+                             f'label maps')
+        if imgs.device.type != 'cuda':
+            for i in range(self.k):
+                log_vars = self.eager_step(
+                    state, imgs[i], gts[i],
+                    perm=None if perms is None else perms[i])
+            return log_vars
+        if perms is not None:
+            raise ValueError('a CUDA graph of the step draws its channel '
+                             'permutations from the step\'s generator; '
+                             'perms are taken on CPU tensors only')
+        if self.graphed is None:
+            from .cuda_graph import GraphedTrainStep
+            self.graphed = GraphedTrainStep(
+                self.model, self.optimizer, self.lr_schedule,
+                build_step_losses(self.model, self.optimizer,
+                                  self.forward_train))
+        return self.graphed(state, imgs, gts)
+
+
+# the refusal of steps per dispatch across processes
+DDP_REFUSAL = ('steps per dispatch (runner.steps_per_dispatch > 1) across '
+               'processes need a CUDA graph of the DDP step, which waits for '
+               'ROADMAP A8c item 1 (DDP capture)')
+
+
+def build_multi_train_step(model, optimizer, lr_schedule=None, k=1,
+                           forward_train=None):
+    """-> a :class:`MultiTrainStep`: fn(state, imgs, gts, perms=None) ->
+    log_vars, k train steps over a stacked (k, B, ...) batch (counterpart of
+    the JAX ``build_multi_train_step``, a ``lax.scan`` of the step).
+
+    On CPU tensors it runs :func:`build_train_step`'s step k times. On CUDA
+    tensors it replays the step captured in a CUDA graph
+    (:class:`~.cuda_graph.GraphedTrainStep`): the host writes each step's
+    inputs, learning rate, loss weights and seed, and launches one replay.
+    Across processes it raises ``NotImplementedError``."""
+    return MultiTrainStep(model, optimizer, lr_schedule, k, forward_train)
+
+
 class IterBasedRunner:
     """Runs ``train_step`` to ``max_iters`` over batches of
     ``{'img', 'gt_semantic_seg'}``, moved to the model's device.
@@ -134,13 +240,18 @@ class IterBasedRunner:
     (``checkpoint_interval``, ``max_keep_ckpts``, ``meta``); ``eval_hook``
     is called with the state after every step. ``json_log`` names a file
     to which every log line and evaluation is appended as one JSON object
-    (``{"mode": "train" or "val", "iter": n, ...}``, values unrounded)."""
+    (``{"mode": "train" or "val", "iter": n, ...}``, values unrounded).
+    A ``train_step`` with a chunk size ``k`` above 1 (a
+    :class:`MultiTrainStep`) takes the full chunks of k steps, and its
+    ``step`` the single steps."""
 
     def __init__(self, train_step, state, max_iters, log_interval=50,
                  work_dir=None, checkpoint_interval=4000, max_keep_ckpts=1,
                  eval_hook=None, meta=None, logger=None,
                  channels_last=False, json_log=None, tensorboard=False):
         self.train_step = train_step
+        self.chunk = max(1, int(getattr(train_step, 'k', 1)))
+        self.single_step = train_step if self.chunk == 1 else train_step.step
         self.state = state
         self.max_iters = max_iters
         self.log_interval = log_interval
@@ -181,6 +292,21 @@ class IterBasedRunner:
             device, non_blocking=True)
         return img, gt
 
+    def _to_device_stacked(self, batches, device):
+        """A chunk's batches stacked to (k, B, ...) on ``device``: one copy
+        of each (host arrays stacked on the host, tensors where they lie),
+        the images viewed as (k, B, C, H, W) with ``channels_last``."""
+        def stack(key):
+            values = [b[key] for b in batches]
+            if all(isinstance(v, torch.Tensor) for v in values):
+                return torch.stack(values).to(device, non_blocking=True)
+            return torch.as_tensor(np.stack(values)).to(device,
+                                                        non_blocking=True)
+        imgs = stack('img')
+        if self.channels_last:
+            imgs = imgs.permute(0, 1, 4, 2, 3)
+        return imgs, stack('gt_semantic_seg')
+
     def run(self, data_loader):
         from .checkpoint import save_checkpoint
         state = self.state
@@ -191,13 +317,22 @@ class IterBasedRunner:
         last_t = time.perf_counter()
         t_data, since_log = 0.0, 0
         saved_at = None
+        chunk = self.chunk
         while state.step < self.max_iters:
-            t0 = time.perf_counter()
-            img, gt = self._to_device(next(it), device)
-            t_data += time.perf_counter() - t0
             prev = state.step
-            log_vars = self.train_step(state, img, gt)
-            since_log += 1
+            # full chunks of k; single steps where a chunk would pass the end
+            n = chunk if prev + chunk <= self.max_iters else 1
+            t0 = time.perf_counter()
+            if n > 1:
+                imgs, gts = self._to_device_stacked(
+                    [next(it) for _ in range(n)], device)
+                t_data += time.perf_counter() - t0
+                log_vars = self.train_step(state, imgs, gts)
+            else:
+                img, gt = self._to_device(next(it), device)
+                t_data += time.perf_counter() - t0
+                log_vars = self.single_step(state, img, gt)
+            since_log += n
             step = state.step
             if step // self.log_interval != prev // self.log_interval:
                 values = {k: float(v) for k, v in log_vars.items()}  # syncs

@@ -71,9 +71,11 @@ def relative_position_index(ws):
 
 
 @functools.lru_cache(maxsize=32)
-def _attn_mask(Hp, Wp, ws, shift):
-    """The shifted windows' (windows, ws^2, ws^2) mask: -100 between
-    positions of different regions (ref swin:209-227)."""
+def _attn_mask(Hp, Wp, ws, shift, device=None):
+    """The shifted windows' (windows, ws^2, ws^2) mask on ``device``: -100
+    between positions of different regions (ref swin:209-227). Kept for
+    each device, so a step reads it there with no copy from the host (a
+    copy a CUDA graph's capture refuses)."""
     img = np.zeros((1, Hp, Wp, 1), np.float32)
     cnt = 0
     for h in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
@@ -82,7 +84,7 @@ def _attn_mask(Hp, Wp, ws, shift):
             cnt += 1
     win = window_partition(torch.from_numpy(img), ws)[..., 0]
     diff = win[:, None, :] - win[:, :, None]
-    return torch.where(diff != 0, -100.0, 0.0)
+    return torch.where(diff != 0, -100.0, 0.0).to(device)
 
 
 class WindowAttention(nn.Module):
@@ -167,7 +169,7 @@ class SwinTransformerBlock(nn.Module):
         mask = None
         if shift > 0:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
-            mask = _attn_mask(Hp, Wp, ws, shift).to(x.device)
+            mask = _attn_mask(Hp, Wp, ws, shift, x.device)
         x = self.attn(window_partition(x, ws), mask, generator)
         x = window_reverse(x, ws, Hp, Wp)
         if shift > 0:

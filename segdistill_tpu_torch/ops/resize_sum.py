@@ -21,11 +21,16 @@ tensor; an eager call on a CUDA tensor launches directly, as K10's do
 (``ops/layer_norm.py``). Where a part needs a gradient it is a
 ``torch.autograd.Function`` whose forward runs the plain version on a CPU
 tensor and launches the kernel on a CUDA tensor, and whose backward is the
-adjoint of the plain version, torch's bilinear-upsample backward for each
-part, as the JAX kernel's VJP takes XLA's resize adjoint
-(``resize_sum.py:255-267``).
+adjoint of the plain version, as the JAX kernel's VJP takes XLA's resize
+adjoint (``resize_sum.py:255-267``): torch's bilinear-upsample backward for
+each part. On the card that backward adds with atomics, so no two runs
+agree bitwise. Inside :func:`deterministic_adjoint` (steps per dispatch: a
+train step's CUDA graph and the eager steps of the same run) a CUDA
+tensor's backward is :func:`resize_adjoint` instead: the same adjoint,
+summed in a fixed order.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -125,6 +130,8 @@ class _ResizeSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if grad.device.type == 'cuda' and _DETERMINISTIC[0]:
+            return (None, *resize_adjoint(grad, ctx.parts))
         g = grad.permute(0, 3, 1, 2).float()
         grads = []
         for (B, h, w, C), dtype in ctx.parts:
@@ -132,6 +139,78 @@ class _ResizeSum(torch.autograd.Function):
                 g, list(ctx.out_hw), [B, C, h, w], False, None, None)
             grads.append(d.permute(0, 2, 3, 1).to(dtype))
         return (None, *grads)
+
+
+# whether the backward on a CUDA tensor is :func:`resize_adjoint`
+_DETERMINISTIC = [False]
+
+
+@contextlib.contextmanager
+def deterministic_adjoint():
+    """Within it, K1's backward on a CUDA tensor sums in a fixed order
+    (:func:`resize_adjoint`), so that two runs, or two replays of a CUDA
+    graph, agree bitwise."""
+    before = _DETERMINISTIC[0]
+    _DETERMINISTIC[0] = True
+    try:
+        yield
+    finally:
+        _DETERMINISTIC[0] = before
+
+
+# the resize matrices of :func:`resize_adjoint` for each (out, in, device),
+# made at their first use (before a CUDA graph's capture: its warm-up)
+RESIZE_MATRICES = {}
+
+
+def resize_matrix(out_size, in_size):
+    """(out_size, in_size) float32 weights of torch's bilinear resize along
+    one axis (align_corners=False): output i takes ``1 - l`` of source
+    ``i0`` and ``l`` of ``min(i0 + 1, in - 1)``, with ``src = max((i + 0.5)
+    * in / out - 0.5, 0)``, ``i0 = floor(src)``, ``l = src - i0``, in
+    float32 as torch's kernel computes them."""
+    scale = torch.tensor(in_size / out_size, dtype=torch.float32)
+    dst = torch.arange(out_size, dtype=torch.float32)
+    src = ((dst + 0.5) * scale - 0.5).clamp_min(0.0)
+    i0 = src.floor().long().clamp_max(in_size - 1)
+    i1 = (i0 + 1).clamp_max(in_size - 1)
+    lam = src - i0.float()
+    rows = torch.arange(out_size)
+    m = torch.zeros(out_size, in_size, dtype=torch.float32)
+    m.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    m.index_put_((rows, i1), lam, accumulate=True)
+    return m
+
+
+def _matrix(out_size, in_size, device):
+    key = (out_size, in_size, device)
+    if key not in RESIZE_MATRICES:
+        RESIZE_MATRICES[key] = resize_matrix(out_size, in_size).to(device)
+    return RESIZE_MATRICES[key]
+
+
+def resize_adjoint(grad, parts):
+    """The parts' gradients of the resize-sum for ``grad`` (B, H, W, C),
+    in float32 and in a fixed order (no atomics): for each part (its
+    ``((B, h, w, C), dtype)``), ``Ry^T . grad . Rx`` over (H, W) as two
+    products with the resize's (out, in) matrices on NHWC data, cast to
+    the part's dtype. On the card it is also faster than the atomic
+    backward at the SegFormer heads' shapes
+    (``tools/bench_resize_adjoint.py``)."""
+    B, H, W, C = grad.shape
+    g = grad.float().contiguous()
+    grads = []
+    for (_, h, w, _), dtype in parts:
+        if (h, w) == (H, W):
+            d = g
+        else:
+            ry = _matrix(H, h, g.device)
+            rx = _matrix(W, w, g.device)
+            t = torch.matmul(ry.t(), g.reshape(B, H, W * C))  # (B, h, W*C)
+            d = torch.matmul(rx.t(), t.reshape(B * h, W, C))  # (B*h, w, C)
+            d = d.reshape(B, h, w, C)
+        grads.append(d.to(dtype))
+    return grads
 
 
 def fused_resize_sum(parts, out_hw):
