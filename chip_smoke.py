@@ -230,17 +230,35 @@ evaluations and checkpoints every 5: the JAX runner's cadence (logs at 4,
 8, 9, 10, evaluations and checkpoints at 8 and 10), the losses within the resume
 limit of phase 14's k = 1 run, ``tools.test`` reproducing the last
 evaluation; (116) psp_CGD, swin_CGD and the MT random ensemble (batch 2)
-under capture against eager (any error fails), and a configs/extra SGD
-model, whose optimizer must be refused. The kernels line says for each
-kernel how often a replay of each graph launched it.
+under capture against eager (any error fails), and so the SGD configs:
+the three configs/extra models at their own batch and crop, and the
+EMANet-R50, OCRNet-HR18 and Fast-SCNN recipes (cuDNN deterministic and
+PyTorch's deterministic algorithms where it has them: bitwise, or within
+the eager runs' spread where PyTorch names a nondeterministic operation of
+the step, each distance logged). The kernels line says for
+each kernel how often a replay of each graph launched it.
+
+Then steps per dispatch across processes: (117) under torchrun's
+variables (NCCL at world size 1; NCCL refuses two ranks on one card), in a
+process of its own, the CGD and PD steps and PSPNet-R50 Cityscapes (SGD)
+through ``prepare_training(distributed=True)`` at k = 2: DDP's static
+graph captured, a chunk of replays against the eager DDP steps from one
+snapshot (phase 116's rule), a replay's trace with K1-K11 at their eager
+counts and NCCL's kernels named (none at world size 1: the all-reduce is
+in place), the DDP graph against the eager DDP step in turns; and
+``tools.train --multi-host`` at k = 4 with phase 115's checks, then
+``tools.test --multi-host``. Phase 103's gloo ranks on the card must be
+refused k = 2 (``GraphCaptureError``).
 
 The order differs from the numbering: the export traces while the kernels
 build; the timed phases of the later slices run first, and their fp32
 steps against the CPU, which time nothing, in one block after them; the
-checks in processes of their own that time nothing (the program loader
-of 110, the ``--multi-host`` command lines of 101, the sharded evaluation
-of 102) run one after another beside that block. Every phase that times
-something runs alone.
+checks in processes of their own that time nothing run beside that
+block in two chains: the program loader of 110 and the ``--multi-host``
+command lines of 101 and 117; 116 in a process of its own and the
+sharded evaluation of 102. Every phase that times something runs
+alone. The fp32 steps of (11), (13) and the Tab5 pairs against the CPU
+take the frozen B3 teacher at B2's depth (the timed steps keep B3).
 
 Any failed check raises, and the script exits non-zero. It needs a CUDA
 device and the repository around it. The second line before the last is
@@ -291,8 +309,13 @@ BF16_BACKBONES = {'model.cfg_s.backbone.dtype': 'bfloat16',
                   'model.cfg_t.backbone.dtype': 'bfloat16'}
 NUM_CLASSES = 150
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 8, 2, 5
+# the fp32 GPU-vs-CPU steps of the B0 <- B3 pairs (11, 13) and the Tab5
+# pairs: the frozen B3 teacher cut to B2's depth, (3, 4, 6, 3) blocks at
+# B3's widths (every kernel at the same shapes; the timed steps keep B3)
+TEACHER_DEPTH_CUT = {'model.cfg_t.backbone.type': 'mit_b2'}
+B3_AT_B2_DEPTH = 'B3 at B2\'s depth'
 # the psp and swin configs' own batch (samples_per_gpu 2); their fp32
-# GPU-vs-CPU step at batch 1 and 256x256, full width and depth
+# GPU-vs-CPU step at batch 1 and 256x256, full width
 TAB5_BATCH = 2
 TAB5_VS_CPU_BATCH, TAB5_VS_CPU_HW = 1, 256
 TAB5_REQUESTS = 4  # seeded 512x512 requests to each Tab5 student
@@ -327,6 +350,12 @@ ZOO_PATHS = [
     ('deeplabv3_r50-d8', 'DeepLabV3-R50-d8', 2, 3, 1, False),
     ('deeplabv3plus_m-v2-d8', 'DeepLabV3+-MobileNetV2-d8', 2, 3, 1, False)]
 ZOO_CLASSES, ZOO_HW, ZOO_REQUEST_HW = 19, (512, 1024), (1024, 2048)
+# (116) the recipes whose SGD steps run under steps per dispatch beside the
+# configs/extra models: EMANet's bases move in place, HRNet's 37 upsamples,
+# Fast-SCNN's own SGD schedule
+SGD_DISPATCH_RECIPES = [('emanet_r50-d8', 'EMANet-R50-d8'),
+                        ('ocrnet_hr18', 'OCRNet-HR18'),
+                        ('fast_scnn', 'Fast-SCNN')]
 ZOO_VS_CPU_HW = (256, 512)
 # K5/K6 at this slice's new geometries: (SEG_CE_CASES entry, the recipes
 # whose train steps launch them there and nowhere else)
@@ -2489,11 +2518,34 @@ def dist_cgd_rank(out_dir, backend):
         _check_ln_tickets(f'rank {rank}')
         torch.cuda.empty_cache()
         fp32 = _dist_fp32_step(rank, out_dir)
+        refusal = _dispatch_refusal(backend)
         with open(Path(out_dir) / f'rank{rank}.json', 'w') as f:
             json.dump(dict(rank=rank, world=world, backend=backend,
                            device=str(torch.cuda.current_device()),
                            step_ms=step_ms, peak=peak, launches=launches,
-                           last=last, digests=digests, fp32=fp32), f)
+                           last=last, digests=digests, fp32=fp32,
+                           refusal=refusal), f)
+
+
+def _dispatch_refusal(backend):
+    """The CGD step at k = 2 across the ranks: over gloo on CUDA tensors
+    ``prepare_training`` must raise ``GraphCaptureError`` (gloo's
+    collectives cannot be captured); -> its message, or None under NCCL
+    (not tried)."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine.cuda_graph import GraphCaptureError
+    if backend != 'gloo':
+        return None
+    model = init_segmentor_state(
+        str(CGD_CONFIG), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **{'runner.steps_per_dispatch': 2}))
+    try:
+        prepare_training(model, distributed=True)
+    except GraphCaptureError as exc:
+        return str(exc)
+    raise AssertionError('a gloo rank on CUDA tensors took '
+                         'runner.steps_per_dispatch = 2')
 
 
 def phase_dist_train(kernels, one_process_ms):
@@ -2557,6 +2609,14 @@ def phase_dist_train(kernels, one_process_ms):
             f'both ranks')
         if ranks[0]['fp32'] != ranks[1]['fp32']:
             raise AssertionError('the ranks log other fp32 losses')
+        if backend == 'gloo':
+            # this slice: steps per dispatch over gloo on the card refused
+            log(f"{backend}: k = 2 on CUDA tensors, each rank: "
+                f"GraphCaptureError: {ranks[0]['refusal']}")
+            if not all('gloo collectives cannot be captured'
+                       in (r['refusal'] or '') for r in ranks):
+                raise AssertionError('gloo ranks on the card were not '
+                                     'refused steps per dispatch')
         if backend == 'gloo':
             model = init_segmentor_state(
                 str(CGD_CONFIG), seed=0, device=DEVICE,
@@ -4086,6 +4146,16 @@ DISPATCH_K = 4
 # permutation at 1000 (a graph of its own) among steps of the identity
 DISPATCH_START = 997
 DISPATCH_ROUNDS = 3
+# (116, 117) where a step adds with atomics (an operation PyTorch names
+# nondeterministic; with none named a chunk must be bitwise), a chunk of
+# replays is held to this many eager runs from one snapshot: the median of
+# the eager runs' distances from each other is the noise (one pair is a
+# fragile estimate of it), the median of the chunk's distances to them the
+# reading; each distance is logged
+DISPATCH_EAGER_RUNS = 3
+# (116) runs in a process of its own beside the fp32 steps against the CPU
+DISPATCH_TRY_RANK = 'chip_smoke:dispatch_try_rank'
+DISPATCH_TRY_TIMEOUT = 600
 # each kernel's CUDA function in a profiler trace, one a wrapper's launch
 # (K3 also launches gkl_finalize or the forward tile, K9 sra_bwd_reduce)
 KERNEL_TRACE = {
@@ -4103,6 +4173,19 @@ KERNEL_TRACE = {
 }
 # kernels a chunk may launch that the eager steps do not (phase_dispatch)
 DISPATCH_EXTRA = r'^(memcpy|memset)|FillFunctor|MulFunctor<float>'
+# (117) the DDP step as a CUDA graph at NCCL world size 1, in a process of
+# its own: (config, options, tag, batch, crop); a chunk of DDP_DISPATCH_K
+# replays, timed against the eager DDP step in DDP_DISPATCH_ROUNDS turns
+DDP_DISPATCH_RANK = 'chip_smoke:ddp_dispatch_rank'
+DDP_DISPATCH_K, DDP_DISPATCH_ROUNDS = 2, 3
+DDP_DISPATCH_TIMEOUT = 420
+DDP_DISPATCH_CASES = [
+    (CGD_CONFIG, dict(NO_CHECKPOINTS, **BF16_BACKBONES), 'CGD', TRAIN_BATCH,
+     (512, 512)),
+    (PD_CONFIG, dict(NO_CHECKPOINTS, **BF16_BACKBONES, **STUDENT_FA_TRAIN),
+     'PD', TRAIN_BATCH, (512, 512)),
+    (PSP_CITY, {'model.backbone.dtype': 'bfloat16'},
+     'PSPNet-R50 Cityscapes (SGD)', EXTRA_BATCH, (512, 1024))]
 # the command line at k = 4 (115): iterations not a multiple of 4 (chunk
 # ends 4 and 8, then single steps 9 and 10), evaluation and checkpoint
 # intervals crossed at 8 and 10
@@ -4139,11 +4222,12 @@ def _unequal(state, snap):
             if not torch.equal(v, snap[k])]
 
 
-def _moved_rel_l2(state, start, want):
-    """Relative L2 distance between the change a run made from ``start``
-    and the change ``want`` holds, over the floating tensors that moved."""
+def _rel_l2(got, start, want):
+    """Relative L2 distance between the change ``got`` holds from
+    ``start`` and the change ``want`` holds ({name: tensor} each), over the
+    floating tensors."""
     num = den = 0.0
-    for name, t in _train_tensors(state).items():
+    for name, t in got.items():
         if not t.is_floating_point():
             continue
         a = (t.detach().double() - start[name].double())
@@ -4151,6 +4235,26 @@ def _moved_rel_l2(state, start, want):
         num += float((a - b).square().sum())
         den += float(b.square().sum())
     return math.sqrt(num / den)
+
+
+def _moved_rel_l2(state, start, want):
+    """:func:`_rel_l2` of the change a run made in ``state``."""
+    return _rel_l2(_train_tensors(state), start, want)
+
+
+def _spread(start, eager, graph):
+    """-> (the median of the distances (:func:`_rel_l2`) between the
+    changes of the eager runs ``eager``, the median of the graph run's
+    distances to them, each distance in a line): the noise of a step that
+    adds with atomics, and the graph's reading against it (phases 116 and
+    117)."""
+    pairs = [_rel_l2(a, start, b)
+             for a, b in itertools.combinations(eager, 2)]
+    graph_to = [_rel_l2(graph, start, e) for e in eager]
+    table = ('eager pairs ' + ', '.join(f'{d:.3e}' for d in pairs)
+             + '; graph to each eager run '
+             + ', '.join(f'{d:.3e}' for d in graph_to))
+    return float(np.median(pairs)), float(np.median(graph_to)), table
 
 
 def _traced(fn, prepare=None, names=(), want=None):
@@ -4192,6 +4296,8 @@ def _nondeterministic_ops(fn):
     deterministic implementation on the card (the warnings of
     ``torch.use_deterministic_algorithms(True, warn_only=True)``)."""
     import warnings
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -4199,7 +4305,7 @@ def _nondeterministic_ops(fn):
             fn()
             torch.cuda.synchronize()
         finally:
-            torch.use_deterministic_algorithms(False)
+            torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
     return sorted({str(w.message).split(' does not')[0] for w in caught
                    if 'deterministic' in str(w.message)})
 
@@ -4491,81 +4597,128 @@ def _dispatch_resume(state, multi, snap, imgs, gts, save_checkpoint,
                              'from the run straight on')
 
 
-def phase_dispatch_try(config, options, tag, refused_by=None,
-                       batch=TAB5_BATCH):
+def phase_dispatch_try(config, options, tag, batch=TAB5_BATCH,
+                       hw=(512, 512)):
     """(116) Another config under steps per dispatch: its step (bf16
-    backbones, ``batch`` at 512x512) with the optimizer made capturable,
-    steps 999-1000 as a chunk of 2 replays against the same steps run
-    eagerly from one snapshot (bitwise, or the largest distance of the
-    change); any error fails. With ``refused_by``, ``make_capturable``
-    must instead raise ``NotImplementedError`` naming it. -> what it did,
-    in a line."""
+    backbones, ``batch`` at ``hw``) with the optimizer made capturable
+    (an SGD's a :class:`CapturableSGD`), steps 999-1000 as a chunk of 2
+    replays against the same steps run eagerly DISPATCH_EAGER_RUNS times
+    from one snapshot (bitwise, or, where PyTorch names a nondeterministic
+    operation of the step, within the eager runs' spread,
+    :func:`_spread`); any error fails. -> what it did, in a line."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
     from segdistill_tpu_torch.engine import make_capturable
-    log(f'== steps per dispatch, another config: {tag}, bf16 backbone(s), '
-        f'batch {batch} at 512x512, '
-        + (f'must be refused ({refused_by})' if refused_by else
-           'a chunk of 2 replays against eager'))
-    model = init_segmentor_state(config, seed=0, device=DEVICE,
+    model = init_segmentor_state(_config(config), seed=0, device=DEVICE,
                                  cfg_options=dict(options, **{
                                      'runner.steps_per_dispatch': 2}))
     state, multi = prepare_training(model)
     single = multi.step
-    if refused_by is not None:
-        try:
-            make_capturable(state.optimizer, torch.device(DEVICE))
-        except NotImplementedError as exc:
-            if refused_by not in str(exc):
-                raise AssertionError(f'{tag}: refused for another cause: '
-                                     f'{exc}') from exc
-            line = f'raises NotImplementedError: {exc}'
-            log(f'{tag}: {line}')
-            return line
-        raise AssertionError(f'{tag}: its optimizer was made capturable; '
-                             f'it must be refused ({refused_by})')
+    log(f'== steps per dispatch, another config: {tag}, bf16 backbone(s), '
+        f'{type(state.optimizer).__name__}, batch {batch} at '
+        f'{hw[0]}x{hw[1]}, a chunk of 2 replays against eager')
     classes = model.num_classes
     g = torch.Generator(device=DEVICE).manual_seed(30)
-    imgs = torch.randn(2, batch, 3, 512, 512, device=DEVICE, generator=g)
-    gts = torch.randint(0, classes, (2, batch, 512, 512), device=DEVICE,
+    imgs = torch.randn(2, batch, 3, *hw, device=DEVICE, generator=g)
+    gts = torch.randint(0, classes, (2, batch) + tuple(hw), device=DEVICE,
                         generator=g)
     make_capturable(state.optimizer, torch.device(DEVICE))
     state.step = 997
     single(state, imgs[0], gts[0])
     snap = _snapshot(state)
     ends = []
-    for _ in range(2):
+    for _ in range(DISPATCH_EAGER_RUNS):
         _restore(state, snap, 998)
         for img, gt in zip(imgs, gts):
             want = single(state, img, gt)
         ends.append(_snapshot(state))
-    eager_twice = _moved_rel_l2(state, snap, ends[0])
     _restore(state, snap, 998)
     got = multi(state, imgs, gts)
     torch.cuda.synchronize()
     differ = _unequal(state, ends[0])
-    moved = _moved_rel_l2(state, snap, ends[0]) if differ else 0.0
+    noise, moved, table = _spread(snap, ends, _snapshot(state)) if differ \
+        else (0.0, 0.0, '')
     same_logs = all(float(got[n]) == float(v) for n, v in want.items())
     line = (f'runs in {len(multi.graphed.graphs)} graph(s), capture '
             + ', '.join(f'{c:.2f}' for c in multi.graphed.capture_seconds)
             + ' s; against eager: '
             + ('bitwise equal' if not differ and same_logs else
                f'{len(differ)} tensors differ, the change within '
-               f'{moved:.3e} relative L2 (eager twice: {eager_twice:.3e})'))
+               f'{moved:.3e} relative L2 of the {DISPATCH_EAGER_RUNS} eager '
+               f'runs\' (median; theirs from each other: {noise:.3e}; '
+               f'{table})'))
+    nondeterministic = []
     if differ or not same_logs:
         _restore(state, snap, 998)
-        line += '; nondeterministic: ' + ', '.join(_nondeterministic_ops(
-            lambda: single(state, imgs[0], gts[0])))
+        nondeterministic = _nondeterministic_ops(
+            lambda: single(state, imgs[0], gts[0]))
+        line += '; nondeterministic: ' + (', '.join(nondeterministic)
+                                          or 'none named')
     log(f'{tag}: {line}')
-    # the limit of (11), or 4x the distance between two eager runs where
-    # the step adds with atomics (PERF.md section 2)
+    # deterministic algorithms where PyTorch has them (dispatch_try_rank):
+    # a step with no operation it names nondeterministic must be bitwise;
+    # one that adds with atomics, within
+    # the limit of (11) or 4x the eager runs' distance from each other
+    # (PERF.md section 2)
+    if (differ or not same_logs) and not nondeterministic:
+        raise AssertionError(f'{tag}: the replays differ from eager with no '
+                             f'nondeterministic operation named: {line}')
     if (differ or not same_logs) and not moved <= max(
-            TRAIN_GRAD_TOL_REL_L2, 4 * eager_twice):
-        raise AssertionError(f'{tag}: the replays differ from eager')
+            TRAIN_GRAD_TOL_REL_L2, 4 * noise):
+        raise AssertionError(f'{tag}: the replays differ from eager: {line}')
     return line
 
 
-def phase_cli_dispatch(root, host_train):
+def dispatch_try_rank():
+    """(116) in a process of its own (``parallel.launch``, one rank, no
+    process group), beside the fp32 steps against the CPU: psp_CGD,
+    swin_CGD and the MT random ensemble at the Tab5 batch and 512x512,
+    and the SGD configs (the configs/extra models at their own batch and
+    crop, SGD_DISPATCH_RECIPES), each through :func:`phase_dispatch_try`.
+    """
+    from segdistill_tpu_torch import recipes
+    from segdistill_tpu_torch.recipes import mt_bf16_options, mt_recipe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN deterministic, as in 113 and 117, and the deterministic forms
+    # of the operations that have one (the bilinear and gather backwards
+    # add with atomics otherwise, unnamed): the eager runs then differ only
+    # where an operation that PyTorch names adds with atomics
+    import warnings
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    warnings.filterwarnings('ignore', '.*deterministic implementation')
+    mt_random = mt_recipe('mt_cgd_random')
+    for config, options, tag in (
+            (str(PSP_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES), 'psp_CGD'),
+            (str(SWIN_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES),
+             'swin_CGD'),
+            (mt_random, mt_bf16_options(mt_random), 'MT random')):
+        phase_dispatch_try(config, options, tag)
+    # the SGD configs: the configs/extra models at their own batch and
+    # crop, and three recipes whose steps hold what no other captured step
+    # does (EMANet's bases moved in place, HRNet's 37 upsamples, Fast-SCNN's
+    # own schedule)
+    bf16 = {'model.backbone.dtype': 'bfloat16'}
+    for config, tag, _, hw, _, _ in EXTRA_PATHS:
+        phase_dispatch_try(config, bf16, f'{tag} (SGD)', EXTRA_BATCH, hw)
+    for name, tag in SGD_DISPATCH_RECIPES:
+        phase_dispatch_try(recipes.recipe(name), bf16, f'{tag} (SGD)',
+                           EXTRA_BATCH, ZOO_HW)
+
+
+def _dispatch_try_process():
+    """Run :func:`dispatch_try_rank` and print what it logged."""
+    from segdistill_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    ((out, _),) = launch(DISPATCH_TRY_RANK, 1, [],
+                         timeout=DISPATCH_TRY_TIMEOUT)
+    print(out, end='', flush=True)
+    log(f'(116) in its own process, beside the fp32 steps: '
+        f'{time.perf_counter() - t0:.1f} s')
+
+
+def phase_cli_dispatch(root, host_train, multi_host=False):
     """(115) ``tools.train`` on phase 14's dataset and config with
     ``runner.steps_per_dispatch`` = DISPATCH_K over CLI_DISPATCH_ITERS
     iterations (the CGD step captured in CUDA graphs): the JAX runner's
@@ -4573,32 +4726,47 @@ def phase_cli_dispatch(root, host_train):
     checkpoints where a chunk crosses CLI_DISPATCH_INTERVAL), the logged
     losses within the resume limit of phase 14's k = 1 run at the same
     iterations, ``tools.test`` on its checkpoint reproducing its last
-    evaluation."""
+    evaluation. (117) With ``multi_host``, ``tools.train --multi-host`` and
+    ``tools.test --multi-host`` under torchrun's variables (NCCL at world
+    size 1, each in a process of its own, as phase 101): the DDP step's
+    graphs."""
     from segdistill_tpu_torch.tools import test as test_cli
     from segdistill_tpu_torch.tools import train as train_cli
     k, iters, every = DISPATCH_K, CLI_DISPATCH_ITERS, CLI_DISPATCH_INTERVAL
-    log(f'== command line, steps per dispatch: tools.train on phase 14\'s '
-        f'dataset and config with --options runner.steps_per_dispatch={k}, '
-        f'{iters} iterations, checkpoint and evaluation every {every}; '
-        f'then tools.test')
+    flag = ' --multi-host' if multi_host else ''
+    log(f'== command line, steps per dispatch: tools.train{flag} on phase '
+        f'14\'s dataset and config with --options '
+        f'runner.steps_per_dispatch={k}, {iters} iterations, checkpoint and '
+        f'evaluation every {every}; then tools.test{flag}'
+        + (' (torchrun\'s variables: RANK 0, WORLD_SIZE 1, NCCL)'
+           if multi_host else ''))
     opts = dict(_cli_config_options(root / 'data'), **{
         'runner.steps_per_dispatch': k, 'runner.max_iters': iters,
         'checkpoint_config.interval': every, 'evaluation.interval': every})
     options = [f'{key}={value}' for key, value in opts.items()]
-    work = root / 'work_dispatch'
+    work = root / ('work_dispatch_multi_host' if multi_host
+                   else 'work_dispatch')
+    args = [str(CGD_CONFIG), '--work-dir', str(work), '--seed', '0',
+            '--options', *options]
     t0 = time.perf_counter()
-    state = train_cli.main([str(CGD_CONFIG), '--work-dir', str(work),
-                            '--seed', '0', '--options', *options])
-    torch.cuda.synchronize()
-    log(f'tools.train: {time.perf_counter() - t0:.1f} s in all')
+    if multi_host:
+        _run_cli(['segdistill_tpu_torch.tools.train', *args, '--multi-host'],
+                 'tools.train --multi-host')
+        step = json.loads((work / 'checkpoints' / 'meta.json').read_text())[
+            'iter']
+    else:
+        step = train_cli.main(args).step
+        torch.cuda.synchronize()
+    log(f'tools.train{flag}: {time.perf_counter() - t0:.1f} s in all')
     train, val = _json_log(work)
     (text_log,) = work.glob('*.log')
     text = text_log.read_text()
+    if multi_host and 'Backend: nccl' not in text:
+        raise AssertionError('the --multi-host run did not use NCCL')
     ckpts = sorted(q.name for q in (work / 'checkpoints').iterdir())
     want_ckpts = sorted([f'iter_{2 * k}.pth', f'iter_{iters}.pth',
                          'meta.json'])
-    if state.step != iters or sorted(train) != [k, 2 * k, 2 * k + 1,
-                                                iters] \
+    if step != iters or sorted(train) != [k, 2 * k, 2 * k + 1, iters] \
             or sorted(val) != [2 * k, iters] or ckpts != want_ckpts \
             or f'Iter [{iters}/{iters}]' not in text \
             or f'Eval at iter {2 * k}' not in text:
@@ -4623,17 +4791,199 @@ def phase_cli_dispatch(root, host_train):
         f'{RESUME_TOL_ABS}')
     if not worst <= 1.0:
         raise AssertionError('the k = 4 run differs from the k = 1 run')
-    metrics = test_cli.main([str(CGD_CONFIG), str(work), '--eval', 'mIoU',
-                             '--options', *options])
+    test_args = [str(CGD_CONFIG), str(work), '--eval', 'mIoU', '--options',
+                 *options]
+    if multi_host:
+        res = _run_cli(['segdistill_tpu_torch.tools.test', *test_args,
+                        '--multi-host'], 'tools.test --multi-host')
+        metrics = ast.literal_eval(res.stdout.strip().splitlines()[-1])
+    else:
+        metrics = test_cli.main(test_args)
     diff = max(abs(metrics[key] - val[iters][key])
                for key in ('mIoU', 'mAcc', 'aAcc'))
-    log(f'tools.test on the work dir: mIoU {metrics["mIoU"]:.9f}, the last '
-        f'evaluation {val[iters]["mIoU"]:.9f} (differ by at most '
+    log(f'tools.test{flag} on the work dir: mIoU {metrics["mIoU"]:.9f}, the '
+        f'last evaluation {val[iters]["mIoU"]:.9f} (differ by at most '
         f'{diff:.2e}, limit {MIOU_TOL})')
     if not diff <= MIOU_TOL:
-        raise AssertionError('tools.test does not reproduce the k = 4 '
-                             'run\'s last evaluation')
+        raise AssertionError(f'tools.test{flag} does not reproduce the k = 4 '
+                             f'run\'s last evaluation')
     return train
+
+
+def _ddp_dispatch_case(config, options, tag, kernels, batch, hw, k):
+    """One config of (117) in the rank: its DDP step (``prepare_training(
+    distributed=True)``: the static-graph DDP) from one snapshot, steps
+    999 to 998 + k run eagerly DISPATCH_EAGER_RUNS times (the multi step's
+    single step, the wrappers counting each step's launches) and as a
+    chunk of k replays of
+    the DDP step's graph, held as phase 116 holds them; one replay traced
+    (K1-K11 at their eager counts, and the NCCL kernels); the graph and the
+    eager DDP step timed in turns. -> a dict for the log."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine import make_capturable
+    model = init_segmentor_state(_config(config), seed=0, device=DEVICE,
+                                 cfg_options=dict(options, **{
+                                     'runner.steps_per_dispatch': k}))
+    state, multi = prepare_training(model, distributed=True)
+    if not multi.forward_train.static_graph:
+        raise AssertionError(f'{tag}: the DDP of a k > 1 run on the card '
+                             f'is not a static graph')
+    single = multi.step
+    g = torch.Generator(device=DEVICE).manual_seed(31)
+    imgs = torch.randn(k, batch, 3, *hw, device=DEVICE, generator=g)
+    gts = torch.randint(0, model.num_classes, (k, batch) + tuple(hw),
+                        device=DEVICE, generator=g)
+    make_capturable(state.optimizer, torch.device(DEVICE))
+    state.step = 997
+    single(state, imgs[0], gts[0])
+    snap = _snapshot(state)
+    ends, counted = [], []
+    for _ in range(DISPATCH_EAGER_RUNS):
+        _restore(state, snap, 998)
+        for img, gt in zip(imgs, gts):
+            for kn in kernels:
+                kn.launches = 0
+            want = single(state, img, gt)
+            counted.append({kn.name: kn.launches for kn in kernels})
+        ends.append(_snapshot(state))
+    _restore(state, snap, 998)
+    t0 = time.perf_counter()
+    got = multi(state, imgs, gts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    differ = _unequal(state, ends[0])
+    noise, moved, table = _spread(snap, ends, _snapshot(state)) if differ \
+        else (0.0, 0.0, '')
+    same_logs = all(float(got[n]) == float(v) for n, v in want.items())
+    nondeterministic = []
+    if differ or not same_logs:
+        _restore(state, snap, 998)
+        nondeterministic = _nondeterministic_ops(
+            lambda: single(state, imgs[0], gts[0]))
+    out = dict(tag=tag, graphs=len(multi.graphed.graphs),
+               capture_s=multi.graphed.capture_seconds, first_s=first_s,
+               differ=len(differ), moved=moved, noise=noise, table=table,
+               same_logs=same_logs, nondeterministic=nondeterministic,
+               optimizer=type(state.optimizer).__name__)
+    names = [kn.name for kn in kernels if counted[0][kn.name]]
+    want_counts = {n: counted[0][n] for n in names}
+
+    def restore():
+        _restore(state, snap, 998)
+    events = _traced(lambda: multi.graphed(state, imgs[:1], gts[:1]),
+                     restore, names, want_counts)
+    out['eager_counts'] = want_counts
+    out['replay_counts'] = _trace_counts(events, names)
+    out['nccl'] = sorted(collections.Counter(
+        e.name for e in events if 'nccl' in e.name.lower()).items())
+    out['events'] = len(events)
+    times = {'eager': [], 'graph': []}
+    for r in range(DDP_DISPATCH_ROUNDS):
+        for arm in (('eager', 'graph') if r % 2 == 0 else ('graph', 'eager')):
+            _restore(state, snap, 998)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if arm == 'eager':
+                for img, gt in zip(imgs, gts):
+                    single(state, img, gt)
+            else:
+                multi(state, imgs, gts)
+            torch.cuda.synchronize()
+            times[arm].append((time.perf_counter() - t0) / k * 1e3)
+    out['ms'] = times
+    return out
+
+
+def ddp_dispatch_rank(out_dir):
+    """(117) The rank of one process that torchrun's variables describe
+    (NCCL at world size 1, started by ``parallel.launch``): each config of
+    DDP_DISPATCH_CASES through :func:`_ddp_dispatch_case`; writes
+    ``ddp_dispatch.json`` under ``out_dir``."""
+    import torch.distributed as dist
+    from segdistill_tpu_torch.ops import (group_kl, layer_norm, pixel_kl,
+                                          resize_sum, seg_ce, sra_attn)
+    from segdistill_tpu_torch.parallel import process_group
+    kernels = [resize_sum.KERNEL, sra_attn.KERNEL, group_kl.FWD_KERNEL,
+               group_kl.BWD_KERNEL, seg_ce.FWD_KERNEL, seg_ce.BWD_KERNEL,
+               pixel_kl.FWD_KERNEL, pixel_kl.BWD_KERNEL, sra_attn.BWD_KERNEL,
+               layer_norm.FWD_KERNEL, layer_norm.BWD_KERNEL]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    results = []
+    with process_group() as (rank, world):
+        backend = dist.get_backend()
+        for config, options, tag, batch, hw in DDP_DISPATCH_CASES:
+            results.append(_ddp_dispatch_case(
+                config, options, tag, kernels, batch, hw, DDP_DISPATCH_K))
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    with open(Path(out_dir) / 'ddp_dispatch.json', 'w') as f:
+        json.dump(dict(rank=rank, world=world, backend=backend,
+                       torch=torch.__version__,
+                       nccl='.'.join(map(str, torch.cuda.nccl.version())),
+                       cases=results), f)
+
+
+def phase_ddp_dispatch():
+    """(117) Steps per dispatch across processes, on the one card: the DDP
+    step (static graph, NCCL at world size 1) of the CGD and PD steps and
+    of PSPNet-R50 Cityscapes (SGD) in CUDA graphs against the eager DDP
+    steps (:func:`ddp_dispatch_rank`, a process of its own). The command
+    line at k = 4 with ``--multi-host`` runs later, beside the fp32 steps
+    (:func:`_untimed_processes`). SyncBN, the log vars' mean and EMANet's
+    bases take their one-process branch at world size 1: their collectives
+    are captured only on several cards. -> each config's launches in a
+    replay's trace."""
+    from segdistill_tpu_torch.parallel import launch
+    log(f'== steps per dispatch under DDP: torchrun\'s variables (RANK 0, '
+        f'WORLD_SIZE 1, NCCL), the DDP step as a CUDA graph, a chunk of '
+        f'{DDP_DISPATCH_K} replays (steps 999-1000) against the eager DDP '
+        f'steps from one snapshot: '
+        + ', '.join(tag for _, _, tag, _, _ in DDP_DISPATCH_CASES))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launch(DDP_DISPATCH_RANK, 1, [tmp], timeout=DDP_DISPATCH_TIMEOUT)
+        report = json.loads((Path(tmp) / 'ddp_dispatch.json').read_text())
+    log(f"one rank ({report['backend']}, world size {report['world']}, "
+        f"torch {report['torch']}, NCCL {report['nccl']}) started, built, "
+        f'stepped and traced in {time.perf_counter() - t0:.1f} s')
+    if report['backend'] != 'nccl':
+        raise AssertionError(f"the rank used {report['backend']}")
+    for case in report['cases']:
+        tag = case['tag']
+        ms = case['ms']
+        log(f"{tag} ({case['optimizer']}): {case['graphs']} graph(s), "
+            f"capture " + ', '.join(f'{c:.2f}' for c in case['capture_s'])
+            + f" s each with the DDP warm-up; against eager: "
+            + ('bitwise equal' if not case['differ'] and case['same_logs']
+               else f"{case['differ']} tensors differ, the change within "
+               f"{case['moved']:.3e} relative L2 of the "
+               f"{DISPATCH_EAGER_RUNS} eager runs' (median; theirs from "
+               f"each other: {case['noise']:.3e}; {case['table']}; "
+               f"nondeterministic: {case['nondeterministic']})"))
+        # at world size 1 DDP's all-reduce is in place and NCCL (2.28)
+        # launches nothing for it: the graph holds DDP's bucket copies and
+        # its division by the world size
+        log(f"  replay trace: {case['events']} device events, kernels "
+            f"{case['replay_counts']} (eager {case['eager_counts']}); NCCL's "
+            f"kernels: {case['nccl'] or 'none'}")
+        log(f"  ms a step (host clock, {DDP_DISPATCH_K} steps, in turns): "
+            f"eager DDP {', '.join(f'{t:.3f}' for t in ms['eager'])}; graph "
+            f"{', '.join(f'{t:.3f}' for t in ms['graph'])}")
+        if (case['differ'] or not case['same_logs']) and not case[
+                'nondeterministic']:
+            raise AssertionError(f'{tag}: the DDP replays differ from the '
+                                 f'eager DDP steps with no nondeterministic '
+                                 f'operation named')
+        if (case['differ'] or not case['same_logs']) and not case[
+                'moved'] <= max(TRAIN_GRAD_TOL_REL_L2, 4 * case['noise']):
+            raise AssertionError(f'{tag}: the DDP replays differ from the '
+                                 f'eager DDP steps')
+        if case['replay_counts'] != case['eager_counts']:
+            raise AssertionError(f'{tag}: the replay launches other counts '
+                                 f'of the kernels than the eager DDP step')
+    return {case['tag']: case['replay_counts'] for case in report['cases']}
 
 
 def _bound(*args):
@@ -4685,15 +5035,23 @@ def _bounds(names):
     return out
 
 
-def _untimed_processes(export_dir, programs, cli_root, cli_train, want):
+def _untimed_processes(export_dir, programs, cli_root, cli_train):
     """The checks that run in processes of their own and time nothing, one
-    after another: the exported programs' loader (110), the command lines
-    under torchrun's variables (101) and the sharded evaluation (102). ->
-    the loader's report."""
+    after another: the exported programs' loader (110) and the command
+    lines under torchrun's variables (101; 117's at k = 4). -> the
+    loader's report."""
     report = run_export_loader(export_dir, programs)
     phase_cli_multi_host(cli_root, cli_train)
-    phase_dist_eval(cli_root, want)
+    phase_cli_dispatch(cli_root, cli_train, multi_host=True)
     return report
+
+
+def _other_untimed_processes(cli_root, want):
+    """The rest of them, beside :func:`_untimed_processes`: the other
+    configs under steps per dispatch (116), then the sharded evaluation
+    (102)."""
+    _dispatch_try_process()
+    phase_dist_eval(cli_root, want)
 
 
 def main():
@@ -4727,13 +5085,15 @@ def main():
     cgd_launches, _, cgd_ms = phase_train(cgd_kernels, CGD_CONFIG, {}, 'CGD')
     paths.append(cgd_launches)
     cgd_per_step = {k: n // TRAIN_STEPS for k, n in cgd_launches.items()}
-    phase_train_vs_cpu(CGD_CONFIG, {}, 'CGD')
+    phase_train_vs_cpu(CGD_CONFIG, TEACHER_DEPTH_CUT, 'CGD',
+                       pair=f'B0 <- {B3_AT_B2_DEPTH}')
     pd_launches, pd_last, _ = phase_train(
         [k1, k2, k5, k6, k7, k8, k9, k10, k11], PD_CONFIG, STUDENT_FA_TRAIN,
         'PD')
     _pd_loss_check(pd_last)
     paths.append(pd_launches)
-    phase_train_vs_cpu(PD_CONFIG, STUDENT_FA_TRAIN, 'PD')
+    phase_train_vs_cpu(PD_CONFIG, dict(STUDENT_FA_TRAIN, **TEACHER_DEPTH_CUT),
+                       'PD', pair=f'B0 <- {B3_AT_B2_DEPTH}')
     # this slice: steps per dispatch, the CGD and PD steps replayed from
     # CUDA graphs against the same steps run eagerly (113, 114)
     dispatch = {'CGD': phase_dispatch(cgd_kernels, CGD_CONFIG, {}, 'CGD'),
@@ -4745,7 +5105,10 @@ def main():
     atexit.register(shutil.rmtree, cli_root, True)
     cli_launches, cli_train, _ = phase_cli(cgd_kernels, cli_root)
     paths.append(cli_launches)
-    phase_cli_dispatch(cli_root, cli_train)  # this slice: k = 4 (115)
+    phase_cli_dispatch(cli_root, cli_train)  # k = 4 (115)
+    # this slice: the DDP step as a CUDA graph, NCCL at world size 1 (117)
+    dispatch.update((f'DDP {tag}', counts) for tag, counts in
+                    phase_ddp_dispatch().items())
     # this slice: the native and device loader backends on the command
     # line, the device augmentation against the CPU, batched evaluation
     paths.append(phase_cli_backends(cgd_kernels, cli_root, cli_train,
@@ -4764,17 +5127,7 @@ def main():
     paths.append(phase_train([k1, k3, k4, k5, k6, k10, k11], SWIN_CGD, {},
                              'swin_CGD', TAB5_BATCH,
                              'Swin-T + UPerHead student <- B3 teacher')[0])
-    # this slice: other configs under steps per dispatch (116)
-    from segdistill_tpu_torch.recipes import mt_bf16_options, mt_recipe
-    mt_random = mt_recipe('mt_cgd_random')
-    for config, options, tag in (
-            (str(PSP_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES), 'psp_CGD'),
-            (str(SWIN_CGD), dict(NO_CHECKPOINTS, **BF16_BACKBONES),
-             'swin_CGD'),
-            (mt_random, mt_bf16_options(mt_random), 'MT random')):
-        phase_dispatch_try(config, options, tag)
-    phase_dispatch_try(str(PSP_CITY), {'model.backbone.dtype': 'bfloat16'},
-                       'PSPNet-R50 Cityscapes (SGD)', refused_by='SGD')
+    from segdistill_tpu_torch import recipes
     # the configs/extra models: their own SGD steps (K5/K6 on the decode and
     # auxiliary heads, on PointRend's FPNHead) and serving (no hand-written
     # kernel on those paths: ResNet has BN, the heads no K1)
@@ -4785,7 +5138,6 @@ def main():
         phase_serving_extra(config, tag, classes, request_hw)
     # the Cityscapes recipes: SGD steps (K5/K6 at ratios 2, 4 and 8 of the
     # 512x1024 crop) and 1024x2048 whole-mode serving
-    from segdistill_tpu_torch import recipes
     from segdistill_tpu_torch.recipes import (cityscapes_recipe,
                                               drive_recipe, hrf_recipe)
     zoo_launches = {}
@@ -4841,21 +5193,25 @@ def main():
     # A10 and attention recipes, every head's fp32 logits first where
     # named; ResNeXt as a backbone alone). They time nothing, so the checks
     # that run in processes of their own and time nothing either run beside
-    # them, one after another: the exported programs' loader (110), the
-    # command lines under torchrun's variables (101) and the sharded
-    # evaluation (102)
+    # them in two chains: the exported programs' loader (110) and the
+    # command lines under torchrun's variables (101, 117); the other
+    # configs under steps per dispatch (116), whose checks compare runs and
+    # time nothing, and the sharded evaluation (102)
     want = _one_process_eval(cli_root)
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         beside = pool.submit(_untimed_processes, export_dir, programs,
-                             cli_root, cli_train, want)
+                             cli_root, cli_train)
+        other_beside = pool.submit(_other_untimed_processes, cli_root, want)
         tab5_vs_cpu = dict(batch=TAB5_VS_CPU_BATCH, hw=TAB5_VS_CPU_HW,
                            float64_grads=True)
-        phase_train_vs_cpu(PSP_CGD, {}, 'psp_CGD', pair='PSPNet-R50 <- B3',
+        phase_train_vs_cpu(PSP_CGD, TEACHER_DEPTH_CUT, 'psp_CGD',
+                           pair=f'PSPNet-R50 <- {B3_AT_B2_DEPTH}',
                            no_drop=(NO_DROP,), **tab5_vs_cpu)
-        phase_train_vs_cpu(PSP_PD, {}, 'psp_PD', pair='PSPNet-R50 <- B3',
+        phase_train_vs_cpu(PSP_PD, TEACHER_DEPTH_CUT, 'psp_PD',
+                           pair=f'PSPNet-R50 <- {B3_AT_B2_DEPTH}',
                            no_drop=(NO_DROP,), **tab5_vs_cpu)
-        phase_train_vs_cpu(SWIN_CGD, {}, 'swin_CGD', pair='Swin-T <- B3',
-                           **tab5_vs_cpu)
+        phase_train_vs_cpu(SWIN_CGD, TEACHER_DEPTH_CUT, 'swin_CGD',
+                           pair=f'Swin-T <- {B3_AT_B2_DEPTH}', **tab5_vs_cpu)
         for config, tag, classes, *_ in EXTRA_PATHS:
             phase_extra_vs_cpu(config, tag, classes)
         for recipe, tag, _, _, _, vs_cpu in ZOO_PATHS:
@@ -4882,6 +5238,7 @@ def main():
                 phase_attn_logits_vs_cpu(name, tag)
         phase_resnext_vs_cpu()
         export_report = beside.result()
+        other_beside.result()
     # this slice: Pascal VOC 2012 + SBD and Pascal Context (107-109): the
     # voc_aug converter and the datasets on PNG files, the VOC12-aug recipe
     # on the command line (K5/K6 twice an iteration at 21 classes) with
@@ -5087,6 +5444,7 @@ def main():
                  + ('convergence baseline', 'convergence CGD')
                  + ('CGD, two ranks on one card',),
                  paths))))
+    log(f'== all phases done in {time.perf_counter() - T0:.1f} s')
     print(json.dumps({'kernels': entries}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

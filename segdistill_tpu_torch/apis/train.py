@@ -24,7 +24,6 @@ from ..datasets import build_dataloader, build_dataset
 from ..engine import (IterBasedRunner, TrainState, build_lr_schedule,
                       build_multi_train_step, build_optimizer,
                       build_train_step, load_weights, resume_latest)
-from ..engine.runner import DDP_REFUSAL
 from ..models import build_segmentor
 from ..parallel import get_dist_info, wrap_model
 from ..utils import get_root_logger
@@ -133,19 +132,21 @@ def prepare_training(model, cfg=None, seed=0, distributed=False):
     With the config's ``runner.steps_per_dispatch`` k above 1 the step is
     the k-step :func:`~..engine.build_multi_train_step` (a
     :class:`~..engine.MultiTrainStep`, called on (k, B, ...) batches; its
-    ``step`` is the single step); ``distributed`` with k > 1 raises
-    ``NotImplementedError``."""
+    ``step`` is the single step), with ``distributed`` through DDP too: on
+    CPU tensors the DDP step k times, on the card replays of the DDP step
+    captured in a CUDA graph (DDP's static graph, NCCL; gloo raises
+    ``GraphCaptureError``)."""
     cfg = cfg or model.cfg
     k = _steps_per_dispatch(cfg)
-    if distributed and k > 1:
-        raise NotImplementedError(DDP_REFUSAL)
     schedule = build_lr_schedule(cfg.get('lr_config'), cfg.optimizer['lr'],
                                  _max_iters(cfg))
     optimizer = build_optimizer(cfg.optimizer, model)
     state = TrainState(model=model, optimizer=optimizer, seed=seed)
+    forward = wrap_model(model, cfg, static_graph=k > 1 and next(
+        model.parameters()).is_cuda) if distributed else None
     if k > 1:
-        return state, build_multi_train_step(model, optimizer, schedule, k)
-    forward = wrap_model(model, cfg) if distributed else None
+        return state, build_multi_train_step(model, optimizer, schedule, k,
+                                             forward)
     return state, build_train_step(model, optimizer, schedule, forward)
 
 
@@ -194,8 +195,7 @@ def train_segmentor(model, dataset, cfg=None, distributed=False,
     takes full chunks of k steps through
     :func:`~..engine.build_multi_train_step` (on the card, replays of a
     CUDA graph of the step) and logs, saves and evaluates where a chunk
-    crosses an interval, as the JAX runner does; across processes k > 1
-    raises ``NotImplementedError``.
+    crosses an interval, as the JAX runner does, on every rank.
 
     Or an iterable of in-memory batches (NCHW images), without any of
     that."""

@@ -34,6 +34,14 @@ nothing. A capture that fails raises :class:`GraphCaptureError` naming the
 operation; nothing falls back to the eager step. Where the optimizer's
 state was replaced after a capture (a checkpoint loaded), the graphs,
 which read the old tensors, are dropped and captured anew.
+
+Across processes the graph holds the DDP step (``parallel.wrap_model(...,
+static_graph=True)``): DDP's gradient all-reduces, SyncBN's, the log vars'
+mean and EMANet's bases, each an NCCL collective launched on the capture
+stream. PyTorch's notes on graphs and DDP ask for 11 DDP iterations
+before a capture (DDP reads timing events on the host at its first 10):
+the warm-up takes as many more steps as the DDP wrapper has not yet run.
+:func:`check_ddp_capture` names the DDP steps that cannot be captured.
 """
 
 import contextlib
@@ -50,10 +58,39 @@ from .train_state import step_seed
 
 # eager steps on the capture stream before each capture
 CAPTURE_WARMUP = 2
+# DDP iterations before the first capture of a DDP step
+DDP_ITERATIONS_BEFORE_CAPTURE = 11
 
 
 class GraphCaptureError(RuntimeError):
     """A train step that a CUDA graph cannot hold."""
+
+
+def check_ddp_capture(model, backend, static_graph):
+    """Raise :class:`GraphCaptureError` where the DDP step of ``model``
+    over a process group of ``backend`` cannot be captured: gloo's
+    collectives run on the host; a random ensemble leaves another
+    teacher's adapters without a gradient at each step, which DDP's static
+    graph cannot follow; and without ``static_graph`` DDP all-reduces a
+    map of the used parameters that it fills and reads on the host."""
+    if backend != 'nccl':
+        raise GraphCaptureError(
+            f'steps per dispatch across processes on the card capture the '
+            f'DDP step in a CUDA graph, and {backend} collectives cannot be '
+            f'captured (they run on the host): use NCCL, one card a rank, '
+            f'or runner.steps_per_dispatch=1')
+    if getattr(model, 'random_ensemble', False):
+        raise GraphCaptureError(
+            'a random ensemble under DDP cannot run in a CUDA graph: the '
+            'adapters of the teachers not drawn get no gradient, another set '
+            'at each step, which DDP\'s static graph cannot follow, and '
+            'DDP\'s search for unused parameters reads a map on the host; '
+            'use runner.steps_per_dispatch=1')
+    if not static_graph:
+        raise GraphCaptureError(
+            'a CUDA graph of the DDP step needs DDP\'s static graph '
+            '(parallel.wrap_model(..., static_graph=True)): without it DDP '
+            'fills and reads a map of the used parameters on the host')
 
 
 def kl_criteria(model):
@@ -88,10 +125,13 @@ class GraphedTrainStep:
     is made capturable (:func:`~.optimizer.make_capturable`) at the first
     call. ``graphs``: {key: (graph, its log vars, image slot, label slot,
     teacher)}; ``capture_seconds``: each capture's time, warm-up
-    included."""
+    included. ``ddp``: the DDP wrapper that ``step_losses`` runs, if any
+    (the warm-up brings its iterations to DDP_ITERATIONS_BEFORE_CAPTURE)."""
 
-    def __init__(self, model, optimizer, lr_schedule, step_losses):
+    def __init__(self, model, optimizer, lr_schedule, step_losses,
+                 ddp=None):
         self.model = model
+        self.ddp = ddp
         self.optimizer = optimizer
         self.lr_schedule = lr_schedule
         self.step_losses = step_losses
@@ -184,6 +224,12 @@ class GraphedTrainStep:
             if id(t) not in kept:  # made by the warm-up: a fresh state
                 t.zero_()
 
+    def _warmup(self):
+        if self.ddp is None:
+            return CAPTURE_WARMUP
+        return max(CAPTURE_WARMUP,
+                   DDP_ITERATIONS_BEFORE_CAPTURE - self.ddp.module.calls)
+
     def _capture(self, state, step, key, img, gt):
         t0 = time.perf_counter()
         device = img.device
@@ -196,7 +242,7 @@ class GraphedTrainStep:
         stream = self.stream
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            for _ in range(CAPTURE_WARMUP):
+            for _ in range(self._warmup()):
                 self.write(state, step)
                 self.optimizer.zero_grad(set_to_none=True)
                 self._body(slot_img, slot_gt, step, teacher)

@@ -21,6 +21,10 @@ after them (``optax.trace`` or ``scale_by_adam``, then ``+ wd * p``), a
 decay that never enters the momentum buffer: at momentum 0.9 it is ~10x
 weaker in steady state. The port follows the reference; without weight
 decay the two are the same update.
+
+A CUDA graph of the step (``engine/cuda_graph.py``) holds an optimizer
+whose learning rates are device scalars (:func:`make_capturable`): Adam and
+AdamW in torch's capturable form, SGD as :class:`CapturableSGD`.
 """
 
 import torch
@@ -84,20 +88,72 @@ def set_lr(optimizer, lr):
             group['lr'] = lr * group['lr_mult']
 
 
+class CapturableSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` whose step reads each group's learning rate from
+    a device scalar (:func:`make_capturable` turns an SGD into this class):
+    no value goes to the host, so a CUDA graph holds the step.
+
+    The update is torch's, operation for operation, with the learning rate
+    applied by ``addcmul_`` with the scalar in place of ``add_`` with
+    ``alpha=-lr`` (the same product, rounded once): weight decay added to
+    the gradient before the momentum, ``nesterov``, ``maximize``; no
+    ``dampening``. Momentum buffers are made as zeros, not as a copy of the
+    first gradient: ``0 * momentum + grad`` is that copy, so a graph's
+    warm-up, which leaves zeroed buffers, does not change the first step."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group['params'] if p.grad is not None]
+            if params:
+                self._group_step(group, params)
+        return loss
+
+    def _group_step(self, group, params):
+        grads = [p.grad for p in params]
+        if group['maximize']:
+            grads = torch._foreach_neg(grads)
+        weight_decay, momentum = group['weight_decay'], group['momentum']
+        if weight_decay != 0:
+            grads = torch._foreach_add(grads, params, alpha=weight_decay)
+        if momentum != 0:
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if st.get('momentum_buffer') is None:
+                    st['momentum_buffer'] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            bufs = [st['momentum_buffer'] for st in states]
+            torch._foreach_mul_(bufs, momentum)
+            torch._foreach_add_(bufs, grads)
+            grads = torch._foreach_add(grads, bufs, alpha=momentum) \
+                if group['nesterov'] else bufs
+        torch._foreach_addcmul_(params, grads, [group['lr']] * len(params),
+                                value=-1)
+
+
 def make_capturable(optimizer, device):
-    """Turn an Adam or AdamW optimizer into the form a CUDA graph can hold:
-    ``capturable=True`` (its step counters on the device), each group's
+    """Turn an optimizer into the form a CUDA graph can hold: each group's
     learning rate a float64 scalar on ``device`` that :func:`set_lr` writes
-    before each replay (a float, or a tensor elsewhere, as a loaded
-    state holds it, is moved there), and the step counters of a loaded
-    state moved to the device. Idempotent. SGD reads a tensor learning
-    rate back to the host in its step (``_foreach_add_(..., alpha=-lr)``),
-    which a capture cannot hold: it raises."""
-    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+    before each replay (a float, or a tensor elsewhere, as a loaded state
+    holds it, is moved there) and ``capturable=True``. Adam and AdamW then
+    keep their step counters on the device (those of a loaded state are
+    moved there); an SGD without dampening (no config sets it, and the JAX
+    package's momentum has none) becomes a :class:`CapturableSGD`.
+    Idempotent."""
+    if isinstance(optimizer, torch.optim.SGD):
+        if any(g['dampening'] != 0 for g in optimizer.param_groups):
+            raise NotImplementedError(
+                'SGD with dampening has no capturable form: steps per '
+                'dispatch on the card take SGD without dampening')
+        optimizer.__class__ = CapturableSGD
+    elif not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
         raise NotImplementedError(
-            f'{type(optimizer).__name__} cannot run in a CUDA graph: its step '
-            f'reads the learning rate on the host; steps per dispatch take '
-            f'Adam or AdamW (ROADMAP A8c item 1: fused optimizers)')
+            f'{type(optimizer).__name__} has no capturable form: steps per '
+            f'dispatch on the card take SGD, Adam or AdamW')
     for group in optimizer.param_groups:
         group['capturable'] = True
         group['lr'] = torch.as_tensor(group['lr'], dtype=torch.float64,

@@ -31,7 +31,9 @@ Steps per dispatch (``runner.steps_per_dispatch`` = k, the JAX package's
 ``build_multi_train_step``): :func:`build_multi_train_step` runs k steps a
 call over a stacked (k, B, ...) batch and returns the last step's log
 vars; on CPU tensors the eager step k times, on the card replays of the
-step captured in a CUDA graph (``engine/cuda_graph.py``). The runner takes
+step captured in a CUDA graph (``engine/cuda_graph.py``), across
+processes the DDP step (its all-reduces in the graph, under NCCL). The
+runner takes
 full chunks of k while they fit before ``max_iters`` and single steps
 after (also from a resume point within k of the end), each computed as a
 replay computes it (:meth:`MultiTrainStep.step`), draws k batches a
@@ -47,10 +49,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models.segmentors import parse_losses
 from ..ops.resize_sum import deterministic_adjoint
-from ..parallel import get_dist_info, is_main_process
+from ..parallel import is_main_process
 from ..utils import get_root_logger
 from .optimizer import make_capturable, set_lr
 from .train_state import step_seed
@@ -163,8 +167,12 @@ class MultiTrainStep:
     graphs, capture times and pool)."""
 
     def __init__(self, model, optimizer, lr_schedule, k, forward_train):
-        if get_dist_info()[1] > 1:
-            raise NotImplementedError(DDP_REFUSAL)
+        self.ddp = forward_train if isinstance(
+            forward_train, DistributedDataParallel) else None
+        if self.ddp is not None and next(model.parameters()).is_cuda:
+            from .cuda_graph import check_ddp_capture
+            check_ddp_capture(model, dist.get_backend(),
+                              forward_train.static_graph)
         self.model, self.optimizer = model, optimizer
         self.lr_schedule, self.forward_train = lr_schedule, forward_train
         self.k = int(k)
@@ -206,14 +214,8 @@ class MultiTrainStep:
             self.graphed = GraphedTrainStep(
                 self.model, self.optimizer, self.lr_schedule,
                 build_step_losses(self.model, self.optimizer,
-                                  self.forward_train))
+                                  self.forward_train), ddp=self.ddp)
         return self.graphed(state, imgs, gts)
-
-
-# the refusal of steps per dispatch across processes
-DDP_REFUSAL = ('steps per dispatch (runner.steps_per_dispatch > 1) across '
-               'processes need a CUDA graph of the DDP step, which waits for '
-               'ROADMAP A8c item 1 (DDP capture)')
 
 
 def build_multi_train_step(model, optimizer, lr_schedule=None, k=1,
@@ -226,7 +228,10 @@ def build_multi_train_step(model, optimizer, lr_schedule=None, k=1,
     tensors it replays the step captured in a CUDA graph
     (:class:`~.cuda_graph.GraphedTrainStep`): the host writes each step's
     inputs, learning rate, loss weights and seed, and launches one replay.
-    Across processes it raises ``NotImplementedError``."""
+    ``forward_train``: the DDP wrapper across processes (on the card
+    ``parallel.wrap_model(..., static_graph=True)``, whose all-reduces the
+    graph holds; :func:`~.cuda_graph.check_ddp_capture` names what cannot
+    be captured)."""
     return MultiTrainStep(model, optimizer, lr_schedule, k, forward_train)
 
 

@@ -113,29 +113,55 @@ class TrainForward(nn.Module):
     """The module DDP wraps: its ``forward`` is the model's
     ``forward_train`` (DDP prepares the gradient averaging only inside its
     own ``forward``). It holds the model as ``model``; a checkpoint is
-    written from the model itself, without this prefix."""
+    written from the model itself, without this prefix. ``calls``: its
+    forwards, DDP's iterations."""
 
     def __init__(self, model):
         super().__init__()
         self.model = model
+        self.calls = 0
 
     def forward(self, *args, **kwargs):
+        self.calls += 1
         return self.model.forward_train(*args, **kwargs)
 
 
-def wrap_model(model, cfg=None):
+# DDP's runtime statistics: recorded at its first 10 iterations and then
+# once in this many (a host read of CUDA events, which no CUDA graph can
+# hold): never again, for a DDP whose step is captured
+NO_RUNTIME_STATS = 2**31 - 1
+
+
+def wrap_model(model, cfg=None, static_graph=False):
     """DDP around ``model``'s train forward (mmseg's
     ``MMDistributedDataParallel``): buffers are not broadcast
     (``broadcast_buffers=False``: each rank's SyncBN statistics are already
     global), and ``find_unused_parameters`` is the config's, by default
     True as in the reference (the random ensemble's teachers that were not
-    drawn leave their adapters unused). Raises without a process group."""
+    drawn leave their adapters unused). Raises without a process group.
+
+    ``static_graph`` (a model on the card): the form a CUDA graph of the
+    step holds (``engine/cuda_graph.py``), as PyTorch's notes on graphs
+    and DDP ask: DDP's static graph (the parameters that take part are
+    found at the first iteration and fixed; the search of the autograd
+    graph and the all-reduce of the used-parameter map, copied from the
+    host, go), built on a side stream, with its runtime statistics off
+    after the first 10 iterations."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError('distributed training needs a process group: '
                            'call init_distributed() (--multi-host)')
     device = next(model.parameters()).device
     find_unused = (cfg or {}).get('find_unused_parameters', True)
-    return nn.parallel.DistributedDataParallel(
-        TrainForward(model),
-        device_ids=[device.index] if device.type == 'cuda' else None,
-        broadcast_buffers=False, find_unused_parameters=find_unused)
+    kwargs = dict(device_ids=[device.index] if device.type == 'cuda'
+                  else None, broadcast_buffers=False)
+    if not static_graph:
+        return nn.parallel.DistributedDataParallel(
+            TrainForward(model), find_unused_parameters=find_unused,
+            **kwargs)
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        ddp = nn.parallel.DistributedDataParallel(
+            TrainForward(model), static_graph=True, **kwargs)
+    torch.cuda.current_stream(device).wait_stream(side)
+    ddp._set_ddp_runtime_logging_sample_rate(NO_RUNTIME_STATS)
+    return ddp

@@ -23,6 +23,8 @@ import jax.numpy as jnp
 from segdistill_tpu.convert.torch_loader import load_pth_into_variables
 from segdistill_tpu.models import build_segmentor
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 # compile-heavy on the 1-core CI box -> slow tier (fast tier = <3 min signal)
 pytestmark = pytest.mark.slow
 

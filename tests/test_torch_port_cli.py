@@ -25,6 +25,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / 'tests' / 'data' / 'convergence'
 KD_KEY = 'loss_decode_head.linear_pred<->decode_head.linear_pred_other'

@@ -24,6 +24,8 @@ from segdistill_tpu_torch import registry as port_registry
 from segdistill_tpu_torch import zoo as port_zoo
 from segdistill_tpu_torch.core.evaluation import class_names as port_names
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(str(p.relative_to(ROOT))
                  for p in (ROOT / 'configs').rglob('*.py'))

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 pytestmark = pytest.mark.slow
 
 ROOT = Path(__file__).resolve().parent.parent

@@ -28,6 +28,8 @@ from segdistill_tpu_torch.tools.convert_datasets import (cityscapes,
                                                          voc_aug)
 from segdistill_tpu_torch.utils import image as P
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

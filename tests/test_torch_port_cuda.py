@@ -46,6 +46,8 @@ from segdistill_tpu_torch.ops.sra_attn import (
     sra_attention_train)
 from segdistill_tpu_torch.tools import kernel_cases
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 pytestmark = pytest.mark.cuda
 
 

@@ -33,6 +33,8 @@ from PIL import Image
 from segdistill_tpu_torch.utils import image as P
 from segdistill_tpu_torch.utils import png
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 # share of imrotate's bilinear values that may sit one level from OpenCV's
 ROTATE_SHARE = 1e-3

@@ -25,7 +25,12 @@ JAX package, on the CPU, with the trajectory test's model and limits
   other orders).
 * The device scalars that a CUDA graph reads (a learning rate written in
   place, an alpha as a 0-d tensor) against the host floats; the refusals
-  (several processes, an optimizer a graph cannot hold).
+  (a chunk of another size, an optimizer without a capturable form, the
+  DDP steps a graph cannot hold: gloo's, a random ensemble's).
+* The capturable SGD (``engine.optimizer.CapturableSGD``, its learning
+  rates device scalars) against ``torch.optim.SGD`` with float rates, from
+  the state a graph's warm-up leaves (its momentum buffers and step counts
+  put back to 0); its checkpoint both ways.
 
 The graph itself runs only on the card: its tests are in
 ``test_torch_port_dispatch_cuda.py`` (marked ``cuda``, no JAX).
@@ -58,8 +63,10 @@ from segdistill_tpu_torch.engine import (IterBasedRunner, TrainState,
                                          build_multi_train_step,
                                          build_optimizer, make_capturable,
                                          set_lr)
-from segdistill_tpu_torch.engine import runner as port_runner
-from segdistill_tpu_torch.engine.optimizer import plain_state_dict
+from segdistill_tpu_torch.engine.cuda_graph import (GraphCaptureError,
+                                                    check_ddp_capture)
+from segdistill_tpu_torch.engine.optimizer import (CapturableSGD,
+                                                   plain_state_dict)
 from segdistill_tpu_torch.ops.resize_sum import resize_adjoint
 from segdistill_tpu_torch.models import build_segmentor
 from segdistill_tpu_torch.tools import train
@@ -382,29 +389,179 @@ def test_device_scalars_equal_host_floats():
         assert torch.equal(got[name], value), name
 
 
-def test_refusals(monkeypatch):
+def test_refusals():
     cfg = Config(dict(model=narrow_segformer_cfg(),
                       optimizer=dict(type='AdamW', lr=1e-3),
                       runner=dict(type='IterBasedRunner', max_iters=4,
                                   steps_per_dispatch=3)))
     model = init_segmentor_state(cfg, device='cpu')
-    # several processes: no process group is made, the refusal comes first
-    with pytest.raises(NotImplementedError, match='A8c item 1'):
+    # several processes need a process group, k > 1 as k = 1
+    with pytest.raises(RuntimeError, match='needs a process group'):
         prepare_training(model, cfg, distributed=True)
     state, multi = prepare_training(model, cfg)
     assert multi.k == 3 and state.step == 0
     cfg.runner['steps_per_dispatch'] = 1
     assert not hasattr(prepare_training(model, cfg)[1], 'k')
-    monkeypatch.setattr(port_runner, 'get_dist_info', lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match='DDP capture'):
-        build_multi_train_step(model, state.optimizer, None, 3)
-    monkeypatch.undo()
     with pytest.raises(ValueError, match='holds 3 batches'):
         multi(state, torch.zeros(2, 1, 3, 32, 32),
               torch.zeros(2, 1, 32, 32, dtype=torch.long))
-    sgd = torch.optim.SGD(copy.deepcopy(model).parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match='SGD'):
-        make_capturable(sgd, torch.device('cpu'))
+    rms = torch.optim.RMSprop(copy.deepcopy(model).parameters(), lr=0.1)
+    with pytest.raises(NotImplementedError, match='RMSprop has no '
+                       'capturable form'):
+        make_capturable(rms, torch.device('cpu'))
+    dampened = torch.optim.SGD(copy.deepcopy(model).parameters(), lr=0.1,
+                               momentum=0.9, dampening=0.1)
+    with pytest.raises(NotImplementedError, match='SGD with dampening has '
+                       'no capturable form'):
+        make_capturable(dampened, torch.device('cpu'))
+    # the DDP steps a CUDA graph cannot hold (MultiTrainStep asks on the
+    # card): gloo's collectives (two ranks sharing one card), a random
+    # ensemble's unused adapters, a DDP without its static graph
+    with pytest.raises(GraphCaptureError, match='gloo collectives cannot be '
+                       'captured.*use NCCL'):
+        check_ddp_capture(model, 'gloo', True)
+    check_ddp_capture(model, 'nccl', True)
+    with pytest.raises(GraphCaptureError, match='needs DDP\'s static graph'):
+        check_ddp_capture(model, 'nccl', False)
+    model.random_ensemble = True
+    with pytest.raises(GraphCaptureError, match='random ensemble under DDP'):
+        check_ddp_capture(model, 'nccl', True)
+    for message in ('ROADMAP', 'A8c', 'C13'):
+        for backend in ('gloo', 'nccl'):
+            with pytest.raises(GraphCaptureError) as info:
+                check_ddp_capture(model, backend, False)
+            assert message not in str(info.value)
+
+
+# -- the capturable SGD ------------------------------------------------------
+
+SGD_CASES = [(momentum, nesterov, weight_decay, loaded)
+             for momentum in (0.0, 0.9) for nesterov in (False, True)
+             for weight_decay in (0.0, 5e-4) for loaded in (False, True)
+             if not nesterov or momentum]
+
+
+class _TwoLayers(torch.nn.Module):
+    """Weights of 37 x 23 and 5 x 37 (AVX lanes and a remainder), biases:
+    two param groups under ``_sgd_config``'s custom keys."""
+
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(0)
+        self.fc1 = torch.nn.Linear(23, 37)
+        self.fc2 = torch.nn.Linear(37, 5)
+        for p in self.parameters():
+            with torch.no_grad():
+                p.copy_(torch.randn(p.shape, generator=g))
+
+    def forward(self, x):
+        return self.fc2(torch.tanh(self.fc1(x)))
+
+
+def _sgd_config(momentum, nesterov, weight_decay):
+    return dict(type='SGD', lr=0.05, momentum=momentum, nesterov=nesterov,
+                weight_decay=weight_decay,
+                paramwise_cfg=dict(custom_keys={
+                    'bias': dict(lr_mult=2.0, decay_mult=0.0)}))
+
+
+def _sgd_steps(model, optimizer, schedule, first, n):
+    g = torch.Generator().manual_seed(first)
+    for step in range(first, first + n):
+        set_lr(optimizer, schedule(step))
+        optimizer.zero_grad(set_to_none=True)
+        x = torch.randn(6, 23, generator=g)
+        model(x).square().mean().backward()
+        optimizer.step()
+
+
+def _same_sgd(a, b, opt_a, opt_b):
+    for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(x, y), name
+    for p, q in zip(a.parameters(), b.parameters()):
+        assert opt_a.state[p].keys() == opt_b.state[q].keys()
+        for key, value in opt_a.state[p].items():
+            assert torch.equal(value, opt_b.state[q][key]), key
+
+
+@pytest.mark.parametrize('momentum,nesterov,weight_decay,loaded',
+                         SGD_CASES)
+def test_capturable_sgd_equals_torch_sgd(momentum, nesterov, weight_decay,
+                                         loaded):
+    """5 steps at a poly schedule's rates, two groups (the biases at twice
+    the rate, no decay): the capturable SGD, its rates 0-d float64 tensors
+    written by ``set_lr``, against ``torch.optim.SGD`` with float rates,
+    bitwise (the rate applied by ``addcmul_`` rounds the same product once,
+    as ``add_(alpha=-lr)`` does). ``loaded``: both resume at step 3 from
+    the plain SGD's ``plain_state_dict`` (its momentum buffers), made
+    capturable after the load. Before its first step the capturable SGD
+    runs a step and puts the state back as a graph's warm-up does
+    (``GraphedTrainStep._restore``: the tensors it held copied back, those
+    the step made zeroed): its first step must still be torch's, whose
+    buffer is the gradient itself where it had none."""
+    cfg = _sgd_config(momentum, nesterov, weight_decay)
+    schedule = build_lr_schedule(dict(policy='poly', power=0.9, min_lr=1e-4,
+                                      by_epoch=False), cfg['lr'], 10)
+    plain_model, model = _TwoLayers(), _TwoLayers()
+    plain = build_optimizer(cfg, plain_model)
+    optimizer = build_optimizer(cfg, model)
+    assert type(plain) is torch.optim.SGD and len(plain.param_groups) == 2
+    first = 0
+    if loaded:
+        _sgd_steps(plain_model, plain, schedule, 0, 3)
+        model.load_state_dict(plain_model.state_dict())
+        optimizer.load_state_dict(copy.deepcopy(plain_state_dict(plain)))
+        first = 3
+    make_capturable(optimizer, torch.device('cpu'))
+    assert type(optimizer) is CapturableSGD
+    assert all(g['lr'].dtype == torch.float64 and g['capturable']
+               for g in optimizer.param_groups)
+    held = [p for p in model.parameters()] + [
+        v for st in optimizer.state.values() for v in st.values()
+        if torch.is_tensor(v)]
+    saved = [(t, t.detach().clone()) for t in held]
+    _sgd_steps(model, optimizer, schedule, 7, 1)  # the warm-up
+    with torch.no_grad():
+        for t, value in saved:
+            t.copy_(value)
+        for st in optimizer.state.values():
+            for value in st.values():
+                if not any(value is t for t in held):
+                    value.zero_()
+    _sgd_steps(plain_model, plain, schedule, first, 5)
+    _sgd_steps(model, optimizer, schedule, first, 5)
+    _same_sgd(plain_model, model, plain, optimizer)
+    assert [float(g['lr']) for g in optimizer.param_groups] == \
+        [g['lr'] for g in plain.param_groups]
+
+
+def test_sgd_checkpoint_both_ways():
+    """``plain_state_dict`` of a capturable SGD loads into a plain
+    ``torch.optim.SGD``, and a plain one's into an SGD then made
+    capturable: in each case the next step equals the one the saving
+    optimizer takes."""
+    cfg = _sgd_config(0.9, False, 5e-4)
+    schedule = build_lr_schedule(None, cfg['lr'], 10)
+    for capturable_first in (True, False):
+        model = _TwoLayers()
+        optimizer = build_optimizer(cfg, model)
+        if capturable_first:
+            make_capturable(optimizer, torch.device('cpu'))
+        _sgd_steps(model, optimizer, schedule, 0, 2)
+        saved = plain_state_dict(optimizer)
+        assert all(not g['capturable'] if 'capturable' in g else True
+                   for g in saved['param_groups'])
+        assert all(isinstance(g['lr'], float) for g in saved['param_groups'])
+        assert all(st.keys() == {'momentum_buffer'}
+                   for st in saved['state'].values())
+        twin = copy.deepcopy(model)
+        loaded = build_optimizer(cfg, twin)
+        loaded.load_state_dict(copy.deepcopy(saved))  # as from a file
+        if not capturable_first:
+            make_capturable(loaded, torch.device('cpu'))
+        _sgd_steps(model, optimizer, schedule, 2, 1)
+        _sgd_steps(twin, loaded, schedule, 2, 1)
+        _same_sgd(model, twin, optimizer, loaded)
 
 
 def test_cpu_chunk_runs_without_a_graph():

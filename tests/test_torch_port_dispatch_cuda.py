@@ -14,15 +14,32 @@ optimizer capturable, K1's deterministic backward), so the two compute the
 same operations: they are held bitwise (cuDNN deterministic, as
 ``apis.set_random_seed`` sets it by default). So is a k = 4 run resumed at
 an unaligned iteration against the uninterrupted run.
+
+The same model under SGD (momentum 0.9, weight decay) from a fresh
+optimizer (the first replay is SGD's first step, its buffers made by the
+capture's warm-up and put back to 0) and from a checkpoint's momentum
+buffers loaded at an aligned iteration, and under DDP at
+NCCL world size 1 (a process group of this process alone: DDP's static
+graph, its all-reduce in the graph), each against its eager steps,
+bitwise. On a card, torch's SGD and the capturable SGD are compared as
+well, from one state (the same product, rounded once, is the aim).
 """
+
+import os
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from segdistill_tpu_torch.apis import init_segmentor_state, prepare_training
 from segdistill_tpu_torch.config import Config
 from segdistill_tpu_torch.engine import (IterBasedRunner, load_checkpoint,
                                          make_capturable)
+from segdistill_tpu_torch.engine.optimizer import (CapturableSGD,
+                                                   plain_state_dict)
+from segdistill_tpu_torch.parallel.launch import free_port
+
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
 
 pytestmark = pytest.mark.cuda
 
@@ -69,12 +86,28 @@ def cuda():
     torch.backends.cudnn.deterministic = deterministic
 
 
-def _run(device, **runner):
+SGD = dict(type='SGD', lr=0.01, momentum=0.9, weight_decay=5e-4)
+
+
+@pytest.fixture
+def nccl(cuda):
+    """A NCCL process group of this process alone (world size 1)."""
+    if dist.is_initialized():
+        pytest.skip('a process group exists already')
+    os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(free_port()))
+    dist.init_process_group('nccl', rank=0, world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _run(device, optimizer=None, distributed=False, **runner):
     """(state, the chunk's step) of the model from seed 0, its optimizer
     capturable."""
     cfg = Config(dict(CONFIG, runner=dict(CONFIG['runner'], **runner)))
+    if optimizer is not None:
+        cfg.optimizer = optimizer
     model = init_segmentor_state(cfg, seed=0, device=device)
-    state, multi = prepare_training(model, cfg)
+    state, multi = prepare_training(model, cfg, distributed=distributed)
     make_capturable(state.optimizer, device)
     return state, multi
 
@@ -112,6 +145,109 @@ def test_graph_replays_equal_the_eager_steps(cuda):
     assert {k: float(v) for k, v in got.items()} == \
         {k: float(v) for k, v in want.items()}
     _assert_same_state(graphed, eager)
+
+
+def _replays_against_eager(device, first, prepare=None, **kwargs):
+    """Steps ``first + 1`` to ``first + 3`` as a chunk and eagerly, from
+    the same fresh state (``prepare(state)`` on each): (chunk's state, its
+    step, eager state)."""
+    graphed, multi = _run(device, **kwargs)
+    eager, twin = _run(device, **kwargs)
+    for state in (graphed, eager) if prepare else ():
+        prepare(state)
+    imgs, gts = _chunk(device)
+    graphed.step = eager.step = first
+    got = multi(graphed, imgs, gts)
+    for img, gt in zip(imgs, gts):
+        want = twin.step(eager, img, gt)
+    assert graphed.step == eager.step == first + 3
+    assert {k: float(v) for k, v in got.items()} == \
+        {k: float(v) for k, v in want.items()}
+    _assert_same_state(graphed, eager)
+    return graphed, multi, eager
+
+
+def _load_momentum(state):
+    """A checkpoint's optimizer state (the plain form, momentum buffers from
+    seed 4) loaded into ``state``'s optimizer."""
+    saved = plain_state_dict(state.optimizer)
+    params = [p for group in state.optimizer.param_groups
+              for p in group['params']]
+    g = torch.Generator().manual_seed(4)
+    saved['state'] = {i: {'momentum_buffer': torch.randn(
+        p.shape, generator=g).mul_(1e-3).to(p.device)}
+        for i, p in enumerate(params)}
+    state.optimizer.load_state_dict(saved)
+
+
+@pytest.mark.parametrize('loaded', [False, True])
+def test_sgd_replays_equal_the_eager_steps(cuda, loaded):
+    """SGD, steps 1-3 from a fresh optimizer (the first replay is SGD's
+    first step, the momentum buffer the gradient itself) or steps 4-6 from
+    momentum buffers loaded at iteration 3, a chunk's end (the capture's
+    warm-up must put them back), bitwise."""
+    state, multi, _ = _replays_against_eager(
+        cuda, 3 if loaded else 0, _load_momentum if loaded else None,
+        optimizer=SGD)
+    assert type(state.optimizer) is CapturableSGD
+    assert all(st['momentum_buffer'].is_cuda
+               for st in state.optimizer.state.values())
+
+
+def test_capturable_sgd_against_torch_sgd(cuda):
+    """Two SGD steps (momentum, weight decay) of the model's parameters
+    with the same gradients: torch's SGD (its learning rate a float) and
+    the capturable SGD (a float64 scalar on the card), from one state.
+    On the CPU the two are bitwise equal (``test_torch_port_dispatch.py``);
+    on the card torch's foreach ``add_(alpha=-lr)`` rounds the learning
+    rate's product with the update and the sum once (a fused multiply-add),
+    ``addcmul_`` with a tensor scalar rounds the product first. So each
+    step may move a parameter by half a unit of its update's last place
+    and one of its own, other than torch's step: the two end within the
+    sum of both over the two steps (units of fp32's last place: eps times
+    the value; 1% more for the weight decay's share of the difference)."""
+    state, _ = _run(cuda, optimizer=SGD)
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    grads = [[torch.randn(p.shape, device=cuda, generator=g) * 1e-2
+              for p in params] for _ in range(2)]
+    results = []
+    for capturable in (False, True):
+        with torch.no_grad():
+            copies = [p.detach().clone().requires_grad_() for p in params]
+        opt = torch.optim.SGD(copies, lr=0.0123, momentum=0.9,
+                              weight_decay=5e-4)
+        if capturable:
+            make_capturable(opt, cuda)
+        steps = [[p.detach().clone() for p in copies]]
+        for step_grads in grads:
+            for p, grad in zip(copies, step_grads):
+                p.grad = grad.clone()
+            opt.step()
+            steps.append([p.detach().clone() for p in copies])
+        results.append(steps)
+    eps = torch.finfo(torch.float32).eps
+    worst, differ = 0.0, 0
+    for i in range(len(params)):
+        p0, p1, p2 = (step[i] for step in results[0])
+        limit = 1.01 * eps * ((p1 - p0).abs() / 2 + (p2 - p1).abs() / 2
+                              + p1.abs() + p2.abs()) + 1e-44
+        diff = (results[1][2][i] - p2).abs()
+        differ += int((diff > 0).sum())
+        worst = max(worst, float((diff / limit).max()))
+    assert worst <= 1.0, f'{worst:.3f} of the limit ({differ} differ)'
+    print(f'capturable SGD against torch SGD on the card: {differ} '
+          f'elements differ, at most {worst:.3f} of the limit')
+
+
+def test_ddp_graph_replays_equal_the_eager_ddp_steps(nccl):
+    """At NCCL world size 1: the DDP step (static graph, built on a side
+    stream) captured with its all-reduce, steps 998-1000 (two graphs),
+    against the eager DDP steps; SGD the same from step 0."""
+    _, multi, _ = _replays_against_eager(nccl, 997, distributed=True)
+    assert len(multi.graphed.graphs) == 2
+    assert multi.forward_train.static_graph
+    _replays_against_eager(nccl, 0, distributed=True, optimizer=SGD)
 
 
 def test_two_replays_from_one_snapshot_are_equal(cuda):
@@ -167,3 +303,51 @@ def test_resume_at_an_unaligned_step(cuda, tmp_path):
         assert p['lr'].is_cuda and p['lr'].dtype == torch.float64
         assert torch.equal(p['lr'], q['lr'])
         assert p['capturable'] and q['capturable']
+
+
+class _Switch(torch.nn.Module):
+    """Two branches, one taken a step: the other's parameters unused, as
+    the adapters of the teachers a random ensemble did not draw."""
+
+    def __init__(self):
+        super().__init__()
+        self.a, self.b, self.c = (torch.nn.Linear(16, 16) for _ in range(3))
+
+    def forward(self, x, first):
+        return (self.b if first else self.c)(self.a(x)).square().mean()
+
+
+def _ddp_switch(device, **kwargs):
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            _Switch().to(device), device_ids=[device.index or 0], **kwargs)
+    torch.cuda.current_stream(device).wait_stream(side)
+    return ddp
+
+
+def test_ddp_cannot_follow_a_changing_used_set(nccl):
+    """Why a random ensemble under DDP has no graph (``cuda_graph.
+    check_ddp_capture``): DDP's static graph raises at the first step whose
+    unused parameters differ, and DDP's search for unused parameters
+    copies its map from the host inside the backward, which a capture
+    refuses."""
+    x = torch.randn(4, 16, device=nccl)
+    ddp = _ddp_switch(nccl, static_graph=True)
+    ddp(x, True).backward()
+    with pytest.raises(RuntimeError, match='graph has changed'):
+        ddp(x, False).backward()
+    ddp = _ddp_switch(nccl, find_unused_parameters=True)
+    ddp._set_ddp_runtime_logging_sample_rate(2**31 - 1)
+    stream = torch.cuda.Stream(nccl)
+    stream.wait_stream(torch.cuda.current_stream(nccl))
+    with torch.cuda.stream(stream):
+        for i in range(11):  # DDP's timed iterations before a capture
+            ddp(x, i % 2 == 0).backward()
+    torch.cuda.current_stream(nccl).wait_stream(stream)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match='Cannot copy between CPU and '
+                       'CUDA tensors during CUDA graph capture'):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream,
+                              capture_error_mode='thread_local'):
+            ddp(x, False).backward()

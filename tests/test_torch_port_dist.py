@@ -21,6 +21,11 @@ references; the tests compare what the ranks wrote.
   ``RTOL64`` of each tensor's largest value.
 * Both: every parameter, buffer and optimizer moment bitwise equal on the
   two ranks.
+* Steps per dispatch through DDP: the ResNet's 3 steps as one chunk of
+  ``build_multi_train_step`` (on CPU tensors the DDP step 3 times) equal
+  the rank's single steps bitwise, hence the JAX steps; ``tools.train
+  --multi-host`` with ``runner.steps_per_dispatch=3`` logs the chunk ends
+  3, 6, then 7 and 8 with the k = 1 run's losses.
 * ``SyncBatchNorm2d`` and EncNet's BN1d at two ranks against one process
   on the concatenated batch; the log vars' mean over the ranks;
   ``tools.train --multi-host`` / ``tools.test --multi-host`` (rank 0 alone
@@ -176,7 +181,8 @@ def run(tmp_path_factory):
                     max_iters=extra.MAX_ITERS, img=resnet_img,
                     gt=resnet_gt, steps=extra.STEPS, float64=True),
         cli=dict(config=str(config), work=str(tmp / 'work'),
-                 work2=str(tmp / 'work_resumed')))
+                 work2=str(tmp / 'work_resumed'),
+                 work3=str(tmp / 'work_chunked')))
     torch.save(job, tmp / 'job.pt')
     t0 = time.perf_counter()
     with parallel.Workers('torch_port_dist_worker:run', WORLD,
@@ -294,7 +300,27 @@ def test_ema_bases_match_jax_and_every_rank(run):
     _close64(got[0], want, name)
 
 
-@pytest.mark.parametrize('case', ['cgd', 'resnet'])
+def test_resnet_chunk_equals_single_steps_and_jax(run):
+    """The k = 3 chunk through DDP on each rank: its parameters, buffers
+    (BN statistics, the EMA bases), optimizer state and last log vars are
+    the rank's three single DDP steps' bitwise, and within ``RTOL64`` of
+    the JAX steps on the global batch."""
+    for r in run['ranks']:
+        chunk, single = r['resnet chunk'], r['resnet']
+        assert _same(chunk['state_dict'], single['state_dict'])
+        assert _same(chunk['optimizer'], single['optimizer'])
+        assert chunk['logs'] == single['logs'][-1:]
+    ref = run['refs']['resnet'][-1]
+    got = run['ranks'][0]['resnet chunk']
+    for k, v in ref['log_vars'].items():
+        if 'acc' not in k:
+            _close64(got['logs'][-1][k], v, k)
+    for name, w in state_dict_from_jax(ref['variables']).items():
+        if not name.endswith(('running_var', 'num_batches_tracked')):
+            _close64(got['state_dict'][name], w, name)
+
+
+@pytest.mark.parametrize('case', ['cgd', 'resnet', 'resnet chunk'])
 def test_state_is_bitwise_equal_on_every_rank(run, case):
     """Parameters, buffers (BN statistics, the EMA bases) and the
     optimizer's state after the steps; the log vars of every step."""
@@ -410,6 +436,27 @@ def test_cli_multi_host_trains_resumes_and_tests(run):
     (out0, err0), (out1, err1) = run['outputs']
     assert 'Iter [8/8]' in err0 and 'Iter [' not in err1
     assert "'mIoU'" in out0 and "'mIoU'" not in out1
+
+
+def test_cli_multi_host_steps_per_dispatch(run):
+    """``tools.train --multi-host --options runner.steps_per_dispatch=3``
+    at two ranks: the JAX runner's cadence (chunk ends 3 and 6, then single
+    steps 7 and 8; the checkpoints where a chunk crosses 4 and at 8), the
+    losses of the k = 1 run at those iterations (on the CPU a chunk is the
+    DDP step k times; within the fixtures' limits, as CPU sums in several
+    busy processes may split in other orders)."""
+    assert [r['cli']['chunked_step'] for r in run['ranks']] == [8, 8]
+    work = Path(run['job']['cli']['work3'])
+    train, val = _json_log(work)
+    assert [ln['iter'] for ln in train] == [3, 6, 7, 8] and val == []
+    assert sorted(p.name for p in (work / 'checkpoints').iterdir()) == [
+        'iter_6.pth', 'iter_8.pth', 'meta.json']
+    k1 = {ln['iter']: ln for ln in _json_log(run['job']['cli']['work'])[0]}
+    for line in train:
+        assert line['lr'] == k1[line['iter']]['lr']
+        for key in ('loss', 'decode.loss_seg', cli.KD_KEY):
+            _close(line[key], k1[line['iter']][key],
+                   f"{line['iter']} {key}")
 
 
 def test_sharded_evaluation_equals_one_process(run):

@@ -33,6 +33,8 @@ from segdistill_tpu_torch.apis import (inference_segmentor, init_segmentor,
 from segdistill_tpu_torch.config import Config
 from segdistill_tpu_torch.models import build_segmentor
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXTRA = os.path.join(ROOT, 'configs', 'extra')
 CONFIGS = {'psanet_r50_ade.py': ('EncoderDecoder', 'PSAHead', 150),

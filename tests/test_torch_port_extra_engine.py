@@ -29,6 +29,8 @@ from segdistill_tpu_torch.datasets import CityscapesDataset, build_dataset
 from segdistill_tpu_torch.engine import (build_lr_schedule, build_optimizer,
                                          set_lr)
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR_CONFIG = dict(policy='poly', power=0.9, min_lr=1e-4, by_epoch=False)
 MAX_ITERS = 40000

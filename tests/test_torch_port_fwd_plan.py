@@ -52,6 +52,8 @@ from segdistill_tpu_torch.ops import pixel_kl as pk
 from segdistill_tpu_torch.ops import seg_ce as sc
 from segdistill_tpu_torch.ops import tile_plan
 from segdistill_tpu_torch.tools import kernel_cases
+
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
 from test_torch_port_seg_ce_plan import AXES, taps
 
 CSRC = Path(tile_plan.__file__).resolve().parent.parent / 'csrc'

@@ -17,6 +17,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / 'segdistill_tpu_torch'
 

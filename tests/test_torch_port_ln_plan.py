@@ -37,6 +37,8 @@ from segdistill_tpu_torch.ops import layer_norm as ln
 from segdistill_tpu_torch.ops import ln_plan
 from segdistill_tpu_torch.tools import kernel_cases
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = (ROOT / 'segdistill_tpu_torch' / 'csrc' / 'layer_norm.cu').read_text()
 SMS = 132  # the H100's SMs

@@ -38,6 +38,8 @@ from segdistill_tpu_torch.ops.group_kl import (fused_group_kl,
                                                fused_group_kl_shuffled)
 from segdistill_tpu_torch.ops.seg_ce import fused_seg_ce
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 BF16_GRAD_RTOL = 2.0 ** -7

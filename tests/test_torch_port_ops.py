@@ -22,6 +22,8 @@ from segdistill_tpu_torch.ops import (fused_resize_sum, fused_sra_attention,
 from segdistill_tpu_torch.ops import resize_sum as resize_sum_mod
 from segdistill_tpu_torch.ops import sra_attn as sra_attn_mod
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 TOL = 1e-5
 
 

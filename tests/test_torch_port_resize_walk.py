@@ -24,6 +24,7 @@ import torch
 from segdistill_tpu.ops.pallas.resize_sum import (
     fused_resize_sum as jax_resize_sum)
 from segdistill_tpu_torch.ops import resize_sum as rs
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
 from test_torch_port_seg_ce_plan import taps
 
 SOURCE = Path(rs.__file__).resolve().parent.parent / 'csrc' / 'resize_sum.cu'

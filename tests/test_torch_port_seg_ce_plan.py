@@ -29,6 +29,8 @@ import torch.nn.functional as F
 
 from segdistill_tpu_torch.ops import seg_ce as sc
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 CSRC = Path(sc.__file__).resolve().parent.parent / 'csrc'
 
 # (in, out) of one axis: integer, non-integer and downsampling ratios, odd

@@ -22,6 +22,8 @@ from segdistill_tpu.models import build_segmentor as build_jax_segmentor
 from segdistill_tpu_torch.config import Config
 from segdistill_tpu_torch.models import build_segmentor
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.basename(p) for pat in ('psp_*.py', 'swin_*.py')
                  for p in glob.glob(os.path.join(ROOT, 'configs', 'exp_tab5',

@@ -19,6 +19,7 @@ import torch
 from segdistill_tpu_torch.ops import group_kl, layer_norm, pixel_kl
 from segdistill_tpu_torch.tools import kernel_cases
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
 from test_torch_port_cuda import _check_kl_backward, _close, cuda  # noqa
 
 pytestmark = pytest.mark.cuda

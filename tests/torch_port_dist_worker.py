@@ -13,10 +13,13 @@ other, so both run every case):
 * ``reduce``: ``parse_losses`` of rank-dependent values;
 * ``cgd``, ``resnet``: train steps through ``build_train_step`` with the
   DDP wrapper on the rank's share of the job's batch;
+* ``resnet chunk``: the ``resnet`` steps as one chunk of
+  ``build_multi_train_step`` with the DDP wrapper;
 * ``dryrun``: ``tools.dryrun_multichip``'s rank step;
 * ``cli``: ``tools.train --multi-host`` (8 iterations), a resume from
-  iteration 4 into a second work dir, ``tools.test --multi-host``, and
-  ``multi_device_test`` of the last checkpoint.
+  iteration 4 into a second work dir, ``tools.test --multi-host``,
+  ``multi_device_test`` of the last checkpoint, and ``tools.train
+  --multi-host`` with ``runner.steps_per_dispatch=3`` into a third.
 """
 
 import contextlib
@@ -31,6 +34,7 @@ import torch
 from segdistill_tpu_torch.apis import init_segmentor, multi_device_test
 from segdistill_tpu_torch.datasets import build_dataset
 from segdistill_tpu_torch.engine import (TrainState, build_lr_schedule,
+                                         build_multi_train_step,
                                          build_optimizer, build_train_step)
 from segdistill_tpu_torch.models import build_segmentor
 from segdistill_tpu_torch.models.decode_heads.da_head import (
@@ -121,9 +125,11 @@ def bn_counts(model, world):
     return counts
 
 
-def train_case(spec, rank, world):
+def train_case(spec, rank, world, chunk=False):
     """``spec['steps']`` train steps of the spec's model through the DDP
-    wrapper, on this rank's share of the batch."""
+    wrapper, on this rank's share of the batch; with ``chunk``, as one
+    chunk of that many steps (``build_multi_train_step``), which logs the
+    last."""
     model = build_segmentor(spec['cfg'])
     model.load_state_dict(spec['state_dict'], strict=True)
     float64 = spec.get('float64', False)
@@ -134,8 +140,10 @@ def train_case(spec, rank, world):
     optimizer = build_optimizer(spec['optimizer'], model)
     schedule = build_lr_schedule(spec['lr_config'], spec['optimizer']['lr'],
                                  spec['max_iters'])
-    step_fn = build_train_step(model, optimizer, schedule,
-                               wrap_model(model))
+    steps = spec['steps']
+    build = build_multi_train_step if chunk else build_train_step
+    step_fn = build(model, optimizer, schedule,
+                    *([steps] if chunk else []), wrap_model(model))
     state = TrainState(model=model, optimizer=optimizer, seed=0)
     img, gt = spec['img'], spec['gt']
     per = img.shape[0] // world
@@ -143,10 +151,14 @@ def train_case(spec, rank, world):
     img = img[share].to(torch.float64 if float64 else torch.float32)
     counts = bn_counts(model, world)
     logs = []
-    for i in range(spec['steps']):
+    for i in range(1 if chunk else steps):
         perm = spec['perms'][i] if spec.get('perms') else None
         with float64_kept() if float64 else contextlib.nullcontext():
-            log_vars = step_fn(state, img, gt[share], perm=perm)
+            if chunk:
+                log_vars = step_fn(state, torch.stack([img] * steps),
+                                   torch.stack([gt[share]] * steps))
+            else:
+                log_vars = step_fn(state, img, gt[share], perm=perm)
         logs.append({k: float(v) for k, v in log_vars.items()})
     return dict(logs=logs, bn_counts=counts,
                 state_dict={k: v.clone() for k, v in
@@ -174,8 +186,12 @@ def cli_case(spec, rank):
                            device='cpu')
     shard = multi_device_test(model, build_dataset(
         model.cfg.data['test'], dict(test_mode=True)))
+    chunked = train_cli.main(
+        [spec['config'], '--work-dir', spec['work3'], '--no-validate']
+        + common + ['--options', 'runner.steps_per_dispatch=3'])
     return dict(step=state.step, resumed_step=resumed.step, metrics=metrics,
-                digest=digest.hexdigest(), shard=shard)
+                digest=digest.hexdigest(), shard=shard,
+                chunked_step=chunked.step)
 
 
 def run(job_path, out_dir):
@@ -194,9 +210,10 @@ def run(job_path, out_dir):
                              log_vars={k: float(v)
                                        for k, v in log_vars.items()})
         seconds['syncbn and reduce'] = time.perf_counter() - t0
-        for case in ('cgd', 'resnet'):
+        for case in ('cgd', 'resnet', 'resnet chunk'):
             t0 = time.perf_counter()
-            out[case] = train_case(job[case], rank, world)
+            out[case] = train_case(job[case.split()[0]], rank, world,
+                                   chunk=case.endswith('chunk'))
             seconds[case] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out['dryrun'] = dryrun_multichip.rank_step(world)

@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_port_threads  # noqa: F401  (torch threads a test worker)
+
 NUM_CLASSES = 19
 EMBED_DIM = 64
 NORM = dict(type='SyncBN', requires_grad=True)
