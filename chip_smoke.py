@@ -240,15 +240,33 @@ each kernel how often a replay of each graph launched it.
 
 Then steps per dispatch across processes: (117) under torchrun's
 variables (NCCL at world size 1; NCCL refuses two ranks on one card), in a
-process of its own, the CGD and PD steps and PSPNet-R50 Cityscapes (SGD)
-through ``prepare_training(distributed=True)`` at k = 2: DDP's static
-graph captured, a chunk of replays against the eager DDP steps from one
-snapshot (phase 116's rule), a replay's trace with K1-K11 at their eager
-counts and NCCL's kernels named (none at world size 1: the all-reduce is
-in place), the DDP graph against the eager DDP step in turns; and
-``tools.train --multi-host`` at k = 4 with phase 115's checks, then
-``tools.test --multi-host``. Phase 103's gloo ranks on the card must be
-refused k = 2 (``GraphCaptureError``).
+process of its own, the CGD and PD steps, PSPNet-R50 Cityscapes (SGD) and
+the MT random ensemble (bf16, batch 8 at 512x512; a chunk whose two steps
+draw both teachers, a graph each) through
+``prepare_training(distributed=True)`` at k = 2: DDP's static graph
+captured, a chunk of replays against the eager DDP steps from one
+snapshot (phase 116's rule), a replay's trace (the random ensemble's: one
+a teacher, K1 2, K3/K4 1, K5/K6 1, K11 30, K10 83 or 119 by the teacher)
+with K1-K11 at their eager counts and NCCL's kernels named (none at world
+size 1: the all-reduce is in place), the DDP graph against the eager DDP
+step in turns; and ``tools.train --multi-host`` at k = 4 with phase 115's
+checks, then ``tools.test --multi-host``. Phase 103's gloo ranks on the
+card must be refused k = 2 (``GraphCaptureError``).
+
+Then this slice, MiT's per-block recompute (``with_cp``, each student
+block under a non-reentrant checkpoint, its dropout and drop-path masks
+replayed): (118) the CGD and PD steps of (113, 114) with
+``model.cfg_s.backbone.with_cp=True``, steps 998-1001 eagerly with and
+without the flag from one snapshot (cuDNN deterministic): each step's
+launches those of the step without the flag plus the recompute's (K10
+141, PD's K2 16), the two bitwise or within (11)'s limits where PyTorch
+names an operation that adds with atomics; a chunk of 4 replays with the
+flag against its eager steps by the same rule, a replay's trace at the
+eager counts; then the eager step and the chunk of replays, with and
+without the flag, in 2 rounds in turns: ms a step (5 eager steps, a chunk
+of 4 replays), the eager peak memory allocated, each graph's pool, and
+the device-busy share of one trace each; and, in the block of fp32 steps
+below, the CGD step with the flag against the CPU.
 
 The order differs from the numbering: the export traces while the kernels
 build; the timed phases of the later slices run first, and their fp32
@@ -273,6 +291,7 @@ import atexit
 import collections
 import contextlib
 import copy
+import gc
 import hashlib
 import itertools
 import json
@@ -4178,14 +4197,17 @@ DISPATCH_EXTRA = r'^(memcpy|memset)|FillFunctor|MulFunctor<float>'
 # replays, timed against the eager DDP step in DDP_DISPATCH_ROUNDS turns
 DDP_DISPATCH_RANK = 'chip_smoke:ddp_dispatch_rank'
 DDP_DISPATCH_K, DDP_DISPATCH_ROUNDS = 2, 3
-DDP_DISPATCH_TIMEOUT = 420
+DDP_DISPATCH_TIMEOUT = 540
 DDP_DISPATCH_CASES = [
     (CGD_CONFIG, dict(NO_CHECKPOINTS, **BF16_BACKBONES), 'CGD', TRAIN_BATCH,
      (512, 512)),
     (PD_CONFIG, dict(NO_CHECKPOINTS, **BF16_BACKBONES, **STUDENT_FA_TRAIN),
      'PD', TRAIN_BATCH, (512, 512)),
     (PSP_CITY, {'model.backbone.dtype': 'bfloat16'},
-     'PSPNet-R50 Cityscapes (SGD)', EXTRA_BATCH, (512, 1024))]
+     'PSPNet-R50 Cityscapes (SGD)', EXTRA_BATCH, (512, 1024)),
+    # a multi-teacher recipe of recipes.py (its bf16 options): the random
+    # ensemble, a graph for each teacher its chunk draws
+    ('mt_cgd_random', None, 'MT random', TRAIN_BATCH, (512, 512))]
 # the command line at k = 4 (115): iterations not a multiple of 4 (chunk
 # ends 4 and 8, then single steps 9 and 10), evaluation and checkpoint
 # intervals crossed at 8 and 10
@@ -4284,11 +4306,13 @@ def _trace_counts(events, names):
             for n in names}
 
 
-def _pool_bytes():
+def _pool_bytes(pool=None):
     """Bytes the caching allocator holds in private pools: the CUDA
-    graphs' memory."""
+    graphs' memory (``pool``: that pool's alone, a graph's ``pool()``)."""
     return sum(s['total_size'] for s in torch.cuda.memory_snapshot()
-               if tuple(s.get('segment_pool_id', (0, 0))) != (0, 0))
+               if tuple(s.get('segment_pool_id', (0, 0))) != (0, 0)
+               and (pool is None
+                    or tuple(s['segment_pool_id']) == tuple(pool)))
 
 
 def _nondeterministic_ops(fn):
@@ -4810,21 +4834,47 @@ def phase_cli_dispatch(root, host_train, multi_host=False):
     return train
 
 
+def _ddp_start(model, k):
+    """The step after which (117) takes its chunk: 998, or for a random
+    ensemble the first from there whose next k steps draw every teacher
+    (``draw_teacher_index`` of each step's seed)."""
+    from segdistill_tpu_torch.engine import step_seed
+    from segdistill_tpu_torch.models.segmentors import draw_teacher_index
+    start = DISPATCH_START + 1
+    if not getattr(model, 'random_ensemble', False):
+        return start, None
+    n = len(model.teachers)
+    while True:
+        drawn = [draw_teacher_index(step_seed(0, start + i + 1), n)
+                 for i in range(k)]
+        if len(set(drawn)) == n:
+            return start, drawn
+        start += 1
+
+
 def _ddp_dispatch_case(config, options, tag, kernels, batch, hw, k):
     """One config of (117) in the rank: its DDP step (``prepare_training(
-    distributed=True)``: the static-graph DDP) from one snapshot, steps
-    999 to 998 + k run eagerly DISPATCH_EAGER_RUNS times (the multi step's
-    single step, the wrappers counting each step's launches) and as a
-    chunk of k replays of
-    the DDP step's graph, held as phase 116 holds them; one replay traced
-    (K1-K11 at their eager counts, and the NCCL kernels); the graph and the
-    eager DDP step timed in turns. -> a dict for the log."""
+    distributed=True)``: the static-graph DDP) from one snapshot, k steps
+    (999 to 998 + k; a random ensemble's first k that draw every teacher)
+    run eagerly DISPATCH_EAGER_RUNS times (the multi step's single step,
+    the wrappers counting each step's launches) and as a chunk of k
+    replays of the DDP step's graphs, held as phase 116 holds them; a
+    replay of each step whose eager counts differ from the earlier ones'
+    traced (K1-K11 at their eager counts, and the NCCL kernels); the graph
+    and the eager DDP step timed in turns. ``config`` a name: a
+    multi-teacher recipe of ``recipes.py`` with its bf16 options. -> a
+    dict for the log."""
     from segdistill_tpu_torch.apis import (init_segmentor_state,
                                            prepare_training)
     from segdistill_tpu_torch.engine import make_capturable
+    if isinstance(config, str):
+        from segdistill_tpu_torch.recipes import mt_bf16_options, mt_recipe
+        config = mt_recipe(config)
+        options = mt_bf16_options(config)
     model = init_segmentor_state(_config(config), seed=0, device=DEVICE,
                                  cfg_options=dict(options, **{
                                      'runner.steps_per_dispatch': k}))
+    start, drawn = _ddp_start(model, k)
     state, multi = prepare_training(model, distributed=True)
     if not multi.forward_train.static_graph:
         raise AssertionError(f'{tag}: the DDP of a k > 1 run on the card '
@@ -4835,19 +4885,19 @@ def _ddp_dispatch_case(config, options, tag, kernels, batch, hw, k):
     gts = torch.randint(0, model.num_classes, (k, batch) + tuple(hw),
                         device=DEVICE, generator=g)
     make_capturable(state.optimizer, torch.device(DEVICE))
-    state.step = 997
+    state.step = start - 1
     single(state, imgs[0], gts[0])
     snap = _snapshot(state)
     ends, counted = [], []
     for _ in range(DISPATCH_EAGER_RUNS):
-        _restore(state, snap, 998)
+        _restore(state, snap, start)
         for img, gt in zip(imgs, gts):
             for kn in kernels:
                 kn.launches = 0
             want = single(state, img, gt)
             counted.append({kn.name: kn.launches for kn in kernels})
         ends.append(_snapshot(state))
-    _restore(state, snap, 998)
+    _restore(state, snap, start)
     t0 = time.perf_counter()
     got = multi(state, imgs, gts)
     torch.cuda.synchronize()
@@ -4858,30 +4908,37 @@ def _ddp_dispatch_case(config, options, tag, kernels, batch, hw, k):
     same_logs = all(float(got[n]) == float(v) for n, v in want.items())
     nondeterministic = []
     if differ or not same_logs:
-        _restore(state, snap, 998)
+        _restore(state, snap, start)
         nondeterministic = _nondeterministic_ops(
             lambda: single(state, imgs[0], gts[0]))
     out = dict(tag=tag, graphs=len(multi.graphed.graphs),
                capture_s=multi.graphed.capture_seconds, first_s=first_s,
                differ=len(differ), moved=moved, noise=noise, table=table,
                same_logs=same_logs, nondeterministic=nondeterministic,
-               optimizer=type(state.optimizer).__name__)
+               optimizer=type(state.optimizer).__name__,
+               steps=[start + 1, start + k], drawn=drawn)
     names = [kn.name for kn in kernels if counted[0][kn.name]]
-    want_counts = {n: counted[0][n] for n in names}
+    out['traced'], out['nccl'], out['events'] = [], [], []
+    for i in range(k):
+        want_counts = {n: counted[i][n] for n in names}
+        if any(want_counts == w for _, w, _ in out['traced']):
+            continue
 
-    def restore():
-        _restore(state, snap, 998)
-    events = _traced(lambda: multi.graphed(state, imgs[:1], gts[:1]),
-                     restore, names, want_counts)
-    out['eager_counts'] = want_counts
-    out['replay_counts'] = _trace_counts(events, names)
-    out['nccl'] = sorted(collections.Counter(
-        e.name for e in events if 'nccl' in e.name.lower()).items())
-    out['events'] = len(events)
+        def restore(i=i):
+            _restore(state, snap, start + i)
+        events = _traced(
+            lambda i=i: multi.graphed(state, imgs[i:i + 1], gts[i:i + 1]),
+            restore, names, want_counts)
+        label = '' if drawn is None else f' (teacher {drawn[i]})'
+        out['traced'].append((label, want_counts,
+                              _trace_counts(events, names)))
+        out['nccl'] += [e.name for e in events if 'nccl' in e.name.lower()]
+        out['events'].append(len(events))
+    out['nccl'] = sorted(collections.Counter(out['nccl']).items())
     times = {'eager': [], 'graph': []}
     for r in range(DDP_DISPATCH_ROUNDS):
         for arm in (('eager', 'graph') if r % 2 == 0 else ('graph', 'eager')):
-            _restore(state, snap, 998)
+            _restore(state, snap, start)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if arm == 'eager':
@@ -4938,7 +4995,8 @@ def phase_ddp_dispatch():
     from segdistill_tpu_torch.parallel import launch
     log(f'== steps per dispatch under DDP: torchrun\'s variables (RANK 0, '
         f'WORLD_SIZE 1, NCCL), the DDP step as a CUDA graph, a chunk of '
-        f'{DDP_DISPATCH_K} replays (steps 999-1000) against the eager DDP '
+        f'{DDP_DISPATCH_K} replays (steps 999-1000; the random ensemble\'s '
+        f'first two that draw both teachers) against the eager DDP '
         f'steps from one snapshot: '
         + ', '.join(tag for _, _, tag, _, _ in DDP_DISPATCH_CASES))
     t0 = time.perf_counter()
@@ -4965,9 +5023,15 @@ def phase_ddp_dispatch():
         # at world size 1 DDP's all-reduce is in place and NCCL (2.28)
         # launches nothing for it: the graph holds DDP's bucket copies and
         # its division by the world size
-        log(f"  replay trace: {case['events']} device events, kernels "
-            f"{case['replay_counts']} (eager {case['eager_counts']}); NCCL's "
-            f"kernels: {case['nccl'] or 'none'}")
+        for label, eager_counts, replay_counts in case['traced']:
+            log(f"  replay trace{label}: kernels {replay_counts} (eager "
+                f"{eager_counts})")
+        log(f"  steps {case['steps'][0]}-{case['steps'][1]}"
+            + ('' if case['drawn'] is None else
+               f", teachers drawn {case['drawn']}")
+            + f"; {', '.join(map(str, case['events']))} device events a "
+            f"trace; NCCL's kernels: "
+            f"{case['nccl'] or 'none'}")
         log(f"  ms a step (host clock, {DDP_DISPATCH_K} steps, in turns): "
             f"eager DDP {', '.join(f'{t:.3f}' for t in ms['eager'])}; graph "
             f"{', '.join(f'{t:.3f}' for t in ms['graph'])}")
@@ -4980,10 +5044,265 @@ def phase_ddp_dispatch():
                 'moved'] <= max(TRAIN_GRAD_TOL_REL_L2, 4 * case['noise']):
             raise AssertionError(f'{tag}: the DDP replays differ from the '
                                  f'eager DDP steps')
-        if case['replay_counts'] != case['eager_counts']:
+        if any(r != e for _, e, r in case['traced']):
             raise AssertionError(f'{tag}: the replay launches other counts '
                                  f'of the kernels than the eager DDP step')
-    return {case['tag']: case['replay_counts'] for case in report['cases']}
+        if case['drawn'] is not None:
+            _check_mt_ddp(case)
+    return {case['tag'] + label: replay for case in report['cases']
+            for label, _, replay in case['traced']}
+
+
+def _check_mt_ddp(case):
+    """(117) A random ensemble's DDP chunk: a graph for each teacher drawn,
+    each traced replay at the forwards it ran (K1 2, K3/K4 1, K5/K6 1,
+    K10 30 + the drawn teacher's LayerNorms, K11 30)."""
+    from segdistill_tpu_torch.recipes import MT_TEACHERS
+    if case['graphs'] != len(set(case['drawn'])):
+        raise AssertionError(f"{case['tag']}: {case['graphs']} graphs for "
+                             f"the teachers {case['drawn']}")
+    for label, _, replay in case['traced']:
+        teacher = int(label.split()[-1].rstrip(')'))
+        want = {'resize_sum': 2, 'group_kl_fwd': 1, 'group_kl_bwd': 1,
+                'seg_ce_fwd': 1, 'seg_ce_bwd': 1, 'layer_norm_bwd': 30,
+                'layer_norm_fwd': MIT_LN['b0']
+                + MIT_LN[MT_TEACHERS[teacher]]}
+        if replay != want:
+            raise AssertionError(f"{case['tag']}{label}: a replay launches "
+                                 f"{replay}, the forwards it ran give "
+                                 f"{want}")
+
+
+# (118) MiT's per-block recompute (``with_cp``) on the CGD and PD steps at
+# full width: the eager steps with the flag against the same steps without
+# it from one snapshot (steps 998-1001, CGD's shuffle drawing at 1000), a
+# chunk of REMAT_K replays with the flag against its eager steps, and each
+# arm timed in REMAT_ROUNDS turns (REMAT_EAGER_TIMED eager steps, a chunk of
+# REMAT_K replays), its peak memory and a trace of each
+WITH_CP = {'model.cfg_s.backbone.with_cp': True}
+REMAT_K, REMAT_ROUNDS, REMAT_EAGER_TIMED = 4, 2, 5
+# K10 and K2 launches a step of the B0 student's recompute: its 8 blocks'
+# norm1 and norm2 and the SRA norm of the 6 blocks at sr_ratio > 1; its
+# 8 blocks' SRA attention under fused_attention='train'
+REMAT_LAUNCHES = {'CGD': {'layer_norm_fwd': 22},
+                  'PD': {'layer_norm_fwd': 22, 'sra_attn': 8}}
+
+
+def _recompute_launches(model):
+    """{kernel: launches a step} that the student's recompute adds, from
+    its blocks: their LayerNorms (K10) and their SRA attention through
+    K2 (``fused_attention='train'``)."""
+    from segdistill_tpu_torch.models.backbones.mix_transformer import Block
+    from segdistill_tpu_torch.models.utils import FusedLayerNorm
+    blocks = [m for m in model.student.backbone.modules()
+              if isinstance(m, Block)]
+    out = {'layer_norm_fwd': sum(isinstance(m, FusedLayerNorm)
+                                 for b in blocks for m in b.modules())}
+    k2 = sum(b.attn.fused_attention == 'train' and b.attn.attn_drop.p == 0
+             for b in blocks)
+    if k2:
+        out['sra_attn'] = k2
+    return out
+
+
+def phase_remat(path_kernels, config, options, tag):
+    """(118) The ``tag`` step of ``config`` (bf16 backbones, batch 8 at
+    512x512; the optimizer capturable, K1's deterministic backward, cuDNN
+    deterministic) with the student's ``with_cp`` (each MiT block under a
+    non-reentrant checkpoint) against the same step without it: REMAT_K
+    eager steps from one snapshot with each, each step's launches those of
+    the step without the flag plus the recompute's (REMAT_LAUNCHES, which
+    the blocks give: K10 141, PD's K2 16), the two runs bitwise equal or
+    within (11)'s limits where PyTorch names an operation that adds with
+    atomics; a chunk of REMAT_K replays with the flag against its eager
+    steps, the same rule, a replay's trace at the eager counts; then each
+    arm, eager and replayed, with and without the flag, timed in turns,
+    its memory (the eager peak, the graphs' pool) and its device-busy
+    share. -> (the launches of the eager steps with the flag, the
+    launches of a replay's trace)."""
+    from segdistill_tpu_torch.apis import (init_segmentor_state,
+                                           prepare_training)
+    from segdistill_tpu_torch.engine import (build_multi_train_step,
+                                             make_capturable)
+    from segdistill_tpu_torch.tools.profile_train import _union_ms
+    k = REMAT_K
+    log(f'== with_cp: {tag} (B0 <- B3, bf16 backbones, batch {TRAIN_BATCH} '
+        f'at 512x512), the student\'s blocks recomputed in the backward, '
+        f'steps {DISPATCH_START + 1}-{DISPATCH_START + k} eagerly with and '
+        f'without the flag and as a chunk of {k} replays with it')
+    model = init_segmentor_state(
+        str(config), seed=0, device=DEVICE,
+        cfg_options=dict(NO_CHECKPOINTS, **BF16_BACKBONES, **options,
+                         **WITH_CP, **{'runner.steps_per_dispatch': k}))
+    backbone = model.student.backbone
+    state, multi = prepare_training(model)
+    # the graphs without the flag, for the numbers
+    plain_multi = build_multi_train_step(model, state.optimizer,
+                                         multi.lr_schedule, k)
+    single, eager_k1 = multi.step, multi.eager_step
+    make_capturable(state.optimizer, torch.device(DEVICE))
+    batches = [_train_batch(TRAIN_BATCH, seed=20 + i) for i in range(k)]
+    imgs = torch.stack([b[0] for b in batches])
+    gts = torch.stack([b[1] for b in batches])
+    state.step = DISPATCH_START - 1
+    single(state, imgs[-1], gts[-1])
+    torch.cuda.synchronize()
+    snap = _snapshot(state)
+    added = _recompute_launches(model)
+    if added != REMAT_LAUNCHES[tag]:
+        raise AssertionError(f'{tag}: the student\'s blocks give {added} '
+                             f'recomputed launches a step, not '
+                             f'{REMAT_LAUNCHES[tag]}')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = {}
+        for flag in (False, True):
+            backbone.with_cp = flag
+            _restore(state, snap, DISPATCH_START)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counted = []
+            for img, gt in zip(imgs, gts):
+                for kn in path_kernels:
+                    kn.launches = 0
+                logs = single(state, img, gt)
+                counted.append({kn.name: kn.launches for kn in path_kernels})
+            torch.cuda.synchronize()
+            eager[flag] = dict(peak=torch.cuda.max_memory_allocated(),
+                               counted=counted, end=_snapshot(state),
+                               logs={n: float(v) for n, v in logs.items()})
+        differ = [n for n, v in eager[True]['end'].items()
+                  if not torch.equal(v, eager[False]['end'][n])]
+        moved = _rel_l2(eager[True]['end'], snap, eager[False]['end']) \
+            if differ else 0.0
+        backbone.with_cp = True
+        _restore(state, snap, DISPATCH_START)
+        got = multi(state, imgs, gts)
+        torch.cuda.synchronize()
+        graphs = len(multi.graphed.graphs)
+        vs_eager = _unequal(state, eager[True]['end'])
+        graph_moved = _moved_rel_l2(state, snap, eager[True]['end']) \
+            if vs_eager else 0.0
+        graph_logs = {n: float(v) for n, v in got.items()}
+        nondeterministic = []
+        if differ or vs_eager:
+            _restore(state, snap, DISPATCH_START)
+            nondeterministic = _nondeterministic_ops(
+                lambda: single(state, imgs[0], gts[0]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    per_step = [f'{c["layer_norm_fwd"]}'
+                + (f'/{c["sra_attn"]}' if 'sra_attn' in c else '')
+                for c in eager[True]['counted']]
+    log(f'launches a step with the flag, K10' + ('/K2' if 'sra_attn' in added
+                                                else '')
+        + f': {", ".join(per_step)} (the recompute adds {added}); '
+        f'{eager[True]["counted"][0]}')
+    for i, (base, got_n) in enumerate(zip(eager[False]['counted'],
+                                          eager[True]['counted'])):
+        want = {n: c + added.get(n, 0) for n, c in base.items()}
+        if got_n != want:
+            raise AssertionError(f'{tag} with_cp step {i + 1}: launches '
+                                 f'{got_n}, the step without the flag and '
+                                 f'its recompute give {want}')
+    limits = [abs(eager[True]['logs'][n] - want) / (
+        100 * CORRECT_TOL_SHARE if 'acc' in n
+        else TRAIN_LOSS_TOL_REL * abs(want) + TRAIN_LOSS_TOL_ABS)
+        for n, want in eager[False]['logs'].items() if n != 'lr']
+    log(f'with the flag against without it (eager, {k} steps): '
+        + ('bitwise equal' if not differ else
+           f'{len(differ)} tensors differ, e.g. {differ[:4]}, the change '
+           f'within {moved:.3e} relative L2, log vars {max(limits):.3f} '
+           f'of the loss limit')
+        + f'; a chunk of {k} replays ({graphs} graph(s)) against its eager '
+        f'steps: ' + ('bitwise equal' if not vs_eager else
+                      f'{len(vs_eager)} tensors differ, within '
+                      f'{graph_moved:.3e} relative L2')
+        + f'; last log vars ' + ', '.join(
+            f'{n} {v:.9g}' for n, v in sorted(graph_logs.items())))
+    if nondeterministic:
+        log(f'operations without a deterministic implementation in the '
+            f'step: {nondeterministic}')
+    for what, n_differ, dist, lim in (
+            ('the flag', differ, moved, max(limits)),
+            ('the replays', vs_eager, graph_moved, 0.0)):
+        if n_differ and not nondeterministic:
+            raise AssertionError(f'{tag}: {what} changed the step with no '
+                                 f'nondeterministic operation named')
+        if n_differ and not (dist <= TRAIN_GRAD_TOL_REL_L2 and lim <= 1.0):
+            raise AssertionError(f'{tag}: {what} changed the step beyond '
+                                 f'the fp32 train-step limits')
+
+    # a replay's trace, step 998 with the flag: the eager counts
+    def restore():
+        _restore(state, snap, DISPATCH_START)
+    names = [kn.name for kn in path_kernels]
+    want = eager[True]['counted'][0]
+    backbone.with_cp = True
+    in_graph = _trace_counts(_traced(
+        lambda: multi.graphed(state, imgs[:1], gts[:1]), restore, names,
+        want), names)
+    if in_graph != want:
+        raise AssertionError(f'{tag} with_cp: a replay launches {in_graph}, '
+                             f'the eager step {want}')
+    # the numbers: the eager steps' peak memory allocated, the graphs' pool
+    # (a replay allocates nothing), each arm's time in turns and its
+    # device-busy share from one trace
+    arms = {(True, 'eager'): eager_k1, (False, 'eager'): eager_k1,
+            (True, 'graph'): multi, (False, 'graph'): plain_multi}
+    memory = {(f, 'eager'): eager[f]['peak'] for f in (False, True)}
+    backbone.with_cp = False
+    restore()
+    plain_multi(state, imgs, gts)  # the graphs without the flag
+    torch.cuda.synchronize()
+    for flag in (False, True):
+        memory[flag, 'graph'] = _pool_bytes(arms[flag, 'graph'].graphed.pool)
+    times = {arm: [] for arm in arms}
+    order = list(arms)
+    for r in range(REMAT_ROUNDS):
+        for flag, kind in (order if r % 2 == 0 else order[::-1]):
+            backbone.with_cp = flag
+            restore()
+            torch.cuda.synchronize()
+            if kind == 'eager':
+                for i in range(REMAT_EAGER_TIMED):
+                    t0 = time.perf_counter()
+                    eager_k1(state, imgs[i % k], gts[i % k])
+                    torch.cuda.synchronize()
+                    times[flag, kind].append(
+                        (time.perf_counter() - t0) * 1e3)
+            else:
+                t0 = time.perf_counter()
+                arms[flag, kind](state, imgs, gts)
+                torch.cuda.synchronize()
+                times[flag, kind].append((time.perf_counter() - t0) / k * 1e3)
+    busy = {}
+    for (flag, kind), runner in arms.items():
+        backbone.with_cp = flag
+        fn = (lambda: runner(state, imgs[0], gts[0])) if kind == 'eager' \
+            else (lambda: runner.graphed(state, imgs[:1], gts[:1]))
+        busy[flag, kind] = _union_ms(_traced(fn, restore))
+    backbone.with_cp = True
+    for (flag, kind), ts in times.items():
+        med = float(np.median(ts))
+        log(f'{tag} {"with_cp" if flag else "plain"} {kind}: '
+            f'{", ".join(f"{t:.3f}" for t in ts)} ms a step (host clock; '
+            f'median {med:.3f}); '
+            + ('peak memory allocated' if kind == 'eager' else 'graph pool')
+            + f' {memory[flag, kind] / 2**30:.3f} GiB; device busy '
+            f'{busy[flag, kind]:.3f} ms a step, {busy[flag, kind] / med:.1%}'
+            f' of the median')
+    report = {f'{"with_cp" if f else "plain"} {kind}': dict(
+        ms=float(np.median(times[f, kind])), gib=memory[f, kind] / 2**30,
+        busy_ms=busy[f, kind]) for f, kind in arms}
+    log(f'{tag} with_cp numbers: {json.dumps(report)}')
+    launches = {n: sum(c[n] for c in eager[True]['counted']) for n in names}
+    _check_launched(launches, f'{tag} with_cp training')
+    del arms, multi, plain_multi, state, model
+    gc.collect()  # the graphs and their pools, held in reference cycles
+    torch.cuda.empty_cache()
+    return launches, in_graph
 
 
 def _bound(*args):
@@ -5099,6 +5418,15 @@ def main():
     dispatch = {'CGD': phase_dispatch(cgd_kernels, CGD_CONFIG, {}, 'CGD'),
                 'PD': phase_dispatch([k1, k2, k5, k6, k7, k8, k9, k10, k11],
                                      PD_CONFIG, STUDENT_FA_TRAIN, 'PD')}
+    # this slice: the student's per-block recompute (with_cp) on the CGD
+    # and PD steps, eager and replayed, against the steps without it (118)
+    for tag, config, kernels_of, options in (
+            ('CGD', CGD_CONFIG, cgd_kernels, {}),
+            ('PD', PD_CONFIG, [k1, k2, k5, k6, k7, k8, k9, k10, k11],
+             STUDENT_FA_TRAIN)):
+        eager_cp, dispatch[f'{tag} with_cp'] = phase_remat(
+            kernels_of, config, options, tag)
+        paths.append(eager_cp)
     # the command lines' dataset and work dirs, kept for the --multi-host
     # command lines and the sharded evaluation
     cli_root = Path(tempfile.mkdtemp(prefix='cli-'))
@@ -5212,6 +5540,9 @@ def main():
                            no_drop=(NO_DROP,), **tab5_vs_cpu)
         phase_train_vs_cpu(SWIN_CGD, TEACHER_DEPTH_CUT, 'swin_CGD',
                            pair=f'Swin-T <- {B3_AT_B2_DEPTH}', **tab5_vs_cpu)
+        # this slice: the CGD step with the student's with_cp (118)
+        phase_train_vs_cpu(CGD_CONFIG, dict(TEACHER_DEPTH_CUT, **WITH_CP),
+                           'CGD with_cp', pair=f'B0 <- {B3_AT_B2_DEPTH}')
         for config, tag, classes, *_ in EXTRA_PATHS:
             phase_extra_vs_cpu(config, tag, classes)
         for recipe, tag, _, _, _, vs_cpu in ZOO_PATHS:
@@ -5427,7 +5758,8 @@ def main():
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound[0],
             'bound_by': bound[1], 'library_ms': None})
     log('launches per path: ' + json.dumps(
-        dict(zip(('serving', 'CGD', 'PD', 'command line',
+        dict(zip(('serving', 'CGD', 'PD', 'CGD with_cp', 'PD with_cp',
+                  'command line',
                   'command line, native and device loaders',
                   'batched evaluation', 'PSP serving', 'Swin serving',
                   'psp_CGD', 'swin_CGD')

@@ -21,7 +21,9 @@ model, the optimizer and its input slots, so they may run in any order).
 
 K1's backward runs in its deterministic form
 (``ops.resize_sum.deterministic_adjoint``), so that two replays agree
-bitwise.
+bitwise. A backbone that recomputes its blocks (MiT's ``with_cp``) does so
+inside the graph's backward, its kernels with it, from the masks its
+forward drew (``models/utils/recompute.py``).
 
 A capture runs the step eagerly on the capture stream first
 (``CAPTURE_WARMUP`` times), which makes the optimizer's state, the
@@ -69,23 +71,19 @@ class GraphCaptureError(RuntimeError):
 def check_ddp_capture(model, backend, static_graph):
     """Raise :class:`GraphCaptureError` where the DDP step of ``model``
     over a process group of ``backend`` cannot be captured: gloo's
-    collectives run on the host; a random ensemble leaves another
-    teacher's adapters without a gradient at each step, which DDP's static
-    graph cannot follow; and without ``static_graph`` DDP all-reduces a
-    map of the used parameters that it fills and reads on the host."""
+    collectives run on the host, and without ``static_graph`` DDP
+    all-reduces a map of the used parameters that it fills and reads on
+    the host. A random ensemble is captured: its one distillation entry's
+    adapters take part at every step, whichever teacher is drawn, and the
+    teachers are frozen, so the trained parameters that DDP's static graph
+    fixes at the first step are those of every step; a graph is captured
+    for each teacher drawn (:meth:`GraphedTrainStep.key`)."""
     if backend != 'nccl':
         raise GraphCaptureError(
             f'steps per dispatch across processes on the card capture the '
             f'DDP step in a CUDA graph, and {backend} collectives cannot be '
             f'captured (they run on the host): use NCCL, one card a rank, '
             f'or runner.steps_per_dispatch=1')
-    if getattr(model, 'random_ensemble', False):
-        raise GraphCaptureError(
-            'a random ensemble under DDP cannot run in a CUDA graph: the '
-            'adapters of the teachers not drawn get no gradient, another set '
-            'at each step, which DDP\'s static graph cannot follow, and '
-            'DDP\'s search for unused parameters reads a map on the host; '
-            'use runner.steps_per_dispatch=1')
     if not static_graph:
         raise GraphCaptureError(
             'a CUDA graph of the DDP step needs DDP\'s static graph '

@@ -14,7 +14,11 @@ through the hand-written kernels, per stage: ``True`` forward only, ``'train'``
 with its backward), ``drop_path_rate``
 and ``dtype``, the compute type: parameters stay float32 and each layer casts
 them to its input's dtype, as flax layers with ``dtype`` do (the LayerNorms
-read theirs as stored). ``dwconv_backend`` and ``ln_stats`` choose TPU
+read theirs as stored). ``with_cp`` recomputes each block's activations in
+the backward (:func:`..utils.recompute.recomputed`, the JAX
+``nn.remat(Block)``) where a gradient is taken; the patch embeddings and
+stage norms stay outside, and the frozen teacher's and serving's forwards
+are unchanged. ``dwconv_backend`` and ``ln_stats`` choose TPU
 lowerings and are accepted and ignored. Every LayerNorm (patch-embed norm,
 ``norm1``, ``norm2``, the SRA ``attn.norm``, the stage norms) is a
 :class:`FusedLayerNorm`: the hand-written kernels K10/K11 on CUDA tensors.
@@ -34,6 +38,7 @@ from torch import nn
 from ...ops.sra_attn import fused_sra_attention, sra_attention_train
 from ..builder import BACKBONES
 from ..utils import DropPath, Dropout, FusedLayerNorm, tap
+from ..utils.recompute import recomputed
 
 
 def _cast(param, x):
@@ -239,7 +244,8 @@ class MixVisionTransformer(nn.Module):
                  drop_rate=0.0, attn_drop_rate=0.0, drop_path_rate=0.0,
                  depths=(3, 4, 6, 3), sr_ratios=(8, 4, 2, 1),
                  gelu_approximate=True, fused_attention=False,
-                 dwconv_backend='auto', ln_stats='native', dtype=None):
+                 with_cp=False, dwconv_backend='auto', ln_stats='native',
+                 dtype=None):
         super().__init__()
         del dwconv_backend, ln_stats  # TPU lowerings; nothing to choose here
         fa = fused_attention
@@ -265,6 +271,7 @@ class MixVisionTransformer(nn.Module):
                     FusedLayerNorm(embed_dims[s], eps=1e-6))
             cur += depths[s]
         self.dtype = _torch_dtype(dtype)
+        self.with_cp = with_cp
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -288,11 +295,13 @@ class MixVisionTransformer(nn.Module):
 
     def forward(self, x, generator=None):
         x = x.to(self.dtype)
+        recompute = self.with_cp and self.training and torch.is_grad_enabled()
         outs = []
         for s in range(1, 5):
             x, H, W = getattr(self, f'patch_embed{s}')(x)
             for blk in getattr(self, f'block{s}'):
-                x = blk(x, H, W, generator)
+                x = recomputed(blk, x, H, W, generator=generator) \
+                    if recompute else blk(x, H, W, generator)
             x = _channels_first(getattr(self, f'norm{s}')(x), H, W)
             outs.append(x)
         return tuple(outs)

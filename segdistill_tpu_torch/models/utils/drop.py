@@ -4,12 +4,15 @@ from the 'dropout' PRNG stream the train step threads through; the
 reference uses timm's DropPath and torch's global RNG).
 
 In training mode with a non-zero rate the masks are drawn from the
-``generator`` passed to ``forward``, which must be on the input's device;
+``generator`` passed to ``forward``, which must be on the input's device
+(in a recomputed block, a :class:`.recompute.DrawTape` standing for it);
 without one they raise. In eval mode, or at rate 0, they are the identity.
 """
 
 import torch
 from torch import nn
+
+from .recompute import DrawTape
 
 
 def _drop(x, p, shape, generator):
@@ -17,6 +20,8 @@ def _drop(x, p, shape, generator):
         raise ValueError('dropout in training mode draws from an explicit '
                          'torch.Generator; pass generator=...')
     keep = 1.0 - p
+    if isinstance(generator, DrawTape):  # a recomputed block's masks
+        return x * generator.mask(shape, x.dtype, x.device, keep) / keep
     mask = torch.empty(shape, dtype=x.dtype, device=x.device)
     return x * mask.bernoulli_(keep, generator=generator) / keep
 

@@ -328,18 +328,19 @@ class _SRATrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q = ctx.saved_tensors[0]
+        # read once: a recomputed block (activation checkpointing) hands
+        # each saved tensor out a single time
+        saved = ctx.saved_tensors
+        q = saved[0]
         if q.device.type == 'cpu' and q.dtype != torch.float32:
-            grads = sra_attention_backward_plain(*ctx.saved_tensors, g,
-                                                 ctx.scale)
+            grads = sra_attention_backward_plain(*saved, g, ctx.scale)
         elif q.device.type == 'cpu':
             with torch.enable_grad():
-                qkv = [t.detach().requires_grad_()
-                       for t in ctx.saved_tensors]
+                qkv = [t.detach().requires_grad_() for t in saved]
                 grads = torch.autograd.grad(
                     sra_attention_plain(*qkv, ctx.scale), qkv, g)
         else:
-            grads = _launch_bwd(*ctx.saved_tensors, g, ctx.scale)
+            grads = _launch_bwd(*saved, g, ctx.scale)
         return (*grads, None)
 
 

@@ -137,16 +137,17 @@ def wrap_model(model, cfg=None, static_graph=False):
     ``MMDistributedDataParallel``): buffers are not broadcast
     (``broadcast_buffers=False``: each rank's SyncBN statistics are already
     global), and ``find_unused_parameters`` is the config's, by default
-    True as in the reference (the random ensemble's teachers that were not
-    drawn leave their adapters unused). Raises without a process group.
+    True as in the reference, which sets it for its frozen teacher (the
+    port's teachers hold no trained parameter). Raises without a process
+    group.
 
-    ``static_graph`` (a model on the card): the form a CUDA graph of the
-    step holds (``engine/cuda_graph.py``), as PyTorch's notes on graphs
-    and DDP ask: DDP's static graph (the parameters that take part are
-    found at the first iteration and fixed; the search of the autograd
-    graph and the all-reduce of the used-parameter map, copied from the
-    host, go), built on a side stream, with its runtime statistics off
-    after the first 10 iterations."""
+    ``static_graph``: the form a CUDA graph of the step holds
+    (``engine/cuda_graph.py``), as PyTorch's notes on graphs and DDP ask:
+    DDP's static graph (the parameters that take part are found at the
+    first iteration and fixed; the search of the autograd graph and the
+    all-reduce of the used-parameter map, copied from the host, go), built
+    on a side stream for a model on the card, with its runtime statistics
+    off after the first 10 iterations."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError('distributed training needs a process group: '
                            'call init_distributed() (--multi-host)')
@@ -158,10 +159,11 @@ def wrap_model(model, cfg=None, static_graph=False):
         return nn.parallel.DistributedDataParallel(
             TrainForward(model), find_unused_parameters=find_unused,
             **kwargs)
-    side = torch.cuda.Stream(device)
-    with torch.cuda.stream(side):
+    side = torch.cuda.Stream(device) if device.type == 'cuda' else None
+    with torch.cuda.stream(side):  # None: the CPU, no stream to choose
         ddp = nn.parallel.DistributedDataParallel(
             TrainForward(model), static_graph=True, **kwargs)
-    torch.cuda.current_stream(device).wait_stream(side)
+    if side is not None:
+        torch.cuda.current_stream(device).wait_stream(side)
     ddp._set_ddp_runtime_logging_sample_rate(NO_RUNTIME_STATS)
     return ddp

@@ -23,8 +23,15 @@ NCCL world size 1 (a process group of this process alone: DDP's static
 graph, its all-reduce in the graph), each against its eager steps,
 bitwise. On a card, torch's SGD and the capturable SGD are compared as
 well, from one state (the same product, rounded once, is the aim).
+
+The student's per-block recompute (``with_cp``), bf16, CGD and PD (the
+student's attention through K2/K9): the eager steps against the same steps
+without the flag, each step's recomputed K10 (and K2) launches counted; a
+chunk of replays with the flag against its eager steps; the DDP graph with
+the flag at NCCL world size 1; all bitwise.
 """
 
+import copy
 import os
 
 import pytest
@@ -100,12 +107,14 @@ def nccl(cuda):
     dist.destroy_process_group()
 
 
-def _run(device, optimizer=None, distributed=False, **runner):
-    """(state, the chunk's step) of the model from seed 0, its optimizer
-    capturable."""
+def _run(device, optimizer=None, distributed=False, model=None, **runner):
+    """(state, the chunk's step) of the model (``model``: another model
+    config) from seed 0, its optimizer capturable."""
     cfg = Config(dict(CONFIG, runner=dict(CONFIG['runner'], **runner)))
     if optimizer is not None:
         cfg.optimizer = optimizer
+    if model is not None:
+        cfg.model = model
     model = init_segmentor_state(cfg, seed=0, device=device)
     state, multi = prepare_training(model, cfg, distributed=distributed)
     make_capturable(state.optimizer, device)
@@ -145,6 +154,19 @@ def test_graph_replays_equal_the_eager_steps(cuda):
     assert {k: float(v) for k, v in got.items()} == \
         {k: float(v) for k, v in want.items()}
     _assert_same_state(graphed, eager)
+
+
+def _remat_model(name, with_cp):
+    """CONFIG's model with bf16 backbones and the student's ``with_cp``:
+    CGD as it stands, or PD with the student's attention through K2/K9."""
+    model = copy.deepcopy(CONFIG['model'])
+    for part in ('cfg_s', 'cfg_t'):
+        model[part]['backbone']['dtype'] = 'bfloat16'
+    model['cfg_s']['backbone']['with_cp'] = with_cp
+    if name == 'PD':
+        model['cfg_s']['backbone']['fused_attention'] = 'train'
+        model['distillation'][0].update(loss_name='PDLoss', loss_config={})
+    return model
 
 
 def _replays_against_eager(device, first, prepare=None, **kwargs):
@@ -250,6 +272,60 @@ def test_ddp_graph_replays_equal_the_eager_ddp_steps(nccl):
     _replays_against_eager(nccl, 0, distributed=True, optimizer=SGD)
 
 
+# launches a step that the narrow B0 student's recompute adds: its blocks'
+# LayerNorms (K10), their SRA attention under fused_attention='train' (K2)
+RECOMPUTED = {'CGD': {'layer_norm_fwd': 22},
+              'PD': {'layer_norm_fwd': 22, 'sra_attn': 8}}
+
+
+@pytest.mark.parametrize('name', sorted(RECOMPUTED))
+def test_with_cp_steps_equal_the_steps_without(cuda, name):
+    """bf16, steps 998-1000 eagerly (the multi step's single step) with
+    the student's blocks recomputed and without: the parameters, the
+    optimizer state, the BN statistics and each step's log vars bitwise;
+    each step with the flag launches the recompute's K10 (and PD's K2)
+    beside the step's own."""
+    from segdistill_tpu_torch.ops import layer_norm, sra_attn
+    kernels = [layer_norm.FWD_KERNEL, sra_attn.KERNEL]
+    imgs, gts = _chunk(cuda)
+    runs = {}
+    for with_cp in (False, True):
+        state, multi = _run(cuda, model=_remat_model(name, with_cp))
+        state.step = 997
+        logs, counts = [], []
+        for img, gt in zip(imgs, gts):
+            before = [k.launches for k in kernels]
+            logs.append({k: float(v) for k, v in
+                         multi.step(state, img, gt).items()})
+            counts.append({k.name: k.launches - b
+                           for k, b in zip(kernels, before)})
+        runs[with_cp] = state, logs, counts
+    assert runs[True][1] == runs[False][1]
+    _assert_same_state(runs[True][0], runs[False][0])
+    for plain, recomputed in zip(runs[False][2], runs[True][2]):
+        assert recomputed == {k: n + RECOMPUTED[name].get(k, 0)
+                              for k, n in plain.items()}
+
+
+@pytest.mark.parametrize('name', sorted(RECOMPUTED))
+def test_with_cp_replays_equal_the_eager_steps(cuda, name):
+    """bf16 with the flag: steps 998-1000 as a chunk of replays (the
+    recompute and its kernels inside the graph's backward) against the
+    same steps run eagerly, bitwise."""
+    _, multi, _ = _replays_against_eager(
+        cuda, 997, model=_remat_model(name, True))
+    assert len(multi.graphed.graphs) == (2 if name == 'CGD' else 1)
+
+
+def test_ddp_graph_with_cp_equals_the_eager_ddp_steps(nccl):
+    """The DDP step (static graph, NCCL at world size 1) with the
+    student's blocks recomputed, captured and replayed, against the eager
+    DDP steps, bitwise."""
+    _, multi, _ = _replays_against_eager(
+        nccl, 997, distributed=True, model=_remat_model('CGD', True))
+    assert multi.forward_train.static_graph
+
+
 def test_two_replays_from_one_snapshot_are_equal(cuda):
     state, multi = _run(cuda)
     imgs, gts = _chunk(cuda)
@@ -306,8 +382,7 @@ def test_resume_at_an_unaligned_step(cuda, tmp_path):
 
 
 class _Switch(torch.nn.Module):
-    """Two branches, one taken a step: the other's parameters unused, as
-    the adapters of the teachers a random ensemble did not draw."""
+    """Two branches, one taken a step: the other's parameters unused."""
 
     def __init__(self):
         super().__init__()
@@ -327,11 +402,13 @@ def _ddp_switch(device, **kwargs):
 
 
 def test_ddp_cannot_follow_a_changing_used_set(nccl):
-    """Why a random ensemble under DDP has no graph (``cuda_graph.
-    check_ddp_capture``): DDP's static graph raises at the first step whose
-    unused parameters differ, and DDP's search for unused parameters
-    copies its map from the host inside the backward, which a capture
-    refuses."""
+    """Why a DDP without its static graph has no graph (``cuda_graph.
+    check_ddp_capture``): DDP's search for unused parameters copies its map
+    from the host inside the backward, which a capture refuses (the second
+    half). DDP's static graph raises at the first step whose used set
+    differs (the first half): a module whose used set switches, which a
+    random ensemble is not (its one entry's adapters take part at every
+    step, its teachers are frozen)."""
     x = torch.randn(4, 16, device=nccl)
     ddp = _ddp_switch(nccl, static_graph=True)
     ddp(x, True).backward()

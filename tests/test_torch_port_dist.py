@@ -21,6 +21,11 @@ references; the tests compare what the ranks wrote.
   ``RTOL64`` of each tensor's largest value.
 * Both: every parameter, buffer and optimizer moment bitwise equal on the
   two ranks.
+* A random ensemble (``test_torch_port_mt.py``'s SDModuleMT, one CGD
+  entry with an adapter against two teachers) through DDP's static graph,
+  4 steps that draw both teachers, also with the student's ``with_cp``:
+  bitwise the default DDP's steps (its trained set is the same at every
+  step, so a CUDA graph of its DDP step may take the static graph).
 * Steps per dispatch through DDP: the ResNet's 3 steps as one chunk of
   ``build_multi_train_step`` (on CPU tensors the DDP step 3 times) equal
   the rank's single steps bitwise, hence the JAX steps; ``tools.train
@@ -63,6 +68,8 @@ from segdistill_tpu_torch.apis import init_segmentor, single_device_test
 from segdistill_tpu_torch.convert import state_dict_from_jax
 from segdistill_tpu_torch.datasets import build_dataset
 from segdistill_tpu_torch.datasets.builder import DataLoader
+from segdistill_tpu_torch.engine import step_seed
+from segdistill_tpu_torch.models.segmentors import draw_teacher_index
 from segdistill_tpu_torch.models.utils import (BatchNorm2d, SyncBatchNorm2d,
                                                build_norm_layer)
 from segdistill_tpu_torch.tools import test as test_cli
@@ -71,6 +78,7 @@ import test_torch_port_cli as cli
 import torch_port_dist_worker as worker
 import torch_port_extra_models as extra
 import torch_port_zoo_models as zoo
+from test_torch_port_mt import N_TEACHERS, mt_cfg
 from test_torch_port_train import (CGD, LR_CONFIG, MAX_ITERS, OPTIMIZER,
                                    _jax_perm, key_bias_mask, sd_cfg,
                                    trajectory_optimizer)
@@ -82,6 +90,9 @@ from torch_port_fixtures import (ATOL, NUM_CLASSES, RTOL, fcn_aux,
 TESTS = Path(__file__).resolve().parent
 WORLD, PER_RANK = 2, 2
 CGD_STEPS = 2
+# the random ensemble's steps under DDP: 1001-1004 draw teachers 0, 0, 1, 0
+# from seed 0 (the test checks that both are drawn)
+MT_START, MT_STEPS = 1000, 4
 WAIT = 300  # seconds the two ranks may take together
 
 
@@ -180,6 +191,9 @@ def run(tmp_path_factory):
                     optimizer=extra.OPTIMIZER, lr_config=extra.LR_CONFIG,
                     max_iters=extra.MAX_ITERS, img=resnet_img,
                     gt=resnet_gt, steps=extra.STEPS, float64=True),
+        mt=dict(cfg=mt_cfg('random'), optimizer=OPTIMIZER,
+                lr_config=LR_CONFIG, max_iters=2 * MT_START, img=img,
+                gt=gt, start=MT_START, steps=MT_STEPS),
         cli=dict(config=str(config), work=str(tmp / 'work'),
                  work2=str(tmp / 'work_resumed'),
                  work3=str(tmp / 'work_chunked')))
@@ -320,7 +334,28 @@ def test_resnet_chunk_equals_single_steps_and_jax(run):
             _close64(got['state_dict'][name], w, name)
 
 
-@pytest.mark.parametrize('case', ['cgd', 'resnet', 'resnet chunk'])
+def test_random_ensemble_static_graph_equals_default_ddp(run):
+    """The random ensemble's steps through DDP's static graph, without
+    and with the student's ``with_cp`` (the non-reentrant checkpoint under
+    DDP), are the default DDP's (which searches for unused parameters each
+    step), bitwise, on both ranks, over steps that draw both teachers."""
+    drawn = {draw_teacher_index(step_seed(0, step), N_TEACHERS)
+             for step in range(MT_START + 1, MT_START + MT_STEPS + 1)}
+    assert drawn == set(range(N_TEACHERS))
+    for r in run['ranks']:
+        default = r['mt random default']
+        assert not default['static_graph']
+        for case in ('mt random', 'mt random with_cp'):
+            static = r[case]
+            assert static['static_graph']
+            assert all('loss_random' in lv for lv in static['logs'])
+            assert static['logs'] == default['logs']
+            assert _same(static['state_dict'], default['state_dict'])
+            assert _same(static['optimizer'], default['optimizer'])
+
+
+@pytest.mark.parametrize('case', ['cgd', 'resnet', 'resnet chunk',
+                                  'mt random'])
 def test_state_is_bitwise_equal_on_every_rank(run, case):
     """Parameters, buffers (BN statistics, the EMA bases) and the
     optimizer's state after the steps; the log vars of every step."""

@@ -15,6 +15,11 @@ other, so both run every case):
   DDP wrapper on the rank's share of the job's batch;
 * ``resnet chunk``: the ``resnet`` steps as one chunk of
   ``build_multi_train_step`` with the DDP wrapper;
+* ``mt random``, ``mt random default``, ``mt random with_cp``: a random
+  ensemble's steps from one seeded initialisation through DDP's static
+  graph (the form a CUDA graph of the step holds), through the default
+  DDP, and through the static graph with the student's blocks recomputed
+  in the backward;
 * ``dryrun``: ``tools.dryrun_multichip``'s rank step;
 * ``cli``: ``tools.train --multi-host`` (8 iterations), a resume from
   iteration 4 into a second work dir, ``tools.test --multi-host``,
@@ -23,6 +28,7 @@ other, so both run every case):
 """
 
 import contextlib
+import copy
 import hashlib
 import os
 import sys
@@ -166,6 +172,35 @@ def train_case(spec, rank, world, chunk=False):
                 optimizer=optimizer.state_dict())
 
 
+def mt_case(spec, rank, world, static_graph, with_cp=False):
+    """The random ensemble of ``spec['cfg']`` from seed 0 (``with_cp``:
+    the student's blocks recomputed in the backward): steps
+    ``spec['start'] + 1`` on through ``wrap_model(static_graph=...)``, on
+    this rank's share of the batch; each step's teacher is drawn from its
+    seed."""
+    cfg = copy.deepcopy(spec['cfg'])
+    cfg['cfg_s']['backbone']['with_cp'] = with_cp
+    model = build_segmentor(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.train()
+    optimizer = build_optimizer(spec['optimizer'], model)
+    schedule = build_lr_schedule(spec['lr_config'], spec['optimizer']['lr'],
+                                 spec['max_iters'])
+    ddp = wrap_model(model, static_graph=static_graph)
+    step_fn = build_train_step(model, optimizer, schedule, ddp)
+    state = TrainState(model=model, optimizer=optimizer, seed=0)
+    state.step = spec['start']
+    per = spec['img'].shape[0] // world
+    share = slice(rank * per, (rank + 1) * per)
+    logs = [{k: float(v) for k, v in step_fn(
+        state, spec['img'][share], spec['gt'][share]).items()}
+        for _ in range(spec['steps'])]
+    return dict(logs=logs, static_graph=ddp.static_graph,
+                state_dict={k: v.clone() for k, v in
+                            model.state_dict().items()},
+                optimizer=optimizer.state_dict())
+
+
 def cli_case(spec, rank):
     """tools.train --multi-host, a resume, tools.test --multi-host."""
     from segdistill_tpu_torch.tools import test as test_cli
@@ -214,6 +249,14 @@ def run(job_path, out_dir):
             t0 = time.perf_counter()
             out[case] = train_case(job[case.split()[0]], rank, world,
                                    chunk=case.endswith('chunk'))
+            seconds[case] = time.perf_counter() - t0
+        for case, static_graph, with_cp in (
+                ('mt random', True, False),
+                ('mt random default', False, False),
+                ('mt random with_cp', True, True)):
+            t0 = time.perf_counter()
+            out[case] = mt_case(job['mt'], rank, world, static_graph,
+                                with_cp)
             seconds[case] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out['dryrun'] = dryrun_multichip.rank_step(world)
