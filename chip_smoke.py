@@ -54,8 +54,10 @@ fp32 GPU logits against the CPU; (17, 18) the timed ``psp_CGD`` and
 (19-21) fp32 steps of ``psp_CGD``, ``psp_PD`` and ``swin_CGD`` at batch 1
 and 256x256 against the CPU. The KL phases (5, 7) also hold K3/K4 and
 K7/K8 with a teacher of another size than the student (the PSP student's
-logits at stride 8 against the B3 teacher's at stride 4), which take the
-gather variants, and the LayerNorm phase K10/K11 at C = 1536, Swin-T's last
+logits at stride 8 against the B3 teacher's at stride 4): K3/K4 in the
+tiles' two-geometry form or their gather variants, as each case names (the
+PSP CGD case's device times printed beside their bounds), K7/K8 in their
+gather variants; and the LayerNorm phase K10/K11 at C = 1536, Swin-T's last
 PatchMerging norm. Then the ``configs/extra`` models at full width and
 depth (random weights from seed 0): (22-24) PSANet-R50 (PSAHead + FCN
 auxiliary head) and PointRend-R50/FPN (FPNHead + PointHead, a cascade) on
@@ -923,10 +925,12 @@ def phase_group_kl():
             args = gk._prepare(xs, xt, perm, out_hw, g, tau)
             _same(f'group_kl {name} {dtype}', gk._launch_fwd(*args),
                   gk._launch_fwd(*args))
-    # a teacher of another size: the gather variants, never a fallback
-    for name, shape, thw, out_hw, g, shuffle in \
+    # a teacher of another size: the variants each case names (the
+    # two-geometry tiles, or the gather variants), never a fallback
+    for name, shape, thw, out_hw, g, shuffle, oh, tile in \
             _cases().GROUP_KL_TWO_SIZE_CASES:
-        _check_gather(f'group_kl {name}', gk, shape, thw, out_hw)
+        plan = _check_variant(f'group_kl {name}', gk, shape, thw, out_hw, oh,
+                              tile)
         perm = torch.randperm(shape[1], device=DEVICE, generator=gen) \
             if shuffle else None
         for dtype in (torch.float32, torch.bfloat16):
@@ -934,27 +938,61 @@ def phase_group_kl():
             xt = torch.randn(shape[:2] + thw, device=DEVICE,
                              generator=gen).to(dtype)
             before = gk.FWD_KERNEL.launches, gk.BWD_KERNEL.launches
+            fused = (lambda a, t: gk.fused_group_kl_shuffled(
+                a, t, perm, out_hw, g, tau)) if shuffle else \
+                (lambda a, t: gk.fused_group_kl(a, t, out_hw, g, tau))
             fwd[(name, dtype)], bwd[(name, dtype)] = _loss_case(
-                f'group_kl {name} {dtype} (teacher {thw}, gather)', xs, xt,
-                lambda a, t: gk.fused_group_kl_shuffled(a, t, perm, out_hw,
-                                                        g, tau)
-                if shuffle else gk.fused_group_kl(a, t, out_hw, g, tau),
+                f'group_kl {name} {dtype} (teacher {thw}, {plan})', xs, xt,
+                fused,
                 lambda a, t: gk.group_kl_plain(a, t, perm, out_hw, g, tau))
             _launched(f'group_kl {name}', gk, before)
             args = gk._prepare(xs, xt, perm, out_hw, g, tau)
             _same(f'group_kl {name} {dtype}', gk._launch_fwd(*args),
                   gk._launch_fwd(*args))
+            if name == PSP_CGD_CASE and dtype == torch.bfloat16:
+                _two_size_device_ms(name, xs, xt, fused, shape, thw, out_hw)
     return fwd, bwd
 
 
-def _check_gather(tag, mod, shape, teacher_hw, out_hw):
-    """A student and a teacher of different sizes plan the gather
-    variants of both kernels."""
+# the two-size case whose K3/K4 device times the group-KL phase prints
+# beside their bounds: the psp_CGD step's pair
+PSP_CGD_CASE = 'PSP CGD g5 perm'
+
+
+def _two_size_device_ms(name, xs, xt, fused, shape, thw, out_hw):
+    """K3's and K4's device time (calls queued behind a held stream) at a
+    two-size case, beside their bounds and the forward's exponential
+    floor."""
+    from segdistill_tpu_torch.utils.timing import device_ms
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: fused(xs, xt), calls=3)
+    k = xs.clone().requires_grad_()
+    loss = fused(k, xt)
+    gbar = torch.ones((), device=DEVICE)
+    bwd_ms = device_ms(
+        lambda: torch.autograd.grad(loss, k, gbar, retain_graph=True),
+        calls=3)
+    fb, bb = _cases().kl_bounds(shape, out_hw, xs.dtype, 0, thw)
+    floor = 2 * shape[0] * shape[1] * out_hw[0] * out_hw[1] \
+        / _cases().PEAK_EXP2 * 1e3
+    log(f'group_kl {name} {xs.dtype} (teacher {thw}) device time: K3 '
+        f'{fwd_ms:.4f} ms (bound {fb[0]:.4f}, {fb[1]}; exponentials\' floor '
+        f'{floor:.4f}), K4 {bwd_ms:.4f} ms (bound {bb[0]:.4f}, {bb[1]})')
+
+
+def _check_variant(tag, mod, shape, teacher_hw, out_hw, oh, tile):
+    """A student and a teacher of different sizes plan the variants the
+    case names: the forward's output tile of ``oh`` rows (0: its gather
+    variant) and the backward's source tile of edge ``tile`` (0: its gather
+    variant; K7/K8 plan both gather variants)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     fplan = mod.forward_plan(*shape[2:], *out_hw, teacher_hw)
     bplan = mod.backward_plan(*shape, *out_hw, sms, teacher_hw)
-    if fplan['oh'] or bplan['tile']:
-        raise AssertionError(f'{tag}: two sizes planned {fplan}, {bplan}')
+    if fplan['oh'] != oh or bplan['tile'] != tile:
+        raise AssertionError(f'{tag}: two sizes planned {fplan}, {bplan}, '
+                             f'the case is meant for {oh} rows, tile {tile}')
+    return (f'two-geometry {_fwd_plan(fplan)}' if oh else 'fwd gather') + \
+        (f', two-geometry tile {tile}' if tile else ', bwd gather')
 
 
 def _launched(tag, mod, before):
@@ -1025,7 +1063,7 @@ def phase_pixel_kl():
             log(f'{tag:40s} lse tol used {used:.3f}')
     # a teacher of another size: the gather variants, never a fallback
     for name, shape, thw, out_hw in _cases().PIXEL_KL_TWO_SIZE_CASES:
-        _check_gather(f'pixel_kl {name}', pk, shape, thw, out_hw)
+        _check_variant(f'pixel_kl {name}', pk, shape, thw, out_hw, 0, 0)
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
             xt = torch.randn(shape[:2] + thw, device=DEVICE,

@@ -168,9 +168,7 @@ def init_segmentor(config, checkpoint=None, device='cuda', seed=0,
         config = config.copy()
         config.merge_from_dict(cfg_options)
     config = student_config(config)
-    model_cfg = dict(config.model)
-    model_cfg.pop('pretrained', None)
-    model = build_segmentor(model_cfg)
+    model = build_segmentor(dict(config.model))
     model.init_weights(torch.Generator().manual_seed(seed))
     if checkpoint is not None:
         load_checkpoint(model, checkpoint, strict=False)

@@ -95,13 +95,12 @@ def init_segmentor_state(config, seed=0, device='cuda', cfg_options=None):
     if cfg_options:
         config = config.copy()
         config.merge_from_dict(cfg_options)
-    model_cfg = dict(config.model)
-    pretrained = model_cfg.pop('pretrained', None)
-    if model_cfg.get('type') in ('SDModule', 'SDModuleMT'):
-        pretrained = None  # the student's is under cfg_s
-    elif pretrained:
+    model = build_segmentor(dict(config.model))
+    # a segmentor's backbone checkpoint (a distillation config's student
+    # has its own, under cfg_s)
+    pretrained = getattr(model, 'pretrained', None)
+    if pretrained:
         _require_file(pretrained, 'the backbone checkpoint pretrained')
-    model = build_segmentor(model_cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
     _load_pretrained(model)
     if pretrained:

@@ -275,6 +275,33 @@ __device__ inline void tile_sum_y(const float* tmp, int pt, int nx,
   }
 }
 
+// ---- Windows: the sources that a run of outputs reads ------------------
+//
+// The sources read by the outputs [o0, o0 + on) of one axis: [lo, lo + n),
+// from the first output's first tap to the last output's second one (the
+// taps' indices grow with the output index), clamped to the map by tap()
+// itself; hi is the local index of the map's last source.
+struct FwdAxis {
+  int lo;
+  int n;
+  int hi;
+};
+
+__device__ inline FwdAxis fwd_axis(int o0, int on, int in, int out) {
+  const Tap first = tap(o0, in, out), last = tap(o0 + on - 1, in, out);
+  return {first.i0, last.i1 - first.i0 + 1, in - 1 - first.i0};
+}
+
+// The most sources that `on` neighbouring outputs read: their positions
+// span (on - 1) * in / out source steps, whose floors differ by at most its
+// ceiling, plus the second tap of the last, plus 2 for the float32 rounding
+// of either end's position; never more than the map. Sizes the window
+// buffers; mirrored by the wrappers' planning (ops/tile_plan.py).
+__host__ __device__ inline int fwd_reach(int on, int in, int out) {
+  const long long r = (static_cast<long long>(on - 1) * in + out - 1) / out + 4;
+  return static_cast<int>(r < in ? r : in);
+}
+
 // ---- The tile backward: one kernel, the loss a parameter ---------------
 //
 // dx of a loss over the bilinear upsample of one or two (B, C, h, w) maps
@@ -293,10 +320,25 @@ __device__ inline void tile_sum_y(const float* tmp, int pt, int nx,
 // channel. Each source element has one owner and a fixed order of
 // summation: no atomics, the result is bitwise reproducible.
 //
+// Two geometries (kTwo): x1 is a teacher map of another size, (B, C, ht,
+// wt), upsampled to the same (H, W) at its own ratio. The block still owns
+// a tile of the student's (x0's) sources and its rectangle of readers; per
+// position it stages, beside the student's tile and halo, the teacher's
+// window: the teacher sources that the rectangle's outputs read through
+// the teacher's own taps (fwd_axis of the rectangle's rows and columns, at
+// most TY x TX = fwd_reach of the rectangle, each thread kTileWinSlots
+// elements of it), double-buffered as the tile is, with the teacher's
+// taps at the rectangle's rows and columns in tables beside the student's.
+// Each output's two values then come from shared memory, each from its own
+// map's taps; the gradient goes back through the student's transposed
+// upsample alone, as before.
+//
 // A Loss provides:
 //   kSrcMaps, kRectMaps, kResident  maps read per channel (1 or 2), 32-bit
 //                                   per-output maps, blocks an SM the
 //                                   kernel is compiled for
+//   kResidentTwo                    the same for the two-geometry form
+//                                   (only a loss that takes it)
 //   pixel(q, r, stride)             the per-output maps of output q (an
 //                                   index into the (B, H, W) grid) into
 //                                   r[0], r[stride], ...
@@ -310,6 +352,20 @@ constexpr int kTileThreads = 512;
 // shared memory a tile block may take: two blocks fit an SM (228 KB, 1 KB
 // of it reserved for each block)
 constexpr int kTileBudget = 113 * 1024;
+// window elements a thread of a two-geometry block stages: the teacher's
+// window holds at most kTileWinSlots * kTileThreads sources
+constexpr int kTileWinSlots = 4;
+
+// Blocks an SM a tile kernel is compiled for: the loss's kResident, or its
+// kResidentTwo for the two-geometry form.
+template <typename Loss, bool kTwo>
+struct Resident {
+  static constexpr int value = Loss::kResident;
+};
+template <typename Loss>
+struct Resident<Loss, true> {
+  static constexpr int value = Loss::kResidentTwo;
+};
 
 // Bytes of dynamic shared memory of a tile block: rect_maps per-output maps
 // and g over the (rh, rw) rectangle with an odd pitch, the x-summed buffer
@@ -325,6 +381,17 @@ __host__ __device__ inline int tile_smem_bytes(int tile, int rh, int rw,
               tile * (4 + ny + nx));
 }
 
+// The same for two geometries: the student's map alone on the tile, and
+// two buffers of the teacher's (ty, tx) window with the teacher's tap
+// tables of the rectangle's rows and columns.
+__host__ __device__ inline int tile_two_smem_bytes(int tile, int rh, int rw,
+                                                   int ny, int nx, int ty,
+                                                   int tx, int rect_maps,
+                                                   int src_maps) {
+  return tile_smem_bytes(tile, rh, rw, ny, nx, rect_maps, src_maps - 1) +
+         4 * (2 * ty * tx + 2 * rh + 2 * rw);
+}
+
 // The tile edge for these shapes: the largest of 16, 8, 4 whose block fits
 // the budget; 0: none does, the loss's gather variant runs.
 inline int plan_tile(int h, int w, int H, int W, int rect_maps,
@@ -333,6 +400,24 @@ inline int plan_tile(int h, int w, int H, int W, int rect_maps,
     if (tile_smem_bytes(tile, tile_reach(tile, h, H), tile_reach(tile, w, W),
                         tile_readers(h, H), tile_readers(w, W), rect_maps,
                         src_maps) <= kTileBudget)
+      return tile;
+  }
+  return 0;
+}
+
+// The two-geometry tile edge for a student (h, w) and a teacher (ht, wt):
+// the largest of 16, 8, 4 whose teacher window the block's threads stage
+// and whose block fits the budget; 0: none does, the loss's gather variant
+// runs.
+inline int plan_tile_two(int h, int w, int ht, int wt, int H, int W,
+                         int rect_maps, int src_maps) {
+  for (int tile = 16; tile >= 4; tile /= 2) {
+    const int rh = tile_reach(tile, h, H), rw = tile_reach(tile, w, W);
+    const int ty = fwd_reach(rh, ht, H), tx = fwd_reach(rw, wt, W);
+    if (ty * tx <= kTileWinSlots * kTileThreads &&
+        tile_two_smem_bytes(tile, rh, rw, tile_readers(h, H),
+                            tile_readers(w, W), ty, tx, rect_maps,
+                            src_maps) <= kTileBudget)
       return tile;
   }
   return 0;
@@ -356,23 +441,53 @@ bool tile_plan_ok(int B, int C, int h, int w, int H, int W, int tile, int rh,
 }
 
 // The gather plan (tile 0, no rectangle and no bytes, a grid of B * C
-// rows), which a student and a teacher of different sizes always take.
+// rows).
 inline bool gather_plan_ok(int B, int C, int tile, int rh, int rw, int smem,
                            int cpc) {
   return tile == 0 && !rh && !rw && !smem && cpc >= 1 && cpc <= C &&
          static_cast<long long>(B) * C <= 65535;
 }
 
-template <typename T, typename Loss>
-__global__ void __launch_bounds__(kTileThreads, Loss::kResident)
+// tile_plan_ok for a student (h, w) and a teacher (ht, wt) of another size:
+// the two-geometry tile, or the gather plan where plan_tile_two names none.
+template <typename Loss>
+bool tile_plan_two_ok(int B, int C, int h, int w, int ht, int wt, int H,
+                      int W, int tile, int rh, int rw, int smem, int cpc) {
+  if (tile != plan_tile_two(h, w, ht, wt, H, W, Loss::kRectMaps,
+                            Loss::kSrcMaps))
+    return false;
+  if (tile == 0) return gather_plan_ok(B, C, tile, rh, rw, smem, cpc);
+  return cpc >= 1 && cpc <= C && rh == tile_reach(tile, h, H) &&
+         rw == tile_reach(tile, w, W) &&
+         smem == tile_two_smem_bytes(tile, rh, rw, tile_readers(h, H),
+                                     tile_readers(w, W),
+                                     fwd_reach(rh, ht, H),
+                                     fwd_reach(rw, wt, W), Loss::kRectMaps,
+                                     Loss::kSrcMaps);
+}
+
+// The teacher's window of a two-geometry block: the sources of an axis of
+// `in` that the rectangle's outputs [a.o0, a.o0 + a.on) read (none where
+// no output reads the tile).
+__device__ inline FwdAxis window_axis(const TileAxis& a, int in, int out) {
+  return a.on > 0 ? fwd_axis(a.o0, a.on, in, out) : FwdAxis{0, 0, 0};
+}
+
+template <typename T, typename Loss, bool kTwo>
+__global__ void __launch_bounds__(kTileThreads, Resident<Loss, kTwo>::value)
     tile_bwd(const Loss loss, const T* __restrict__ x0,
              const T* __restrict__ x1, T* __restrict__ dx, int C, int h,
-             int w, int H, int W, int tile, int RH, int RW, int cpc,
-             int tiles_y, int tiles_x, int chunks) {
+             int w, int ht, int wt, int H, int W, int tile, int RH, int RW,
+             int TY, int TX, int cpc, int tiles_y, int tiles_x, int chunks) {
   constexpr int kSrc = Loss::kSrcMaps;
+  static_assert(!kTwo || kSrc == 2, "two geometries: a student and a teacher");
+  // maps staged on the tile and its halo: every map, or the student's alone
+  constexpr int kTiled = kTwo ? 1 : kSrc;
+  constexpr int kSlots = kTwo ? kTileWinSlots : 1;
   constexpr int kRect = Loss::kRectMaps;
   extern __shared__ float4 smem_raw[];
   __shared__ TileAxis ay, ax;
+  __shared__ FwdAxis sty, stx;  // two geometries: the teacher's window
   const int tid = threadIdx.x;
   const int PR = RW | 1;
   const int PT = RH | 1;
@@ -383,8 +498,8 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
   float* rect = reinterpret_cast<float*>(smem_raw);  // kRect maps of RS
   float* g = rect + kRect * RS;
   float* tmp = g + RS;
-  float* src = tmp + tile * PT;  // two buffers of kSrc tiles of SS
-  int* i0y = reinterpret_cast<int*>(src + 2 * kSrc * SS);
+  float* src = tmp + tile * PT;  // two buffers of kTiled tiles of SS
+  int* i0y = reinterpret_cast<int*>(src + 2 * kTiled * SS);
   float* fy = reinterpret_cast<float*>(i0y + RH);
   int* i0x = reinterpret_cast<int*>(fy + RH);
   float* fx = reinterpret_cast<float*>(i0x + RW);
@@ -394,6 +509,13 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
   int* cx = sx + tile;
   float* wty = reinterpret_cast<float*>(cx + tile);
   float* wtx = wty + tile * NY;
+  // two geometries: two buffers of the teacher's window of TY x TX, and the
+  // teacher's taps at the rectangle's rows and columns, local to the window
+  float* win = wtx + tile * NX;
+  int* i0ty = reinterpret_cast<int*>(win + 2 * TY * TX);
+  float* fty = reinterpret_cast<float*>(i0ty + RH);
+  int* i0tx = reinterpret_cast<int*>(fty + RH);
+  float* ftx = reinterpret_cast<float*>(i0tx + RW);
 
   int t = blockIdx.x;
   const int chunk = t % chunks;
@@ -405,13 +527,36 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
   const int c0 = chunk * cpc;
   const int c1 = min(c0 + cpc, C);
 
-  if (tid == 0) ay = tile_axis(tile_y, tile, h, H);
-  if (tid == 32) ax = tile_axis(tile_x, tile, w, W);
+  if (tid == 0) {
+    ay = tile_axis(tile_y, tile, h, H);
+    if constexpr (kTwo) sty = window_axis(ay, ht, H);
+  }
+  if (tid == 32) {
+    ax = tile_axis(tile_x, tile, w, W);
+    if constexpr (kTwo) stx = window_axis(ax, wt, W);
+  }
   __syncthreads();
   // the plan's rectangle holds every reader, or nothing is computed
   if (ay.on > RH || ax.on > RW) __trap();
   tile_taps(ay, h, H, i0y, fy, sy, cy, wty, NY, tid, kTileThreads);
   tile_taps(ax, w, W, i0x, fx, sx, cx, wtx, NX, tid, kTileThreads);
+  FwdAxis vy{0, 0, 0}, vx{0, 0, 0};
+  if constexpr (kTwo) {
+    vy = sty;
+    vx = stx;
+    // the plan's window holds every source the rectangle reads
+    if (vy.n > TY || vx.n > TX) __trap();
+    for (int i = tid; i < ay.on; i += kTileThreads) {
+      const Tap p = tap(ay.o0 + i, ht, H);
+      i0ty[i] = p.i0 - vy.lo;
+      fty[i] = p.f;
+    }
+    for (int i = tid; i < ax.on; i += kTileThreads) {
+      const Tap p = tap(ax.o0 + i, wt, W);
+      i0tx[i] = p.i0 - vx.lo;
+      ftx[i] = p.f;
+    }
+  }
 
   // A thread keeps one column of the rectangle (its x tap stays in
   // registers) and walks rows ty0, ty0 + rows_step, ...; a rectangle wider
@@ -442,25 +587,58 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
   const long long at = static_cast<long long>(b) * C * plane +
                        static_cast<long long>(gi) * w + gj;
   const T* xs[2] = {x0 + at, x1 + at};
+  // two geometries: this thread's elements of the teacher's window (slot j:
+  // element tid + j * kTileThreads, row-major with pitch vx.n) and their
+  // offsets in a teacher plane, -1 past the window
+  const long long plane_t = static_cast<long long>(ht) * wt;
+  const T* xw = x1 + static_cast<long long>(b) * C * plane_t;
+  int wo[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    wo[j] = -1;
+    const int e = tid + j * kTileThreads;
+    if constexpr (kTwo) {
+      if (e < vy.n * vx.n) {
+        const int r = e / vx.n;
+        wo[j] = (vy.lo + r) * wt + vx.lo + (e - r * vx.n);
+      }
+    }
+  }
   if (tid < SS) {
     const long long o = loss.source(c0) * plane;
 #pragma unroll
-    for (int m = 0; m < kSrc; ++m)
+    for (int m = 0; m < kTiled; ++m)
       src[m * SS + tid] = s_in ? to_f32(xs[m][o]) : 0.0f;
+  }
+  if constexpr (kTwo) {
+    const T* p = xw + loss.source(c0) * plane_t;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j)
+      if (wo[j] >= 0) win[tid + j * kTileThreads] = to_f32(p[wo[j]]);
   }
   __syncthreads();
 
   const float scale = loss.scale();
   for (int c = c0; c < c1; ++c) {
-    const float* cur = src + ((c - c0) & 1) * kSrc * SS;
+    const float* cur = src + ((c - c0) & 1) * kTiled * SS;
+    const float* wcur = win + ((c - c0) & 1) * TY * TX;
     const typename Loss::Channel ch = loss.channel(b, c);
-    float next[kSrc];
+    float next[kTiled];
 #pragma unroll
-    for (int m = 0; m < kSrc; ++m) next[m] = 0.0f;
+    for (int m = 0; m < kTiled; ++m) next[m] = 0.0f;
     if (s_in && c + 1 < c1) {
       const long long o = loss.source(c + 1) * plane;
 #pragma unroll
-      for (int m = 0; m < kSrc; ++m) next[m] = to_f32(xs[m][o]);
+      for (int m = 0; m < kTiled; ++m) next[m] = to_f32(xs[m][o]);
+    }
+    float wnext[kSlots];
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) wnext[j] = 0.0f;
+    if (kTwo && c + 1 < c1) {
+      const T* p = xw + loss.source(c + 1) * plane_t;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j)
+        if (wo[j] >= 0) wnext[j] = to_f32(p[wo[j]]);
     }
 
     // the loss's gradient at every output of the rectangle
@@ -468,6 +646,10 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
       for (int tx = txl; tx < rw; tx += cw) {
         const int b0 = i0x[tx], b1 = min(b0 + 1, ax.hi);
         const float wx = fx[tx], gx = 1.0f - wx;
+        // two geometries: the column's teacher tap in the window
+        const int e0 = kTwo ? i0tx[tx] : 0;
+        const int e1 = kTwo ? min(e0 + 1, vx.hi) : 0;
+        const float ex = kTwo ? ftx[tx] : 0.0f;
         for (int ty = ty0; ty < rh; ty += rows_step) {
           const int a0 = i0y[ty];
           const float wy = fy[ty];
@@ -475,11 +657,20 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
           const int r1 = min(a0 + 1, ay.hi) * SW;
           float v[kSrc];
 #pragma unroll
-          for (int m = 0; m < kSrc; ++m) {
+          for (int m = 0; m < kTiled; ++m) {
             const float* s = cur + m * SS;
             const float top = gx * s[r0 + b0] + wx * s[r0 + b1];
             const float bot = gx * s[r1 + b0] + wx * s[r1 + b1];
             v[m] = (1.0f - wy) * top + wy * bot;
+          }
+          if constexpr (kTwo) {
+            const int d0 = i0ty[ty];
+            const float ey = fty[ty];
+            const float* q0 = wcur + d0 * vx.n;
+            const float* q1 = wcur + min(d0 + 1, vy.hi) * vx.n;
+            const float top = (1.0f - ex) * q0[e0] + ex * q0[e1];
+            const float bot = (1.0f - ex) * q1[e0] + ex * q1[e1];
+            v[kSrc - 1] = (1.0f - ey) * top + ey * bot;
           }
           const int o = ty * PR + tx;
           g[o] = loss.eval(ch, v, rect + o, RS);
@@ -487,9 +678,15 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
       }
     }
     if (tid < SS) {
-      float* nb = src + ((c + 1 - c0) & 1) * kSrc * SS;
+      float* nb = src + ((c + 1 - c0) & 1) * kTiled * SS;
 #pragma unroll
-      for (int m = 0; m < kSrc; ++m) nb[m * SS + tid] = next[m];
+      for (int m = 0; m < kTiled; ++m) nb[m * SS + tid] = next[m];
+    }
+    if (kTwo && c + 1 < c1) {
+      float* nw = win + ((c + 1 - c0) & 1) * TY * TX;
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j)
+        if (wo[j] >= 0) nw[tid + j * kTileThreads] = wnext[j];
     }
     __syncthreads();
     tile_sum_x(g, PR, rh, ax, sx, cx, wtx, NX, tmp, PT, tid, kTileThreads);
@@ -503,27 +700,38 @@ __global__ void __launch_bounds__(kTileThreads, Loss::kResident)
   }
 }
 
-// Launch tile_bwd<T, Loss> on a plan that tile_plan_ok accepted (tile > 0).
-template <typename T, typename Loss>
+// Launch tile_bwd<T, Loss> on a plan that tile_plan_ok accepted (tile >
+// 0); kTwo: the two-geometry form, for a teacher of (ht, wt), on a plan
+// that tile_plan_two_ok accepted.
+template <typename T, typename Loss, bool kTwo = false>
 cudaError_t launch_tile_bwd(const Loss& loss, const void* x0, const void* x1,
                             void* dx, int B, int C, int h, int w, int H,
-                            int W, int tile, int cpc, cudaStream_t s) {
+                            int W, int tile, int cpc, cudaStream_t s,
+                            int ht = 0, int wt = 0) {
+  if (!kTwo) ht = h, wt = w;
   const int rh = tile_reach(tile, h, H), rw = tile_reach(tile, w, W);
+  const int ny = tile_readers(h, H), nx = tile_readers(w, W);
+  const int ty = kTwo ? fwd_reach(rh, ht, H) : 0;
+  const int tx = kTwo ? fwd_reach(rw, wt, W) : 0;
   const int smem =
-      tile_smem_bytes(tile, rh, rw, tile_readers(h, H), tile_readers(w, W),
-                      Loss::kRectMaps, Loss::kSrcMaps);
+      kTwo ? tile_two_smem_bytes(tile, rh, rw, ny, nx, ty, tx,
+                                 Loss::kRectMaps, Loss::kSrcMaps)
+           : tile_smem_bytes(tile, rh, rw, ny, nx, Loss::kRectMaps,
+                             Loss::kSrcMaps);
   const cudaError_t err = cudaFuncSetAttribute(
-      tile_bwd<T, Loss>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tile_bwd<T, Loss, kTwo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const int tiles_y = (h + tile - 1) / tile, tiles_x = (w + tile - 1) / tile;
   const int chunks = (C + cpc - 1) / cpc;
   const long long blocks =
       static_cast<long long>(B) * tiles_y * tiles_x * chunks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  tile_bwd<T, Loss><<<static_cast<unsigned>(blocks), kTileThreads, smem, s>>>(
-      loss, static_cast<const T*>(x0), static_cast<const T*>(x1),
-      static_cast<T*>(dx), C, h, w, H, W, tile, rh, rw, cpc, tiles_y,
-      tiles_x, chunks);
+  tile_bwd<T, Loss, kTwo>
+      <<<static_cast<unsigned>(blocks), kTileThreads, smem, s>>>(
+          loss, static_cast<const T*>(x0), static_cast<const T*>(x1),
+          static_cast<T*>(dx), C, h, w, ht, wt, H, W, tile, rh, rw, ty, tx,
+          cpc, tiles_y, tiles_x, chunks);
   return cudaSuccess;
 }
 
@@ -542,6 +750,14 @@ cudaError_t launch_tile_bwd(const Loss& loss, const void* x0, const void* x1,
 // between and x-lerps a new source row only when the y tap moves on, so an
 // upsampled value costs one lerp (two instructions) and whatever the loss
 // does with it: no integer division, no tap and no global load per value.
+//
+// Two geometries (kTwo): the units alternate between a student map (even
+// units, (h, w)) and a teacher map of another size (odd units, (ht, wt)),
+// each upsampled to the tile at its own ratio. Each geometry has its own
+// window (the teacher's at most TY x TX), staged with its own units, its
+// own table of the tile rows' y taps and the thread's own x tap; the thread
+// walks its column with one walker a geometry, each x-lerping a source row
+// only when its own y tap moves on.
 constexpr int kFwdThreads = 256;
 constexpr int kFwdCols = 64;  // a tile's columns: a thread each
 constexpr int kFwdSegs = kFwdThreads / kFwdCols;  // row segments of a tile
@@ -553,36 +769,20 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The sources read by the outputs [o0, o0 + on) of one axis: [lo, lo + n),
-// from the first output's first tap to the last output's second one (the
-// taps' indices grow with the output index), clamped to the map by tap()
-// itself; hi is the local index of the map's last source.
-struct FwdAxis {
-  int lo;
-  int n;
-  int hi;
-};
-
-__device__ inline FwdAxis fwd_axis(int o0, int on, int in, int out) {
-  const Tap first = tap(o0, in, out), last = tap(o0 + on - 1, in, out);
-  return {first.i0, last.i1 - first.i0 + 1, in - 1 - first.i0};
-}
-
-// The most sources that `on` neighbouring outputs read: their positions
-// span (on - 1) * in / out source steps, whose floors differ by at most its
-// ceiling, plus the second tap of the last, plus 2 for the float32 rounding
-// of either end's position; never more than the map. Sizes the window
-// buffers; mirrored by the wrappers' planning (ops/tile_plan.py).
-__host__ __device__ inline int fwd_reach(int on, int in, int out) {
-  const long long r = (static_cast<long long>(on - 1) * in + out - 1) / out + 4;
-  return static_cast<int>(r < in ? r : in);
-}
-
 // Bytes of dynamic shared memory of a forward block: two buffers of `units`
 // (wy, wx) windows and the tile rows' y taps (source row, fraction).
 __host__ __device__ inline int fwd_smem_bytes(int units, int oh, int wy,
                                               int wx) {
   return 4 * (2 * units * wy * wx + 2 * oh);
+}
+
+// The same for two geometries: each geometry's half of the units on its own
+// window, (wy, wx) the student's and (ty, tx) the teacher's, and its own y
+// taps.
+__host__ __device__ inline int fwd_two_smem_bytes(int units, int oh, int wy,
+                                                  int wx, int ty, int tx) {
+  return fwd_smem_bytes(units / 2, oh, wy, wx) +
+         fwd_smem_bytes(units / 2, oh, ty, tx);
 }
 
 // The tile's rows for a loss whose threads walk `rows` rows each and stage
@@ -597,6 +797,16 @@ inline int plan_fwd(int h, int w, int H, int W, int rows, int slots) {
              : 0;
 }
 
+// The same for a student (h, w) and a teacher (ht, wt): both windows must
+// fit.
+inline int plan_fwd_two(int h, int w, int ht, int wt, int H, int W, int rows,
+                        int slots) {
+  return plan_fwd(h, w, H, W, rows, slots) &&
+                 plan_fwd(ht, wt, H, W, rows, slots)
+             ? kFwdSegs * rows
+             : 0;
+}
+
 // Whether a wrapper's forward plan (tile rows, window, shared bytes) is
 // this source's for Loss at these shapes; the gather variant (oh 0) names
 // no window and no bytes.
@@ -607,6 +817,20 @@ bool fwd_plan_ok(int h, int w, int H, int W, int oh, int wy, int wx,
   if (oh == 0) return !wy && !wx && !smem;
   return wy == fwd_reach(oh, h, H) && wx == fwd_reach(kFwdCols, w, W) &&
          smem == fwd_smem_bytes(Loss::kUnits, oh, wy, wx);
+}
+
+// fwd_plan_ok for a student (h, w) and a teacher (ht, wt) of another size:
+// (wy, wx) is the student's window, the teacher's follows from the shapes.
+template <typename Loss>
+bool fwd_plan_two_ok(int h, int w, int ht, int wt, int H, int W, int oh,
+                     int wy, int wx, int smem) {
+  if (oh != plan_fwd_two(h, w, ht, wt, H, W, Loss::kRows, Loss::kSlots))
+    return false;
+  if (oh == 0) return !wy && !wx && !smem;
+  return wy == fwd_reach(oh, h, H) && wx == fwd_reach(kFwdCols, w, W) &&
+         smem == fwd_two_smem_bytes(Loss::kUnits, oh, wy, wx,
+                                    fwd_reach(oh, ht, H),
+                                    fwd_reach(kFwdCols, wt, W));
 }
 
 // One block's outputs [oy0, oy0 + rows) x [ox0, ox0 + cols) (fewer at the
@@ -704,25 +928,43 @@ struct ColumnWalker {
   }
 };
 
-// Rows [row0, row0 + nr) of one column at step s: each row's y tap (local
-// source row as float bits, fraction) from the block's table, the walk,
-// and the loss's sums. kFull: nr == R, no row past the tile's edge.
-template <int R, bool kFull, typename Loss>
-__device__ __forceinline__ void fwd_walk(
-    const Loss& loss, typename Loss::State& st, const float2* ytap, int row0,
-    int nr, int hi, const float* cur, int ws, int pitch, int b0, int b1,
-    float fx, int s) {
+// One geometry of a forward block: its two steps' windows in shared memory
+// (ws floats each; a row's pitch the window's width, its last row hi), the
+// tile rows' y taps into them (local source row as float bits, fraction),
+// and the thread's x tap (b0, b1, fx).
+struct FwdGeom {
+  float* buf;
+  const float2* ytap;
+  int ws, pitch, hi, b0, b1;
+  float fx;
+};
+
+// Rows [row0, row0 + nr) of one column at step s (its windows in `slot`):
+// each geometry's walk on its own y taps, the values of unit u * G + g from
+// geometry g's walker, and the loss's sums. kFull: nr == R, no row past the
+// tile's edge.
+template <int R, bool kFull, int G, typename Loss>
+__device__ __forceinline__ void fwd_walk(const Loss& loss,
+                                         typename Loss::State& st,
+                                         const FwdGeom (&gm)[G], int row0,
+                                         int nr, int slot, int s) {
   constexpr int U = Loss::kUnits;
-  ColumnWalker<U> walk;
+  constexpr int UG = U / G;
+  ColumnWalker<UG> walk[G];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (!kFull && r >= nr) break;
-    const float2 yt = ytap[row0 + r];
-    const int a0 = __float_as_int(yt.x);
-    walk.move_to(a0, min(a0 + 1, hi), cur, ws, pitch, b0, b1, fx);
     float v[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) v[u] = walk.value(u, yt.y);
+    for (int g = 0; g < G; ++g) {
+      const float2 yt = gm[g].ytap[row0 + r];
+      const int a0 = __float_as_int(yt.x);
+      walk[g].move_to(a0, min(a0 + 1, gm[g].hi),
+                      gm[g].buf + slot * UG * gm[g].ws, gm[g].ws,
+                      gm[g].pitch, gm[g].b0, gm[g].b1, gm[g].fx);
+#pragma unroll
+      for (int u = 0; u < UG; ++u) v[u * G + g] = walk[g].value(u, yt.y);
+    }
     loss.row(st, r, v, s);
   }
 }
@@ -731,6 +973,8 @@ __device__ __forceinline__ void fwd_walk(
 //   kUnits, kRows, kSlots, kResident  maps a step reads, rows a thread
 //                                     walks, window elements a thread
 //                                     stages a unit, blocks an SM
+//   kResidentTwo                      the same for the two-geometry form
+//                                     (only a loss that takes it)
 //   State                             a thread's running sums
 //   int steps(slice), units(slice, s) the slice's steps, step s's units
 //                                     (past them: kFwdPad)
@@ -740,19 +984,18 @@ __device__ __forceinline__ void fwd_walk(
 //   row(st, r, v, s)                  output row r of the thread's walk at
 //                                     step s: v its upsampled values
 //   finish(st, slice, tile, seg, col, ok)  the block's result and merge
-template <typename T, typename Loss>
-__global__ void __launch_bounds__(kFwdThreads, Loss::kResident)
-    fwd_tile(const Loss loss, int h, int w, int H, int W, int OH, int WY,
-             int WX, int tiles_x) {
+template <typename T, typename Loss, bool kTwo>
+__global__ void __launch_bounds__(kFwdThreads, Resident<Loss, kTwo>::value)
+    fwd_tile(const Loss loss, int h, int w, int ht, int wt, int H, int W,
+             int OH, int WY, int WX, int TY, int TX, int tiles_x) {
+  constexpr int G = kTwo ? 2 : 1;  // geometries
   constexpr int U = Loss::kUnits;
+  constexpr int UG = U / G;  // units a geometry
+  static_assert(U % G == 0, "two geometries: as many units of each");
   constexpr int R = Loss::kRows;
   extern __shared__ float4 smem_raw[];
-  __shared__ FwdAxis sy, sx;
+  __shared__ FwdAxis axes[2 * G];  // each geometry's (y, x) window
   const int tid = threadIdx.x;
-  const int WS = WY * WX;  // floats of one unit's window
-  float* buf = reinterpret_cast<float*>(smem_raw);  // two steps of U windows
-  float2* ytap = reinterpret_cast<float2*>(buf + 2 * U * WS);
-
   const int slice = blockIdx.y;
   const int tile_y = blockIdx.x / tiles_x;
   FwdTile t;
@@ -760,68 +1003,103 @@ __global__ void __launch_bounds__(kFwdThreads, Loss::kResident)
   t.ox0 = (blockIdx.x - tile_y * tiles_x) * kFwdCols;
   t.rows = min(OH, H - t.oy0);
   t.cols = min(kFwdCols, W - t.ox0);
-  if (tid == 0) sy = fwd_axis(t.oy0, t.rows, h, H);
-  if (tid == 32) sx = fwd_axis(t.ox0, t.cols, w, W);
-  __syncthreads();
-  const FwdAxis ay = sy, ax = sx;
-  // the plan's window holds every source the tile reads, or nothing runs
-  if (ay.n > WY || ax.n > WX) __trap();
-  if (tid < t.rows) {
-    const Tap p = tap(t.oy0 + tid, h, H);
-    ytap[tid] = make_float2(__int_as_float(p.i0 - ay.lo), p.f);
+  if (tid == 0) axes[0] = fwd_axis(t.oy0, t.rows, h, H);
+  if (tid == 32) axes[1] = fwd_axis(t.ox0, t.cols, w, W);
+  if constexpr (kTwo) {
+    if (tid == 64) axes[2] = fwd_axis(t.oy0, t.rows, ht, H);
+    if (tid == 96) axes[3] = fwd_axis(t.ox0, t.cols, wt, W);
   }
+  __syncthreads();
   const int col = tid % kFwdCols;
   const int seg = tid / kFwdCols;  // uniform in a warp
   const bool ok = col < t.cols;
   const int nr = min(max(t.rows - seg * R, 0), R);
-  const Tap px = tap(t.ox0 + min(col, t.cols - 1), w, W);
-  const int b0 = px.i0 - ax.lo, b1 = px.i1 - ax.lo;
-  const float fx = px.f;
+  // shared memory: each geometry's two steps of UG windows, then each
+  // geometry's y taps
+  const int ws0 = WY * WX, ws1 = kTwo ? TY * TX : 0;
+  float* buf = reinterpret_cast<float*>(smem_raw);
+  float2* ytaps = reinterpret_cast<float2*>(buf + 2 * UG * (ws0 + ws1));
+  FwdGeom gm[G];
+  FwdStage<T, UG, Loss::kSlots> stage[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const FwdAxis ay = axes[2 * g], ax = axes[2 * g + 1];
+    const int in_h = g ? ht : h, in_w = g ? wt : w;
+    // the plan's window holds every source the tile reads, or nothing runs
+    if (ay.n > (g ? TY : WY) || ax.n > (g ? TX : WX)) __trap();
+    float2* ytap = ytaps + g * OH;
+    if (tid < t.rows) {
+      const Tap p = tap(t.oy0 + tid, in_h, H);
+      ytap[tid] = make_float2(__int_as_float(p.i0 - ay.lo), p.f);
+    }
+    const Tap px = tap(t.ox0 + min(col, t.cols - 1), in_w, W);
+    gm[g] = {buf + g * 2 * UG * ws0, ytap, g ? ws1 : ws0, ax.n, ay.hi,
+             px.i0 - ax.lo, px.i1 - ax.lo, px.f};
+    stage[g].init(ay, ax, in_w, tid);
+  }
 
   typename Loss::State st;
   loss.begin(st, slice, t, seg, col, ok);
-  FwdStage<T, U, Loss::kSlots> stage;
-  stage.init(ay, ax, w, tid);
   const int steps = loss.steps(slice);
-  stage.fetch([&](int i) { return loss.base(slice, 0, i); },
-              loss.units(slice, 0));
-  stage.store(buf, WS, loss.units(slice, 0), tid);
+  // geometry g's share of a step's n units: those of index u * G + g < n
+  const auto units_of = [](int n, int g) { return (n - g + G - 1) / G; };
+  int n = loss.units(slice, 0);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    stage[g].fetch([&](int i) { return loss.base(slice, 0, i * G + g); },
+                   units_of(n, g));
+    stage[g].store(gm[g].buf, gm[g].ws, units_of(n, g), tid);
+  }
   __syncthreads();
 
   for (int s = 0; s < steps; ++s) {
-    const float* cur = buf + (s & 1) * U * WS;
+    const int slot = s & 1;
     const bool more = s + 1 < steps;
-    if (more)
-      stage.fetch([&](int i) { return loss.base(slice, s + 1, i); },
-                  loss.units(slice, s + 1));
+    if (more) {
+      n = loss.units(slice, s + 1);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        stage[g].fetch(
+            [&](int i) { return loss.base(slice, s + 1, i * G + g); },
+            units_of(n, g));
+    }
     if (ok && nr == R)
-      fwd_walk<R, true>(loss, st, ytap, seg * R, nr, ay.hi, cur, WS, ax.n,
-                        b0, b1, fx, s);
+      fwd_walk<R, true>(loss, st, gm, seg * R, nr, slot, s);
     else if (ok)
-      fwd_walk<R, false>(loss, st, ytap, seg * R, nr, ay.hi, cur, WS, ax.n,
-                         b0, b1, fx, s);
-    if (more)
-      stage.store(buf + ((s + 1) & 1) * U * WS, WS, loss.units(slice, s + 1),
-                  tid);
+      fwd_walk<R, false>(loss, st, gm, seg * R, nr, slot, s);
+    if (more) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        stage[g].store(gm[g].buf + (slot ^ 1) * UG * gm[g].ws, gm[g].ws,
+                       units_of(n, g), tid);
+    }
     __syncthreads();
   }
   loss.finish(st, slice, t, seg, col, ok);
 }
 
 // Launch fwd_tile<T, Loss> over `slices` on a plan that fwd_plan_ok
-// accepted (oh > 0). Its shared memory stays under the 48 KB that needs no
-// opt-in: at most 2 * kUnits * kSlots * kFwdThreads floats and the y taps.
-template <typename T, typename Loss>
+// accepted (oh > 0); kTwo: the two-geometry form, for a teacher of (ht,
+// wt), on a plan that fwd_plan_two_ok accepted. Its shared memory stays
+// under the 48 KB that needs no opt-in: at most 2 * kUnits * kSlots *
+// kFwdThreads floats and the y taps (twice for two geometries).
+template <typename T, typename Loss, bool kTwo = false>
 cudaError_t launch_fwd_tile(const Loss& loss, int slices, int h, int w,
-                            int H, int W, int oh, cudaStream_t s) {
+                            int H, int W, int oh, cudaStream_t s, int ht = 0,
+                            int wt = 0) {
+  if (!kTwo) ht = h, wt = w;
   const int wy = fwd_reach(oh, h, H), wx = fwd_reach(kFwdCols, w, W);
-  const int smem = fwd_smem_bytes(Loss::kUnits, oh, wy, wx);
+  const int ty = kTwo ? fwd_reach(oh, ht, H) : 0;
+  const int tx = kTwo ? fwd_reach(kFwdCols, wt, W) : 0;
+  const int smem = kTwo ? fwd_two_smem_bytes(Loss::kUnits, oh, wy, wx, ty, tx)
+                        : fwd_smem_bytes(Loss::kUnits, oh, wy, wx);
   const int tiles_x = (W + kFwdCols - 1) / kFwdCols;
   const long long tiles = static_cast<long long>((H + oh - 1) / oh) * tiles_x;
   if (tiles > 0x7fffffffLL || slices > 65535 || smem > 48 * 1024)
     return cudaErrorInvalidValue;
-  fwd_tile<T, Loss><<<dim3(static_cast<unsigned>(tiles), slices), kFwdThreads,
-                      smem, s>>>(loss, h, w, H, W, oh, wy, wx, tiles_x);
+  fwd_tile<T, Loss, kTwo>
+      <<<dim3(static_cast<unsigned>(tiles), slices), kFwdThreads, smem, s>>>(
+          loss, h, w, ht, wt, H, W, oh, wy, wx, ty, tx, tiles_x);
   return cudaSuccess;
 }
 

@@ -51,12 +51,26 @@
 // A student and a teacher of different sizes (the PSP student's logits at
 // stride 8 against the B3 teacher's at stride 4) are each upsampled at
 // their own ratio, as the reference resizes each map to the label size
-// before the KL. Such a pair takes the gather variants (gkl_sum and
-// gkl_finalize forward, gkl_bwd backward, instantiated with kTwo), with
-// the teacher's taps and plane its own: the tiles of fwd_tile and tile_bwd
-// stage one window of one geometry. Same-size pairs keep the plans and
-// kernels below unchanged.
-//
+// before the KL. Both tiles take such a pair in their two-geometry form
+// (kTwo in common.cuh), with the same losses: K3's block stages per
+// position the student's window of its output tile (20 x 12 at 64 ->
+// 512) and the teacher's (36 x 20 at 128 -> 512), each from its own taps,
+// and walks its column with one walker a map; K4's block owns a tile of
+// the student's sources and stages beside it, per position, the teacher's
+// window of the rectangle of outputs that read the tile (39 x 39 for a 139
+// x 139 rectangle), with the teacher's taps at the rectangle's rows and
+// columns in tables beside the student's, so that each output's two values
+// come from shared memory, each through its own taps; the gradient goes
+// back through the student's transposed upsample as at one size. What
+// bounded the gather variants they replace (gkl_sum, gkl_bwd with kTwo):
+// one thread per upsampled value (K3) or per source element (K4), eight
+// tap loads from L2 and two expf per value, and in K4 each value evaluated
+// four times. Shapes where a map's window does not fit the block
+// (plan_fwd_two, plan_tile_two: a ratio near 1 on either map, or a
+// student's ratio above ~30) keep those gather variants, with the
+// teacher's taps and plane its own; the variant follows from the shapes
+// alone, and the wrapper's plan must agree or the launch is refused.
+
 // K4 is the tile kernel of common.cuh (tile_bwd) with the loss gkl_tile, as
 // K6 is with its own. What bounded the gather it replaces: one thread per
 // source element walked the ~(2r)^2 outputs that read it and evaluated
@@ -171,6 +185,7 @@ struct gkl_fwd_tile {
   static constexpr int kRows = 32;
   static constexpr int kSlots = 3;
   static constexpr int kResident = 4;
+  static constexpr int kResidentTwo = 4;
   struct State {
     float ms, mt;    // the group's source maxima
     float ks, kt;    // the same times log2 e / tau
@@ -186,7 +201,7 @@ struct gkl_fwd_tile {
   float* stats;
   float* loss;
   int C, g, K, max_splits;
-  long long plane;
+  long long plane, plane_t;  // the student's plane, the teacher's
   float k2;        // log2 e / tau
 
   __device__ __forceinline__ int steps(int bk) const {
@@ -195,9 +210,10 @@ struct gkl_fwd_tile {
   __device__ __forceinline__ int units(int, int) const { return kUnits; }
   __device__ __forceinline__ const T* base(int bk, int pos, int map) const {
     const int b = bk / K;
-    return (map ? xt : xs) +
-           (static_cast<long long>(b) * C + perm[(bk - b * K) * g + pos]) *
-               plane;
+    return map ? xt + (static_cast<long long>(b) * C +
+                       perm[(bk - b * K) * g + pos]) * plane_t
+               : xs + (static_cast<long long>(b) * C +
+                       perm[(bk - b * K) * g + pos]) * plane;
   }
   // the group's maxima from gkl_max's partials, each warp on its own
   // (its lanes load them in parallel)
@@ -269,7 +285,7 @@ struct gkl_fwd_tile {
 };
 
 // The gather variant of K3's forward, for shapes whose windows the tile
-// does not stage (ratios near 1 and below) and for a teacher of another
+// does not stage (ratios near 1 and below), also with a teacher of another
 // size than the student (kTwo: its taps from its own (ht, wt)): pass 2,
 // partial (Z_s, Z_t, W) over a slice of one group's upsampled values, each
 // from its four taps in global memory, then gkl_finalize.
@@ -359,6 +375,7 @@ struct gkl_tile {
   static constexpr int kSrcMaps = 2;
   static constexpr int kRectMaps = 0;
   static constexpr int kResident = 3;
+  static constexpr int kResidentTwo = 2;
   struct Channel {
     int source;
     float ls, lt;  // the group's log-sum-exps of u / tau, times log2 e
@@ -384,7 +401,7 @@ struct gkl_tile {
   __device__ float scale() const { return gbar[0] * inv_tau * inv_bk; }
 };
 
-// The gather variant of K4, for shapes no tile fits and for a teacher of
+// The gather variant of K4, for shapes no tile fits, also with a teacher of
 // another size (kTwo: its taps from its own (ht, wt) at each output):
 // dL/dxs for one source element, written to its source channel.
 template <typename T, bool kTwo>
@@ -475,10 +492,15 @@ cudaError_t launch_fwd(const void* xs, const void* xt, const int* perm,
   float* kl = psum + BK * tiles * 3;
   int* tickets = reinterpret_cast<int*>(kl + BK);
   gkl_max<T><<<dim3(BK, max_splits), kThreads, 0, s>>>(
-      a, b, perm, C, g, K, h * w, h * w, pmax, tickets);
+      a, b, perm, C, g, K, h * w, ht * wt, pmax, tickets);
   const gkl_fwd_tile<T> fwd{a, b, perm, pmax, psum, kl, tickets, stats, loss,
                             C, g, K, max_splits,
-                            static_cast<long long>(h) * w, inv_tau * kLog2e};
+                            static_cast<long long>(h) * w,
+                            static_cast<long long>(ht) * wt,
+                            inv_tau * kLog2e};
+  if (ht != h || wt != w)
+    return launch_fwd_tile<T, gkl_fwd_tile<T>, true>(fwd, BK, h, w, H, W, oh,
+                                                     s, ht, wt);
   return launch_fwd_tile<T>(fwd, BK, h, w, H, W, oh, s);
 }
 
@@ -506,6 +528,9 @@ cudaError_t launch_bwd(const void* xs, const void* xt, const int* perm,
     return cudaSuccess;
   }
   const gkl_tile loss{perm, stats, gbar, g, K, inv_tau, inv_bk};
+  if (ht != h || wt != w)
+    return launch_tile_bwd<T, gkl_tile, true>(loss, xs, xt, dxs, B, C, h, w,
+                                              H, W, tile, cpc, s, ht, wt);
   return launch_tile_bwd<T>(loss, xs, xt, dxs, B, C, h, w, H, W, tile, cpc,
                             s);
 }
@@ -515,9 +540,10 @@ cudaError_t launch_bwd(const void* xs, const void* xt, const int* perm,
 // xs: (B, C, h, w) and xt: (B, C, ht, wt) contiguous, both float32 (dtype
 // 0) or bfloat16 (1). perm: int32 (C,) on the device, shuffled position ->
 // source channel. The wrapper's plan: oh, the rows of an output tile (0:
-// the gather variant, the only one for a teacher of another size), wy, wx
-// and smem, the window and the shared bytes it expects (0 with the gather
-// variant); a plan that differs from this file's is refused. Scratch from the caller, float32: pmax (B*K*max_splits*2) and
+// the gather variant), wy, wx and smem, the (student's) window and the
+// shared bytes it expects (0 with the gather variant; a teacher of another
+// size: its window follows from the shapes); a plan that differs from this
+// file's is refused. Scratch from the caller, float32: pmax (B*K*max_splits*2) and
 // psum, of B*K*sum_splits*3 floats for the gather variant and, for the
 // tile variant, B*K*tiles*3 partials, B*K KLs and B*K + 1 int32 tickets
 // (tiles = ceil(H / oh) * ceil(W / 64); sum_splits unused). Outputs:
@@ -530,7 +556,8 @@ extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
                             float* stats, float* loss, void* stream) {
   const bool two = ht != h || wt != w;
   const bool plan_ok =
-      two ? !(oh || wy || wx || smem)
+      two ? fwd_plan_two_ok<gkl_fwd_tile<float>>(h, w, ht, wt, H, W, oh, wy,
+                                                 wx, smem)
           : fwd_plan_ok<gkl_fwd_tile<float>>(h, w, H, W, oh, wy, wx, smem);
   if (bad_shape(B, C, h, w, ht, wt, H, W, g) || !(tau > 0.0f) ||
       max_splits < 1 || max_splits > 65535 || sum_splits < 1 ||
@@ -555,10 +582,10 @@ extern "C" int group_kl_fwd(const void* xs, const void* xt, const int* perm,
 // stats: the forward's; gbar: the loss's incoming gradient, float32 (1)
 // on the device. dxs: (B, C, h, w) in the inputs' dtype, every element
 // written. The wrapper's plan: tile, the edge of a block's source tile (16,
-// 8 or 4; 0 for the gather variant, the only one for a teacher of another
-// size), rh, rw and smem, the rectangle and the shared bytes it expects (0
-// with the gather variant), and cpc, the positions a block takes. A plan
-// that differs from this file's is refused.
+// 8 or 4; 0 for the gather variant), rh, rw and smem, the rectangle and the
+// shared bytes it expects (0 with the gather variant; a teacher of another
+// size: its window follows from the shapes), and cpc, the positions a
+// block takes. A plan that differs from this file's is refused.
 extern "C" int group_kl_bwd(const void* xs, const void* xt, const int* perm,
                             int B, int C, int h, int w, int ht, int wt,
                             int H, int W, int g, float tau, int dtype,
@@ -567,7 +594,8 @@ extern "C" int group_kl_bwd(const void* xs, const void* xt, const int* perm,
                             void* stream) {
   const bool two = ht != h || wt != w;
   const bool plan_ok =
-      two ? gather_plan_ok(B, C, tile, rh, rw, smem, cpc)
+      two ? tile_plan_two_ok<gkl_tile>(B, C, h, w, ht, wt, H, W, tile, rh, rw,
+                                       smem, cpc)
           : tile_plan_ok<gkl_tile>(B, C, h, w, H, W, tile, rh, rw, smem, cpc);
   if (bad_shape(B, C, h, w, ht, wt, H, W, g) || !(tau > 0.0f) || !plan_ok) {
     return static_cast<int>(cudaErrorInvalidValue);

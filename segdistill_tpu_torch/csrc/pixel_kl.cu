@@ -49,8 +49,9 @@
 // reference resizes each map to the label size before the KL. Such a pair
 // takes the gather variants (pkl_fwd and pkl_finalize forward, pkl_bwd
 // backward, instantiated with kTwo), with the teacher's taps and plane its
-// own: the tiles of fwd_tile and tile_bwd stage one window of one geometry.
-// Same-size pairs keep the plans and kernels below unchanged.
+// own; the tiles' two-geometry form (kTwo in common.cuh), which K3/K4 take,
+// is not wired to these losses yet. Same-size pairs keep the plans and
+// kernels below unchanged.
 //
 // K8 is the tile kernel of common.cuh (tile_bwd) with the loss pkl_tile, as
 // K6 is with its own. What bounded the gather it replaces: one thread per

@@ -30,12 +30,13 @@ class EncoderDecoder(BaseSegmentor):
                  train_cfg=None, test_cfg=None, pretrained=None):
         super().__init__()
         del train_cfg  # no train-time options in the ported heads
-        if pretrained is not None:
-            raise NotImplementedError(
-                'loading pretrained backbone weights is a training-time step '
-                'and not ported yet; pass a full checkpoint to '
-                'init_segmentor instead')
         self.test_cfg = test_cfg or {}
+        # the backbone checkpoint: the segmentor's, else the backbone
+        # config's; the trainer loads it (apis/train.py), the backbone is
+        # built without it
+        backbone = dict(backbone)
+        backbone_pretrained = backbone.pop('pretrained', None)
+        self.pretrained = pretrained or backbone_pretrained
         self.backbone = builder.build_backbone(backbone)
         self.neck = builder.build_neck(neck) if neck is not None else None
         self._init_decode_head(decode_head)

@@ -30,9 +30,14 @@ memory, and both take any output size.
 The teacher may have another size than the student (the PSP student's
 logits at stride 8 against the B3 teacher's at stride 4): each map is
 upsampled to the output at its own ratio, as the reference resizes each to
-the label size before the KL. Such a pair runs the gather variants of both
-kernels (:func:`forward_plan` and :func:`backward_plan` given
-``teacher_hw``), with the teacher's taps its own.
+the label size before the KL. Such a pair runs both tiles in their
+two-geometry form (:func:`forward_plan` and :func:`backward_plan` given
+``teacher_hw``): K3 stages each map's window of its output tile from that
+map's own taps; K4's block owns a tile of the student's sources and stages
+beside it the teacher's window of the outputs that read the tile. Where a
+window does not fit (a ratio near 1 on either map, a student's ratio above
+~30), the plans name the gather variants, with the teacher's taps its
+own.
 
 Both functions are ``torch.autograd.Function``s on every device: on a CPU
 tensor the forward is :func:`group_kl_plain` and the backward its autograd
@@ -63,17 +68,24 @@ BWD_KERNEL = CudaKernel(
 
 # K4 on the tile of csrc/common.cuh (gkl_tile in csrc/group_kl.cu): no
 # per-output map (the group stats are scalars a position), two maps read,
-# compiled for three blocks an SM
+# compiled for three blocks an SM, and for two in the two-geometry form
 RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM = 0, 2, 3
+BLOCKS_PER_SM_TWO = 2
+
+
+def _two(h, w, teacher_hw):
+    return teacher_hw is not None and tuple(teacher_hw) != (h, w)
 
 
 def backward_plan(B, C, h, w, H, W, sms=132, teacher_hw=None):
     """K4's launch for (B, C, h, w) maps upsampled to (H, W) on a card of
     ``sms`` SMs: :func:`tile_plan.plan` with K4's maps and blocks an SM;
     the chunks are of shuffled positions. A teacher of another size
-    (``teacher_hw``) takes the gather variant."""
-    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
-        return tile_plan.gather_plan(B, C, h, w)
+    (``teacher_hw``): :func:`tile_plan.plan_two`, the two-geometry tile or
+    the gather variant."""
+    if _two(h, w, teacher_hw):
+        return tile_plan.plan_two(B, C, h, w, *teacher_hw, H, W, sms,
+                                  RECT_MAPS, SRC_MAPS, BLOCKS_PER_SM_TWO)
     return tile_plan.plan(B, C, h, w, H, W, sms, RECT_MAPS, SRC_MAPS,
                           BLOCKS_PER_SM)
 
@@ -86,10 +98,12 @@ FWD_UNITS, FWD_ROWS, FWD_SLOTS = 2, 32, 3
 
 def forward_plan(h, w, H, W, teacher_hw=None):
     """K3's launch for (h, w) maps upsampled to (H, W):
-    :func:`tile_plan.forward_plan` with K3's counts; the gather variant
-    where the teacher has another size (``teacher_hw``)."""
-    if teacher_hw is not None and tuple(teacher_hw) != (h, w):
-        return tile_plan.gather_forward_plan()
+    :func:`tile_plan.forward_plan` with K3's counts;
+    :func:`tile_plan.forward_plan_two` where the teacher has another size
+    (``teacher_hw``)."""
+    if _two(h, w, teacher_hw):
+        return tile_plan.forward_plan_two(h, w, *teacher_hw, H, W, FWD_UNITS,
+                                          FWD_ROWS, FWD_SLOTS)
     return tile_plan.forward_plan(h, w, H, W, FWD_UNITS, FWD_ROWS,
                                   FWD_SLOTS)
 

@@ -32,10 +32,15 @@ variant.
 
 Two sizes. A student and a teacher of different sizes (K3/K4, K7/K8: the
 PSP student at stride 8 against the B3 teacher at stride 4) are each
-upsampled at their own ratio; both tiles stage one geometry, so such a
-pair takes the gather variants, forward and backward
-(:func:`gather_forward_plan`, :func:`gather_plan`), which the sources also
-insist on.
+upsampled at their own ratio. K3 and K4 take such a pair in the tiles'
+two-geometry form: the forward's block stages each map's window of its
+output tile from that map's own taps (:func:`forward_plan_two`: both
+windows must fit the block's staging), the backward's block owns a tile
+of the student's sources and stages, beside it, the teacher's window of
+the rectangle of outputs that read the tile (:func:`plan_two`: at most
+``TILE_WINDOW_SLOTS`` x 512 teacher sources). Where no such plan fits, and
+for K7/K8, the pair takes the gather variants (:func:`gather_forward_plan`,
+:func:`gather_plan`), which the sources also insist on.
 """
 
 import functools
@@ -46,6 +51,10 @@ import functools
 # costs, in channels (the rectangle's maps, the tap tables)
 TILE_EDGES = (16, 8, 4)
 TILE_BUDGET = 113 * 1024
+# teacher window elements a thread of a two-geometry block stages
+# (kTileWinSlots): the window holds at most this many x 512 sources
+TILE_WINDOW_SLOTS = 4
+TILE_THREADS = 512
 GATHER_THREADS = 256
 SM_SHARED = 228 * 1024
 SETUP_CHANNELS = 4
@@ -74,6 +83,27 @@ def shared_bytes(tile, h, w, H, W, rect_maps, src_maps):
                 + tile * (4 + ny + nx))
 
 
+def two_shared_bytes(tile, h, w, ht, wt, H, W, rect_maps, src_maps):
+    """Dynamic shared memory of a two-geometry tile block
+    (``tile_two_smem_bytes``): :func:`shared_bytes` with the student's map
+    alone on the tile, then two buffers of the teacher's window
+    (:func:`teacher_window`) and the teacher's taps at the rectangle's rows
+    and columns."""
+    rh, rw = tile_reach(tile, h, H), tile_reach(tile, w, W)
+    ty, tx = teacher_window(tile, h, w, ht, wt, H, W)
+    return shared_bytes(tile, h, w, H, W, rect_maps, src_maps - 1) \
+        + 4 * (2 * ty * tx + 2 * rh + 2 * rw)
+
+
+def teacher_window(tile, h, w, ht, wt, H, W):
+    """The most teacher sources (rows, columns) that the rectangle of
+    outputs reading a ``tile`` x ``tile`` tile of the student's sources
+    reads through the teacher's own taps: :func:`fwd_reach` of the
+    rectangle's edges."""
+    return (fwd_reach(tile_reach(tile, h, H), ht, H),
+            fwd_reach(tile_reach(tile, w, W), wt, W))
+
+
 def plan(B, C, h, w, H, W, sms, rect_maps, src_maps, resident):
     """The launch for (B, C, h, w) maps upsampled to (H, W) on a card of
     ``sms`` SMs, for a loss with ``rect_maps`` per-output maps and
@@ -100,14 +130,41 @@ def _gather(B, C, h, w):
     return 0, 0, 0, 0, 1, C, B * C * -(-h * w // GATHER_THREADS)
 
 
+def plan_two(B, C, h, w, ht, wt, H, W, sms, rect_maps, src_maps, resident):
+    """:func:`plan` for a student's (B, C, h, w) maps and a teacher's of
+    (ht, wt), both upsampled to (H, W), in the two-geometry form: the
+    largest edge whose teacher window holds at most ``TILE_WINDOW_SLOTS`` x
+    512 sources and whose block fits :data:`TILE_BUDGET`
+    (:func:`two_shared_bytes`); the gather variant where none does. The
+    same keys as :func:`plan`."""
+    return dict(zip(PLAN_KEYS, _plan_two(B, C, h, w, ht, wt, H, W, sms,
+                                         rect_maps, src_maps, resident)))
+
+
 @functools.lru_cache(maxsize=128)
 def _plan(B, C, h, w, H, W, sms, rect_maps, src_maps, resident):
     for tile in TILE_EDGES:
         shared = shared_bytes(tile, h, w, H, W, rect_maps, src_maps)
         if shared <= TILE_BUDGET:
-            break
-    else:
-        return _gather(B, C, h, w)
+            return _chunked(B, C, h, w, H, W, sms, resident, tile, shared)
+    return _gather(B, C, h, w)
+
+
+@functools.lru_cache(maxsize=128)
+def _plan_two(B, C, h, w, ht, wt, H, W, sms, rect_maps, src_maps, resident):
+    for tile in TILE_EDGES:
+        ty, tx = teacher_window(tile, h, w, ht, wt, H, W)
+        shared = two_shared_bytes(tile, h, w, ht, wt, H, W, rect_maps,
+                                  src_maps)
+        if ty * tx <= TILE_WINDOW_SLOTS * TILE_THREADS \
+                and shared <= TILE_BUDGET:
+            return _chunked(B, C, h, w, H, W, sms, resident, tile, shared)
+    return _gather(B, C, h, w)
+
+
+def _chunked(B, C, h, w, H, W, sms, resident, tile, shared):
+    """The plan's tuple for ``tile`` and its block's ``shared`` bytes: the
+    channels cut into the chunks that cost the least."""
     tiles = B * -(-h // tile) * -(-w // tile)
     slots = sms * min(SM_SHARED // (shared + 1024), resident)
     best = None
@@ -163,6 +220,24 @@ def forward_plan(h, w, H, W, units, rows, slots):
     if wy * wx > slots * FWD_THREADS:
         return gather_forward_plan()
     return dict(zip(FWD_KEYS, (oh, wy, wx, fwd_shared_bytes(units, oh, wy, wx),
+                               -(-H // oh) * -(-W // FWD_COLS))))
+
+
+def forward_plan_two(h, w, ht, wt, H, W, units, rows, slots):
+    """:func:`forward_plan` for a student of (h, w) and a teacher of (ht,
+    wt), each upsampled to (H, W) at its own ratio, in the two-geometry
+    form: each map's window of the tile must fit the block's staging;
+    ``wy, wx`` are the student's window (the teacher's follows from the
+    shapes), ``shared_bytes`` each map's half of the units on its own
+    window and its own y taps (``fwd_two_smem_bytes``)."""
+    oh = FWD_SEGS * rows
+    wy, wx = fwd_reach(oh, h, H), fwd_reach(FWD_COLS, w, W)
+    ty, tx = fwd_reach(oh, ht, H), fwd_reach(FWD_COLS, wt, W)
+    if max(wy * wx, ty * tx) > slots * FWD_THREADS:
+        return gather_forward_plan()
+    shared = fwd_shared_bytes(units // 2, oh, wy, wx) \
+        + fwd_shared_bytes(units // 2, oh, ty, tx)
+    return dict(zip(FWD_KEYS, (oh, wy, wx, shared,
                                -(-H // oh) * -(-W // FWD_COLS))))
 
 

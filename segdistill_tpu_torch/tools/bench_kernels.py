@@ -585,9 +585,10 @@ def main(argv=None):
                 kl_times('K3/K4', name, shape, out_hw,
                          lambda a, t: gk.fused_group_kl_shuffled(
                              a, t, perm, out_hw, g, 2.0), dtype, gen, 0)
-        # a teacher of another size (the gather variants), each beside the
-        # same-size pair of the student's shape at the same output
-        for name, shape, thw, out_hw, g, shuffle in \
+        # a teacher of another size (the two-geometry tiles or the gather
+        # variants, as each case names), each beside the same-size pair of
+        # the student's shape at the same output
+        for name, shape, thw, out_hw, g, shuffle, *_ in \
                 kernel_cases.GROUP_KL_TWO_SIZE_CASES:
             perm = torch.randperm(shape[1], device='cuda', generator=gen) \
                 if shuffle else None

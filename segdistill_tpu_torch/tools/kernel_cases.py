@@ -166,22 +166,34 @@ GROUP_KL_CASES = [
     CONVERGENCE_GKL]
 
 # A student and a teacher of different sizes: (name, the student's maps'
-# shape, the teacher's (h, w), output size, group size, channels permuted).
-# The PSP student's logits at stride 8 (64 x 64 at a 512 crop) against the
-# B3 teacher's at stride 4 (128 x 128), batch 2 as the psp configs train,
-# with CGD's group of 5 (shuffled and not) and CD's group of 1; a pad group
-# (C 19, g 10); odd sizes with the teacher smaller on one axis; a teacher
-# smaller than the student. Both kernels take their gather variants there
-# (tile_plan.gather_forward_plan, gather_plan).
+# shape, the teacher's (h, w), output size, group size, channels permuted,
+# the rows of K3's output tile (0: its gather variant), the edge of K4's
+# source tile (0: its gather variant)), each planned in the tiles'
+# two-geometry form where both maps' windows fit. The PSP student's logits
+# at stride 8 (64 x 64 at a 512 crop) against the B3 teacher's at stride 4
+# (128 x 128), batch 2 as the psp configs train, with CGD's group of 5
+# (shuffled and not) and CD's group of 1; a pad group (C 19, g 10); odd
+# sizes with the teacher smaller on one axis; a teacher smaller than the
+# student; and the gather variants: a teacher at ratio 1 (K3's teacher
+# window is larger than the block stages; K4 still fits a tile of 8), a
+# student at ratio 40 (no K4 tile; K3's tile) and both at once.
 GROUP_KL_TWO_SIZE_CASES = [
-    ('PSP CGD g5 perm', (2, 150, 64, 64), (128, 128), (512, 512), 5, True),
+    ('PSP CGD g5 perm', (2, 150, 64, 64), (128, 128), (512, 512), 5, True,
+     128, 16),
     ('PSP CGD g5 identity', (2, 150, 64, 64), (128, 128), (512, 512), 5,
-     False),
-    ('PSP CD g1', (2, 150, 64, 64), (128, 128), (512, 512), 1, False),
+     False, 128, 16),
+    ('PSP CD g1', (2, 150, 64, 64), (128, 128), (512, 512), 1, False, 128,
+     16),
     ('C19 g10 pad, two sizes', (2, 19, 16, 16), (32, 32), (128, 128), 10,
-     True),
-    ('odd, two sizes', (1, 7, 9, 11), (13, 5), (37, 41), 3, True),
-    ('teacher smaller', (2, 19, 32, 32), (16, 16), (128, 128), 10, True)]
+     True, 128, 16),
+    ('odd, two sizes', (1, 7, 9, 11), (13, 5), (37, 41), 3, True, 128, 16),
+    ('teacher smaller', (2, 19, 32, 32), (16, 16), (128, 128), 10, True,
+     128, 16),
+    ('teacher ratio 1 (fwd gather)', (2, 19, 32, 32), (128, 128),
+     (128, 128), 10, True, 0, 8),
+    ('student ratio 40 (bwd gather)', (1, 19, 8, 8), (16, 16), (320, 320),
+     10, True, 128, 0),
+    ('both gather', (1, 7, 4, 4), (160, 160), (160, 160), 3, True, 0, 0)]
 # (name, the student's maps' shape, the teacher's (h, w), output size) of
 # K7/K8 with two sizes: the PSP PD pair, and the odd and smaller-teacher
 # shapes above

@@ -271,14 +271,14 @@ def profile_steps(state, train_step, img, gt, steps, top=20, trace=None):
         print(f'    {ms:8.3f} ms {ms / busy_ms:6.1%}  {name}')
     # the hand-written kernels by function, template arguments folded but
     # for the tile kernels' loss (tile_bwd<ce_tile>, fwd_tile<ce_fwd_tile>,
-    # fwd_tile<pkl_fwd_tile>)
+    # fwd_tile<pkl_fwd_tile>; the two-geometry form folds into its loss's)
     own = {}
     for name, (ms, n) in rows.items():
         if re.match(r'K\d', family(name)):
             short = re.sub(r'void |\(anonymous namespace\)::|segdistill::',
                            '', name)
-            fn = re.match(r'(\w+)(?:<[^,<>]*, (\w+_tile)(?:<[^<>]*>)?\s*>)?',
-                          short)
+            fn = re.match(r'(\w+)(?:<[^,<>]*, (\w+_tile)(?:<[^<>]*>)?'
+                          r'(?:, \w+)?\s*>)?', short)
             key = fn.group(1) + (f'<{fn.group(2)}>' if fn.group(2) else '') \
                 if fn else name
             row = own.setdefault(key, [0.0, 0])

@@ -2,11 +2,14 @@
 (``gkl_fwd_tile``), K5 (``ce_fwd_tile``) and K7 (``pkl_fwd_tile``) rebuilt
 with other rows a thread, window elements a thread (slots), units a step
 (K5: channels; K7: channels of both maps) and blocks an SM, at the train
-step's bench shape, (8, 150, 128, 128) -> 512², bf16 and fp32; and K1
+step's bench shape, (8, 150, 128, 128) -> 512², bf16 and fp32; K3's
+two-geometry form (``K3two``: blocks an SM of that form) at the PSP pair,
+(2, 150, 64, 64) against a 128 x 128 teacher -> 512², groups of 5; and K1
 (``resize_sum.cu``) with other rows a thread, at the B0 head's shapes and
 the B3 teacher's.
 
-    python -m segdistill_tpu_torch.tools.sweep_fwd [--out DIR] [--only K7 K1]
+    python -m segdistill_tpu_torch.tools.sweep_fwd [--out DIR]
+        [--only K3 K3two K5 K7 K1]
 
 Each variant is a copy of ``csrc/`` (under ``--out``, by default
 ``build/sweep_fwd``) with the loss's ``static constexpr`` constants
@@ -41,6 +44,10 @@ from segdistill_tpu_torch.utils.timing import device_ms
 # (rows a thread, slots, blocks an SM); the first is the source's own
 K3_VARIANTS = [(32, 3, 4), (16, 4, 4), (16, 2, 4), (16, 2, 5), (8, 4, 4),
                (32, 3, 3)]
+# K3's two-geometry form: (rows a thread, slots, blocks an SM of the form);
+# the first is the source's own
+K3_TWO_VARIANTS = [(32, 3, 4), (32, 3, 3), (32, 3, 2), (16, 3, 4),
+                   (16, 2, 4), (8, 2, 4)]
 # (rows a thread, channels a step, slots, blocks an SM)
 K5_VARIANTS = [(8, 8, 1, 2), (4, 8, 1, 3), (8, 4, 1, 3), (16, 4, 2, 2),
                (8, 8, 1, 3)]
@@ -50,6 +57,8 @@ K7_VARIANTS = [(8, 8, 1, 2), (4, 8, 1, 2), (8, 8, 1, 3), (4, 8, 1, 3),
 # K1's rows a thread; the first is the source's own
 K1_VARIANTS = [16, 8, 32]
 SHAPE, OUT_HW, GROUP, TAU = (8, 150, 128, 128), (512, 512), 10, 2.0
+# the PSP pair: the student's maps, the teacher's (h, w), the group size
+TWO_SHAPE, TWO_HW, TWO_GROUP = (2, 150, 64, 64), (128, 128), 5
 # the loss of each forward: its source, its entry point and its module
 LOSSES = {'gkl_fwd_tile': ('group_kl.cu', 'group_kl_fwd', gk),
           'ce_fwd_tile': ('seg_ce.cu', 'seg_ce_fwd', sc),
@@ -97,20 +106,27 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--out', type=pathlib.Path,
                         default=BUILD_DIR.parent / 'sweep_fwd')
-    parser.add_argument('--only', choices=('K3', 'K5', 'K7', 'K1'),
-                        nargs='*', default=('K3', 'K5', 'K7', 'K1'))
+    parser.add_argument('--only', choices=('K3', 'K3two', 'K5', 'K7', 'K1'),
+                        nargs='*', default=('K3', 'K3two', 'K5', 'K7', 'K1'))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('sweep_fwd: needs a CUDA device')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    k3, k5, k7 = {}, {}, {}
+    k3, k3two, k5, k7 = {}, {}, {}, {}
     for rows, slots, res in K3_VARIANTS if 'K3' in args.only else ():
         tag = f'K3 rows {rows} slots {slots} blocks/SM {res}'
         k3[tag] = (_variant(args.out, tag, 'gkl_fwd_tile',
                             dict(kRows=rows, kSlots=slots, kResident=res)),
                    dict(FWD_ROWS=rows, FWD_SLOTS=slots))
+    for rows, slots, res in K3_TWO_VARIANTS if 'K3two' in args.only \
+            else ():
+        tag = f'K3two rows {rows} slots {slots} blocks/SM {res}'
+        k3two[tag] = (_variant(args.out, tag, 'gkl_fwd_tile',
+                               dict(kRows=rows, kSlots=slots,
+                                    kResidentTwo=res)),
+                      dict(FWD_ROWS=rows, FWD_SLOTS=slots))
     for rows, units, slots, res in K5_VARIANTS if 'K5' in args.only \
             else ():
         tag = f'K5 rows {rows} units {units} slots {slots} blocks/SM {res}'
@@ -129,7 +145,7 @@ def main(argv=None):
     for rows in K1_VARIANTS if 'K1' in args.only else ():
         tag = f'K1 rows {rows}'
         k1[tag] = (_variant(args.out, tag, None, dict(kRows=rows)), {})
-    variants = {**k3, **k5, **k7, **k1}
+    variants = {**k3, **k3two, **k5, **k7, **k1}
     build_all([k for k, _ in variants.values()])
     for tag, (k, _) in variants.items():
         print(f'{tag}: {_registers(k)}', flush=True)
@@ -146,7 +162,13 @@ def main(argv=None):
         want_ce = [t.item() for t in sc.seg_ce_plain(xs, labels, OUT_HW,
                                                      SHAPE[1])]
         want_pkl = pk.pixel_kl_plain(xs, xt, OUT_HW, 1.0).item()
-        inputs[dtype] = (xs, xt, want_kl, want_ce, want_pkl)
+        xs2 = torch.randn(TWO_SHAPE, device='cuda', generator=gen).to(dtype)
+        xt2 = torch.randn(TWO_SHAPE[:2] + TWO_HW, device='cuda',
+                          generator=gen).to(dtype)
+        want2 = gk.group_kl_plain(xs2, xt2, perm, OUT_HW, TWO_GROUP,
+                                  TAU).item()
+        inputs[dtype] = (xs, xt, want_kl, want_ce, want_pkl,
+                         (xs2, xt2, want2))
 
     def use(mod, variant):
         kernel, counts = variant
@@ -155,8 +177,17 @@ def main(argv=None):
             setattr(mod, name, value)
 
     def run(tag, dtype):
-        xs, xt, want_kl, want_ce, want_pkl = inputs[dtype]
-        if tag in k3:
+        xs, xt, want_kl, want_ce, want_pkl, two = inputs[dtype]
+        if tag in k3two:
+            use(gk, k3two[tag])
+            xs2, xt2, want2 = two
+
+            def fn():
+                return gk.fused_group_kl_shuffled(xs2, xt2, perm, OUT_HW,
+                                                  TWO_GROUP, TAU)
+            with torch.no_grad():
+                err = f'loss rel err {abs(fn().item() - want2) / want2:.2e}'
+        elif tag in k3:
             use(gk, k3[tag])
 
             def fn():
@@ -210,13 +241,17 @@ def main(argv=None):
                 run(tag, dtype)
     # the sources' own constants: the kernels of one call of each by name
     calls = []
-    for mod, found in ((gk, k3), (sc, k5), (pk, k7)):
+    for mod, found in ((gk, k3 or k3two), (sc, k5), (pk, k7)):
         if found:
             use(mod, next(iter(found.values())))
     xs, xt = inputs[torch.bfloat16][:2]
+    xs2, xt2, _ = inputs[torch.bfloat16][5]
     if k3:
         calls.append(lambda: gk.fused_group_kl_shuffled(xs, xt, perm, OUT_HW,
                                                         GROUP, TAU))
+    if k3two:
+        calls.append(lambda: gk.fused_group_kl_shuffled(
+            xs2, xt2, perm, OUT_HW, TWO_GROUP, TAU))
     if k5:
         calls.append(lambda: sc.fused_seg_ce(xs, labels, OUT_HW, SHAPE[1]))
     if k7:

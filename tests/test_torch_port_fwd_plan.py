@@ -54,7 +54,11 @@ from segdistill_tpu_torch.ops import tile_plan
 from segdistill_tpu_torch.tools import kernel_cases
 
 import torch_port_threads  # noqa: F401  (torch threads a test worker)
+from segdistill_tpu.distill.losses import KLDLoss as JaxKLDLoss
 from test_torch_port_seg_ce_plan import AXES, taps
+from test_torch_port_tab5_ops import RESIZE
+from test_torch_port_tab5_ops import _maps as _tab5_maps
+from test_torch_port_tile_plan import TWO_MODEL_CASES
 
 CSRC = Path(tile_plan.__file__).resolve().parent.parent / 'csrc'
 KERNELS = {'K3': gk, 'K5': sc, 'K7': pk}
@@ -150,6 +154,11 @@ def test_plans_at_the_bench_shape():
     channel."""
     assert gk.forward_plan(128, 128, 512, 512) == dict(
         oh=128, wy=36, wx=20, shared_bytes=12544, tiles=32)
+    # the PSP pair, (2, 150, 64, 64) against a 128 x 128 teacher: the
+    # student's 20 x 12 window and the teacher's 36 x 20, one slot a map each
+    assert gk.forward_plan(64, 64, 512, 512, (128, 128)) == dict(
+        oh=128, wy=20, wx=12, shared_bytes=4 * (2 * 240 + 256)
+        + 4 * (2 * 720 + 256), tiles=32)
     assert sc.forward_plan(128, 128, 512, 512) == dict(
         oh=32, wy=12, wx=20, shared_bytes=15616, tiles=128)
 
@@ -216,6 +225,17 @@ def test_forward_constants_mirror_the_sources(kernel, source, loss):
     assert 'return 4 * (2 * units * wy * wx + 2 * oh);' in common
     assert 'fwd_reach(oh, h, H) * fwd_reach(kFwdCols, w, W) <=\n' \
         '                 slots * kFwdThreads' in common
+    # the two-geometry form (K3 at two sizes; K7 keeps its gather variant):
+    # both windows must fit, each map's half of the units on its own window
+    assert 'return plan_fwd(h, w, H, W, rows, slots) &&\n' \
+        '                 plan_fwd(ht, wt, H, W, rows, slots)' in common
+    assert 'return fwd_smem_bytes(units / 2, oh, wy, wx) +\n' \
+        '         fwd_smem_bytes(units / 2, oh, ty, tx);' in common
+    two = f'fwd_plan_two_ok<{loss}<float>>(h, w, ht, wt, H, W, oh, wy,'
+    if kernel == 'K3':
+        assert ' '.join(two.split()) in ' '.join(src.split())
+    else:
+        assert 'fwd_plan_two_ok' not in src
 
 
 # ---- the float64 model of the forward ----------------------------------
@@ -251,10 +271,12 @@ def walk(win, a0s, fys, hi, b0, b1, fx):
     return np.stack(out, 1), lerps
 
 
-def _tile_values(maps, h, w, H, W, oh, rows_per_thread, tile):
+def _tile_values(maps, h, w, H, W, oh, rows_per_thread, tile, shift=0):
     """The upsampled values of ``maps`` (U, h, w) float64 at one tile, as
     the block computes them: the window staged, each segment of threads
-    walking ``rows_per_thread`` rows. -> (U, rows, cols), x-lerps."""
+    walking ``rows_per_thread`` rows. -> (U, rows, cols), x-lerps.
+    ``shift`` 1: every row reads the source row below its own, within the
+    window (a wrong tap)."""
     oy0, ox0, rows, cols = tile
     lo_y, ny, hi_y = fwd_axis(oy0, rows, h, H)
     lo_x, nx, _ = fwd_axis(ox0, cols, w, W)
@@ -266,25 +288,31 @@ def _tile_values(maps, h, w, H, W, oh, rows_per_thread, tile):
     b0 = tx0[ox0:ox0 + cols] - lo_x
     b1 = tx1[ox0:ox0 + cols] - lo_x
     fx = txf[ox0:ox0 + cols].astype(np.float64)
+    hi = min(hi_y, ny - 1) if shift else hi_y
     vals, lerps = [], 0
     for r0 in range(0, rows, rows_per_thread):
         sl = slice(oy0 + r0, oy0 + min(r0 + rows_per_thread, rows))
-        v, n = walk(win, list(ty0[sl] - lo_y), list(tyf[sl].astype(
-            np.float64)), hi_y, b0, b1, fx)
+        a0s = [min(a + shift, hi) for a in ty0[sl] - lo_y]
+        v, n = walk(win, a0s, list(tyf[sl].astype(np.float64)), hi, b0, b1,
+                    fx)
         vals.append(v)
         lerps += n
     return np.concatenate(vals, 1), lerps
 
 
-def group_kl_fwd_model(xs, xt, perm, out_hw, g, tau, oh=None):
+def group_kl_fwd_model(xs, xt, perm, out_hw, g, tau, oh=None,
+                       teacher_shift=0):
     """K3 in float64: -> (loss, stats (B, K, 4), x-lerps a value). Per
     (image, group) the source maxima, then per tile (``oh`` rows, by
     default the tile variant's, at any ratio) the window of every
     position's channel of both maps, the walk, and with a = u log2 e / tau
     less the maximum's the sums (2^a_s, 2^a_t, 2^a_t (a_t - a_s)); the
     tiles' partials summed in tile order, the groups' KLs in group
-    order."""
+    order. A teacher of another size (the two-geometry form): each map's
+    window and walk from its own taps (``teacher_shift``: the teacher's
+    rows read one source row low, see :func:`_tile_values`)."""
     B, C, h, w = xs.shape
+    ht, wt = xt.shape[2:]
     H, W = out_hw
     K = -(-C // g)
     oh = oh or 4 * gk.FWD_ROWS
@@ -297,10 +325,19 @@ def group_kl_fwd_model(xs, xt, perm, out_hw, g, tau, oh=None):
             ms, mt = xs[b, chans].max(), xt[b, chans].max()
             parts = []
             for tile in _tiles(H, W, oh):
-                maps = np.concatenate([xs[b, chans], xt[b, chans]])
-                v, n = _tile_values(maps, h, w, H, W, oh, gk.FWD_ROWS, tile)
+                if (ht, wt) == (h, w):
+                    maps = np.concatenate([xs[b, chans], xt[b, chans]])
+                    v, n = _tile_values(maps, h, w, H, W, oh, gk.FWD_ROWS,
+                                        tile)
+                    vs, vt = v[:L], v[L:]
+                else:
+                    vs, n = _tile_values(xs[b, chans], h, w, H, W, oh,
+                                         gk.FWD_ROWS, tile)
+                    vt, n_t = _tile_values(xt[b, chans], ht, wt, H, W, oh,
+                                           gk.FWD_ROWS, tile, teacher_shift)
+                    n += n_t
                 lerps += n
-                a_s, a_t = v[:L] * k2 - ms * k2, v[L:] * k2 - mt * k2
+                a_s, a_t = vs * k2 - ms * k2, vt * k2 - mt * k2
                 e_t = np.exp2(a_t)
                 parts.append((np.exp2(a_s).sum(), e_t.sum(),
                               (e_t * (a_t - a_s)).sum()))
@@ -368,7 +405,7 @@ def _dense(n_in, n_out):
 
 def _upsample(x, H, W):
     return np.einsum('yi,bcij,xj->bcyx', _dense(x.shape[2], H), x,
-                     _dense(x.shape[3], W))
+                     _dense(x.shape[3], W), optimize=True)
 
 
 def _maps(shape, seed, scale=1.0):
@@ -623,3 +660,68 @@ def test_pixel_kl_forward_model_matches_jax_kernel(shape, out_hw, tau):
                               True))
     kl, _, _ = pixel_kl_fwd_model(xs, xt, out_hw, tau)
     assert kl == pytest.approx(want, rel=1e-5)
+
+
+# ---- K3's two-geometry tile: a teacher of another size --------------------
+
+@pytest.fixture(scope='module')
+def two_forward_inputs():
+    """Per case of ``TWO_MODEL_CASES``: the maps (float32 values in
+    float64), the JAX ``KLDLoss``'s permutation and its loss (unfused:
+    each map resized to the output, then the KL), tau 2."""
+    import jax
+    out = {}
+    for case in TWO_MODEL_CASES:
+        B, C, hs, ht, out_hw, g = case
+        xs, xt = _tab5_maps(B, C, hs, ht, 6)
+        crit = JaxKLDLoss(alpha=1, tau=2, resize_config=RESIZE,
+                          shuffle_config={'interval': 1000},
+                          transform_config={'loss_type': 'channel',
+                                            'group_size': g})
+        key = jax.random.key(5)
+        perm = np.array(crit._shuffle_idx(C, 1000, key))
+        gt = jnp.zeros((B,) + tuple(out_hw), jnp.int32)
+        want = float(crit(jnp.asarray(xs), jnp.asarray(xt), gt, 1000, key))
+        out[case] = xs.astype(np.float64), xt.astype(np.float64), perm, want
+    return out
+
+
+@pytest.mark.parametrize('case', TWO_MODEL_CASES,
+                         ids=['x'.join(map(str, c[2] + c[3] + c[4]))
+                              for c in TWO_MODEL_CASES])
+def test_group_kl_two_geometry_forward_model_matches_plain_and_jax(
+        case, two_forward_inputs):
+    """The plan names the two-geometry tile; the model's loss against
+    ``group_kl_plain`` and the JAX loss (1e-5 relative, float32 sums over
+    10^3-10^6 values), its stats against direct float64 sums over each
+    map's own upsample."""
+    B, C, hs, ht, out_hw, g = case
+    xs, xt, perm, want_jax = two_forward_inputs[case]
+    assert gk.forward_plan(*hs, *out_hw, ht)['oh'] == 4 * gk.FWD_ROWS
+    loss, stats, _ = group_kl_fwd_model(xs, xt, perm, out_hw, g, 2.0)
+    want = gk.group_kl_plain(torch.from_numpy(xs), torch.from_numpy(xt),
+                             torch.from_numpy(perm), out_hw, g, 2.0).item()
+    assert loss == pytest.approx(want, rel=1e-5)
+    assert loss == pytest.approx(want_jax, rel=1e-5)
+    for i, x in enumerate((xs, xt)):
+        up = _upsample(x, *out_hw)
+        for b in range(B):
+            for k in range(-(-C // g)):
+                chans = perm[k * g:(k + 1) * g]
+                m = x[b, chans].max()
+                assert stats[b, k, i] == m
+                z = np.exp((up[b, chans] - m) / 2.0).sum()
+                assert stats[b, k, 2 + i] == pytest.approx(z, rel=1e-12)
+
+
+def test_group_kl_two_geometry_forward_model_sees_a_wrong_teacher_tap(
+        two_forward_inputs):
+    """The teacher's rows read one source row low: the loss misses the
+    limit by far (more than 100 times it), at the narrow PSP pair and at
+    the PSP maps' size."""
+    for case in TWO_MODEL_CASES[:2]:
+        _, _, _, _, out_hw, g = case
+        xs, xt, perm, want = two_forward_inputs[case]
+        loss, _, _ = group_kl_fwd_model(xs, xt, perm, out_hw, g, 2.0,
+                                        teacher_shift=1)
+        assert abs(loss - want) > 1e-3 * abs(want), case

@@ -178,7 +178,12 @@ def test_plan_constants_mirror_the_source():
     assert (int(edges.group(1)), int(edges.group(2))) == (
         sc.TILE_EDGES[0], sc.TILE_EDGES[-1])
     assert all(a == 2 * b for a, b in zip(sc.TILE_EDGES, sc.TILE_EDGES[1:]))
-    assert '__launch_bounds__(kTileThreads, Loss::kResident)' in common
+    # the tile kernel is compiled for its loss's kResident blocks an SM
+    # (Resident<Loss, false>; the two-geometry form takes kResidentTwo)
+    assert '__launch_bounds__(kTileThreads, Resident<Loss, kTwo>::value)' \
+        in common
+    assert 'struct Resident {\n  static constexpr int value = ' \
+        'Loss::kResident;\n};' in common
     loss = (CSRC / 'seg_ce.cu').read_text()
     loss = loss[loss.index('struct ce_tile {'):]
     resident = re.search(r'kResident = (\d+);', loss)

@@ -9,8 +9,10 @@ no JAX, so the repository's conftest is not loaded):
 The limits are ``tests/test_torch_port_cuda.py``'s: losses 2e-5 relative;
 fp32 results within 2e-5; bf16 per element within 2^-8 of the magnitude
 plus 2^-12 of the rms; gradients relative to their own scale. A two-size
-pair plans the gather variants, and its calls launch the kernels (the
-counters move): a CUDA tensor never falls back to the plain version.
+pair plans the variants its case names (K3/K4: the two-geometry tiles or
+the gather variants; K7/K8: the gather variants), and its calls launch the
+kernels (the counters move): a CUDA tensor never falls back to the plain
+version.
 """
 
 import pytest
@@ -41,12 +43,12 @@ def _launches(mod):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('name,shape,thw,out_hw,g,shuffle', TWO_GKL,
+@pytest.mark.parametrize('name,shape,thw,out_hw,g,shuffle,oh,tile', TWO_GKL,
                          ids=[c[0] for c in TWO_GKL])
 def test_group_kl_two_sizes(cuda, dtype, name, shape, thw, out_hw, g,
-                            shuffle):
-    assert group_kl.forward_plan(*shape[2:], *out_hw, thw)['oh'] == 0
-    assert group_kl.backward_plan(*shape, *out_hw, 132, thw)['tile'] == 0
+                            shuffle, oh, tile):
+    assert group_kl.forward_plan(*shape[2:], *out_hw, thw)['oh'] == oh
+    assert group_kl.backward_plan(*shape, *out_hw, 132, thw)['tile'] == tile
     xs, xt = _maps(shape, thw, dtype, cuda)
     perm = torch.randperm(shape[1], device=cuda) if shuffle else None
     before = _launches(group_kl)

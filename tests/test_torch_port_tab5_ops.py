@@ -7,8 +7,10 @@ CPU, against the JAX package where it has them.
   here; held against the JAX ``KLDLoss``, which on the CPU resizes each
   map to the label size and then takes the KL (its unfused path), with
   the gradients: losses at rtol 1e-5, gradients at rtol 1e-4 and an atol
-  of 1e-6 of the largest. Such a pair plans the gather variants (the
-  sources insist), and same-size pairs keep their tile plans.
+  of 1e-6 of the largest. Such a pair plans K3/K4's two-geometry tiles
+  where both maps' windows fit and the gather variants elsewhere, K7/K8's
+  gather variants (the sources insist), and same-size pairs keep their
+  tile plans.
 - K10/K11 at C = 1536 (the last PatchMerging norm of Swin-T): the plans
   and the plain version against flax's LayerNorm, 2e-5 relative.
 - ``init_segmentor`` (lenient, the student of a distillation config)
@@ -100,16 +102,31 @@ def test_pixel_kl_two_sizes_match_jax(B, C, hs, ht, out_hw, tau):
 
 
 def test_two_size_pairs_plan_the_gather_variants():
-    """A teacher of another size: oh 0 and tile 0 (no window, rectangle or
-    bytes; a grid of B * C rows of ceil(h * w / 256) blocks); the same
-    size keeps the tile plans of ``tile_plan``."""
+    """A teacher of another size. group_kl (K3/K4) plans the tiles'
+    two-geometry form at the PSP pair (both windows fit) and the gather
+    variants only where a window does not fit (a teacher at ratio 1: K3's
+    teacher window; a student at ratio 40: no K4 tile); pixel_kl (K7/K8)
+    plans its gather variants: oh 0 and tile 0 (no window, rectangle or
+    bytes; a grid of B * C rows of ceil(h * w / 256) blocks). The same size
+    keeps the tile plans of ``tile_plan``."""
+    gather_bwd = dict(tile=0, rh=0, rw=0, shared_bytes=0, cpc=1, chunks=150,
+                      blocks=2 * 150 * 16)
+    psp = (2, 150, 64, 64, 512, 512, 132, (128, 128))
+    assert group_kl.forward_plan(64, 64, 512, 512, (128, 128)) == \
+        tile_plan.forward_plan_two(64, 64, 128, 128, 512, 512, 2, 32, 3)
+    assert group_kl.forward_plan(64, 64, 512, 512, (128, 128))['oh'] == 128
+    assert group_kl.backward_plan(*psp) == tile_plan.plan_two(
+        2, 150, 64, 64, 128, 128, 512, 512, 132, 0, 2, 2)
+    assert group_kl.backward_plan(*psp)['tile'] == 16
+    assert pixel_kl.forward_plan(64, 64, 512, 512, (128, 128)) == \
+        tile_plan.gather_forward_plan()
+    assert pixel_kl.backward_plan(*psp) == gather_bwd
+    # past the tiles' reach: a teacher at ratio 1 (K3), a student at 40 (K4)
+    assert group_kl.forward_plan(32, 32, 128, 128, (128, 128)) == \
+        tile_plan.gather_forward_plan()
+    assert group_kl.backward_plan(1, 19, 8, 8, 320, 320, 132, (16, 16)) == \
+        tile_plan.gather_plan(1, 19, 8, 8)
     for mod in (group_kl, pixel_kl):
-        assert mod.forward_plan(64, 64, 512, 512, (128, 128)) == \
-            tile_plan.gather_forward_plan()
-        assert mod.backward_plan(2, 150, 64, 64, 512, 512, 132,
-                                 (128, 128)) == dict(
-            tile=0, rh=0, rw=0, shared_bytes=0, cpc=1, chunks=150,
-            blocks=2 * 150 * 16)
         same = mod.forward_plan(64, 64, 512, 512, (64, 64))
         assert same == mod.forward_plan(64, 64, 512, 512) and same['oh'] > 0
         tile = mod.backward_plan(2, 150, 64, 64, 512, 512, 132, (64, 64))
@@ -287,3 +304,27 @@ def test_unported_options_are_refused():
             build_segmentor(cfg)
     ape = build_segmentor(swin_cfg(ape=True)).backbone.absolute_pos_embed
     assert tuple(ape.shape) == (1, (224 // 4) ** 2, 24)
+
+
+@pytest.mark.parametrize('where', ['segmentor', 'backbone', 'both'])
+@pytest.mark.parametrize('family', ['segformer', 'pointrend'])
+def test_build_segmentor_keeps_pretrained_as_jax(family, where):
+    """A config that names a backbone checkpoint, on the segmentor, on its
+    backbone or on both: both packages' ``build_segmentor`` build it
+    (EncoderDecoder, and the cascade built on it) and keep the same
+    ``.pretrained``, the segmentor's before the backbone's; the trainer
+    loads it."""
+    import copy
+    from segdistill_tpu.models import build_segmentor as build_jax_segmentor
+    from segdistill_tpu_torch.models import build_segmentor
+    from torch_port_fixtures import pointrend_cfg
+    cfg = segformer_cfg() if family == 'segformer' else pointrend_cfg()
+    if where != 'backbone':
+        cfg['pretrained'] = 'x.pth'
+    if where != 'segmentor':
+        cfg['backbone']['pretrained'] = 'backbone.pth'
+    want = 'backbone.pth' if where == 'backbone' else 'x.pth'
+    jax_model = build_jax_segmentor(copy.deepcopy(cfg))
+    model = build_segmentor(copy.deepcopy(cfg))
+    assert model.pretrained == jax_model.pretrained == want
+    assert type(model).__name__ == type(jax_model).__name__
